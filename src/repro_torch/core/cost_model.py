@@ -1,0 +1,98 @@
+"""Inference delay & energy model (paper §II-D, eqs. (4)-(9)).
+
+Port of ``repro/core/cost_model.py`` for the serving slice, in float64 host
+arithmetic (Python floats / numpy scalars):
+
+  on-agent  delay   t(b_hat, f)  = b_hat N_FLOP / (b f c)              (4)
+  on-server delay   t~(f~)       = N~_FLOP / (f~ c~)                   (5)
+  on-agent  energy  e(b_hat, f)  = eta  (b_hat N_FLOP / (b c)) psi f^2 (6)
+  on-server energy  e~(f~)       = eta~ (N~_FLOP / c~) psi~ f~^2       (7)
+  totals            T = t + t~,  E = e + e~                            (8),(9)
+
+plus the optional uplink term for the boundary embedding at ``b_emb``
+(delay over ``link_bps``, transmit energy at ``tx_power_w``), 0 by
+default.  ``SystemParams`` keeps the reference's fields; the KV-cache and
+speculative terms that read the ``kv_*`` ones come with the decode
+slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class SystemParams:
+    """Hardware/system constants of §II-D and §VI-C (paper defaults)."""
+
+    n_flop_agent: float          # N_FLOP: full-precision on-agent FLOPs
+    n_flop_server: float         # N~_FLOP
+    b_full: float = 16.0         # b: full-precision storage bit-width
+    c_agent: float = 32.0
+    c_server: float = 128.0
+    f_max: float = 2.0e9
+    f_server_max: float = 10.0e9
+    eta_agent: float = 1.0
+    eta_server: float = 2.0
+    psi_agent: float = 2.0e-29
+    psi_server: float = 1.0e-28
+    # optional transport (0 = faithful computation-only model)
+    emb_bytes_full: float = 0.0  # boundary embedding bytes at full precision
+    link_bps: float = 0.0        # uplink rate in bytes/s; 0 disables
+    tx_power_w: float = 0.0      # radio transmit power; 0 disables tx energy
+    # optional KV-cache traffic (decode serving; 0 = prefill-only model)
+    kv_bytes_full: float = 0.0   # KV cache bytes/step at full precision
+    kv_bw_bps: float = 0.0       # cache memory bandwidth in bytes/s
+    kv_power_w: float = 0.0      # cache access power; 0 disables kv energy
+
+
+def agent_delay(b_hat, f, p: SystemParams):
+    """Eq. (4)."""
+    return b_hat * p.n_flop_agent / (p.b_full * f * p.c_agent)
+
+
+def server_delay(f_server, p: SystemParams):
+    """Eq. (5)."""
+    return p.n_flop_server / (f_server * p.c_server)
+
+
+def transport_delay(b_emb, p: SystemParams):
+    """Embedding uplink time (0 when link modeling is disabled)."""
+    if p.link_bps <= 0.0 or p.emb_bytes_full <= 0.0:
+        return 0.0
+    return (b_emb / p.b_full) * p.emb_bytes_full / p.link_bps
+
+
+def transport_energy(b_emb, p: SystemParams):
+    """Uplink radio energy: tx power × uplink time (0 when disabled)."""
+    if p.tx_power_w <= 0.0:
+        return 0.0
+    return p.tx_power_w * transport_delay(b_emb, p)
+
+
+def agent_energy(b_hat, f, p: SystemParams):
+    """Eq. (6)."""
+    return p.eta_agent * (b_hat * p.n_flop_agent / (p.b_full * p.c_agent)) \
+        * p.psi_agent * f ** 2
+
+
+def server_energy(f_server, p: SystemParams):
+    """Eq. (7)."""
+    return p.eta_server * (p.n_flop_server / p.c_server) \
+        * p.psi_server * f_server ** 2
+
+
+def total_delay(b_hat, f, f_server, p: SystemParams, b_emb=None):
+    """Eq. (8) (+ the optional transport term)."""
+    t = agent_delay(b_hat, f, p) + server_delay(f_server, p)
+    if b_emb is not None:
+        t = t + transport_delay(b_emb, p)
+    return t
+
+
+def total_energy(b_hat, f, f_server, p: SystemParams, b_emb=None):
+    """Eq. (9) (+ the optional uplink transmit energy)."""
+    e = agent_energy(b_hat, f, p) + server_energy(f_server, p)
+    if b_emb is not None:
+        e = e + transport_energy(b_emb, p)
+    return e

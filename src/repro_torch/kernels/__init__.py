@@ -1,0 +1,32 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version.
+
+=================  ====================  ==================================
+wrapper            CUDA source           TPU kernel it replaces
+=================  ====================  ==================================
+``group_quantize`` csrc/group_quantize   repro/kernels/quantize.py
+``qmm``            csrc/qmm              repro/kernels/qmm.py ``qmm``
+``qmm_int4``       csrc/qmm              repro/kernels/qmm.py ``qmm_int4``
+=================  ====================  ==================================
+
+Each wrapper launches its kernel for a CUDA tensor and runs its plain
+torch version (``ref.py``) for a CPU tensor; it counts its kernel launches
+in a ``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+from .qmm import qmm, qmm_int4
+from .quantize import group_quantize
+
+KERNELS = {"group_quantize": group_quantize, "qmm": qmm,
+           "qmm_int4": qmm_int4}
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

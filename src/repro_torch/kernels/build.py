@@ -1,0 +1,103 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
+into its own shared library, loaded with :mod:`ctypes` (no PyTorch headers,
+so a build takes seconds).  Libraries go to ``build/kernels/`` at the repo
+root, named by a digest of their source and flags, and are built at first
+use: a fresh checkout builds everything the first time a kernel launches,
+or up front through :func:`build_all`.  All sources compile in parallel,
+one ``nvcc`` process each.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and deliberately no
+``--use_fast_math``: the quantizer's ``amax / levels`` and ``w / scale``
+must stay IEEE true divisions to match the reference's codes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from typing import Dict, Iterable
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("group_quantize", "qmm")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def lib_path(name: str) -> pathlib.Path:
+    """Where the library of ``csrc/<name>.cu`` lives for this source."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES, *,
+              verbose: bool = False) -> float:
+    """Compile every library of ``names`` that is not built yet, all
+    ``nvcc`` processes started together; returns the seconds taken.
+
+    ``verbose`` adds ``-Xptxas -v`` and prints each compiler's output
+    (registers, shared memory and spills per kernel).
+    """
+    t0 = time.perf_counter()
+    todo = [n for n in names if not lib_path(n).is_file()]
+    if not todo:
+        return time.perf_counter() - t0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name in todo:
+        out = lib_path(name)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if verbose and log:
+            print(f"[nvcc {name}]\n{log.rstrip()}")
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)    # atomic: a concurrent loader never sees
+    if failed:                  # a half-written library
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    if name not in _loaded:
+        build_all((name,))
+        _loaded[name] = ctypes.CDLL(str(lib_path(name)))
+    return _loaded[name]
+
+
+def check(status: int, what: str) -> None:
+    """Raise when a C entry point returned a non-zero ``cudaError_t``."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
+                           f"{status}")

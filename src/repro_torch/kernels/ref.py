@@ -1,0 +1,93 @@
+"""Plain torch versions of the quantized kernels (``repro/kernels/ref.py``).
+
+Shapes / conventions shared with ``qmm.py`` and ``quantize.py``:
+
+  x       [M, K]            activations (f32 or bf16)
+  codes   [K, N]  int8      quantized weights (int4 values live in [-7, 7])
+  scales  [K // G, N] f32   per-(group, out-channel) scales, group size G
+                            along the contraction axis
+  out     [M, N]            x @ (codes * scales)
+
+Every wrapper runs these on a CPU tensor; on the card they are what the
+CUDA kernels are held against.  Division is true division and rounding is
+``torch.round`` (half to even, like ``jnp.round``), so codes and scales
+match the reference's exactly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def dequantize_ref(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """[K, N] int8 codes + [K//G, N] scales -> [K, N] f32 weights."""
+    k = codes.shape[0]
+    g = k // scales.shape[0]
+    s_full = torch.repeat_interleave(scales, g, dim=0)
+    return codes.to(torch.float32) * s_full
+
+
+def qmm_ref(x: torch.Tensor, codes: torch.Tensor,
+            scales: torch.Tensor) -> torch.Tensor:
+    """Dequantize, then matmul in f32; output in x's dtype."""
+    w = dequantize_ref(codes, scales)
+    return (x.to(torch.float32) @ w).to(x.dtype)
+
+
+def group_quantize_ref(w: torch.Tensor, group_size: int, bits: int = 8):
+    """w [K, N] float -> (codes int8 [K, N], scales f32 [K//G, N]).
+
+    Symmetric: scale = absmax / (2^(bits-1) - 1) (1.0 for an all-zero
+    group), codes = clip(round(w / scale), -levels, levels).
+
+    The scale is formed as ``amax * fl(1 / levels)``: XLA compiles the
+    reference's division by the constant ``levels`` into that product, so
+    this is the arithmetic of the reference's ``ops.group_quantize`` (its
+    Pallas kernel and its jitted fallback), and codes and scales match it
+    bitwise.  ``w / scale`` stays a true division.
+    """
+    k, n = w.shape
+    if k % group_size != 0:
+        raise ValueError(f"group size {group_size} does not divide K={k}")
+    levels = 2 ** (bits - 1) - 1
+    wg = w.reshape(k // group_size, group_size, n).to(torch.float32)
+    amax = torch.amax(torch.abs(wg), dim=1)                     # [K//G, N]
+    inv = torch.reciprocal(torch.tensor(float(levels), dtype=torch.float32,
+                                        device=w.device))
+    scales = torch.where(amax > 0, amax * inv, torch.ones_like(amax))
+    codes = torch.clamp(torch.round(wg / scales[:, None, :]), -levels, levels)
+    return codes.reshape(k, n).to(torch.int8), scales
+
+
+def unpack_int4_ref(packed: torch.Tensor) -> torch.Tensor:
+    """[K//2, N] packed (two 4-bit codes per byte along K) -> [K, N] int8.
+
+    Byte r holds code[2r] in the low nibble and code[2r+1] in the high
+    nibble, two's complement.
+    """
+    p = packed.to(torch.int32)
+    lo = p & 0x0F
+    hi = (p >> 4) & 0x0F
+    lo = torch.where(lo >= 8, lo - 16, lo)
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    k2, n = packed.shape
+    return torch.stack([lo, hi], dim=1).reshape(2 * k2, n).to(torch.int8)
+
+
+def pack_int4_ref(codes: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`unpack_int4_ref`: [K, N] int8 in [-7, 7] ->
+    [K//2, N] packed bytes."""
+    k, n = codes.shape
+    if k % 2 != 0:
+        raise ValueError(f"int4 packing needs an even K, got {k}")
+    c = codes.reshape(k // 2, 2, n).to(torch.int32)
+    lo = c[:, 0] & 0x0F
+    hi = (c[:, 1] & 0x0F) << 4
+    # values 128..255 wrap to negative int8, as the reference's astype does
+    return (lo | hi).to(torch.uint8).view(torch.int8)
+
+
+def qmm_int4_ref(x: torch.Tensor, packed: torch.Tensor,
+                 scales: torch.Tensor) -> torch.Tensor:
+    """The int4-packed matmul: unpack along K, then :func:`qmm_ref`."""
+    return qmm_ref(x, unpack_int4_ref(packed), scales)

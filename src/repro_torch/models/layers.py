@@ -1,0 +1,303 @@
+"""Neural net primitives of the serving slice (``repro/models/layers.py``).
+
+Conventions kept from the reference so parameters cross unchanged:
+
+* linear weights are ``[in, out]`` and applied as ``x @ W``; attention
+  projections fuse heads into the last axis (``wq: [D, H*dh]``);
+* layer-stacked parameters carry a leading ``[L, ...]`` axis;
+* every ``init_*`` returns ``(params, axes)``, ``axes`` mirroring the
+  parameter dict with tuples of logical axis names;
+* norms and softmax accumulate in float32 whatever the compute dtype.
+
+Initialization draws from an explicit ``torch.Generator`` on that
+generator's device (``generator=None`` with ``device="meta"`` builds shapes
+only).  The numbers differ from the reference's ``jax.random`` streams;
+parity tests carry the reference's parameters across instead
+(``repro_torch.bridge``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.bucketing import seq_bucket
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# Init helpers
+# ---------------------------------------------------------------------------
+
+def _randn(shape, generator, device):
+    dev = generator.device if generator is not None else device
+    return torch.randn(shape, generator=generator, device=dev,
+                       dtype=torch.float32)
+
+
+def dense_init(generator, d_in: int, d_out: int, dtype, *,
+               scale: Optional[float] = None, layers: Optional[int] = None,
+               device=None):
+    """N(0, scale^2) ``[d_in, d_out]`` (``[layers, d_in, d_out]`` stacked);
+    ``scale`` defaults to ``d_in ** -0.5``."""
+    scale = scale if scale is not None else d_in ** -0.5
+    lead = (layers,) if layers is not None else ()
+    return (_randn(lead + (d_in, d_out), generator, device) * scale).to(dtype)
+
+
+def embed_init(generator, vocab: int, d: int, dtype, *, device=None):
+    return (_randn((vocab, d), generator, device) * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)
+            ).to(x.dtype)
+
+
+def apply_norm(cfg, x, p):
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
+    return rmsnorm(x, p["scale"])
+
+
+def init_norm(cfg, d: int, *, device=None):
+    if cfg.norm == "layernorm":
+        return ({"scale": torch.ones((d,), device=device),
+                 "bias": torch.zeros((d,), device=device)},
+                {"scale": ("embed",), "bias": ("embed",)})
+    return ({"scale": torch.ones((d,), device=device)}, {"scale": ("embed",)})
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    # theta stays a Python scalar: a 0-d device tensor would cost a
+    # host-to-device copy that waits for the card on every call
+    exps = -torch.arange(0, head_dim, 2, dtype=torch.float32,
+                         device=device) / head_dim
+    return torch.pow(theta, exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [B, S, H, dh]; positions: [B, S] (int)."""
+    dh = x.shape[-1]
+    freqs = rope_frequencies(dh, theta, device=x.device)        # [dh/2]
+    angles = positions[..., None].to(torch.float32) * freqs     # [B,S,dh/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg, generator, *, layers: Optional[int] = None,
+                   device=None):
+    """GQA projection params; ``layers`` adds a leading stacked-layer axis."""
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    dt = _dtype(cfg.param_dtype)
+
+    def mk(i, o):
+        return dense_init(generator, i, o, dt, layers=layers, device=device)
+    p = {"wq": mk(d, qd), "wk": mk(d, kvd), "wv": mk(d, kvd),
+         "wo": mk(qd, d)}
+    lead = ("layers",) if layers is not None else ()
+    ax = {"wq": lead + ("embed", "heads"), "wk": lead + ("embed", "kv"),
+          "wv": lead + ("embed", "kv"), "wo": lead + ("heads", "embed")}
+    if cfg.qkv_bias:
+        dev = generator.device if generator is not None else device
+        lshape = (layers,) if layers is not None else ()
+        p.update({n: torch.zeros(lshape + (w,), device=dev)
+                  for n, w in (("bq", qd), ("bk", kvd), ("bv", kvd))})
+        ax.update({"bq": lead + ("heads",), "bk": lead + ("kv",),
+                   "bv": lead + ("kv",)})
+    return p, ax
+
+
+def qkv_project(cfg, p, x, positions):
+    """x [B,S,D] -> q [B,S,H,dh], k/v [B,S,KV,dh] with RoPE applied."""
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(q.shape[:-1] + (cfg.n_heads, cfg.head_dim))
+    k = k.reshape(k.shape[:-1] + (cfg.n_kv_heads, cfg.head_dim))
+    v = v.reshape(v.shape[:-1] + (cfg.n_kv_heads, cfg.head_dim))
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def blockwise_attention(q, k, v, *, causal: bool, q_block: int = 512,
+                        kv_block: int = 512, window: int = 0,
+                        kv_positions=None, q_positions=None):
+    """Memory-bounded attention via online softmax over blocks.
+
+    q: [B, S, H, dh]; k, v: [B, T, KV, dh] with H = KV * G (GQA).  Loops
+    over KV blocks inside a loop over Q blocks, carrying the running
+    (max, sum, acc) of the streaming softmax; ``window`` > 0 adds a
+    sliding-window mask.  Block sizes snap to the geometric sequence ladder
+    (``seq_bucket``), never to the raw S/T, so right-padding inside a
+    bucket partitions the sequence into the same blocks and masked lanes
+    contribute exact zeros.  Plain torch; the flash kernel that takes this
+    role on the card is a later slice.
+    """
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    q_block = min(q_block, seq_bucket(S))
+    kv_block = min(kv_block, seq_bucket(T))
+    nq = -(-S // q_block)
+    nk = -(-T // kv_block)
+    Sp, Tp = nq * q_block, nk * kv_block
+    dev = q.device
+
+    if q_positions is None:
+        q_positions = torch.arange(S, device=dev).expand(B, S)
+    if kv_positions is None:
+        kv_positions = torch.arange(T, device=dev).expand(B, T)
+
+    scale = dh ** -0.5
+    qs = F.pad(q, (0, 0, 0, 0, 0, Sp - S))
+    ks = F.pad(k, (0, 0, 0, 0, 0, Tp - T))
+    vs = F.pad(v, (0, 0, 0, 0, 0, Tp - T))
+    qpos = F.pad(q_positions, (0, Sp - S), value=-1)
+    kpos = F.pad(kv_positions, (0, Tp - T), value=2 ** 30)
+
+    qs = qs.reshape(B, nq, q_block, KV, G, dh)
+    ks = ks.reshape(B, nk, kv_block, KV, dh)
+    vs = vs.reshape(B, nk, kv_block, KV, dh)
+    qpos = qpos.reshape(B, nq, q_block)
+    kpos = kpos.reshape(B, nk, kv_block)
+
+    # masks fill with Python scalars (no host-to-device copies in the loop)
+    outs = []
+    for i in range(nq):
+        qb, qp = qs[:, i], qpos[:, i]
+        m = torch.full((B, KV, G, q_block), -torch.inf, device=dev)
+        l = torch.zeros((B, KV, G, q_block), device=dev)
+        acc = torch.zeros((B, KV, G, q_block, dh), device=dev)
+        for j in range(nk):
+            kb, vb, kp = ks[:, j], vs[:, j], kpos[:, j]
+            s = torch.einsum("bqkgd,btkd->bkgqt", qb.to(torch.float32),
+                             kb.to(torch.float32)) * scale
+            mask = torch.ones((B, 1, 1, q_block, kv_block), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask = mask & (qp[:, None, None, :, None]
+                               >= kp[:, None, None, None, :])
+            if window > 0:
+                mask = mask & ((qp[:, None, None, :, None]
+                                - kp[:, None, None, None, :]) < window)
+            s = torch.where(mask, s, -torch.inf)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            pexp = torch.exp(s - m_safe[..., None])
+            pexp = torch.where(mask, pexp, 0.0)
+            finite = torch.isfinite(m)
+            corr = torch.exp(torch.where(finite, m - m_safe, -torch.inf))
+            corr = torch.where(finite, corr, 0.0)
+            l = l * corr + torch.sum(pexp, dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", pexp.to(vb.dtype).to(torch.float32),
+                vb.to(torch.float32))
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.to(q.dtype))                 # [B, KV, G, qb, dh]
+    out = torch.stack(outs, dim=1)                   # [B, nq, KV, G, qb, dh]
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, Sp, H, dh)
+    return out[:, :S]
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(cfg, generator, *, d_ff: Optional[int] = None,
+             layers: Optional[int] = None, device=None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    dt = _dtype(cfg.param_dtype)
+
+    def mk(i, o):
+        return dense_init(generator, i, o, dt, layers=layers, device=device)
+
+    lead = ("layers",) if layers is not None else ()
+    if cfg.act == "silu":  # SwiGLU
+        p = {"wi_gate": mk(d, f), "wi_up": mk(d, f), "wo": mk(f, d)}
+        ax = {"wi_gate": lead + ("embed", "ffn"),
+              "wi_up": lead + ("embed", "ffn"), "wo": lead + ("ffn", "embed")}
+    else:
+        p = {"wi": mk(d, f), "wo": mk(f, d)}
+        ax = {"wi": lead + ("embed", "ffn"), "wo": lead + ("ffn", "embed")}
+    return p, ax
+
+
+def activation(cfg, h):
+    """The MLP nonlinearity: SiLU, or jax.nn.gelu's tanh approximation."""
+    if cfg.act == "silu":
+        return F.silu(h)
+    return F.gelu(h, approximate="tanh")
+
+
+def apply_mlp(cfg, p, x):
+    if cfg.act == "silu":
+        g = x @ p["wi_gate"].to(x.dtype)
+        u = x @ p["wi_up"].to(x.dtype)
+        h = F.silu(g) * u
+    else:
+        h = activation(cfg, x @ p["wi"].to(x.dtype))
+    return h @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embeddings(cfg, generator, *, device=None):
+    dt = _dtype(cfg.param_dtype)
+    p = {"tok": embed_init(generator, cfg.vocab_size, cfg.d_model, dt,
+                           device=device)}
+    ax = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(generator, cfg.d_model, cfg.vocab_size, dt,
+                                  scale=cfg.d_model ** -0.5, device=device)
+        ax["unembed"] = ("embed", "vocab")
+    return p, ax
+
+
+def embed_tokens(p, tokens, dtype):
+    return p["tok"].to(dtype)[tokens]
+
+
+def unembed(cfg, p, x):
+    if cfg.tie_embeddings:
+        return x @ p["tok"].to(x.dtype).T
+    return x @ p["unembed"].to(x.dtype)

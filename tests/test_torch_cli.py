@@ -1,0 +1,69 @@
+"""``python -m repro_torch.launch.serve`` on the CPU: the sequential kernel
+path runs, prints the b̂ that the reference's SCA gives for the same
+problem, and every mode not ported yet exits 2 with one line."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+from repro.configs import get_smoke
+from repro.core import codesign as jcd
+from repro.core.cost_model import SystemParams
+from repro_torch.launch.serve import main
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def test_module_entry_point_runs():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--engine", "sequential", "--path", "kernel", "--device", "cpu",
+         "--batch", "2", "--seq", "16"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "agent_path=" in out.stdout
+
+
+def test_sequential_kernel_path_prints_reference_b_hat(capsys):
+    # a deadline tight enough for the smoke model's FLOPs that (P1)
+    # lands on b̂ = 8, which the kernel path serves int8-resident
+    rc = main(["--smoke", "--engine", "sequential", "--path", "kernel",
+               "--device", "cpu", "--t0", "0.00027", "--e0", "1.0"])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    lam = float(re.search(r"lambda_hat=([0-9.]+)", out.out).group(1))
+    b_hat = int(re.search(r"codesign: b_hat=(\d+)", out.out).group(1))
+    cfg = get_smoke("qwen2-0.5b")
+    per_layer = cfg.active_param_count() / cfg.n_layers
+    tokens = 4 * 64
+    sysp = SystemParams(
+        n_flop_agent=2.0 * per_layer * cfg.split_layer * tokens,
+        n_flop_server=2.0 * per_layer * (cfg.n_layers - cfg.split_layer)
+        * tokens)
+    sol = jcd.solve_sca(lam, sysp, 0.00027, 1.0, b_max=16, b_emb=8)
+    assert b_hat == sol.b_hat == 8
+    assert "agent_path=kernel-int8" in out.out
+    assert "served batch (4, 64): logits (4, 64, 512)" in out.out
+
+
+@pytest.mark.parametrize("args", [
+    (), ("--engine", "sequential", "--compiled"),
+    ("--engine", "sequential", "--decode"),
+    ("--engine", "sequential", "--fleet", "spec.json"),
+])
+def test_unported_modes_exit_2(capsys, args):
+    assert main(["--smoke", "--device", "cpu", *args]) == 2
+    err = capsys.readouterr().err
+    assert "not yet ported" in err
+    assert len(err.strip().splitlines()) == 1
+
+
+def test_unported_arch_exits_2(capsys):
+    assert main(["--arch", "stablelm-3b", "--engine", "sequential",
+                 "--device", "cpu", "--smoke"]) == 2
+    assert "not yet ported" in capsys.readouterr().err

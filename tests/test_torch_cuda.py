@@ -1,0 +1,85 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and skips without one.  On a machine
+with a card (and no JAX) run them with
+
+    PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+Shapes cover what the reference accepts beyond the serving path: any G
+dividing K (1, 64, 128, 256, and one group of K < 128 rows), odd N, and
+int4 with K % 256 != 0.  Codes and scales must be equal; matmuls agree at
+rtol = atol = 1e-4, the tolerance of tests/test_kernels.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels as tk
+from repro_torch.kernels import ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _normal(seed, shape, dev):
+    g = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(g).to(dev)
+
+
+@pytest.mark.parametrize("k,n,g,bits", [
+    (896, 4864, 128, 8), (4864, 896, 128, 4), (256, 127, 64, 8),
+    (512, 129, 256, 4), (96, 33, 96, 8), (192, 128, 1, 8), (130, 7, 1, 4),
+])
+def test_group_quantize_equals_plain(dev, k, n, g, bits):
+    w = _normal(k + n, (k, n), dev)
+    w[:g] = 0.0                                  # an all-zero group
+    before = tk.group_quantize.launches
+    codes, scales = tk.group_quantize(w, group_size=g, bits=bits)
+    torch.cuda.synchronize()
+    assert tk.group_quantize.launches == before + 1
+    codes_p, scales_p = ref.group_quantize_ref(w, g, bits)
+    assert torch.equal(codes, codes_p) and torch.equal(scales, scales_p)
+
+
+QMM_SHAPES = [  # (m, k, n, g)
+    (1, 896, 4864, 128), (256, 4864, 896, 128), (7, 96, 127, 96),
+    (130, 640, 129, 64), (33, 512, 256, 256), (5, 200, 31, 1),
+]
+
+
+@pytest.mark.parametrize("m,k,n,g", QMM_SHAPES)
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qmm_equals_plain(dev, m, k, n, g, bits):
+    # weights at the model's init scale, so outputs are O(1) as in serving
+    x, w = _normal(m, (m, k), dev), _normal(k, (k, n), dev) * k ** -0.5
+    codes, scales = ref.group_quantize_ref(w, g, bits)
+    fn, plain = (tk.qmm, ref.qmm_ref) if bits == 8 else \
+        (tk.qmm_int4, ref.qmm_int4_ref)
+    if bits == 4:
+        codes = ref.pack_int4_ref(codes)
+    before = fn.launches
+    out = fn(x, codes, scales)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    torch.testing.assert_close(out, plain(x, codes, scales), rtol=1e-4,
+                               atol=1e-4)
+    # row independence: each row alone is bitwise the batched row
+    for i in {0, m // 2, m - 1}:
+        assert torch.equal(fn(x[i:i + 1], codes, scales)[0], out[i])
+
+
+def test_bf16_activation_keeps_its_dtype(dev):
+    x = _normal(1, (4, 256), dev).to(torch.bfloat16)
+    codes, scales = ref.group_quantize_ref(_normal(2, (256, 128), dev), 128)
+    out = tk.qmm(x, codes, scales)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out, ref.qmm_ref(x, codes, scales),
+                               rtol=2e-2, atol=2e-2)

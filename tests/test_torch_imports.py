@@ -1,0 +1,44 @@
+"""The port imports neither JAX nor anything of the JAX package."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT / "src").with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    mods = list(_modules())
+    assert "repro_torch.runtime.serve_engine" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_no_jax_or_reference_import_in_source():
+    pat = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b"
+                     r"(?!_torch))", re.MULTILINE)
+    offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+                 if pat.search(p.read_text(encoding="utf-8"))]
+    offenders += [str(p.relative_to(ROOT)) for p in [ROOT / "chip_smoke.py"]
+                  if p.is_file() and pat.search(p.read_text("utf-8"))]
+    assert offenders == []
