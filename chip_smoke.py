@@ -27,9 +27,31 @@ nothing of JAX or of the JAX package ``repro``.
    a kernel (7 per agent layer per forward).  The boundary activation and
    the logits are then held against a forward on the card that runs the
    plain versions (tolerances at E2E_TOL and KERNEL_TOL below).
-5. Summary: one ``{"kernels": [...]}`` line, the card line, and last
+5. Decode attention against its plain version at qwen2-0.5b's heads
+   (H = 14 over KV = 2, dh = 64): B in {1, 4}, T in {128, 1024, 4096},
+   b_kv in {4, 8, 16}, ragged lengths including 0, one sliding window;
+   within DECODE_TOL x max|out|, every row of B = 4 bitwise equal to the
+   row alone, and T grown to 2T with the lengths fixed bitwise equal.
+   Times the kernel, its plain version and one library call
+   (``scaled_dot_product_attention`` on the already-dequantized f32
+   cache, ``enable_gqa=True``, a length mask: its time leaves the dequant
+   out) at the decode path's widest shape, L2 flushed.
+6. The decode path at full width: ``DecodeEngine`` (max_batch 4) serves
+   six prompts of 100-500 tokens, 32 new tokens each, arriving so that
+   admission is continuous and the cache buckets span 256-1024; pinned at
+   (b̂, b_kv) = (8, 8), (4, 4), (8, 16), then with ``auto=True`` under the
+   CLI's two QoS classes.  The decode kernel's launch count, zeroed just
+   before each run and read just after, must be 24 x the token steps run.
+   Every response is held against ``greedy_decode_reference`` at batch 1,
+   and a run with the plain attention against the kernel run: tokens
+   equal up to the first step whose top-2 logit margin in the reference
+   run is below twice the logit difference measured on one step from the
+   same state (batched against alone, or plain against kernel).  Prints
+   the wall ms per token step at B = 4, tokens/s, the prefill wall per
+   request and the kernel's device ms per step.
+7. Summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``; the per-shape numbers are printed
-   in phase 3.
+   in phases 3 and 5.
 """
 
 from __future__ import annotations
@@ -51,6 +73,13 @@ KERNEL_TOL = 1e-4           # kernel vs plain: one matmul, the agent stage
 E2E_TOL = 1e-2              # logits vs plain, relative to their max|.|
 B, S = 4, 64
 SLEEP_CYCLES = 4_000_000    # ~2 ms of device time at H100 clocks
+DECODE_TOL = 1e-5           # decode attention vs plain, x max|out|: f32
+                            # sums over <= 4096 positions in another order
+DECODE_PROMPTS = (240, 100, 330, 180, 450, 500)   # buckets 512 256 512 256
+DECODE_ARRIVE = (0, 0, 8, 8, 16, 4)               # 512 1024; x one step
+DECODE_NEW = 32
+DECODE_BUDGET = (6.0, 2.0)  # (T0, E0) of the auto run: both CLI classes
+                            # feasible at full width
 
 
 def card_line() -> str:
@@ -230,6 +259,295 @@ def launches_per_forward(agent_path: str, split: int):
             7 * sum(b <= 4 for b in bits))
 
 
+def decode_case(dev, b, t, b_kv, seed, lens, h=14, kv=2, dh=64):
+    """q, codes, scales and lengths on the card, at qwen2-0.5b's heads."""
+    import torch
+    from repro_torch.kernels.quantize import kv_quantize
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, 1, h, dh), generator=gen, device=dev)
+    k = torch.randn((b, t, kv, dh), generator=gen, device=dev)
+    v = torch.randn((b, t, kv, dh), generator=gen, device=dev)
+    if b_kv < 16:
+        (kc, ks), (vc, vs) = kv_quantize(k, b_kv), kv_quantize(v, b_kv)
+    else:
+        kc, vc = k, v
+        ks = vs = torch.ones(k.shape[:-1], device=dev)
+    return q, kc, vc, ks, vs, torch.tensor(lens, dtype=torch.int32,
+                                           device=dev)
+
+
+def decode_bound(args, window: int = 0):
+    """(ms, "bytes"|"operations") of one decode-attention call: q and the
+    output once, and the codes and scales of every live position once
+    (the kernel walks only tiles that hold one); 4 * G * dh f32 flops per
+    live position and kv head."""
+    q, kc, _, _, _, lens = args
+    b, _, h, dh = q.shape
+    t, kv = kc.shape[1], kc.shape[2]
+    live = 0
+    for n in lens.tolist():
+        lo = max(n - window, 0) if window > 0 else 0
+        live += max(min(n, t) - lo, 0)
+    per_pos = kv * (2 * dh * kc.element_size() + 2 * 4)
+    n_bytes = 2 * b * h * dh * 4 + b * 4 + live * per_pos
+    return bound_ms(n_bytes, live * kv * 4.0 * (h // kv) * dh)
+
+
+def check_decode_kernel(dev, flush):
+    """Phase 5; returns the kernel's summary numbers."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as tk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quantize import kv_dequantize
+
+    err = 0.0
+    cases = [(b, t, b_kv, 0) for b in (1, 4) for t in (128, 1024, 4096)
+             for b_kv in (4, 8, 16)] + [(4, 1024, 8, 100)]
+    for b, t, b_kv, window in cases:
+        lens = [0, 1, t // 2 + 3, t] if b == 4 else [t - 5]
+        args = decode_case(dev, b, t, b_kv, seed=t + b_kv, lens=lens)
+        out = tk.quantized_decode_attention(*args, window=window)
+        want = ref.quantized_decode_attention_ref(*args, window=window)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        diff = float((out - want).abs().max())
+        assert diff <= DECODE_TOL * scale, \
+            f"decode attention B={b} T={t} b_kv={b_kv}: {diff} of {scale}"
+        err = max(err, diff)
+        if b == 4:
+            assert bool((out[0] == 0).all()), "cache_len 0 attended"
+            for i in range(b):
+                alone = tk.quantized_decode_attention(
+                    *(a[i:i + 1] for a in args), window=window)
+                assert torch.equal(alone[0], out[i]), \
+                    f"decode attention row {i} alone != in batch (T={t})"
+        q, kc, vc, ks, vs, ln = args
+        pad = (0, 0, 0, 0, 0, t)
+        grown = tk.quantized_decode_attention(
+            q, F.pad(kc, pad), F.pad(vc, pad), F.pad(ks, pad[2:], value=1.0),
+            F.pad(vs, pad[2:], value=1.0), ln, window=window)
+        assert torch.equal(grown, out), \
+            f"decode attention at 2T != at T={t} (B={b}, b_kv={b_kv})"
+    print(f"decode attention vs plain: ok over {len(cases)} cases, "
+          f"max|d|={err:.3e}; rows alone and T -> 2T bitwise")
+
+    # times at the decode path's widest shape: B = 4 slots of a 1024
+    # bucket, int8 codes, lengths as the path gives them
+    rows = {}
+    for b_kv in (8, 4, 16):
+        args = decode_case(dev, 4, 1024, b_kv, seed=b_kv,
+                           lens=[1024, 800, 532, 300])
+        q, kc, vc, ks, vs, lens = args
+        qh = q.transpose(1, 2)                             # [B, H, 1, dh]
+        kd = kv_dequantize(kc, ks).transpose(1, 2).contiguous()
+        vd = kv_dequantize(vc, vs).transpose(1, 2).contiguous()
+        mask = (torch.arange(1024, device=dev)[None, :]
+                < lens[:, None].long())[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(qh, kd, vd, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lib_out = library().transpose(1, 2)
+        kern_out = tk.quantized_decode_attention(*args)
+        torch.cuda.synchronize()
+        lib_d = float((lib_out - kern_out).abs().max())
+        b_ms, by = decode_bound(args)
+        rows[b_kv] = dict(
+            ms=time_ms(lambda: tk.quantized_decode_attention(*args), flush),
+            plain_ms=time_ms(
+                lambda: ref.quantized_decode_attention_ref(*args), flush),
+            library_ms=time_ms(library, flush), bound_ms=b_ms, bound_by=by,
+            max_abs_err=err)
+        r = rows[b_kv]
+        print(f"  quantized_decode_attention B=4 T=1024 b_kv={b_kv:2d} "
+              f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+              f"sdpa={r['library_ms']:.4f} (f32 cache, dequant not "
+              f"timed; max|d| vs kernel {lib_d:.2e}) bound={b_ms:.6f} "
+              f"({by})")
+    return rows[8]
+
+
+def decode_path(cfg, params, dev, kernel_ms: float):
+    """Phase 6; returns the decode kernel's launches over the engine runs."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core.cost_model import SystemParams
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import decode_classes, decode_system_params
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.runtime import (DecodeEngine, QosClass,
+                                     greedy_decode_reference)
+
+    class RefLM(DecoderLM):
+        """The model with each step's top-2 logit margins recorded, and
+        with ``plain`` its attention through the kernel's plain version."""
+
+        def __init__(self, cfg, plain=False):
+            super().__init__(cfg)
+            self.plain = plain
+            self.margins = []
+
+        def _note(self, logits):
+            top2 = logits.topk(2, dim=-1).values
+            self.margins.append(top2[:, 0] - top2[:, 1])
+
+        def prefill(self, *a, **kw):
+            logits, cache = super().prefill(*a, **kw)
+            self._note(logits)
+            return logits, cache
+
+        def decode_step_q(self, *a, **kw):
+            logits, cache = super().decode_step_q(*a, **kw)
+            self._note(logits)
+            return logits, cache
+
+        def decode_attend(self, q, kc, vc, ks, vs, lens):
+            if self.plain:
+                return ref.quantized_decode_attention_ref(
+                    q, kc, vc, ks, vs, lens, window=self.cfg.sliding_window)
+            return super().decode_attend(q, kc, vc, ks, vs, lens)
+
+    def held(got, want, margins, d, what):
+        """Tokens equal up to the first step whose reference margin is
+        below 2 d; returns that step or None."""
+        close = np.flatnonzero(margins < 2.0 * d)
+        upto = int(close[0]) if close.size else len(want)
+        assert np.array_equal(got[:upto], want[:upto]), \
+            f"{what}: tokens differ before step {upto}: {got} vs {want}"
+        return upto if close.size else None
+
+    model = DecoderLM(cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in DECODE_PROMPTS]
+    per_layer = cfg.active_param_count() / cfg.n_layers
+    sysp = decode_system_params(cfg, SystemParams(
+        n_flop_agent=2.0 * per_layer * cfg.split_layer * B * S,
+        n_flop_server=2.0 * per_layer * (cfg.n_layers - cfg.split_layer)
+        * B * S), 4, S, DECODE_NEW)
+    pin = QosClass("interactive", *DECODE_BUDGET)
+
+    # one step from the same state, batched against alone and plain
+    # against kernel: the logit differences the token rule allows for
+    w8 = DecodeEngine(model, params, sysp, classes=[pin], auto=False,
+                      device=dev).class_params(pin.name)
+    states = [greedy_decode_reference(
+        model, w8, p, 2, b_kv=8, reserve_tokens=1024 - p.size,
+        return_state=True, device=dev)[1] for p in prompts[:4]]
+
+    def step(lm, rows):
+        qc = {k: torch.from_numpy(np.concatenate(
+            [states[i][k] for i in rows], axis=1)).to(dev)
+            for k in ("k_codes", "v_codes", "k_scales", "v_scales")}
+        pos = torch.tensor([int(states[i]["pos"]) for i in rows],
+                           dtype=torch.int32, device=dev)
+        tok = torch.tensor([[int(states[i]["last_token"])] for i in rows],
+                           dtype=torch.int32, device=dev)
+        return lm.decode_step_q(w8, {**qc, "len": pos},
+                                {"token": tok, "pos": pos}, b_kv=8)[0]
+
+    with torch.no_grad():
+        full = step(model, range(4))
+        alone = torch.cat([step(model, [i]) for i in range(4)])
+        plain = step(RefLM(cfg, plain=True), range(4))
+        torch.cuda.synchronize()
+        d_batch = float((full - alone).abs().max())
+        d_plain = float((full - plain).abs().max())
+        walls = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.argmax(step(model, range(4)), dim=-1)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(walls)
+    print(f"decode step from one state (B=4, T=1024, b_kv=8): batched vs "
+          f"alone max|d logits|={d_batch:.3e}, plain vs kernel "
+          f"{d_plain:.3e}")
+    prefill = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy_decode_reference(model, w8, prompts[5], 1, b_kv=8,
+                                device=dev)
+        torch.cuda.synchronize()
+        prefill.append((time.perf_counter() - t0) * 1e3)
+    print(f"decode wall: {step_ms:.2f} ms per token step at B=4 (median of "
+          f"10), {4e3 / step_ms:.1f} tokens/s; prefill of "
+          f"{prompts[5].size} tokens {statistics.median(prefill):.2f} ms "
+          f"per request; kernel device {cfg.n_layers * kernel_ms:.4f} ms "
+          f"per step ({cfg.n_layers} launches)")
+
+    runs = [("pinned 8/8", [pin], (8, 8)), ("pinned 4/4", [pin], (4, 4)),
+            ("pinned 8/16", [pin], (8, 16)),
+            ("auto", decode_classes(*DECODE_BUDGET), None),
+            ("plain 8/8", [pin], (8, 8))]
+    launches, kernel_tokens = 0, {}
+    for name, classes, point in runs:
+        plain_run = name.startswith("plain")
+        lm = RefLM(cfg, plain=True) if plain_run else model
+        eng = DecodeEngine(lm, params, sysp, classes=classes,
+                           auto=point is None, max_batch=4,
+                           max_new_tokens=DECODE_NEW, device=dev)
+        if point is not None:
+            eng.set_operating_point(pin.name, *point)
+        t_round = eng.decode_round_cost(classes[0].name, 512)[0]
+        rids = {}
+        for i, p in enumerate(prompts):
+            qos = classes[i % len(classes)].name
+            rids[eng.submit(p, qos, arrival_s=DECODE_ARRIVE[i] * t_round)] \
+                = i
+        tk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        responses = eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = tk.launch_counts()
+        rep = eng.report()
+        want = 0 if plain_run else cfg.n_layers * rep.decode_rounds
+        assert counts == {"group_quantize": 0, "qmm": 0, "qmm_int4": 0,
+                          "quantized_decode_attention": want}, \
+            f"{name}: launches {counts}, {rep.decode_rounds} token steps"
+        assert rep.requests_served == len(prompts)
+        assert rep.tokens_generated == len(prompts) * DECODE_NEW
+        points = ", ".join(f"{c.qos} b_hat={c.b_hat} b_kv={c.b_kv}"
+                           for c in rep.classes)
+        print(f"  decode {name:11s} {points}: {rep.prefills} prefills, "
+              f"{rep.decode_rounds} token steps, {rep.tokens_generated} "
+              f"tokens in {wall:.2f}s wall, kernel launches "
+              f"{counts['quantized_decode_attention']}")
+        if not plain_run:
+            launches += counts["quantized_decode_attention"]
+        for r in responses:
+            i = rids[r.request_id]
+            assert r.tokens.shape == (DECODE_NEW,)
+            assert ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()
+            if plain_run:
+                want_toks, margins = kernel_tokens[i]
+                at = held(r.tokens, want_toks, margins, d_plain,
+                          f"plain run request {i}")
+            else:
+                rlm = RefLM(cfg)
+                want_toks = greedy_decode_reference(
+                    rlm, eng.class_params(r.qos), prompts[i], DECODE_NEW,
+                    b_kv=r.b_kv, device=dev)
+                margins = torch.cat(rlm.margins).cpu().numpy()
+                at = held(r.tokens, want_toks, margins, d_batch,
+                          f"{name} request {i}")
+                if name == "pinned 8/8":
+                    kernel_tokens[i] = (r.tokens, margins)
+            if at is not None:
+                print(f"    request {i}: reference margin below the "
+                      f"measured noise at step {at}; compared up to it")
+        print(f"    tokens held to the "
+              f"{'kernel run' if plain_run else 'batch-1 reference'}: ok")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -298,7 +616,8 @@ def main() -> int:
     points = [(8, "kernel-int8"), (4, "kernel-int4"),
               (plan, "kernel-mixed[4/4/4/8/8/8]")]
     served = []
-    want = {"group_quantize": 0, "qmm": 0, "qmm_int4": 0}
+    want = {"group_quantize": 0, "qmm": 0, "qmm_int4": 0,
+            "quantized_decode_attention": 0}
     tk.reset_launch_counts()
     t0 = time.perf_counter()
     eng = CoInferenceEngine(model, params, sysp, path="kernel")
@@ -326,8 +645,8 @@ def main() -> int:
     counts = tk.launch_counts()
     print(f"main path: {time.perf_counter() - t0:.1f}s, launches {counts}")
     assert counts == want, f"launch counts {counts} != expected {want}"
-    for name, c in counts.items():
-        assert c > 0, f"{name} never launched on the main path"
+    for name in ("group_quantize", "qmm", "qmm_int4"):
+        assert counts[name] > 0, f"{name} never launched on the main path"
     print(f"auto_configure: b_hat={sol.b_hat} f={sol.f / 1e9:.3f}GHz "
           f"f~={sol.f_server / 1e9:.3f}GHz agent_path={eng.agent_path}")
     assert torch.isfinite(auto_logits).all()
@@ -385,11 +704,25 @@ def main() -> int:
         print(f"  {path:26s} serve_batch({B}x{S}) wall "
               f"{statistics.median(walls):.2f} ms (median of 5)")
 
-    # 5. summary
+    # 5. decode attention against its plain version
+    t0 = time.perf_counter()
+    summary["quantized_decode_attention"] = check_decode_kernel(dev, flush)
+    print(f"decode kernel phase: {time.perf_counter() - t0:.1f}s")
+
+    # 6. the decode path at full width
+    t0 = time.perf_counter()
+    counts["quantized_decode_attention"] = decode_path(
+        cfg, params, dev, summary["quantized_decode_attention"]["ms"])
+    print(f"decode path: {time.perf_counter() - t0:.1f}s")
+
+    # 7. summary
     names = {"group_quantize": ("csrc/group_quantize.cu",
                                 "src/repro/kernels/quantize.py:35"),
              "qmm": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:67"),
-             "qmm_int4": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:140")}
+             "qmm_int4": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:140"),
+             "quantized_decode_attention": (
+                 "csrc/decode_attn.cu",
+                 "src/repro/kernels/decode_attn.py:129")}
     kernels = []
     for name, (src, replaces) in names.items():
         s = summary[name]

@@ -12,8 +12,11 @@ Port of the uniform (P1) solvers of ``repro/core/codesign.py``:
 * :func:`solve_oracle` — exhaustive search over the discrete bit-width with
   the closed-form min-energy frequency split per bit-width.
 
-All math is float64 on the host.  The decode, speculative and mixed
-solvers wait for their slices.
+* :func:`solve_decode` — (P1) extended with the stored KV-cache
+  bit-width b_kv, enumerated over the container ladder.
+
+All math is float64 on the host.  The speculative and mixed solvers wait
+for their slices.
 """
 
 from __future__ import annotations
@@ -22,8 +25,8 @@ import dataclasses
 import math
 from typing import Optional
 
-from .cost_model import (SystemParams, total_delay, total_energy,
-                         transport_delay, transport_energy)
+from .cost_model import (SystemParams, kv_delay, kv_energy, total_delay,
+                         total_energy, transport_delay, transport_energy)
 
 _EPS = 1e-12
 
@@ -52,13 +55,17 @@ def distortion_gap(b_hat: float, lam: float) -> float:
 # ---------------------------------------------------------------------------
 
 def net_budgets(p: SystemParams, t0: float, e0: float,
-                b_emb: Optional[float]) -> "tuple[float, float]":
-    """(T0, E0) left for computation after the uplink takes its share; the
-    share does not depend on (b̂, f, f̃), so it simply shrinks the
-    budgets."""
+                b_emb: Optional[float],
+                b_kv: Optional[float] = None) -> "tuple[float, float]":
+    """(T0, E0) left for computation after the uplink and, for decode, the
+    KV-cache read at ``b_kv`` take their shares; neither depends on
+    (b̂, f, f̃), so each simply shrinks the budgets."""
     if b_emb is not None:
         t0 = t0 - float(transport_delay(b_emb, p))
         e0 = e0 - float(transport_energy(b_emb, p))
+    if b_kv is not None:
+        t0 = t0 - float(kv_delay(b_kv, p))
+        e0 = e0 - float(kv_energy(b_kv, p))
     return t0, e0
 
 
@@ -276,3 +283,73 @@ def solve_sca(lam: float, p: SystemParams, t0: float, e0: float,
             return _pack(b_hat, f_r, fs_r, lam, p, iterations=iters,
                          b_relaxed=b_k, b_emb=b_emb)
     return None
+
+
+# ---------------------------------------------------------------------------
+# Decode extension: the KV-cache bit-width as a third allocated variable
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DecodeSolution:
+    """(P1) extended with the stored KV-cache bit-width.
+
+    ``inner`` is the (b̂, f, f̃) solution against the budgets left after
+    the cache takes its share at ``b_kv``; ``objective`` is the joint gap
+    ``inner.objective + kv_weight · gap(b_kv; λ_kv)``.
+    """
+
+    b_kv: int                   # stored KV-cache bit-width
+    inner: CodesignSolution     # (b̂, f, f̃) solve under the net budgets
+    objective: float            # joint weight + cache distortion gap
+    kv_gap: float               # cache share of the objective (unweighted)
+    delay: float                # realized T including the cache read
+    energy: float               # realized E including cache access energy
+
+    @property
+    def b_hat(self) -> int:
+        return self.inner.b_hat
+
+    @property
+    def f(self) -> float:
+        return self.inner.f
+
+    @property
+    def f_server(self) -> float:
+        return self.inner.f_server
+
+    @property
+    def feasible(self) -> bool:
+        return self.inner.feasible
+
+
+def solve_decode(lam: float, lam_kv: float, p: SystemParams, t0: float,
+                 e0: float, b_max: int = 16,
+                 b_emb: Optional[float] = None,
+                 kv_ladder: "tuple[int, ...]" = (4, 8, 16),
+                 kv_weight: float = 1.0) -> Optional[DecodeSolution]:
+    """Joint (b̂, f, f̃, b_kv) solve for decode serving.
+
+    For each rung of the realizable container ladder: deduct the cache's
+    delay/energy share from (T0, E0), run Algorithm 1 on what is left, and
+    score the weight gap at λ plus ``kv_weight`` times the cache gap at
+    λ_kv.  Returns the rung with the least joint gap, or None when every
+    rung is infeasible.
+    """
+    best: Optional[DecodeSolution] = None
+    for b_kv in kv_ladder:
+        t0_net, e0_net = net_budgets(p, t0, e0, None, b_kv=b_kv)
+        if t0_net <= 0.0 or e0_net <= 0.0:
+            continue
+        inner = solve_sca(lam, p, t0_net, e0_net, b_max, b_emb=b_emb)
+        if inner is None:
+            continue
+        kv_gap = distortion_gap(b_kv, lam_kv)
+        cand = DecodeSolution(
+            b_kv=int(b_kv), inner=inner,
+            objective=inner.objective + kv_weight * kv_gap,
+            kv_gap=kv_gap,
+            delay=inner.delay + float(kv_delay(b_kv, p)),
+            energy=inner.energy + float(kv_energy(b_kv, p)))
+        if best is None or cand.objective < best.objective:
+            best = cand
+    return best

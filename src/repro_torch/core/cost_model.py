@@ -11,9 +11,9 @@ arithmetic (Python floats / numpy scalars):
 
 plus the optional uplink term for the boundary embedding at ``b_emb``
 (delay over ``link_bps``, transmit energy at ``tx_power_w``), 0 by
-default.  ``SystemParams`` keeps the reference's fields; the KV-cache and
-speculative terms that read the ``kv_*`` ones come with the decode
-slices.
+default, and the decode step's KV-cache read (delay over ``kv_bw_bps``,
+access energy at ``kv_power_w``), 0 by default.  ``SystemParams`` keeps
+the reference's fields; the speculative terms come with their slice.
 """
 
 from __future__ import annotations
@@ -68,6 +68,21 @@ def transport_energy(b_emb, p: SystemParams):
     if p.tx_power_w <= 0.0:
         return 0.0
     return p.tx_power_w * transport_delay(b_emb, p)
+
+
+def kv_delay(b_kv, p: SystemParams):
+    """Per-step KV-cache read time at stored bit-width ``b_kv``: linear in
+    the bit-width, 0 when cache modeling is disabled."""
+    if p.kv_bw_bps <= 0.0 or p.kv_bytes_full <= 0.0:
+        return 0.0
+    return (b_kv / p.b_full) * p.kv_bytes_full / p.kv_bw_bps
+
+
+def kv_energy(b_kv, p: SystemParams):
+    """KV-cache access energy: access power × read time (0 when disabled)."""
+    if p.kv_power_w <= 0.0:
+        return 0.0
+    return p.kv_power_w * kv_delay(b_kv, p)
 
 
 def agent_energy(b_hat, f, p: SystemParams):

@@ -6,6 +6,8 @@ wrapper            CUDA source           TPU kernel it replaces
 ``group_quantize`` csrc/group_quantize   repro/kernels/quantize.py
 ``qmm``            csrc/qmm              repro/kernels/qmm.py ``qmm``
 ``qmm_int4``       csrc/qmm              repro/kernels/qmm.py ``qmm_int4``
+``quantized_       csrc/decode_attn      repro/kernels/decode_attn.py
+decode_attention``                       ``quantized_decode_attention``
 =================  ====================  ==================================
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
@@ -15,11 +17,13 @@ in a ``launches`` attribute.
 
 from __future__ import annotations
 
+from .decode_attn import quantized_decode_attention
 from .qmm import qmm, qmm_int4
 from .quantize import group_quantize
 
 KERNELS = {"group_quantize": group_quantize, "qmm": qmm,
-           "qmm_int4": qmm_int4}
+           "qmm_int4": qmm_int4,
+           "quantized_decode_attention": quantized_decode_attention}
 
 
 def launch_counts() -> dict:

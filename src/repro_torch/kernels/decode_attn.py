@@ -1,0 +1,122 @@
+"""Decode attention over a quantized KV cache: the CUDA kernel and its plain
+torch version.
+
+Port of the TPU kernel ``quantized_decode_attention``
+(``repro/kernels/decode_attn.py``): one query token per sequence attends
+its int8-coded (or raw float) K/V cache, dequantized tile by tile, with
+an online softmax, a length mask and an optional sliding window.  The
+kernel is ``csrc/decode_attn.cu``; the plain version is
+``ref.quantized_decode_attention_ref``.  Both keep the reference's layout
+(no folded copy of the cache in device memory) and its tile schedule, so
+a row's output depends neither on B nor on cache positions past its
+length.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from . import ref as _ref
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# the kernel's shared memory per block must fit the card (227 KB on H100)
+MAX_SMEM_BYTES = 232448
+
+
+def _entry(symbol: str):
+    fn = getattr(build.library("decode_attn"), symbol)
+    fn.argtypes = [_P] * 7 + [_I] * 8 + [_F, _P]
+    fn.restype = _I
+    return fn
+
+
+def smem_bytes(g: int, dh: int, bt: int) -> int:
+    """Shared memory of one block: q and acc [G, dh], the dequantized K
+    tile [bt, dh + 1] (padded against bank conflicts) and V tile
+    [bt, dh], the probabilities [G, bt], and m, l, corr [G]."""
+    return 4 * (2 * g * dh + bt * (dh + 1) + bt * dh + g * bt + 3 * g)
+
+
+def quantized_decode_attention(q, k_codes, v_codes, k_scales, v_scales,
+                               cache_len, *, window: int = 0,
+                               block_t: int = 128) -> torch.Tensor:
+    """Single-step attention straight over a quantized cache.
+
+    q [B, 1, H, dh]; codes [B, T, KV, dh], int8 for b_kv < 16 or float32
+    (the raw container, with unit scales); scales [B, T, KV] f32;
+    ``cache_len`` an int or [B] (positions >= it are masked).  Returns
+    [B, 1, H, dh] in q's dtype.  T must be a multiple of
+    ``min(block_t, T)`` (cache buckets are 16 * 2^k, so it is).
+
+    Launches the CUDA kernel on a CUDA tensor and runs the plain version
+    on a CPU tensor; nothing else is accepted.
+    """
+    if q.ndim != 4 or q.shape[1] != 1 or k_codes.ndim != 4:
+        raise ValueError(f"needs q [B, 1, H, dh] and codes [B, T, KV, dh], "
+                         f"got {tuple(q.shape)} and {tuple(k_codes.shape)}")
+    b, _, h, dh = q.shape
+    t, kv = k_codes.shape[1], k_codes.shape[2]
+    if (k_codes.shape != v_codes.shape or k_codes.shape[0] != b
+            or k_codes.shape[3] != dh
+            or tuple(k_scales.shape) != (b, t, kv)
+            or tuple(v_scales.shape) != (b, t, kv)):
+        raise ValueError("q, codes and scales disagree on B, T, KV or dh")
+    if kv < 1 or h % kv != 0:
+        raise ValueError(f"{h} query heads do not group over {kv} KV heads")
+    if k_codes.dtype != v_codes.dtype or k_codes.dtype not in (
+            torch.int8, torch.float32):
+        raise ValueError(f"codes must both be int8 or float32, got "
+                         f"{k_codes.dtype} and {v_codes.dtype}")
+    bt = min(block_t, t)
+    if bt < 1 or t % bt != 0:
+        raise ValueError(f"cache length {t} is not a multiple of the tile "
+                         f"{bt}")
+    if q.device.type == "cpu":
+        return _ref.quantized_decode_attention_ref(
+            q, k_codes, v_codes, k_scales, v_scales, cache_len,
+            window=window, block_t=block_t)
+    if q.device.type != "cuda":
+        raise ValueError(f"quantized_decode_attention runs on cuda or cpu, "
+                         f"got {q.device}")
+    tensors = (q, k_codes, v_codes, k_scales, v_scales)
+    if any(x.device != q.device for x in tensors):
+        raise ValueError("operands on several devices")
+    g = h // kv
+    smem = smem_bytes(g, dh, bt)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"G={g}, dh={dh}, bt={bt} needs {smem} bytes of "
+                         "shared memory per block; the card has "
+                         f"{MAX_SMEM_BYTES}")
+    if isinstance(cache_len, torch.Tensor):
+        if cache_len.device != q.device:
+            raise ValueError("cache_len must be on q's device")
+        lens = cache_len.reshape(-1).expand(b)
+    else:
+        lens = torch.full((b,), int(cache_len), device=q.device)
+    lens = lens.to(torch.int32).contiguous()
+    qf = q.to(torch.float32).contiguous()
+    kc, vc = k_codes.contiguous(), v_codes.contiguous()
+    ks = k_scales.to(torch.float32).contiguous()
+    vs = v_scales.to(torch.float32).contiguous()
+    out = torch.empty((b, 1, h, dh), dtype=torch.float32, device=q.device)
+    if out.numel():
+        symbol = ("decode_attn_i8" if kc.dtype == torch.int8
+                  else "decode_attn_f32")
+        with torch.cuda.device(q.device):
+            status = _entry(symbol)(
+                qf.data_ptr(), kc.data_ptr(), vc.data_ptr(), ks.data_ptr(),
+                vs.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                smem, b, t, kv, g, dh, bt, int(window), dh ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
+        build.check(status, "quantized_decode_attention")
+        quantized_decode_attention.launches += 1
+    return out.to(q.dtype)
+
+
+quantized_decode_attention.launches = 0

@@ -8,6 +8,9 @@ Shapes / conventions shared with ``qmm.py`` and ``quantize.py``:
                             along the contraction axis
   out     [M, N]            x @ (codes * scales)
 
+``quantized_decode_attention_ref`` (at the end) is the plain version of
+the decode attention kernel, on the reference's decode layouts.
+
 Every wrapper runs these on a CPU tensor; on the card they are what the
 CUDA kernels are held against.  Division is true division and rounding is
 ``torch.round`` (half to even, like ``jnp.round``), so codes and scales
@@ -91,3 +94,72 @@ def qmm_int4_ref(x: torch.Tensor, packed: torch.Tensor,
                  scales: torch.Tensor) -> torch.Tensor:
     """The int4-packed matmul: unpack along K, then :func:`qmm_ref`."""
     return qmm_ref(x, unpack_int4_ref(packed), scales)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention over a quantized KV cache (``repro/kernels/decode_attn.py``)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30   # finite: -inf would make exp(m - m_new) a NaN on a fully
+                  # masked tile
+
+
+def quantized_decode_attention_ref(q, k_codes, v_codes, k_scales, v_scales,
+                                   cache_len, *, window: int = 0,
+                                   block_t: int = 128):
+    """One-token GQA attention straight over a quantized cache.
+
+    q [B, 1, H, dh]; codes [B, T, KV, dh] (int8, or the raw float
+    container with unit scales); scales [B, T, KV] f32; ``cache_len`` an
+    int or [B].  Returns [B, 1, H, dh] in q's dtype.
+
+    The reference's schedule: the H = KV * G query heads fold into B * KV
+    rows of G queries each (vectorised here), and the kv tiles of
+    ``bt = min(block_t, T)`` positions are walked in ascending order
+    through the online-softmax update of ``_tile_update``: dequantize the
+    tile, scores scaled by dh**-0.5, positions >= cache_len (or before
+    cache_len - window when ``window > 0``) set to ``NEG_INF``, running
+    max, ``p`` zeroed where masked, then ``l`` and ``acc`` rescaled by
+    ``exp(m - m_new)``; the output is ``acc / max(l, 1e-30)``.  A fully
+    masked tile leaves (m, l, acc) exactly as they were, so growing T
+    with ``cache_len`` fixed changes no bit.
+
+    Dot products are elementwise products summed over one axis, never
+    batched matmuls, so a row's bits do not depend on B.
+    """
+    b, _, h, dh = q.shape
+    t, kv = k_codes.shape[1], k_codes.shape[2]
+    g = h // kv
+    bt = min(block_t, t)
+    if t % bt != 0:
+        raise ValueError(f"cache length {t} is not a multiple of the tile "
+                         f"{bt}")
+    dev = q.device
+    lens = torch.as_tensor(cache_len, device=dev).reshape(-1)
+    lens = lens.expand(b).to(torch.int64)[:, None, None, None]  # [B,1,1,1]
+    scale = dh ** -0.5
+    qr = q.reshape(b, kv, g, 1, dh).to(torch.float32)
+    m = torch.full((b, kv, g, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kv, g, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kv, g, dh), dtype=torch.float32, device=dev)
+    for j in range(t // bt):
+        sl = slice(j * bt, (j + 1) * bt)
+        # [B, bt, KV, dh] -> [B, KV, 1, bt, dh]
+        k = (k_codes[:, sl].to(torch.float32)
+             * k_scales[:, sl, :, None]).permute(0, 2, 1, 3)[:, :, None]
+        v = (v_codes[:, sl].to(torch.float32)
+             * v_scales[:, sl, :, None]).permute(0, 2, 1, 3)[:, :, None]
+        s = torch.sum(qr * k, dim=-1) * scale                # [B,KV,G,bt]
+        kpos = j * bt + torch.arange(bt, device=dev)
+        valid = kpos < lens
+        if window > 0:
+            valid = valid & (kpos >= lens - window)
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
+        p = torch.where(valid, torch.exp(s - m_new), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1, keepdim=True)
+        acc = acc * corr + torch.sum(p[..., None] * v, dim=-2)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, 1, h, dh).to(q.dtype)

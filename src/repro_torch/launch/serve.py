@@ -1,22 +1,33 @@
 """Co-inference serving from the command line:
-``python -m repro_torch.launch.serve --engine sequential --path kernel``.
+``python -m repro_torch.launch.serve --engine sequential --path kernel``
+or ``python -m repro_torch.launch.serve --decode``.
 
-The sequential mode of ``repro/launch/serve.py``: build the model from a
-seeded ``torch.Generator``, solve (P1) for one QoS class with the paper's
-SCA, print the oracle and baseline solutions beside it, serve one batch of
-Markov-chain requests agent -> uplink -> server, and print the modeled
-delay/energy split.  Runs on the CUDA card unless ``--device cpu``.
+Two modes of ``repro/launch/serve.py``, each on a model built from a
+seeded ``torch.Generator``:
 
-The reference's other modes (batched, compiled, mixed precision, decode,
-speculative, adaptive, fleet, chaos, trace/metrics output) are not yet
-ported: each exits 2 with a one-line error.
+* sequential: solve (P1) for one QoS class with the paper's SCA, print
+  the oracle and baseline solutions beside it, serve one batch of
+  Markov-chain requests agent -> uplink -> server, and print the modeled
+  delay/energy split;
+* ``--decode``: continuous-batching greedy decode over a quantized KV
+  cache (``DecodeEngine``) for two QoS classes, each with its codesign
+  (b̂, b_kv); ``--parity-check`` replays every response through
+  ``greedy_decode_reference`` and requires equal tokens.
+
+Runs on the CUDA card unless ``--device cpu``.  The reference's other
+modes (batched, compiled, mixed precision, speculative, adaptive, fleet,
+chaos, trace/metrics output) are not yet ported: each exits 2 with a
+one-line error.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
+import time
 
+import numpy as np
 import torch
 
 from ..configs import get_config, get_smoke
@@ -26,12 +37,12 @@ from ..core.cost_model import SystemParams
 from ..data import MarkovLMConfig, MarkovLMDataset
 from ..device import resolve_device
 from ..models.lm import DecoderLM
-from ..runtime import CoInferenceEngine, QosClass
+from ..runtime import (CodesignCache, CoInferenceEngine, DecodeEngine,
+                       QosClass, greedy_decode_reference)
 
 # flags of the reference's serve CLI whose modes are not ported yet
-_NOT_PORTED = ("decode", "speculative", "compiled", "mixed_precision",
-               "env_trace", "fleet", "chaos_trace", "trace_out",
-               "metrics_out")
+_NOT_PORTED = ("speculative", "compiled", "mixed_precision", "env_trace",
+               "fleet", "chaos_trace", "trace_out", "metrics_out")
 
 
 def main(argv=None) -> int:
@@ -40,6 +51,9 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--engine", default="batched",
                     choices=["batched", "sequential"])
+    ap.add_argument("--requests", type=int, default=12,
+                    help="number of queued requests (--decode)")
+    ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--batch", type=int, default=4,
                     help="requests per serve_batch (sequential engine)")
     ap.add_argument("--seq", type=int, default=64)
@@ -48,7 +62,17 @@ def main(argv=None) -> int:
     ap.add_argument("--path", default="fake", choices=["fake", "kernel"])
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
-    for flag in ("decode", "speculative", "compiled", "mixed-precision"):
+    ap.add_argument("--decode", action="store_true",
+                    help="continuous-batching greedy decode over a "
+                         "quantized KV cache, per-class b_kv from the "
+                         "codesign")
+    ap.add_argument("--max-new", type=int, default=16,
+                    help="tokens to generate per request (--decode)")
+    ap.add_argument("--parity-check", action="store_true",
+                    help="replay every --decode request through the "
+                         "batch-1 greedy reference and require equal "
+                         "tokens")
+    for flag in ("speculative", "compiled", "mixed-precision"):
         ap.add_argument(f"--{flag}", action="store_true",
                         help="not yet ported (exits 2)")
     for flag in ("env-trace", "fleet", "chaos-trace", "trace-out",
@@ -59,7 +83,7 @@ def main(argv=None) -> int:
 
     used = [f"--{n.replace('_', '-')}" for n in _NOT_PORTED
             if getattr(args, n)]
-    if args.engine != "sequential":
+    if args.engine != "sequential" and not args.decode:
         used.insert(0, f"--engine {args.engine}")
     if used:
         print(f"error: {' '.join(used)} is not yet ported to repro_torch; "
@@ -72,10 +96,6 @@ def main(argv=None) -> int:
     except (KeyError, RuntimeError) as e:
         print(f"error: {e.args[0]}", file=sys.stderr)
         return 2
-    return serve_sequential(cfg, device, args)
-
-
-def serve_sequential(cfg, device, args) -> int:
     model = DecoderLM(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(0))
     tokens = args.batch * args.seq
@@ -84,6 +104,12 @@ def serve_sequential(cfg, device, args) -> int:
         n_flop_agent=2.0 * per_layer * cfg.split_layer * tokens,
         n_flop_server=2.0 * per_layer
         * (cfg.n_layers - cfg.split_layer) * tokens)
+    if args.decode:
+        return serve_decode(cfg, model, params, sysp, device, args)
+    return serve_sequential(cfg, model, params, sysp, device, args)
+
+
+def serve_sequential(cfg, model, params, sysp, device, args) -> int:
 
     eng = CoInferenceEngine(model, params, sysp, path=args.path,
                             device=device)
@@ -119,6 +145,97 @@ def serve_sequential(cfg, device, args) -> int:
           f"{stats.server_delay_s * 1e3:.2f}ms = "
           f"{stats.total_delay_s * 1e3:.2f}ms, {stats.energy_j:.3f}J, "
           f"emb {stats.emb_bytes / 1024:.1f}KiB at b_emb={eng.b_emb}")
+    return 0
+
+
+def decode_system_params(cfg, sysp, max_batch: int, seq: int,
+                         max_new: int) -> SystemParams:
+    """``sysp`` with a KV-cost term sized to this model's cache, so the
+    b_kv rung is a real decision: a full-precision cache read costs
+    0.5 s / 1.0 J per step, which forces a tight class down the ladder."""
+    kv_full = (2.0 * cfg.n_layers * max_batch * (seq + max_new)
+               * cfg.n_kv_heads * max(cfg.head_dim, 1)
+               * np.dtype(cfg.dtype).itemsize)
+    return dataclasses.replace(sysp, kv_bytes_full=kv_full,
+                               kv_bw_bps=kv_full, kv_power_w=2.0)
+
+
+def decode_classes(t0: float, e0: float) -> list:
+    """The decode mode's two QoS classes around the (T0, E0) budget."""
+    return [QosClass("realtime", t0=max(t0 / 3.0, 0.2),
+                     e0=max(e0 / 2.0, 0.2)),
+            QosClass("interactive", t0=t0, e0=e0)]
+
+
+def serve_decode(cfg, model, params, sysp, device, args) -> int:
+    """Continuous-batching greedy decode over a quantized KV cache through
+    ``DecodeEngine``, printing what the reference's decode mode prints."""
+    sysp = decode_system_params(cfg, sysp, args.max_batch, args.seq,
+                                args.max_new)
+    classes = decode_classes(args.t0, args.e0)
+    try:
+        eng = DecodeEngine(model, params, sysp, classes=classes,
+                           max_batch=args.max_batch,
+                           max_new_tokens=args.max_new,
+                           codesign_cache=CodesignCache(), device=device)
+    except ValueError as e:
+        print(e)
+        return 1
+    print(f"arch={cfg.name} split={cfg.split_layer}/{cfg.n_layers} "
+          f"lambda_hat={eng.lam:.2f} lambda_kv={eng.lam_kv:.2f} "
+          f"engine=decode max_batch={args.max_batch} "
+          f"max_new={args.max_new} admission={eng.admission}")
+    t0 = time.perf_counter()
+    n = eng.warmup(args.seq)
+    print(f"warmup: {n} decode variants compiled in "
+          f"{time.perf_counter() - t0:.1f}s")
+    for c in classes:
+        s = eng.solution_for(c.name)
+        print(f"  class {c.name:12s} (T0={c.t0:.2f}s, E0={c.e0:.2f}J): "
+              f"b_hat={s.b_hat} b_kv={s.b_kv} f={s.f / 1e9:.2f}GHz "
+              f"f~={s.f_server / 1e9:.2f}GHz bound={s.objective:.3e}")
+
+    rng = np.random.default_rng(0)
+    prompts = {}
+    for i in range(args.requests):
+        toks = rng.integers(0, cfg.vocab_size,
+                            size=int(rng.integers(max(args.seq // 2, 1),
+                                                  args.seq + 1)))
+        rid = eng.submit(toks, classes[i % len(classes)].name,
+                         arrival_s=0.01 * i)
+        prompts[rid] = (np.asarray(toks), classes[i % len(classes)].name)
+    responses = eng.drain()
+
+    rep = eng.report()
+    print(f"served {rep.requests_served} requests, "
+          f"{rep.tokens_generated} tokens in {rep.decode_rounds} rounds "
+          f"({rep.prefills} prefills):")
+    for cs in rep.classes:
+        print(f"  [{cs.qos:12s}] n={cs.requests} b_kv={cs.b_kv} "
+              f"ttft={cs.ttft_mean_s * 1e3:.2f}ms "
+              f"(max {cs.ttft_max_s * 1e3:.2f}ms) "
+              f"itl={cs.itl_mean_s * 1e3:.2f}ms")
+    ratio = rep.kv_bytes / rep.kv_bytes_full if rep.kv_bytes_full else 1.0
+    print(f"decode report: throughput={rep.throughput_tps:.1f} tok/s "
+          f"(modeled), {rep.throughput_rps:.1f} req/s, "
+          f"kv cache {rep.kv_bytes / 1024:.1f}KiB "
+          f"({ratio:.2f}x of full precision) "
+          f"energy={rep.total_energy_j:.3f}J")
+    print(f"compile cache: {rep.compiled_variants} variants, "
+          f"{rep.compile_hits} hits / {rep.compile_misses} misses")
+
+    if args.parity_check:
+        for r in responses:
+            toks, qos = prompts[r.request_id]
+            ref = greedy_decode_reference(
+                model, eng.class_params(qos), toks, len(r.tokens),
+                b_kv=r.b_kv, device=device)
+            if not np.array_equal(np.asarray(r.tokens), ref):
+                print(f"error: parity mismatch on request {r.request_id}",
+                      file=sys.stderr)
+                return 1
+        print(f"parity: all {len(responses)} requests bitwise-match the "
+              "sequential reference")
     return 0
 
 

@@ -139,11 +139,11 @@ def init_attention(cfg, generator, *, layers: Optional[int] = None,
     return p, ax
 
 
-def qkv_project(cfg, p, x, positions):
+def qkv_project(cfg, p, x, positions, matmul=torch.matmul):
     """x [B,S,D] -> q [B,S,H,dh], k/v [B,S,KV,dh] with RoPE applied."""
-    q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+    q = matmul(x, p["wq"].to(x.dtype))
+    k = matmul(x, p["wk"].to(x.dtype))
+    v = matmul(x, p["wv"].to(x.dtype))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -237,6 +237,33 @@ def blockwise_attention(q, k, v, *, causal: bool, q_block: int = 512,
     return out[:, :S]
 
 
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
+    """Single-step attention against a full-precision cache (the plain
+    decode step's; the engine attends the quantized cache through
+    ``kernels.decode_attn``).
+
+    q [B, 1, H, dh]; caches [B, T, KV, dh]; ``cache_len`` an int or [B]:
+    entries >= it (and, with ``window``, before it - window) are masked.
+    Dot products are elementwise products summed over one axis, so a
+    row's bits do not depend on B.
+    """
+    B, _, H, dh = q.shape
+    T, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qr = q.reshape(B, KV, G, 1, dh).to(torch.float32)
+    k = k_cache.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
+    v = v_cache.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
+    s = torch.sum(qr * k, dim=-1) * dh ** -0.5               # [B,KV,G,T]
+    lens = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1, 1, 1)
+    idx = torch.arange(T, device=q.device)
+    valid = idx < lens
+    if window > 0:
+        valid = valid & (idx >= lens - window)
+    p = torch.softmax(torch.where(valid, s, -torch.inf), dim=-1)
+    out = torch.sum(p[..., None] * v, dim=-2)                # [B,KV,G,dh]
+    return out.reshape(B, 1, H, dh).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -267,14 +294,14 @@ def activation(cfg, h):
     return F.gelu(h, approximate="tanh")
 
 
-def apply_mlp(cfg, p, x):
+def apply_mlp(cfg, p, x, matmul=torch.matmul):
     if cfg.act == "silu":
-        g = x @ p["wi_gate"].to(x.dtype)
-        u = x @ p["wi_up"].to(x.dtype)
+        g = matmul(x, p["wi_gate"].to(x.dtype))
+        u = matmul(x, p["wi_up"].to(x.dtype))
         h = F.silu(g) * u
     else:
-        h = activation(cfg, x @ p["wi"].to(x.dtype))
-    return h @ p["wo"].to(x.dtype)
+        h = activation(cfg, matmul(x, p["wi"].to(x.dtype)))
+    return matmul(h, p["wo"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -297,7 +324,20 @@ def embed_tokens(p, tokens, dtype):
     return p["tok"].to(dtype)[tokens]
 
 
-def unembed(cfg, p, x):
+def unembed(cfg, p, x, matmul=torch.matmul):
     if cfg.tie_embeddings:
-        return x @ p["tok"].to(x.dtype).T
-    return x @ p["unembed"].to(x.dtype)
+        return matmul(x, p["tok"].to(x.dtype).T)
+    return matmul(x, p["unembed"].to(x.dtype))
+
+
+def row_matmul(x, w):
+    """``x [B, ..., K] @ w`` with each leading row its own product.
+
+    BLAS libraries take another kernel, summing in another order, for a
+    single row than for several (a gemv at M = 1 and a gemm at M >= 2 on
+    the CPU; cuBLAS chooses by shape too).  The decode step runs its
+    projections through this, so a row's bits do not depend on how many
+    rows share the step: the engine's batched decode equals the batch-1
+    reference bit for bit.  It costs B launches instead of one.
+    """
+    return torch.cat([x[i:i + 1] @ w for i in range(x.shape[0])])

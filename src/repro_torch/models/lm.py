@@ -10,8 +10,9 @@ The parameter dict has the reference's structure and layouts::
 
 so ``bridge.params_from_jax`` carries the reference's pytree across leaf
 for leaf.  The layer stack runs as a plain Python loop (the reference's
-``lax.scan`` / ``while_loop``); MoE layers and the decode protocol wait for
-later slices.
+``lax.scan`` / ``while_loop``).  The decode protocol (``prefill``,
+``init_cache``, ``cache_axes``, ``decode_step``, ``decode_step_q``) serves
+``runtime.decode_engine``; MoE layers wait for a later slice.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..kernels.decode_attn import quantized_decode_attention
+from ..kernels.quantize import kv_quantize
 from . import layers as L
 
 
@@ -28,6 +31,16 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_leaves(tree):
+    """The tensor leaves of a nested dict in sorted-key order (the
+    reference's pytree order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k])
+    else:
+        yield tree
 
 
 class DecoderLM:
@@ -131,3 +144,158 @@ class DecoderLM:
         x, aux = self.run_layers(params, x, positions, 0, self.cfg.n_layers)
         x = L.apply_norm(self.cfg, x, params["final_norm"])
         return L.unembed(self.cfg, params["embed"], x), aux
+
+    # ------------------------------------------------------------------
+    # serving: the decode protocol
+    # ------------------------------------------------------------------
+    def prefill(self, params, batch, last_index=None):
+        """Full-sequence pass building the KV cache; returns (logits at
+        each row's last prompt position [B, V], cache).
+
+        ``last_index`` ([B] ints, optional) names each row's true final
+        position in a right-padded batch: logits are gathered there and
+        the cache ``len`` is ``last_index + 1``.  Causal attention makes
+        positions <= last_index independent of the padding.  The cache is
+        ``{"k", "v": [L, B, S, KV, dh], "len": [B] int32}``.
+        """
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.dtype)
+        x, positions = self._embed(params, batch)
+        b, s = x.shape[0], x.shape[1]
+        lp = params["layers"]
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            p_i = tree_map(lambda a: a[i], lp)
+            h = L.apply_norm(cfg, x, p_i["ln1"])
+            q, k, v = L.qkv_project(cfg, p_i["attn"], h, positions)
+            attn = L.blockwise_attention(q, k, v, causal=True,
+                                         window=cfg.sliding_window)
+            x = x + attn.reshape(b, s, cfg.q_dim) \
+                @ p_i["attn"]["wo"].to(x.dtype)
+            h2 = L.apply_norm(cfg, x, p_i["ln2"])
+            x = x + L.apply_mlp(cfg, p_i["ffn"], h2)
+            ks.append(k.to(dtype))
+            vs.append(v.to(dtype))
+        x = L.apply_norm(cfg, x, params["final_norm"])
+        if last_index is None:
+            sel = x[:, -1:]
+            lens = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        else:
+            idx = torch.as_tensor(last_index, device=x.device).reshape(-1)
+            sel = x[torch.arange(b, device=x.device), idx.long()][:, None]
+            lens = (idx + 1).to(torch.int32)
+        logits = L.unembed(cfg, params["embed"], sel)[:, 0]
+        return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
+                        "len": lens}
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device),
+                "len": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
+
+    def cache_axes(self):
+        t = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+        return {"k": t, "v": t, "len": ("batch",)}
+
+    def _decode_layers(self, params, x, pos, t: int, write, attend):
+        """The layer loop of one decode token over a cache of ``t``
+        positions.  ``write(i, k, v, at)`` stores layer i's fresh entry at
+        cache position ``at`` and
+        ``attend(i, q)`` attends layer i's cache; the projections go
+        through :func:`layers.row_matmul` (row-independent bits)."""
+        cfg = self.cfg
+        mm = L.row_matmul
+        b = x.shape[0]
+        positions = pos[:, None]
+        # the reference writes with dynamic_update_slice, which clamps an
+        # out-of-range start: a dead slot whose pos ran past the cache
+        # writes its last entry instead of faulting
+        at = torch.clamp(pos, max=t - 1)
+        lp = params["layers"]
+        for i in range(cfg.n_layers):
+            p_i = tree_map(lambda a: a[i], lp)
+            h = L.apply_norm(cfg, x, p_i["ln1"])
+            q, k, v = L.qkv_project(cfg, p_i["attn"], h, positions,
+                                    matmul=mm)
+            write(i, k, v, at)
+            attn = attend(i, q)
+            x = x + mm(attn.reshape(b, 1, cfg.q_dim),
+                       p_i["attn"]["wo"].to(x.dtype))
+            h2 = L.apply_norm(cfg, x, p_i["ln2"])
+            x = x + L.apply_mlp(cfg, p_i["ffn"], h2, matmul=mm)
+        x = L.apply_norm(cfg, x, params["final_norm"])
+        return L.unembed(cfg, params["embed"], x, matmul=mm)[:, 0]
+
+    def decode_step(self, params, cache, batch):
+        """One token over a full-precision cache: batch = {'token': [B, 1],
+        'pos': [B]}.  Writes the fresh K/V into ``cache`` in place (the
+        reference returns an updated copy) and returns (logits [B, V],
+        cache with ``len + 1``)."""
+        tok, pos = batch["token"], batch["pos"]
+        x = L.embed_tokens(params["embed"], tok, getattr(torch,
+                                                         self.cfg.dtype))
+        kc, vc = cache["k"], cache["v"]
+        rows = torch.arange(x.shape[0], device=x.device)
+
+        def write(i, k, v, at):
+            kc[i, rows, at] = k[:, 0].to(kc.dtype)
+            vc[i, rows, at] = v[:, 0].to(vc.dtype)
+
+        def attend(i, q):
+            return L.decode_attention(q, kc[i], vc[i], pos + 1,
+                                      window=self.cfg.sliding_window)
+
+        logits = self._decode_layers(params, x, pos, kc.shape[2], write,
+                                     attend)
+        return logits, {**cache, "len": cache["len"] + 1}
+
+    def decode_step_q(self, params, qcache, batch, *, b_kv: int):
+        """One token straight over the quantized cache.
+
+        ``qcache`` holds ``k_codes``/``v_codes`` [L, B, T, KV, dh] (int8
+        codes for b_kv < 16, the raw float32 container otherwise),
+        ``k_scales``/``v_scales`` [L, B, T, KV] f32 (ones for raw) and
+        ``len``.  Each layer quantizes its fresh entry *before* writing it
+        at ``pos`` (so this step reads it through the same dequant map as
+        every later step), then attends through the
+        ``quantized_decode_attention`` kernel with ``cache_len = pos + 1``.
+        The cache tensors are updated in place (the reference donates
+        them); returns (logits [B, V], qcache with ``len + 1``).
+        """
+        tok, pos = batch["token"], batch["pos"]
+        x = L.embed_tokens(params["embed"], tok, getattr(torch,
+                                                         self.cfg.dtype))
+        kc, vc = qcache["k_codes"], qcache["v_codes"]
+        ksc, vsc = qcache["k_scales"], qcache["v_scales"]
+        rows = torch.arange(x.shape[0], device=x.device)
+        lens = (pos + 1).to(torch.int32)
+
+        def write(i, k, v, at):
+            if b_kv < 16:
+                k_new, ks_new = kv_quantize(k[:, 0], b_kv)
+                v_new, vs_new = kv_quantize(v[:, 0], b_kv)
+            else:
+                k_new, v_new = k[:, 0], v[:, 0]
+                ks_new = vs_new = 1.0
+            kc[i, rows, at] = k_new.to(kc.dtype)
+            vc[i, rows, at] = v_new.to(vc.dtype)
+            ksc[i, rows, at] = ks_new
+            vsc[i, rows, at] = vs_new
+
+        def attend(i, q):
+            return self.decode_attend(q, kc[i], vc[i], ksc[i], vsc[i], lens)
+
+        logits = self._decode_layers(params, x, pos, kc.shape[2], write,
+                                     attend)
+        return logits, {**qcache, "len": qcache["len"] + 1}
+
+    def decode_attend(self, q, k_codes, v_codes, k_scales, v_scales,
+                      cache_len):
+        """One layer's attention over its quantized cache: the kernel."""
+        return quantized_decode_attention(
+            q, k_codes, v_codes, k_scales, v_scales, cache_len,
+            window=self.cfg.sliding_window)

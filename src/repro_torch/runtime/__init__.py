@@ -1,4 +1,8 @@
-"""Serving runtime of the port (the sequential co-inference engine)."""
+"""Serving runtime of the port: the sequential co-inference engine and
+continuous-batching decode over a quantized KV cache."""
 
-from .serve_engine import (CoInferenceEngine, QosClass,  # noqa: F401
-                           ServeStats, fit_lambda)
+from .decode_engine import (ClassDecodeStats, DecodeEngine,  # noqa: F401
+                            DecodeReport, DecodeRequest, DecodeResponse,
+                            fit_kv_lambda, greedy_decode_reference)
+from .serve_engine import (CodesignCache, CoInferenceEngine,  # noqa: F401
+                           QosClass, ServeStats, fit_lambda)

@@ -1,0 +1,952 @@
+"""Continuous-batching greedy decode over a quantized KV cache
+(``repro/runtime/decode_engine.py``).
+
+A request prefills once, then occupies a decode slot for a run of
+single-token steps whose cost is dominated by reading the KV cache.  The
+engine keeps the reference's four commitments:
+
+1.  **Continuous batching.**  A request is admitted into a free slot the
+    moment one exists and retires the moment its budget is spent;
+    ``admission="barrier"`` (refill a slot block only once it has drained)
+    runs on the same code for comparison.
+2.  **Quantized KV cache, attended directly.**  Entries are int8-held codes
+    plus one f32 scale per head vector (``kernels.quantize.kv_quantize``)
+    at the class's ``b_kv``; ``DecoderLM.decode_step_q`` quantizes each
+    fresh entry before writing it and attends through the
+    ``quantized_decode_attention`` CUDA kernel, which dequantizes tile by
+    tile.  ``b_kv >= 16`` keeps the raw float32 container with unit scales.
+3.  **Device residency.**  Each slot block's codes, scales, positions and
+    last tokens live on the device across steps and are updated in place;
+    the host sees the prompt going in and the token blocks coming out.
+4.  **Bitwise parity.**  Greedy decode through the batched engine equals
+    :func:`greedy_decode_reference` (batch width 1) token for token: a
+    request's cache bucket is a function of its own prompt and budget, and
+    every per-row op of the decode step is row-independent (the
+    projections through ``layers.row_matmul``, attention through a kernel
+    with one block per row and head).
+
+The reference's two AOT executables are plain functions here, run
+eagerly: :func:`_prefill_slot` (prefill, quantize, scatter into a slot)
+and :func:`_decode_chunk` (up to ``n_steps`` single ``decode_step_q``
+calls filling a ``[B, _CHUNK]`` token block, leaving early once every live
+row has emitted ``eos``).  Nothing is compiled, so :meth:`DecodeEngine.
+warmup` returns 0 and the report's compile fields read 0; capturing the
+step as a CUDA graph is the compiled path's work.
+
+Costs are billed on a virtual clock exactly as in the reference: each
+token step of a chunk bills all ``max_batch`` slots plus the full cache
+read at ``b_kv``, and a chunk never runs past a scheduling boundary (the
+tightest remaining budget, the next queued arrival, the eos exit), so
+admission and retirement times equal one-token-at-a-time stepping.
+
+Not yet ported: ``mixed_precision=True`` (per-layer bit allocation), the
+``tracer``/``metrics`` hooks and ``snapshot_request`` (the supervisor's);
+each raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.cost_model import (SystemParams, agent_delay, agent_energy,
+                               kv_delay, kv_energy, server_delay,
+                               server_energy)
+from ..core.quantization import QuantConfig, QuantPlan
+from ..core.rate_distortion import exponential_mle
+from ..device import resolve_device, set_float32_numerics
+from ..kernels.bucketing import DEFAULT_SEQ_BASE, seq_bucket
+from ..kernels.quantize import kv_cache_bytes, kv_quantize
+from ..models.lm import tree_leaves, tree_map
+from .qat import fake_quantize_agent
+from .serve_engine import CodesignCache, QosClass, fit_lambda
+
+__all__ = [
+    "DecodeRequest",
+    "DecodeResponse",
+    "ClassDecodeStats",
+    "DecodeReport",
+    "DecodeEngine",
+    "decode_protocol_gap",
+    "fit_kv_lambda",
+    "greedy_decode_reference",
+]
+
+# one decode chunk emits up to this many tokens per slot; where the host
+# cuts a run of steps into chunks changes no bit (each step is the same
+# decode_step_q call)
+_CHUNK = 64
+
+# the KV-cache layout this engine manages slots in
+_DECODE_CACHE_AXES = {
+    "k": ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
+    "v": ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
+    "len": ("batch",),
+}
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported to repro_torch")
+
+
+def decode_protocol_gap(model) -> Optional[str]:
+    """Why ``model`` cannot be decode-served (None when it can): it needs
+    the ``prefill``/``init_cache``/``decode_step``/``decode_step_q``/
+    ``cache_axes`` hooks over the [L, B, T, KV, dh] KV-cache layout."""
+    missing = [h for h in ("prefill", "init_cache", "decode_step",
+                           "decode_step_q", "cache_axes")
+               if not hasattr(model, h)]
+    if missing:
+        return f"lacks the {'/'.join(missing)} decode hook(s)"
+    if model.cache_axes() != _DECODE_CACHE_AXES:
+        return ("decode state is not the [layers, batch, cache_seq, "
+                "kv_heads, head_dim] KV cache")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# records
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DecodeRequest:
+    """One queued decode request: a prompt plus a generation budget."""
+    request_id: int
+    tokens: np.ndarray          # int32 [P] prompt
+    qos: str
+    max_new_tokens: int
+    arrival_s: float            # virtual arrival time
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeResponse:
+    """A retired request: greedy continuation + its latency accounting."""
+    request_id: int
+    qos: str
+    tokens: np.ndarray          # int32, generated greedily (<= max_new)
+    prompt_len: int
+    b_kv: int                   # stored cache bit-width it decoded under
+    ttft_s: float               # arrival -> first token (virtual clock)
+    itl_mean_s: float           # mean inter-token latency (0 if 1 token)
+    finished_s: float
+    cancelled: bool = False     # retired mid-decode by cancel()
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassDecodeStats:
+    """Per-QoS-class latency aggregates of a :class:`DecodeReport`."""
+    qos: str
+    b_hat: int
+    b_kv: int
+    requests: int
+    tokens: int
+    ttft_mean_s: float
+    ttft_max_s: float
+    itl_mean_s: float
+    plan_bits: tuple = ()       # per-agent-layer bits under a plan
+    itl_p50_s: float = 0.0
+    itl_p95_s: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeReport:
+    """Whole-run aggregates of a :class:`DecodeEngine`."""
+    requests_served: int
+    cancelled: int
+    tokens_generated: int
+    prefills: int
+    decode_rounds: int          # token steps run, summed over chunks
+    total_delay_s: float        # virtual clock at the end of the run
+    total_energy_j: float
+    throughput_tps: float       # generated tokens / modeled second
+    throughput_rps: float
+    admission: str              # "continuous" | "barrier"
+    classes: tuple = ()         # ClassDecodeStats per QoS class
+    kv_bytes: int = 0           # stored cache bytes across admissions
+    kv_bytes_full: int = 0      # same cache at full precision
+    codesign_hits: int = 0      # this engine's cache attribution
+    codesign_misses: int = 0
+    compile_hits: int = 0       # nothing is compiled yet: always 0
+    compile_misses: int = 0
+    compiled_variants: int = 0
+    h2d_bytes: int = 0          # host->device bytes of the interface
+    d2h_bytes: int = 0          # device->host bytes of the interface
+
+
+# ---------------------------------------------------------------------------
+# cache-activation statistic
+# ---------------------------------------------------------------------------
+
+_KV_LAMBDA_MEMO: Dict[tuple, float] = {}
+
+
+def _params_fingerprint(params) -> tuple:
+    """A cheap identity for a parameter tree: every leaf's (shape, dtype)
+    plus the first leaf's leading bytes."""
+    leaves = list(tree_leaves(params))
+    head = leaves[0].reshape(-1)[:8].detach().cpu().numpy().tobytes()
+    return (tuple((tuple(lf.shape), str(lf.dtype)) for lf in leaves), head)
+
+
+def fit_kv_lambda(model, params, *, seq: int = 16) -> float:
+    """MLE λ_kv over K/V cache magnitudes from one calibration prefill of
+    the deterministic prompt ``arange(seq) % vocab`` at full precision.
+
+    Memoized per (config, seq, parameter fingerprint), as in the
+    reference: the prefill is a real forward pass.
+    """
+    key = (model.cfg, int(seq), _params_fingerprint(params))
+    if key not in _KV_LAMBDA_MEMO:
+        cfg = model.cfg
+        dev = next(tree_leaves(params)).device
+        toks = (torch.arange(seq, device=dev) % int(cfg.vocab_size))
+        with torch.no_grad():
+            _, cache = model.prefill(params, {"tokens": toks[None]})
+        mags = torch.cat([torch.abs(cache["k"]).reshape(-1),
+                          torch.abs(cache["v"]).reshape(-1)])
+        _KV_LAMBDA_MEMO[key] = float(exponential_mle(mags))
+    return _KV_LAMBDA_MEMO[key]
+
+
+# ---------------------------------------------------------------------------
+# the decode functions (shared by the engine and the reference)
+# ---------------------------------------------------------------------------
+
+def _container_dtype(cfg, b_kv: int) -> torch.dtype:
+    return torch.int8 if b_kv < 16 else getattr(torch, cfg.dtype)
+
+
+class _SlotBuffers:
+    """A device-resident slot block: quantized cache [L, B, T, KV, dh],
+    scales [L, B, T, KV], and per-slot position and last token [B]."""
+
+    def __init__(self, cfg, t_bucket: int, batch: int, b_kv: int, device):
+        self.t_bucket = int(t_bucket)
+        shape = (cfg.n_layers, batch, t_bucket, cfg.n_kv_heads,
+                 cfg.head_dim)
+        cont = _container_dtype(cfg, b_kv)
+        self.k_codes = torch.zeros(shape, dtype=cont, device=device)
+        self.v_codes = torch.zeros(shape, dtype=cont, device=device)
+        self.k_scales = torch.ones(shape[:-1], dtype=torch.float32,
+                                   device=device)
+        self.v_scales = torch.ones(shape[:-1], dtype=torch.float32,
+                                   device=device)
+        self.pos = torch.zeros((batch,), dtype=torch.int32, device=device)
+        self.tok = torch.zeros((batch,), dtype=torch.int32, device=device)
+
+
+@torch.no_grad()
+def _prefill_slot(model, b_kv: int, weights, tokens: torch.Tensor,
+                  p_len: int, slot: int, buf: _SlotBuffers) -> int:
+    """Prefill the padded prompt ``tokens [1, S]``, quantize its cache
+    block and write it into slot ``slot`` of ``buf``; returns the first
+    greedy token.  Positions past the prompt keep the previous occupant's
+    stale entries: attention masks them until this occupant overwrites
+    them token by token."""
+    last = torch.full((1,), p_len - 1, dtype=torch.int32,
+                      device=tokens.device)
+    logits, cache = model.prefill(weights, {"tokens": tokens},
+                                  last_index=last)
+    tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
+    k, v = cache["k"], cache["v"]            # [L, 1, S, KV, dh]
+    s = k.shape[2]
+    if b_kv >= 16:
+        buf.k_codes[:, slot:slot + 1, :s] = k.to(buf.k_codes.dtype)
+        buf.v_codes[:, slot:slot + 1, :s] = v.to(buf.v_codes.dtype)
+        buf.k_scales[:, slot:slot + 1, :s] = 1.0
+        buf.v_scales[:, slot:slot + 1, :s] = 1.0
+    else:
+        kq, ksn = kv_quantize(k, b_kv)
+        vq, vsn = kv_quantize(v, b_kv)
+        buf.k_codes[:, slot:slot + 1, :s] = kq
+        buf.v_codes[:, slot:slot + 1, :s] = vq
+        buf.k_scales[:, slot:slot + 1, :s] = ksn
+        buf.v_scales[:, slot:slot + 1, :s] = vsn
+    buf.pos[slot] = p_len
+    buf.tok[slot:slot + 1] = tok0
+    return int(tok0[0])
+
+
+@torch.no_grad()
+def _decode_chunk(model, b_kv: int, weights, buf: _SlotBuffers,
+                  live: torch.Tensor, eos: int, n_steps: int):
+    """Up to ``n_steps`` greedy decode steps over every slot of ``buf``;
+    returns (token block [B, _CHUNK] int32 on the device, steps run).
+
+    With ``eos >= 0`` the chunk ends early once every live slot has
+    emitted it (one flag read back per step); dead slots (live = 0) still
+    compute, but every op is row-independent, so nothing escapes their
+    row.
+    """
+    b = buf.tok.shape[0]
+    out = torch.zeros((b, _CHUNK), dtype=torch.int32, device=buf.tok.device)
+    live_m = live > 0
+    eos_hit = torch.zeros((b,), dtype=torch.bool, device=buf.tok.device)
+    steps = 0
+    while steps < n_steps:
+        logits, qc = model.decode_step_q(
+            weights, {"k_codes": buf.k_codes, "v_codes": buf.v_codes,
+                      "k_scales": buf.k_scales, "v_scales": buf.v_scales,
+                      "len": buf.pos},
+            {"token": buf.tok[:, None], "pos": buf.pos}, b_kv=b_kv)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        out[:, steps] = nxt
+        buf.tok, buf.pos = nxt, qc["len"]
+        steps += 1
+        if eos >= 0:
+            eos_hit |= nxt == eos
+            if not bool(torch.any(live_m & ~eos_hit)):
+                break
+    return out, steps
+
+
+# ---------------------------------------------------------------------------
+# engine internals
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _ClassState:
+    """One QoS class's resolved operating point."""
+    qos: QosClass
+    b_hat: int
+    b_eff: float                # mean agent bits (= b_hat when uniform)
+    b_kv: int
+    f: float
+    f_server: float
+    plan_key: tuple             # keys the materialized weight tree
+    plan_bits: tuple
+    solution: Any = None        # DecodeSolution when solved
+
+
+@dataclasses.dataclass
+class _Active:
+    """One in-flight request occupying a decode slot."""
+    req: DecodeRequest
+    generated: List[int]
+    admitted_s: float
+    ttft_s: float
+    last_emit_s: float
+    itls: List[float]
+    on_token: Optional[Callable]
+
+
+class _Group(_SlotBuffers):
+    """One (QoS class, cache bucket) slot block of ``max_batch`` slots.
+    Inactive rows hold pos = 0 / token = 0 and compute garbage that never
+    escapes the row; the next admission overwrites the prompt span before
+    position 0 is attended."""
+
+    def __init__(self, cfg, qos_name: str, t_bucket: int, max_batch: int,
+                 b_kv: int, device):
+        super().__init__(cfg, t_bucket, max_batch, b_kv, device)
+        self.qos_name = qos_name
+        self.slots: List[Optional[_Active]] = [None] * max_batch
+        self.barrier_open = True
+
+    def active_count(self) -> int:
+        return sum(1 for s in self.slots if s is not None)
+
+    def free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self.slots):
+            if s is None:
+                return i
+        return None
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+class DecodeEngine:
+    """Continuous-batching greedy decode over quantized KV-cache slots.
+
+    Per class, ``auto=True`` runs one memoized ``solve_decode`` for
+    (b̂, f, f̃, b_kv); the class's agent partition is then materialized
+    once as a fake-quantized weight tree (``runtime.qat``), shared by
+    classes with the same plan.  An infeasible class raises
+    ``ValueError``.  ``auto=False`` pins b̂ = 8 / b_kv = 8 at the maximum
+    frequencies until :meth:`set_operating_point` says otherwise.
+    ``admission`` is ``"continuous"`` or ``"barrier"``; ``eos_id`` retires
+    a request at its first emission of that token.  Runs on the CUDA card
+    unless ``device="cpu"`` is asked for.
+    """
+
+    def __init__(self, model, params, sysp: SystemParams, *,
+                 classes: Sequence[QosClass],
+                 max_batch: int = 4,
+                 max_new_tokens: int = 16,
+                 admission: str = "continuous",
+                 mixed_precision: bool = False,
+                 kv_ladder: "tuple[int, ...]" = (4, 8, 16),
+                 kv_weight: float = 1.0,
+                 b_emb: Optional[int] = None,
+                 auto: bool = True,
+                 lam: Optional[float] = None,
+                 lam_kv: Optional[float] = None,
+                 eos_id: Optional[int] = None,
+                 codesign_cache: Optional[CodesignCache] = None,
+                 seq_bucket_base: int = DEFAULT_SEQ_BASE,
+                 tracer=None, metrics=None, device=None):
+        gap = decode_protocol_gap(model)
+        if gap is not None:
+            raise TypeError(f"{type(model).__name__} {gap}; the decode "
+                            "engine needs the DecoderLM decode protocol")
+        if admission not in ("continuous", "barrier"):
+            raise ValueError(f"unknown admission policy {admission!r}")
+        if not classes:
+            raise ValueError("need at least one QoS class")
+        if int(max_batch) < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if mixed_precision:
+            raise _not_ported("mixed-precision decode")
+        if tracer is not None or metrics is not None:
+            raise _not_ported("the decode engine's tracer/metrics hooks")
+        self.device = resolve_device(device)
+        set_float32_numerics()
+        self.model = model
+        self.cfg = model.cfg
+        self.params = tree_map(lambda a: a.to(self.device), params)
+        self.sysp = sysp
+        self.split = self.cfg.split_layer
+        self.max_batch = int(max_batch)
+        self.max_new_tokens = int(max_new_tokens)
+        self.admission = admission
+        self.mixed_precision = False
+        self.kv_ladder = tuple(int(b) for b in kv_ladder)
+        self.kv_weight = float(kv_weight)
+        self.b_emb = b_emb
+        self.eos_id = int(eos_id) if eos_id is not None else None
+        self.seq_bucket_base = int(seq_bucket_base)
+        self._axes = model.logical_axes()
+        self.lam = float(lam) if lam is not None \
+            else fit_lambda(self.params, self.split)
+        self.lam_kv = float(lam_kv) if lam_kv is not None \
+            else fit_kv_lambda(model, self.params)
+        self.codesign_cache = codesign_cache if codesign_cache is not None \
+            else CodesignCache()
+        self._own_hits = self._own_misses = 0
+        self._weights: Dict[tuple, Any] = {}
+        self._classes: Dict[str, Optional[_ClassState]] = {}
+        self._groups: Dict[tuple, _Group] = {}
+        self._rr: List[tuple] = []          # round-robin group order
+        self._queue: List[DecodeRequest] = []
+        self._on_token: Dict[int, Optional[Callable]] = {}
+        self._next_rid = 0
+        self._clock = 0.0
+        self._energy = 0.0
+        self._prefills = 0
+        self._rounds = 0
+        self._served = 0
+        self._cancelled = 0
+        self._tokens_out = 0
+        self._kv_bytes = 0
+        self._kv_bytes_full = 0
+        self._h2d = 0
+        self._d2h = 0
+        self._class_lat: Dict[str, Dict[str, list]] = {}
+        for c in classes:
+            if auto:
+                self._resolve_class(c)
+            else:
+                self._classes[c.name] = None
+                self.set_operating_point(c.name, 8, 8, qos=c)
+            self._class_lat[c.name] = {"ttft": [], "itl": [], "tokens": []}
+
+    # ------------------------------------------------------------------
+    # operating points
+    # ------------------------------------------------------------------
+    def flop_split(self, tokens: int):
+        """(agent_flops, server_flops) for ``tokens`` positions."""
+        per_layer = self.cfg.active_param_count() / max(self.cfg.n_layers, 1)
+        n_agent = 2.0 * per_layer * self.split * tokens
+        n_server = 2.0 * per_layer * (self.cfg.n_layers - self.split) \
+            * tokens
+        return n_agent, n_server
+
+    def _resolve_class(self, c: QosClass) -> None:
+        h0, m0 = self.codesign_cache.hits, self.codesign_cache.misses
+        sol = self.codesign_cache.solve_decode(
+            self.lam, self.lam_kv, self.sysp, c, int(self.sysp.b_full),
+            b_emb=self.b_emb, kv_ladder=self.kv_ladder,
+            kv_weight=self.kv_weight)
+        self._own_hits += self.codesign_cache.hits - h0
+        self._own_misses += self.codesign_cache.misses - m0
+        if sol is None:
+            raise ValueError(
+                f"QoS class {c.name!r} (T0={c.t0}, E0={c.e0}) is "
+                "infeasible at every KV-cache bit-width "
+                f"{self.kv_ladder}")
+        self._classes[c.name] = None
+        self.set_operating_point(c.name, sol.b_hat, sol.b_kv, f=sol.f,
+                                 f_server=sol.f_server, qos=c,
+                                 solution=sol)
+
+    def set_operating_point(self, qos_name: str, target, b_kv: int, *,
+                            f: Optional[float] = None,
+                            f_server: Optional[float] = None,
+                            qos: Optional[QosClass] = None,
+                            solution=None) -> None:
+        """Pin a class's (weights bit target, b_kv, frequencies).
+
+        ``target`` is a uniform b̂ or a :class:`QuantPlan` over the agent
+        partition.  Call it before the class's first admission: live
+        slots hold caches made under the previous weights.
+        """
+        if qos is None:
+            prev = self._classes.get(qos_name)
+            if prev is None:
+                raise KeyError(f"unknown QoS class {qos_name!r}")
+            qos = prev.qos
+        b_kv = int(b_kv)
+        if b_kv < 2:
+            raise ValueError(f"b_kv={b_kv} below the 2-bit floor")
+        if isinstance(target, QuantPlan):
+            plan_key = target.key()
+            b_eff = float(target.mean_bits(self.split))
+            b_hat = int(round(b_eff))
+            plan_bits = tuple(target.layer_bit_list(self.split))
+            qcfg: Any = target
+        else:
+            b_hat = int(target)
+            b_eff = float(b_hat)
+            plan_key = ("uniform", b_hat)
+            plan_bits = ()
+            qcfg = QuantConfig(bits=b_hat, scheme="uniform",
+                               granularity="per-channel")
+        if plan_key not in self._weights:
+            self._weights[plan_key] = fake_quantize_agent(
+                self.params, self._axes, self.cfg, qcfg, ste=False)
+        self._classes[qos_name] = _ClassState(
+            qos=qos, b_hat=b_hat, b_eff=b_eff, b_kv=b_kv,
+            f=float(f) if f is not None else self.sysp.f_max,
+            f_server=float(f_server) if f_server is not None
+            else self.sysp.f_server_max,
+            plan_key=plan_key, plan_bits=plan_bits, solution=solution)
+
+    def solution_for(self, qos_name: str):
+        """The class's decode codesign solution (None when pinned)."""
+        return self._classes[qos_name].solution
+
+    def b_kv_for(self, qos_name: str) -> int:
+        return self._classes[qos_name].b_kv
+
+    def class_params(self, qos_name: str):
+        """The class's fake-quantized weight tree: what the sequential
+        reference must decode with for parity."""
+        return self._weights[self._classes[qos_name].plan_key]
+
+    def warmup(self, max_prompt: int, max_new: Optional[int] = None) -> int:
+        """Nothing is compiled in this eager port: returns 0."""
+        return 0
+
+    # ------------------------------------------------------------------
+    # queue API
+    # ------------------------------------------------------------------
+    def submit(self, tokens, qos: str,
+               max_new_tokens: Optional[int] = None,
+               arrival_s: Optional[float] = None,
+               on_token: Optional[Callable] = None) -> int:
+        """Queue a prompt; returns its request id.  ``on_token(request_id,
+        token, t_s)`` streams each generated token at its virtual
+        emission time."""
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        if toks.size == 0:
+            raise ValueError("empty prompt")
+        if qos not in self._classes:
+            raise KeyError(f"unknown QoS class {qos!r}")
+        m = int(max_new_tokens) if max_new_tokens is not None \
+            else self.max_new_tokens
+        if m < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        rid = self._next_rid
+        self._next_rid += 1
+        arr = float(arrival_s) if arrival_s is not None else self._clock
+        self._queue.append(DecodeRequest(
+            request_id=rid, tokens=toks, qos=qos, max_new_tokens=m,
+            arrival_s=arr))
+        self._on_token[rid] = on_token
+        return rid
+
+    @property
+    def pending(self) -> int:
+        return len(self._queue)
+
+    @property
+    def in_flight(self) -> int:
+        return sum(g.active_count() for g in self._groups.values())
+
+    @property
+    def clock_s(self) -> float:
+        return self._clock
+
+    def request_bucket(self, req: DecodeRequest) -> int:
+        """A request's cache bucket: a function of its OWN prompt length
+        and budget, never of its batch-mates."""
+        return int(seq_bucket(req.tokens.size + req.max_new_tokens,
+                              self.seq_bucket_base))
+
+    def cancel(self, request_id: int) -> Optional[DecodeResponse]:
+        """Retire a request mid-decode (or drop it from the queue); frees
+        the slot at once and returns the partial response, or None if the
+        id is unknown or already retired."""
+        for i, r in enumerate(self._queue):
+            if r.request_id == request_id:
+                del self._queue[i]
+                self._cancelled += 1
+                self._on_token.pop(request_id, None)
+                return DecodeResponse(
+                    request_id=request_id, qos=r.qos,
+                    tokens=np.zeros((0,), np.int32),
+                    prompt_len=r.tokens.size,
+                    b_kv=self._classes[r.qos].b_kv,
+                    ttft_s=float("nan"), itl_mean_s=0.0,
+                    finished_s=self._clock, cancelled=True)
+        for g in self._groups.values():
+            for i, act in enumerate(g.slots):
+                if act is not None and act.req.request_id == request_id:
+                    return self._retire(g, i, cancelled=True)
+        return None
+
+    def fast_forward(self, t_s: float) -> None:
+        """Advance the virtual clock to ``t_s`` (never backwards)."""
+        self._clock = max(self._clock, float(t_s))
+
+    def decode_round_cost(self, qos_name: str, t_bucket: int):
+        """(seconds, joules) of one decode step for the class at cache
+        bucket ``t_bucket``."""
+        return self._round_cost(self._classes[qos_name], int(t_bucket))
+
+    def snapshot_request(self, request_id: int):
+        raise _not_ported("snapshot_request (the supervisor's hook)")
+
+    # ------------------------------------------------------------------
+    # the decode loop
+    # ------------------------------------------------------------------
+    def step(self, max_decode_steps: Optional[int] = None) \
+            -> List[DecodeResponse]:
+        """One engine round: admit what the policy allows, then run one
+        decode chunk for the next non-empty slot block (round-robin).
+        Returns the requests that retired.  ``max_decode_steps`` caps the
+        chunk; 1 gives one token per round."""
+        out: List[DecodeResponse] = []
+        if self.in_flight == 0 and self._queue:
+            nxt = min(r.arrival_s for r in self._queue)
+            if nxt > self._clock:
+                self._clock = nxt         # fast-forward an idle engine
+        self._admit(out)
+        g = self._next_group()
+        if g is not None:
+            self._decode_round(g, out, max_decode_steps)
+        return out
+
+    def drain(self) -> List[DecodeResponse]:
+        out: List[DecodeResponse] = []
+        while self._queue or self.in_flight:
+            out.extend(self.step())
+        return out
+
+    def _group_for(self, req: DecodeRequest) -> _Group:
+        t = self.request_bucket(req)
+        key = (req.qos, t)
+        if key not in self._groups:
+            self._groups[key] = _Group(self.cfg, req.qos, t, self.max_batch,
+                                       self._classes[req.qos].b_kv,
+                                       self.device)
+            self._rr.append(key)
+        return self._groups[key]
+
+    def _admit(self, out: List[DecodeResponse]) -> None:
+        admitted = True
+        while admitted:
+            admitted = False
+            for qi, req in enumerate(self._queue):
+                if req.arrival_s > self._clock:
+                    continue
+                g = self._group_for(req)
+                if self.admission == "barrier" and not g.barrier_open:
+                    continue
+                slot = g.free_slot()
+                if slot is None:
+                    continue
+                del self._queue[qi]
+                self._prefill_into(g, slot, req, out)
+                admitted = True
+                break
+        if self.admission == "barrier":
+            for g in self._groups.values():
+                if g.active_count() > 0:
+                    g.barrier_open = False
+
+    def _prefill_into(self, g: _Group, slot: int, req: DecodeRequest,
+                      out: List[DecodeResponse]) -> None:
+        c = self._classes[req.qos]
+        p_len = req.tokens.size
+        s_bucket = int(seq_bucket(p_len, self.seq_bucket_base))
+        padded = np.zeros((1, s_bucket), np.int32)
+        padded[0, :p_len] = req.tokens
+        first = _prefill_slot(self.model, c.b_kv, self._weights[c.plan_key],
+                              torch.from_numpy(padded).to(self.device),
+                              p_len, slot, g)
+        # the interface's traffic: the padded prompt and two scalars in,
+        # the first token out
+        self._h2d += padded.nbytes + 8
+        self._d2h += 4
+        # bill the prefill at its bucketed workload on the virtual clock
+        t_pre, e_pre = self._prefill_cost(c, s_bucket)
+        self._clock += t_pre
+        self._energy += e_pre
+        self._prefills += 1
+        shape = (self.cfg.n_layers, 1, g.t_bucket, self.cfg.n_kv_heads,
+                 self.cfg.head_dim)
+        self._kv_bytes += 2 * kv_cache_bytes(shape, c.b_kv)
+        self._kv_bytes_full += int(2 * np.prod(shape)
+                                   * self.sysp.b_full / 8.0)
+        act = _Active(req=req, generated=[first],
+                      admitted_s=self._clock,
+                      ttft_s=self._clock - req.arrival_s,
+                      last_emit_s=self._clock, itls=[],
+                      on_token=self._on_token.pop(req.request_id, None))
+        g.slots[slot] = act
+        if act.on_token is not None:
+            act.on_token(req.request_id, first, self._clock)
+        if len(act.generated) >= req.max_new_tokens:
+            out.append(self._retire(g, slot))
+
+    def _next_group(self) -> Optional[_Group]:
+        for _ in range(len(self._rr)):
+            key = self._rr.pop(0)
+            self._rr.append(key)
+            g = self._groups[key]
+            if g.active_count() > 0:
+                return g
+        return None
+
+    def _chunk_steps(self, g: _Group, t_round: float,
+                     max_steps: Optional[int]) -> int:
+        """Steps this chunk may run: the tightest of the live slots'
+        remaining budgets, the next queued arrival, the block width and
+        the caller's cap."""
+        rem = min(a.req.max_new_tokens - len(a.generated)
+                  for a in g.slots if a is not None)
+        k = max(1, min(rem, _CHUNK))
+        future = [r.arrival_s for r in self._queue
+                  if r.arrival_s > self._clock]
+        if future:
+            due = (min(future) - self._clock) / max(t_round, 1e-12)
+            k = min(k, max(1, int(math.ceil(due))))
+        if max_steps is not None:
+            k = min(k, max(1, int(max_steps)))
+        return k
+
+    def _decode_round(self, g: _Group, out: List[DecodeResponse],
+                      max_steps: Optional[int] = None) -> None:
+        c = self._classes[g.qos_name]
+        t_round, e_round = self._round_cost(c, g.t_bucket)
+        k = self._chunk_steps(g, t_round, max_steps)
+        live = np.zeros((self.max_batch,), np.int32)
+        live_rows = [i for i, a in enumerate(g.slots) if a is not None]
+        live[live_rows] = 1
+        eos = self.eos_id if self.eos_id is not None else -1
+        blk, steps = _decode_chunk(self.model, c.b_kv,
+                                   self._weights[c.plan_key], g,
+                                   torch.from_numpy(live).to(self.device),
+                                   eos, k)
+        blk = blk.cpu().numpy()
+        # the interface's traffic, independent of the cache size: the live
+        # mask and two scalars in, the token block and step count out
+        self._h2d += live.nbytes + 8
+        self._d2h += blk.nbytes + 4
+        clock0 = self._clock
+        self._clock += steps * t_round
+        self._energy += steps * e_round
+        self._rounds += steps
+        finished: List[int] = []
+        done = set()
+        for j in range(steps):
+            t_emit = clock0 + (j + 1) * t_round
+            for i in live_rows:
+                if i in done:
+                    continue
+                act = g.slots[i]
+                tok_ij = int(blk[i, j])
+                act.generated.append(tok_ij)
+                act.itls.append(t_emit - act.last_emit_s)
+                act.last_emit_s = t_emit
+                if act.on_token is not None:
+                    act.on_token(act.req.request_id, tok_ij, t_emit)
+                if (self.eos_id is not None and tok_ij == self.eos_id) \
+                        or len(act.generated) >= act.req.max_new_tokens:
+                    done.add(i)
+                    finished.append(i)
+        for i in finished:
+            out.append(self._retire(g, i))
+
+    def _retire(self, g: _Group, slot: int,
+                cancelled: bool = False) -> DecodeResponse:
+        act = g.slots[slot]
+        g.slots[slot] = None
+        g.pos[slot] = 0
+        g.tok[slot] = 0
+        if g.active_count() == 0:
+            g.barrier_open = True
+        c = self._classes[act.req.qos]
+        itl = float(np.mean(act.itls)) if act.itls else 0.0
+        if cancelled:
+            self._cancelled += 1
+        else:
+            self._served += 1
+            lat = self._class_lat[act.req.qos]
+            lat["ttft"].append(act.ttft_s)
+            lat["itl"].extend(act.itls)
+            lat["tokens"].append(len(act.generated))
+        self._tokens_out += len(act.generated)
+        return DecodeResponse(
+            request_id=act.req.request_id, qos=act.req.qos,
+            tokens=np.asarray(act.generated, np.int32),
+            prompt_len=act.req.tokens.size, b_kv=c.b_kv,
+            ttft_s=act.ttft_s, itl_mean_s=itl,
+            finished_s=act.last_emit_s, cancelled=cancelled)
+
+    # ------------------------------------------------------------------
+    # billing (float64 on the host)
+    # ------------------------------------------------------------------
+    def _prefill_cost(self, c: _ClassState, s_bucket: int):
+        n_a, n_s = self.flop_split(s_bucket)
+        p = dataclasses.replace(self.sysp, n_flop_agent=n_a,
+                                n_flop_server=n_s)
+        t = float(agent_delay(c.b_eff, c.f, p)) \
+            + float(server_delay(c.f_server, p))
+        e = float(agent_energy(c.b_eff, c.f, p)) \
+            + float(server_energy(c.f_server, p))
+        return t, e
+
+    def _round_cost(self, c: _ClassState, t_bucket: int):
+        """One decode step over the FULL slot block: all ``max_batch``
+        rows and the whole [L, B, T] cache read at b_kv are billed whether
+        or not every slot is live."""
+        n_a, n_s = self.flop_split(self.max_batch)
+        kv_full = 2.0 * self.cfg.n_layers * self.max_batch * t_bucket \
+            * self.cfg.n_kv_heads * self.cfg.head_dim \
+            * (self.sysp.b_full / 8.0)
+        p = dataclasses.replace(self.sysp, n_flop_agent=n_a,
+                                n_flop_server=n_s, kv_bytes_full=kv_full)
+        t = float(agent_delay(c.b_eff, c.f, p)) \
+            + float(server_delay(c.f_server, p)) \
+            + float(kv_delay(c.b_kv, p))
+        e = float(agent_energy(c.b_eff, c.f, p)) \
+            + float(server_energy(c.f_server, p)) \
+            + float(kv_energy(c.b_kv, p))
+        return t, e
+
+    # ------------------------------------------------------------------
+    # reporting
+    # ------------------------------------------------------------------
+    def report(self) -> DecodeReport:
+        classes = []
+        for name, c in self._classes.items():
+            lat = self._class_lat[name]
+            itls = np.asarray(lat["itl"], np.float64)
+            classes.append(ClassDecodeStats(
+                qos=name, b_hat=c.b_hat, b_kv=c.b_kv,
+                requests=len(lat["ttft"]),
+                tokens=int(sum(lat["tokens"])),
+                ttft_mean_s=float(np.mean(lat["ttft"]))
+                if lat["ttft"] else 0.0,
+                ttft_max_s=float(np.max(lat["ttft"]))
+                if lat["ttft"] else 0.0,
+                itl_mean_s=float(np.mean(itls)) if itls.size else 0.0,
+                plan_bits=c.plan_bits,
+                itl_p50_s=float(np.percentile(itls, 50))
+                if itls.size else 0.0,
+                itl_p95_s=float(np.percentile(itls, 95))
+                if itls.size else 0.0))
+        clock = max(self._clock, 1e-12)
+        return DecodeReport(
+            requests_served=self._served, cancelled=self._cancelled,
+            tokens_generated=self._tokens_out, prefills=self._prefills,
+            decode_rounds=self._rounds, total_delay_s=self._clock,
+            total_energy_j=self._energy,
+            throughput_tps=self._tokens_out / clock,
+            throughput_rps=self._served / clock,
+            admission=self.admission, classes=tuple(classes),
+            kv_bytes=self._kv_bytes, kv_bytes_full=self._kv_bytes_full,
+            codesign_hits=self._own_hits,
+            codesign_misses=self._own_misses,
+            h2d_bytes=self._h2d, d2h_bytes=self._d2h)
+
+
+# ---------------------------------------------------------------------------
+# the non-batched sequential reference
+# ---------------------------------------------------------------------------
+
+def greedy_decode_reference(model, weights, tokens, max_new_tokens: int, *,
+                            b_kv: int,
+                            seq_bucket_base: int = DEFAULT_SEQ_BASE,
+                            reserve_tokens: Optional[int] = None,
+                            state: Optional[dict] = None,
+                            return_state: bool = False,
+                            device=None):
+    """One request at batch width 1: the parity oracle.
+
+    Decodes ``max_new_tokens`` greedy tokens from ``tokens`` under the
+    same bucketing, prefill-and-scatter and quantized-cache step as
+    :class:`DecodeEngine`; the engine must reproduce it token for token
+    at any batch width, admission order and chunking.
+
+    ``reserve_tokens`` fixes the cache bucket from a larger planned budget
+    (``T = seq_bucket(prompt + reserve)``) so a decode can be split across
+    calls: ``return_state=True`` also returns the state as plain numpy
+    arrays, and passing it back as ``state`` continues bitwise as the
+    uninterrupted run would.  Runs on the CUDA card unless
+    ``device="cpu"`` is asked for.
+    """
+    dev = resolve_device(device)
+    set_float32_numerics()
+    cfg = model.cfg
+    weights = tree_map(lambda a: a.to(dev), weights)
+    out: List[int] = []
+    if state is None:
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        p_len = toks.size
+        if p_len == 0:
+            raise ValueError("empty prompt")
+        t_bucket = int(seq_bucket(
+            p_len + (reserve_tokens if reserve_tokens is not None
+                     else max_new_tokens), seq_bucket_base))
+        s_bucket = int(seq_bucket(p_len, seq_bucket_base))
+        padded = np.zeros((1, s_bucket), np.int32)
+        padded[0, :p_len] = toks
+        buf = _SlotBuffers(cfg, t_bucket, 1, b_kv, dev)
+        out.append(_prefill_slot(model, b_kv, weights,
+                                 torch.from_numpy(padded).to(dev), p_len, 0,
+                                 buf))
+        remaining = max_new_tokens - 1
+    else:
+        t_bucket = int(state["t_bucket"])
+        buf = _SlotBuffers(cfg, t_bucket, 1, b_kv, dev)
+        for name in ("k_codes", "v_codes", "k_scales", "v_scales"):
+            getattr(buf, name).copy_(torch.from_numpy(
+                np.asarray(state[name])))
+        buf.pos.fill_(int(state["pos"]))
+        buf.tok.fill_(int(state["last_token"]))
+        remaining = max_new_tokens
+    live = torch.ones((1,), dtype=torch.int32, device=dev)
+    while remaining > 0:
+        blk, steps = _decode_chunk(model, b_kv, weights, buf, live, -1,
+                                   min(remaining, _CHUNK))
+        out.extend(blk[0, :steps].cpu().tolist())
+        remaining -= steps
+    result = np.asarray(out, np.int32)
+    if return_state:
+        return result, {"k_codes": buf.k_codes.cpu().numpy(),
+                        "v_codes": buf.v_codes.cpu().numpy(),
+                        "k_scales": buf.k_scales.cpu().numpy(),
+                        "v_scales": buf.v_scales.cpu().numpy(),
+                        "pos": np.int32(int(buf.pos[0])),
+                        "last_token": np.int32(int(buf.tok[0])),
+                        "t_bucket": np.int32(t_bucket)}
+    return result

@@ -17,7 +17,8 @@ Agent execution paths:
   the kernel path at other uniform widths, as in the reference).
 
 The engine runs on the CUDA card unless ``device="cpu"`` is asked for; on
-the CPU every kernel wrapper runs its plain version.  The batched engine,
+the CPU every kernel wrapper runs its plain version.  :class:`CodesignCache`
+memoizes the codesign solves for the decode engine.  The batched engine,
 the compiled fast path and the tracer/metrics hooks are later slices.
 """
 
@@ -38,7 +39,7 @@ from ..core.quantization import (QuantConfig, QuantPlan, quantize_dequantize,
 from ..device import resolve_device, set_float32_numerics
 from ..kernels import ops as kops
 from ..models import layers as L
-from ..models.lm import tree_map
+from ..models.lm import tree_leaves, tree_map
 from . import fastpath as fp
 from .qat import fake_quantize_agent
 
@@ -79,20 +80,72 @@ def fit_lambda(params, split: int) -> float:
     rate over layers ``[0, split)``.
     """
     total, count = 0.0, 0
-
-    def leaves(t):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                yield from leaves(t[k])
-        else:
-            yield t
-
-    for leaf in leaves(params["layers"]):
+    for leaf in tree_leaves(params["layers"]):
         if leaf.ndim >= 3 and torch.is_floating_point(leaf):
             sl = leaf[: min(split, leaf.shape[0])]
             total += float(torch.sum(torch.abs(sl)))
             count += sl.numel()
     return count / max(total, 1e-30) if count else 100.0
+
+
+class CodesignCache:
+    """Memoizes ``(SystemParams, QosClass) -> solution``.
+
+    Every decision input (the weight statistic ``lam``, the hardware
+    constants, the class's (T0, E0)) is hashable, so one dict amortizes the
+    host-side solve across every request of a class and across engines
+    sharing the cache.  Infeasible classes are cached as ``None``.  The
+    mixed-precision ``solve_mixed`` waits for its slice.
+    """
+
+    def __init__(self):
+        self._store: Dict[tuple, Any] = {}
+        self.hits = 0
+        self.misses = 0
+
+    @staticmethod
+    def key(lam: float, sysp: SystemParams, qos: QosClass,
+            b_max: int, b_emb: Optional[int] = None,
+            env_key: Optional[tuple] = None) -> tuple:
+        # keyed on the numbers, not qos.name: two classes with equal
+        # (T0, E0) share one solve; ``env_key`` tags a solve made under an
+        # environment-adjusted SystemParams (the adaptive engine's)
+        return (round(float(lam), 12), sysp, float(qos.t0), float(qos.e0),
+                int(b_max), b_emb, env_key)
+
+    def _get(self, k: tuple, solve):
+        if k in self._store:
+            self.hits += 1
+        else:
+            self.misses += 1
+            self._store[k] = solve()
+        return self._store[k]
+
+    def solve(self, lam: float, sysp: SystemParams, qos: QosClass,
+              b_max: int, b_emb: Optional[int] = None,
+              env_key: Optional[tuple] = None
+              ) -> Optional[cd.CodesignSolution]:
+        return self._get(
+            self.key(lam, sysp, qos, b_max, b_emb, env_key),
+            lambda: cd.solve_sca(lam, sysp, qos.t0, qos.e0, b_max=b_max,
+                                 b_emb=b_emb))
+
+    def solve_decode(self, lam: float, lam_kv: float, sysp: SystemParams,
+                     qos: QosClass, b_max: int,
+                     b_emb: Optional[int] = None,
+                     kv_ladder: "tuple[int, ...]" = (4, 8, 16),
+                     kv_weight: float = 1.0,
+                     env_key: Optional[tuple] = None
+                     ) -> Optional[cd.DecodeSolution]:
+        """Memoized joint (b̂, f, f̃, b_kv) decode solve, in a "kv"-tagged
+        keyspace beside :meth:`solve`'s, so decode and prefill engines
+        share one memoizer."""
+        k = ("kv", round(float(lam), 12), round(float(lam_kv), 12), sysp,
+             float(qos.t0), float(qos.e0), int(b_max), b_emb,
+             tuple(int(b) for b in kv_ladder), float(kv_weight), env_key)
+        return self._get(k, lambda: cd.solve_decode(
+            lam, lam_kv, sysp, qos.t0, qos.e0, b_max=b_max, b_emb=b_emb,
+            kv_ladder=kv_ladder, kv_weight=kv_weight))
 
 
 class CoInferenceEngine:

@@ -1,6 +1,7 @@
 """``python -m repro_torch.launch.serve`` on the CPU: the sequential kernel
 path runs, prints the b̂ that the reference's SCA gives for the same
-problem, and every mode not ported yet exits 2 with one line."""
+problem, the decode mode prints the reference's lines and passes its own
+parity check, and every mode not ported yet exits 2 with one line."""
 
 import os
 import pathlib
@@ -51,9 +52,33 @@ def test_sequential_kernel_path_prints_reference_b_hat(capsys):
     assert "served batch (4, 64): logits (4, 64, 512)" in out.out
 
 
+def test_decode_mode_runs_with_parity_check():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--decode", "--device", "cpu", "--max-new", "4", "--requests", "4",
+         "--parity-check"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("arch=qwen2-0.5b-smoke split=1/4 ")
+    assert "engine=decode max_batch=4 max_new=4 admission=continuous" \
+        in lines[0]
+    assert lines[1] == "warmup: 0 decode variants compiled in 0.0s"
+    assert re.match(r"  class realtime +\(T0=1\.17s, E0=1\.00J\): b_hat=\d+ "
+                    r"b_kv=(4|8|16) ", lines[2])
+    assert lines[3].startswith("  class interactive  (T0=3.50s, E0=2.00J)")
+    assert "served 4 requests, 16 tokens in " in out.stdout
+    assert re.search(r"  \[realtime    \] n=2 b_kv=\d+ ttft=", out.stdout)
+    assert "decode report: throughput=" in out.stdout
+    assert "compile cache: 0 variants, 0 hits / 0 misses" in out.stdout
+    assert lines[-1] == ("parity: all 4 requests bitwise-match the "
+                         "sequential reference")
+
+
 @pytest.mark.parametrize("args", [
     (), ("--engine", "sequential", "--compiled"),
-    ("--engine", "sequential", "--decode"),
+    ("--decode", "--speculative"),
     ("--engine", "sequential", "--fleet", "spec.json"),
 ])
 def test_unported_modes_exit_2(capsys, args):

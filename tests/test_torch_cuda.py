@@ -8,7 +8,9 @@ with a card (and no JAX) run them with
 Shapes cover what the reference accepts beyond the serving path: any G
 dividing K (1, 64, 128, 256, and one group of K < 128 rows), odd N, and
 int4 with K % 256 != 0.  Codes and scales must be equal; matmuls agree at
-rtol = atol = 1e-4, the tolerance of tests/test_kernels.py.
+rtol = atol = 1e-4, the tolerance of tests/test_kernels.py.  Decode
+attention agrees with its plain version within 1e-5 x max|out| (f32 sums
+in another order), and is bitwise row-independent and padding-invisible.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch import kernels as tk
 from repro_torch.kernels import ref
+from repro_torch.kernels.quantize import kv_quantize
 
 pytestmark = pytest.mark.cuda
 
@@ -83,3 +86,50 @@ def test_bf16_activation_keeps_its_dtype(dev):
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out, ref.qmm_ref(x, codes, scales),
                                rtol=2e-2, atol=2e-2)
+
+
+def _decode_case(dev, b, t, b_kv, seed, lens, h=14, kv=2, dh=64):
+    q = _normal(seed, (b, 1, h, dh), dev)
+    k = _normal(seed + 1, (b, t, kv, dh), dev)
+    v = _normal(seed + 2, (b, t, kv, dh), dev)
+    if b_kv < 16:
+        (kc, ks), (vc, vs) = kv_quantize(k, b_kv), kv_quantize(v, b_kv)
+    else:
+        kc, vc = k, v
+        ks = vs = torch.ones(k.shape[:-1], device=dev)
+    return q, kc, vc, ks, vs, torch.tensor(lens, dtype=torch.int32,
+                                           device=dev)
+
+
+@pytest.mark.parametrize("b_kv", [4, 8, 16])
+@pytest.mark.parametrize("t,window", [(128, 0), (1024, 0), (1024, 100),
+                                      (4096, 0)])
+def test_decode_attention_equals_plain(dev, b_kv, t, window):
+    lens = [0, 1, t // 2 + 3, t]
+    args = _decode_case(dev, 4, t, b_kv, seed=t + b_kv, lens=lens)
+    before = tk.quantized_decode_attention.launches
+    out = tk.quantized_decode_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert tk.quantized_decode_attention.launches == before + 1
+    want = ref.quantized_decode_attention_ref(*args, window=window)
+    tol = 1e-5 * float(want.abs().max())
+    assert float((out - want).abs().max()) <= tol
+    assert (out[0] == 0).all()                  # cache_len 0
+    # row independence: each row alone is bitwise the batched row
+    for i in range(4):
+        alone = tk.quantized_decode_attention(
+            *(a[i:i + 1] for a in args), window=window)
+        assert torch.equal(alone[0], out[i]), f"row {i}"
+
+
+@pytest.mark.parametrize("b_kv", [4, 16])
+def test_decode_attention_padding_is_invisible(dev, b_kv):
+    q, kc, vc, ks, vs, lens = _decode_case(dev, 2, 1024, b_kv, seed=3,
+                                           lens=[700, 1024])
+    out = tk.quantized_decode_attention(q, kc, vc, ks, vs, lens)
+    pad = (0, 0, 0, 0, 0, 1024)
+    grown = tk.quantized_decode_attention(
+        q, torch.nn.functional.pad(kc, pad), torch.nn.functional.pad(vc, pad),
+        torch.nn.functional.pad(ks, pad[2:]),
+        torch.nn.functional.pad(vs, pad[2:]), lens)
+    assert torch.equal(out, grown)

@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
-"""Where the time of one served forward goes, on the CUDA card.
+"""Where the time of one served forward, or one decode step, goes on the
+CUDA card.
 
     python3 tools/torch_forward_profile.py [--seq 64] [--batch 4]
+    python3 tools/torch_forward_profile.py --decode [--batch 4] [--cache 1024]
 
-Serves qwen2-0.5b at full width (24 layers, seeded random weights)
-through ``repro_torch``'s ``CoInferenceEngine(path="kernel")`` at b̂ = 8,
-b̂ = 4 and the plan [4, 4, 4, 8, 8, 8], and for each prints
+Serves qwen2-0.5b at full width (24 layers, seeded random weights).
+By default through ``repro_torch``'s ``CoInferenceEngine(path="kernel")``
+at b̂ = 8, b̂ = 4 and the plan [4, 4, 4, 8, 8, 8], and for each prints
 
 * the wall time of the agent stage, the uplink quantizer and the server
   stage (host clock around work that ends in ``torch.cuda.synchronize``,
   median of 5 after warm-up);
 * a ``torch.profiler`` trace of 3 forwards: device time by kernel name
   (top 12) and the device's busy share of the traced wall time.
+
+With ``--decode``: ``--batch`` prompts are prefilled through
+``greedy_decode_reference`` into one cache bucket of ``--cache``
+positions (b̂ = 8, b_kv = 8), and the greedy token step
+(``DecoderLM.decode_step_q`` then argmax) over that state is timed the
+same way: wall per step (median of 10) and a trace of 3 steps.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -58,6 +66,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--decode", action="store_true",
+                    help="profile the decode token step instead")
+    ap.add_argument("--cache", type=int, default=1024,
+                    help="decode cache bucket (--decode)")
     args = ap.parse_args(argv)
 
     import torch
@@ -80,6 +92,10 @@ def main(argv=None) -> int:
     cfg = FULL
     model = DecoderLM(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    if args.decode:
+        _profile_decode(cfg, model, params, args)
+        print(card.splitlines()[0])
+        return 0
     eng = CoInferenceEngine(model, params,
                             SystemParams(n_flop_agent=1.0, n_flop_server=1.0),
                             path="kernel")
@@ -110,16 +126,80 @@ def main(argv=None) -> int:
                 eng.serve_batch(batch)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        rows = [(e.key, _kernel_us(e), e.count)
-                for e in prof.key_averages() if _kernel_us(e) > 0]
-        busy = sum(us for _, us, _ in rows)
-        print(f"  traced 3 forwards: wall {wall_us / 1e3:.2f} ms, device "
-              f"busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%)")
-        for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
-            print(f"  {us / 1e3 / 3:9.3f} ms/forward  {count // 3:5d}x  "
-                  f"{key[:90]}")
+        _print_trace(prof, wall_us, 3, "forward")
     print(card.splitlines()[0])
     return 0
+
+
+def _print_trace(prof, wall_us: float, n: int, what: str) -> None:
+    """Device busy share of the traced wall and the top kernels by device
+    time, per ``what`` (n of them traced)."""
+    rows = [(e.key, _kernel_us(e), e.count)
+            for e in prof.key_averages() if _kernel_us(e) > 0]
+    busy = sum(us for _, us, _ in rows)
+    launches = sum(count for _, _, count in rows)
+    print(f"  traced {n} {what}s: wall {wall_us / 1e3:.2f} ms, device "
+          f"busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
+          f"{launches // n} kernel launches per {what}")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
+        print(f"  {us / 1e3 / n:9.3f} ms/{what}  {count // n:5d}x  "
+              f"{key[:90]}")
+
+
+def _profile_decode(cfg, model, params, args) -> None:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.cost_model import SystemParams
+    from repro_torch.runtime import (DecodeEngine, QosClass,
+                                     greedy_decode_reference)
+
+    pin = QosClass("interactive", t0=6.0, e0=2.0)
+    w = DecodeEngine(model, params, SystemParams(n_flop_agent=1.0,
+                                                 n_flop_server=1.0),
+                     classes=[pin], auto=False).class_params(pin.name)
+    rng = np.random.default_rng(0)
+    states = []
+    for _ in range(args.batch):
+        p = rng.integers(0, cfg.vocab_size,
+                         size=int(rng.integers(args.cache // 4,
+                                               args.cache // 2)))
+        states.append(greedy_decode_reference(
+            model, w, p, 2, b_kv=8, reserve_tokens=args.cache - p.size,
+            return_state=True)[1])
+    qc = {k: torch.from_numpy(np.concatenate([st[k] for st in states],
+                                             axis=1)).cuda()
+          for k in ("k_codes", "v_codes", "k_scales", "v_scales")}
+    pos = torch.tensor([int(st["pos"]) for st in states],
+                       dtype=torch.int32, device="cuda")
+    tok = torch.tensor([int(st["last_token"]) for st in states],
+                       dtype=torch.int32, device="cuda")
+
+    def step():
+        # the engine's token step: attend, write at pos, greedy pick; the
+        # written position stays the same, so every step does equal work
+        logits, _ = model.decode_step_q(w, {**qc, "len": pos},
+                                        {"token": tok[:, None], "pos": pos},
+                                        b_kv=8)
+        return torch.argmax(logits, dim=-1)
+
+    with torch.no_grad():
+        for _ in range(2):
+            step()
+        t_step = _wall_ms(step, reps=10)
+        print(f"\ndecode step [B={args.batch}, T={args.cache}, b_hat=8, "
+              f"b_kv=8]: {t_step:.2f} ms wall (median of 10), "
+              f"{args.batch * 1e3 / t_step:.1f} tokens/s")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    _print_trace(prof, wall_us, 3, "step")
 
 
 if __name__ == "__main__":
