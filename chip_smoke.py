@@ -43,15 +43,39 @@ nothing of JAX or of the JAX package ``repro``.
    CLI's two QoS classes.  The decode kernel's launch count, zeroed just
    before each run and read just after, must be 24 x the token steps run.
    Every response is held against ``greedy_decode_reference`` at batch 1,
-   and a run with the plain attention against the kernel run: tokens
+   and a run whose prefill and decode attentions are both the plain
+   versions (no launch at all) against the kernel run: tokens
    equal up to the first step whose top-2 logit margin in the reference
    run is below twice the logit difference measured on one step from the
    same state (batched against alone, or plain against kernel).  Prints
    the wall ms per token step at B = 4, tokens/s, the prefill wall per
    request and the kernel's device ms per step.
-7. Summary: one ``{"kernels": [...]}`` line, the card line, and last
+7. Flash attention against its plain version at qwen2-0.5b's heads
+   (H = 14 over KV = 2, dh = 64), operands in the model's [B, S, H, dh]
+   layout: B in {1, 4} x S = T in {64, 100, 512, 1024} causal, the
+   training shape B = 8 x S = 128, one sliding window of 128,
+   bidirectional with ragged ``kv_len``, bf16 input, dh = 128.  f32
+   within rtol = atol = FLASH_TOL (the reference's own,
+   tests/test_flash.py, elementwise), bf16 within one bf16 ulp; every
+   row of a batch bitwise equal to the row alone, and a sequence
+   right-padded inside its bucket bitwise equal on its real positions.
+   Times the kernel, its plain version and ``scaled_dot_product_attention
+   (is_causal=True, enable_gqa=True)`` on f32 at the serve shape (B = 4,
+   S = 64), the training shape (B = 8, S = 128) and S = 1024, B = 1.
+   Phases 4 and 6 count its launches too: 24 per forward and per prefill,
+   and phase 4's plain forward runs the plain attention through the
+   model's ``attend`` hook.
+8. Training at full width: ``Trainer.fit`` takes TRAIN_STEPS steps of
+   qwen2-0.5b ``FULL`` at batch 8 x seq 128 (the CLI's defaults) with
+   QAT at 8 bits and int8 error-feedback gradients; loss and grad norm
+   finite at every step, flash launches exactly 2 x 24 per step (the
+   forward and its recompute under remat).  Then one step from one state
+   with the kernel and one with the plain attention: losses within 1e-4
+   relative, grad norms within 1e-3, and at most 1e-3 of the updated
+   parameters apart by more than 1e-3 lr (see ``train_path``).
+9. Summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``; the per-shape numbers are printed
-   in phases 3 and 5.
+   in phases 3, 5 and 7.
 """
 
 from __future__ import annotations
@@ -80,6 +104,8 @@ DECODE_ARRIVE = (0, 0, 8, 8, 16, 4)               # 512 1024; x one step
 DECODE_NEW = 32
 DECODE_BUDGET = (6.0, 2.0)  # (T0, E0) of the auto run: both CLI classes
                             # feasible at full width
+FLASH_TOL = 2e-5            # flash vs plain, f32: tests/test_flash.py's
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 10
 
 
 def card_line() -> str:
@@ -217,9 +243,31 @@ def per_shape(cfg, w, x_all, flush, tk, ref, detail):
     return out
 
 
+def plain_attend(cfg):
+    """A model's ``attend`` through the flash kernel's plain version."""
+    from repro_torch.kernels import ref
+
+    def attend(q, k, v):
+        return ref.flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=cfg.sliding_window).transpose(1, 2)
+    return attend
+
+
+def plain_lm(cfg):
+    """``DecoderLM`` whose full-sequence attention is the plain version
+    (differentiable: autograd runs through it)."""
+    from repro_torch.models.lm import DecoderLM
+
+    class PlainLM(DecoderLM):
+        def attend(self, q, k, v):
+            return plain_attend(self.cfg)(q, k, v)
+    return PlainLM(cfg)
+
+
 def plain_agent_stage(eng, params, tokens, layer_bits):
     """The agent stage with every kernel replaced by its plain version
-    (weights quantized by the plain quantizer)."""
+    (weights quantized by the plain quantizer, the plain attention)."""
     from repro_torch.kernels import ref
     from repro_torch.models.lm import tree_map
     from repro_torch.runtime import fastpath as fp
@@ -242,7 +290,8 @@ def plain_agent_stage(eng, params, tokens, layer_bits):
         mm = ref.qmm_int4_ref if bits <= 4 else ref.qmm_ref
         x = fp.quantized_block(cfg, lambda wd, h: mm(h, wd["codes"],
                                                     wd["scales"]),
-                               w, tree_map(lambda a: a[i], side), x, pos)
+                               w, tree_map(lambda a: a[i], side), x, pos,
+                               plain_attend(cfg))
     return x, pos
 
 
@@ -369,8 +418,107 @@ def check_decode_kernel(dev, flush):
     return rows[8]
 
 
+def flash_case(dev, b, s, seed, dh=64, dtype=None, h=14, kv=2):
+    """q, k, v at qwen2-0.5b's heads in the model's [B, S, H, dh] layout,
+    seen as [B, H, S, dh] (strided views, as the path passes them)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((b, s, n, dh), generator=gen, device=dev)
+               for n in (h, kv, kv))
+    if dtype is not None:
+        q, k, v = (x.to(dtype) for x in (q, k, v))
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def flash_bound(q, k, causal=True):
+    """(ms, "bytes"|"operations") of one flash call: q, k, v and the
+    output once each; 4 * dh f32 flops per visible (query, key) pair."""
+    b, h, s, dh = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
+    n_bytes = q.element_size() * (2 * b * h * s * dh + 2 * b * kv * t * dh)
+    return bound_ms(n_bytes, 4.0 * dh * pairs * b * h)
+
+
+def check_flash_kernel(dev, flush):
+    """Phase 7; returns the kernel's summary numbers at the serve shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as tk
+    from repro_torch.kernels import ref
+
+    fwd = tk.flash_attention_fwd
+    cases = [dict(b=b, s=s) for b in (1, 4) for s in (64, 100, 512, 1024)]
+    cases += [dict(b=8, s=128),                      # the training shape
+              dict(b=4, s=1024, window=128),
+              dict(b=4, s=512, causal=False, kv_len=[512, 300, 77, 1]),
+              dict(b=4, s=512, dtype=torch.bfloat16),
+              dict(b=2, s=384, dh=128)]
+    err = 0.0
+    for c in cases:
+        b, s = c["b"], c["s"]
+        causal, window = c.get("causal", True), c.get("window", 0)
+        lens = c.get("kv_len")
+        lens = None if lens is None else torch.tensor(lens, device=dev)
+        q, k, v = flash_case(dev, b, s, seed=b * s, dh=c.get("dh", 64),
+                             dtype=c.get("dtype"))
+        out = fwd(q, k, v, causal=causal, window=window, kv_len=lens)
+        want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window, kv_len=lens)
+        torch.cuda.synchronize()
+        d = (out.float() - want.float()).abs()
+        what = f"flash attention {c}"
+        if out.dtype == torch.bfloat16:
+            # both round f32 results that agree to ~1e-6: one bf16 ulp
+            assert bool((d <= want.float().abs() * 2.0 ** -7
+                         + FLASH_TOL).all()), what
+        else:
+            torch.testing.assert_close(out, want, rtol=FLASH_TOL,
+                                       atol=FLASH_TOL, msg=what)
+            err = max(err, float(d.max()))
+        if b > 1:
+            for i in range(b):
+                alone = fwd(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                            causal=causal, window=window,
+                            kv_len=None if lens is None else lens[i:i + 1])
+                assert torch.equal(alone[0], out[i]), f"{what}: row {i}"
+    # right-padding inside the bucket: bitwise on the real positions
+    for s, padded, causal in ((100, 128, True), (600, 1024, True),
+                              (300, 512, False)):
+        q, k, v = flash_case(dev, 2, padded, seed=s)
+        short = fwd(q[:, :, :s], k[:, :, :s], v[:, :, :s], causal=causal)
+        long = fwd(q, k, v, causal=causal, kv_len=None if causal else s)
+        assert torch.equal(long[:, :, :s], short), \
+            f"flash attention: padding {s} -> {padded} changed bits"
+    print(f"flash attention vs plain: ok over {len(cases)} cases, "
+          f"max|d|={err:.3e} (f32); rows alone and bucket padding bitwise")
+
+    rows = {}
+    for b, s in ((4, 64), (8, 128), (1, 1024)):
+        q, k, v = flash_case(dev, b, s, seed=s)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+        lib_d = float((library() - fwd(q, k, v)).abs().max())
+        b_ms, by = flash_bound(q, k)
+        rows[(b, s)] = r = dict(
+            ms=time_ms(lambda: fwd(q, k, v), flush),
+            plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v),
+                             flush),
+            library_ms=time_ms(library, flush), bound_ms=b_ms, bound_by=by,
+            max_abs_err=err)
+        print(f"  flash_attention_fwd B={b} S=T={s} H=14 KV=2 dh=64 f32 "
+              f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+              f"sdpa={r['library_ms']:.4f} (max|d| vs kernel {lib_d:.2e}) "
+              f"bound={b_ms:.6f} ({by})")
+    return rows[(B, S)]
+
+
 def decode_path(cfg, params, dev, kernel_ms: float):
-    """Phase 6; returns the decode kernel's launches over the engine runs."""
+    """Phase 6; returns the decode and flash kernels' launches over the
+    engine runs."""
     import numpy as np
     import torch
     from repro_torch import kernels as tk
@@ -383,7 +531,8 @@ def decode_path(cfg, params, dev, kernel_ms: float):
 
     class RefLM(DecoderLM):
         """The model with each step's top-2 logit margins recorded, and
-        with ``plain`` its attention through the kernel's plain version."""
+        with ``plain`` its attentions (prefill's and the decode step's)
+        through the kernels' plain versions."""
 
         def __init__(self, cfg, plain=False):
             super().__init__(cfg)
@@ -403,6 +552,11 @@ def decode_path(cfg, params, dev, kernel_ms: float):
             logits, cache = super().decode_step_q(*a, **kw)
             self._note(logits)
             return logits, cache
+
+        def attend(self, q, k, v):
+            if self.plain:
+                return plain_attend(self.cfg)(q, k, v)
+            return super().attend(q, k, v)
 
         def decode_attend(self, q, kc, vc, ks, vs, lens):
             if self.plain:
@@ -485,7 +639,7 @@ def decode_path(cfg, params, dev, kernel_ms: float):
             ("pinned 8/16", [pin], (8, 16)),
             ("auto", decode_classes(*DECODE_BUDGET), None),
             ("plain 8/8", [pin], (8, 8))]
-    launches, kernel_tokens = 0, {}
+    launches, flash_launches, kernel_tokens = 0, 0, {}
     for name, classes, point in runs:
         plain_run = name.startswith("plain")
         lm = RefLM(cfg, plain=True) if plain_run else model
@@ -508,10 +662,15 @@ def decode_path(cfg, params, dev, kernel_ms: float):
         wall = time.perf_counter() - t0
         counts = tk.launch_counts()
         rep = eng.report()
+        # every prefill is one full-sequence pass: one flash launch a
+        # layer; the plain run launches nothing
         want = 0 if plain_run else cfg.n_layers * rep.decode_rounds
+        want_flash = 0 if plain_run else cfg.n_layers * rep.prefills
         assert counts == {"group_quantize": 0, "qmm": 0, "qmm_int4": 0,
-                          "quantized_decode_attention": want}, \
-            f"{name}: launches {counts}, {rep.decode_rounds} token steps"
+                          "quantized_decode_attention": want,
+                          "flash_attention_fwd": want_flash}, \
+            f"{name}: launches {counts}, {rep.decode_rounds} token steps, " \
+            f"{rep.prefills} prefills"
         assert rep.requests_served == len(prompts)
         assert rep.tokens_generated == len(prompts) * DECODE_NEW
         points = ", ".join(f"{c.qos} b_hat={c.b_hat} b_kv={c.b_kv}"
@@ -519,9 +678,11 @@ def decode_path(cfg, params, dev, kernel_ms: float):
         print(f"  decode {name:11s} {points}: {rep.prefills} prefills, "
               f"{rep.decode_rounds} token steps, {rep.tokens_generated} "
               f"tokens in {wall:.2f}s wall, kernel launches "
-              f"{counts['quantized_decode_attention']}")
+              f"{counts['quantized_decode_attention']} decode, "
+              f"{counts['flash_attention_fwd']} flash")
         if not plain_run:
             launches += counts["quantized_decode_attention"]
+        flash_launches += counts["flash_attention_fwd"]
         for r in responses:
             i = rids[r.request_id]
             assert r.tokens.shape == (DECODE_NEW,)
@@ -545,7 +706,93 @@ def decode_path(cfg, params, dev, kernel_ms: float):
                       f"measured noise at step {at}; compared up to it")
         print(f"    tokens held to the "
               f"{'kernel run' if plain_run else 'batch-1 reference'}: ok")
-    return launches
+    return launches, flash_launches
+
+
+def train_path(cfg, dev):
+    """Phase 8; returns the flash launches of the ``fit`` run.
+
+    The kernel-vs-plain step: both start from one state and see one batch,
+    so their losses differ only by the attention's rounding (1e-4
+    relative).  Adam's first step moves every element by lr * g / (|g| +
+    eps) (+ decay), at most lr in size whatever g is, so no bound on
+    max |dp| can fail; it is printed, not checked.  An element whose
+    int8-coded gradient rounds to another code in the two runs (a gradient
+    within the attention's rounding of a rounding edge) moves differently;
+    every other element moves the same up to rounding.  So at most
+    PARAM_FLIP_SHARE of the elements may differ by more than 1e-3 lr.
+    """
+    import math
+
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.data import (MarkovLMConfig, MarkovLMDataset,
+                                  ShardedLoader)
+    from repro_torch.models.lm import DecoderLM, tree_leaves
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    PARAM_FLIP_SHARE = 1e-3
+    tc = TrainConfig(qat_bits=8, grad_compression="int8_ef", log_every=1)
+    opt = AdamW(learning_rate=cosine_schedule(3e-4, 20, TRAIN_STEPS))
+    data = MarkovLMDataset(MarkovLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH))
+    tr = Trainer(DecoderLM(cfg), opt, dev, tc)
+    state0 = tr.init_state(0)
+    tk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, hist = tr.fit(ShardedLoader(data, device=dev), TRAIN_STEPS,
+                         state=state0)
+    torch.cuda.synchronize()
+    del final
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    per_step = 2 * cfg.n_layers          # forward + recompute under remat
+    assert tc.remat
+    assert counts == {"group_quantize": 0, "qmm": 0, "qmm_int4": 0,
+                      "quantized_decode_attention": 0,
+                      "flash_attention_fwd": per_step * TRAIN_STEPS}, \
+        f"training launches {counts}"
+    assert [h["step"] for h in hist] == list(range(1, TRAIN_STEPS + 1))
+    for h in hist:
+        assert math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]), h
+    step_ms = [1e3 / h["steps_per_s"] for h in hist]
+    print(f"training {cfg.name} B={TRAIN_BATCH} S={TRAIN_SEQ} qat_bits=8 "
+          f"int8_ef remat: {TRAIN_STEPS} steps in {wall:.2f}s, loss "
+          f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, grad norm "
+          f"{hist[0]['grad_norm']:.3f} -> {hist[-1]['grad_norm']:.3f}; "
+          f"{step_ms[0]:.1f} ms first step, "
+          f"{statistics.median(step_ms[1:]):.1f} ms per step after "
+          f"(median); flash launches {counts['flash_attention_fwd']} "
+          f"({per_step} per step)")
+
+    # one step from state0 with the kernel and with the plain attention
+    batch = next(ShardedLoader(data, device=dev))
+    outs = []
+    for model in (DecoderLM(cfg), plain_lm(cfg)):
+        t = Trainer(model, opt, dev, tc)
+        outs.append(t._plain_step(*state0, batch))
+        torch.cuda.synchronize()
+    (pk, _, _, mk), (pp, _, _, mp) = outs
+    lk, lp = float(mk["loss"]), float(mp["loss"])
+    assert abs(lk - lp) <= 1e-4 * abs(lp), f"train loss {lk} vs {lp}"
+    gk, gp = float(mk["grad_norm"]), float(mp["grad_norm"])
+    assert abs(gk - gp) <= 1e-3 * gp, f"grad norm {gk} vs {gp}"
+    lr = float(mk["lr"])
+    worst, moved, n = 0.0, 0, 0
+    for a, b in zip(tree_leaves(pk), tree_leaves(pp)):
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        moved += int((d > 1e-3 * lr).sum())
+        n += d.numel()
+    print(f"train step kernel vs plain attention: loss {lk:.6f} vs "
+          f"{lp:.6f}, grad norm {gk:.5f} vs {gp:.5f}; params max|d| "
+          f"{worst:.3e} = {worst / lr:.3f} lr, {moved} of {n} elements "
+          f"beyond 1e-3 lr")
+    assert moved <= PARAM_FLIP_SHARE * n, f"{moved} of {n} params differ"
+    return counts["flash_attention_fwd"]
 
 
 def main() -> int:
@@ -617,7 +864,7 @@ def main() -> int:
               (plan, "kernel-mixed[4/4/4/8/8/8]")]
     served = []
     want = {"group_quantize": 0, "qmm": 0, "qmm_int4": 0,
-            "quantized_decode_attention": 0}
+            "quantized_decode_attention": 0, "flash_attention_fwd": 0}
     tk.reset_launch_counts()
     t0 = time.perf_counter()
     eng = CoInferenceEngine(model, params, sysp, path="kernel")
@@ -632,6 +879,7 @@ def main() -> int:
         n8, n4 = launches_per_forward(path, cfg.split_layer)
         want["qmm"] += n8 * (1 + B)
         want["qmm_int4"] += n4 * (1 + B)
+        want["flash_attention_fwd"] += cfg.n_layers * (1 + B)
         served.append((point, path, logits, alone, stats))
     sol = eng.auto_configure(QosClass("interactive", t0=3.5, e0=2.0))
     assert sol is not None, "(P1) infeasible at T0=3.5s E0=2J"
@@ -641,24 +889,28 @@ def main() -> int:
     n8, n4 = launches_per_forward(eng.agent_path, cfg.split_layer)
     want["qmm"] += n8
     want["qmm_int4"] += n4
+    want["flash_attention_fwd"] += cfg.n_layers
     torch.cuda.synchronize()
     counts = tk.launch_counts()
     print(f"main path: {time.perf_counter() - t0:.1f}s, launches {counts}")
     assert counts == want, f"launch counts {counts} != expected {want}"
-    for name in ("group_quantize", "qmm", "qmm_int4"):
+    for name in ("group_quantize", "qmm", "qmm_int4", "flash_attention_fwd"):
         assert counts[name] > 0, f"{name} never launched on the main path"
     print(f"auto_configure: b_hat={sol.b_hat} f={sol.f / 1e9:.3f}GHz "
           f"f~={sol.f_server / 1e9:.3f}GHz agent_path={eng.agent_path}")
     assert torch.isfinite(auto_logits).all()
 
-    # the served forward against the plain-version forward on the card.
-    # The boundary activation (agent stage output) is held at the kernel
-    # tolerance, relative to its scale.  The logits are held at E2E_TOL
-    # relative to theirs: the b_emb = 8 uplink quantizer rounds, so a
-    # boundary element that sits within the kernels' ~1e-6 relative error
-    # of a rounding edge moves by a whole quantization step, and that
-    # step reaches the logits through 18 server layers.
+    # the served forward against the plain-version forward on the card
+    # (plain quantizer and matmuls, plain attention through the model's
+    # attend hook in both stages).  The boundary activation (agent stage
+    # output) is held at the kernel tolerance, relative to its scale.  The
+    # logits are held at E2E_TOL relative to theirs: the b_emb = 8 uplink
+    # quantizer rounds, so a boundary element that sits within the
+    # kernels' ~1e-6 relative error of a rounding edge moves by a whole
+    # quantization step, and that step reaches the logits through 18
+    # server layers.
     tok_dev = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    kernel_model, plain_model = eng.model, plain_lm(cfg)
     for point, path, logits, alone, stats in served:
         assert logits.shape == (B, S, cfg.vocab_size)
         assert torch.isfinite(logits).all(), f"{path}: non-finite logits"
@@ -671,7 +923,11 @@ def main() -> int:
         emb_diff = float((emb - emb_p).abs().max())
         assert emb_diff <= KERNEL_TOL * emb_scale, \
             f"{path}: boundary activation differs by {emb_diff}"
-        ref_logits = eng.server_stage(eng.transport(emb_p)[0], pos)
+        eng.model = plain_model
+        try:
+            ref_logits = eng.server_stage(eng.transport(emb_p)[0], pos)
+        finally:
+            eng.model = kernel_model
         scale = float(ref_logits.abs().max())
         diff = float((logits - ref_logits).abs().max())
         assert diff <= E2E_TOL * scale, f"{path}: logits differ by {diff}"
@@ -711,18 +967,31 @@ def main() -> int:
 
     # 6. the decode path at full width
     t0 = time.perf_counter()
-    counts["quantized_decode_attention"] = decode_path(
+    counts["quantized_decode_attention"], flash_decode = decode_path(
         cfg, params, dev, summary["quantized_decode_attention"]["ms"])
     print(f"decode path: {time.perf_counter() - t0:.1f}s")
 
-    # 7. summary
+    # 7. flash attention against its plain version
+    t0 = time.perf_counter()
+    summary["flash_attention_fwd"] = check_flash_kernel(dev, flush)
+    print(f"flash kernel phase: {time.perf_counter() - t0:.1f}s")
+
+    # 8. training at full width
+    t0 = time.perf_counter()
+    flash_train = train_path(cfg, dev)
+    print(f"train path: {time.perf_counter() - t0:.1f}s")
+    counts["flash_attention_fwd"] += flash_decode + flash_train
+
+    # 9. summary
     names = {"group_quantize": ("csrc/group_quantize.cu",
                                 "src/repro/kernels/quantize.py:35"),
              "qmm": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:67"),
              "qmm_int4": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:140"),
              "quantized_decode_attention": (
                  "csrc/decode_attn.cu",
-                 "src/repro/kernels/decode_attn.py:129")}
+                 "src/repro/kernels/decode_attn.py:129"),
+             "flash_attention_fwd": ("csrc/flash_attn.cu",
+                                     "src/repro/kernels/flash.py:93")}
     kernels = []
     for name, (src, replaces) in names.items():
         s = summary[name]

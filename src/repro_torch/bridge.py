@@ -1,10 +1,12 @@
-"""Carry the reference's parameters across to the port.
+"""Carry the reference's parameters and training state across to the port.
 
 The reference's parameter pytree is nested dicts of arrays with the same
 structure and layouts as the port's (``[in, out]`` matrices,
 layer-stacked ``[L, ...]`` leaves).  The caller turns every leaf into a
 numpy array (``np.asarray`` on each leaf); :func:`params_from_jax` turns
-those into tensors on a chosen device.  Both sides then compute the same
+those into tensors on a chosen device, and :func:`train_state_from_jax`
+does the same for a trainer's whole state (parameters, the AdamW state
+and the error-feedback residuals).  Both sides then compute the same
 function of the same numbers; no JAX random stream is reproduced.
 """
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .optim import AdamWState
 
 
 def params_from_jax(tree: Any, device=None) -> Any:
@@ -29,3 +32,18 @@ def params_from_jax(tree: Any, device=None) -> Any:
         return torch.from_numpy(np.array(t, copy=True)).to(dev)
 
     return conv(tree)
+
+
+def train_state_from_jax(params: Any, opt_state: Any, err: Any,
+                         device=None):
+    """The reference's ``(params, AdamWState(step, m, v), err)`` with numpy
+    leaves -> the port's, on ``device``: a trainer started from it takes
+    the reference's next step.  ``err`` is the residual tree under int8
+    error feedback, else a scalar."""
+    step, m, v = opt_state
+    dev = resolve_device(device)
+    return (params_from_jax(params, dev),
+            AdamWState(step=torch.tensor(int(np.asarray(step)),
+                                         dtype=torch.int32, device=dev),
+                       m=params_from_jax(m, dev), v=params_from_jax(v, dev)),
+            params_from_jax(err, dev))

@@ -5,8 +5,8 @@ Port of ``repro/core/quantization.py``: :class:`QuantConfig` and
 (:func:`quantize_dequantize` over the uniform and pot-log codebooks, at
 per-tensor, per-channel or per-group granularity) and :func:`wire_bytes`.
 The integer-code storage path lives in ``kernels/ops.py``
-(``quantize_linear``), the QAT straight-through quantizer waits for the
-training slice.
+(``quantize_linear``); :func:`qat_quantize` is the training loop's
+straight-through quantizer.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
+import numpy as np
 import torch
 
 Scheme = Literal["uniform", "pot-log"]
@@ -148,12 +149,21 @@ def uniform_step_size(absmax: torch.Tensor, bits: int) -> torch.Tensor:
     return absmax / levels
 
 
-def _uniform_qdq(x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+def _uniform_qdq(x: torch.Tensor, cfg: QuantConfig, *,
+                 compiled: bool = False) -> torch.Tensor:
+    """``compiled`` forms the step as ``amax * fl(1/levels)``, the product
+    XLA compiles the reference's ``amax / levels`` into inside a jitted
+    graph (its train step); otherwise the eager reference's true
+    division."""
     amax = _absmax(x, cfg)
     if cfg.bits == 1:
         # sign-only code: reconstruct magnitude at its conditional mean proxy
         return torch.sign(x) * torch.broadcast_to(amax / 2.0, x.shape)
-    step = uniform_step_size(amax, cfg.bits)
+    if compiled:
+        levels = max(2 ** (cfg.bits - 1) - 1, 1)
+        step = amax * float(np.float32(1.0) / np.float32(levels))
+    else:
+        step = uniform_step_size(amax, cfg.bits)
     step = torch.where(step <= 0, torch.ones_like(step), step)
     levels = 2 ** (cfg.bits - 1) - 1
     q = torch.clamp(torch.round(torch.abs(x) / step), 0, levels)
@@ -181,6 +191,33 @@ def quantize_dequantize(x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
     if cfg.scheme == "uniform":
         return _uniform_qdq(x, cfg)
     return _potlog_qdq(x, cfg)
+
+
+class _QatQuantize(torch.autograd.Function):
+    """Fake quantization forward, identity (straight-through) backward."""
+
+    @staticmethod
+    def forward(ctx, x, cfg):
+        if cfg.scheme == "uniform":
+            return _uniform_qdq(x, cfg, compiled=True)
+        return _potlog_qdq(x, cfg)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def qat_quantize(x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """Fake-quant with identity (straight-through) gradients: the training
+    loop's agent partition sees quantized weights in the forward while
+    gradients pass through unchanged.
+
+    The reference only runs this inside its jitted train step, so the
+    uniform step is formed as there, ``amax * fl(1/levels)``, and the
+    forward is bitwise the jitted reference's (:func:`quantize_dequantize`
+    keeps the eager reference's true division).
+    """
+    return _QatQuantize.apply(x, cfg)
 
 
 def wire_bytes(n_codes: int, bits: int) -> int:

@@ -8,22 +8,28 @@ wrapper            CUDA source           TPU kernel it replaces
 ``qmm_int4``       csrc/qmm              repro/kernels/qmm.py ``qmm_int4``
 ``quantized_       csrc/decode_attn      repro/kernels/decode_attn.py
 decode_attention``                       ``quantized_decode_attention``
+``flash_attention  csrc/flash_attn       repro/kernels/flash.py
+_fwd``                                   ``flash_attention_fwd``
 =================  ====================  ==================================
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 torch version (``ref.py``) for a CPU tensor; it counts its kernel launches
-in a ``launches`` attribute.
+in a ``launches`` attribute.  ``flash.flash_attention`` differentiates
+``flash_attention_fwd`` (backward through the plain oracle, as in the
+reference).
 """
 
 from __future__ import annotations
 
 from .decode_attn import quantized_decode_attention
+from .flash import flash_attention_fwd
 from .qmm import qmm, qmm_int4
 from .quantize import group_quantize
 
 KERNELS = {"group_quantize": group_quantize, "qmm": qmm,
            "qmm_int4": qmm_int4,
-           "quantized_decode_attention": quantized_decode_attention}
+           "quantized_decode_attention": quantized_decode_attention,
+           "flash_attention_fwd": flash_attention_fwd}
 
 
 def launch_counts() -> dict:

@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("group_quantize", "qmm", "decode_attn")
+SOURCES = ("group_quantize", "qmm", "decode_attn", "flash_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

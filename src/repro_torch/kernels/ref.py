@@ -8,8 +8,10 @@ Shapes / conventions shared with ``qmm.py`` and ``quantize.py``:
                             along the contraction axis
   out     [M, N]            x @ (codes * scales)
 
-``quantized_decode_attention_ref`` (at the end) is the plain version of
-the decode attention kernel, on the reference's decode layouts.
+``quantized_decode_attention_ref`` is the plain version of the decode
+attention kernel, on the reference's decode layouts; ``flash_attention_ref``
+(at the end) that of the flash kernel, and ``ref_attention`` the oracle its
+backward recomputes through.
 
 Every wrapper runs these on a CPU tensor; on the card they are what the
 CUDA kernels are held against.  Division is true division and rounding is
@@ -20,6 +22,8 @@ match the reference's exactly.
 from __future__ import annotations
 
 import torch
+
+from .bucketing import seq_bucket
 
 
 def dequantize_ref(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -163,3 +167,125 @@ def quantized_decode_attention_ref(q, k_codes, v_codes, k_scales, v_scales,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
     return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (``repro/kernels/flash.py``)
+# ---------------------------------------------------------------------------
+
+def _visible(qpos, kpos, kend, causal: bool, window: int):
+    """Mask of the keys a query sees: ``kpos < kend`` (the true key
+    length, per row), ``qpos >= kpos`` when causal, and
+    ``qpos - kpos < window`` when ``window > 0``.  qpos [bq, 1],
+    kpos [1, bk], kend [B, 1, 1, 1, 1] -> [B, 1, 1, bq, bk]."""
+    mask = kpos < kend
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window > 0:
+        mask = mask & ((qpos - kpos) < window)
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        block_q: int = 512, block_k: int = 512,
+                        kv_len=None):
+    """Causal / windowed / bidirectional GQA attention in the reference's
+    layout: q [B, H, S, dh], k/v [B, KV, T, dh], H = KV * G; returns
+    [B, H, S, dh] in q's dtype.
+
+    The reference's schedule (``_flash_fwd_kernel``): query tiles of
+    ``bq`` rows against kv tiles of ``bk`` positions in ascending order,
+    kv tiles strictly above the causal diagonal skipped; per tile the
+    scores scaled by dh**-0.5, masked to ``NEG_INF``, the running max,
+    ``p = where(mask, exp(s - m_new), 0)``, ``l`` and ``acc`` rescaled
+    by ``exp(m - m_new)``; the output is ``acc / max(l, 1e-30)``.
+
+    ``bq = min(block_q, seq_bucket(S))`` and likewise ``bk``: wherever
+    the reference accepts a shape (S and T multiples of its blocks) these
+    are its tiles, and a length that is not a multiple is padded to one
+    inside its bucket, so right-padding never changes the partition.
+    Keys at positions >= ``kv_len`` (an int or [B]; default T) never
+    enter the softmax, causal or not, so padded keys are masked even in
+    bidirectional attention.
+
+    Dot products are elementwise products summed over one axis, never
+    batched matmuls, so a row's bits do not depend on B.
+    """
+    b, h, s, dh = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    g = h // kv
+    dev = q.device
+    bq = min(block_q, seq_bucket(s))
+    bk = min(block_k, seq_bucket(t))
+    nq, nk = -(-s // bq), -(-t // bk)
+    kend = torch.full((b,), t, dtype=torch.int64, device=dev) \
+        if kv_len is None else torch.clamp(
+            torch.as_tensor(kv_len, device=dev).reshape(-1).expand(b)
+            .to(torch.int64), max=t)
+    kend = kend.reshape(b, 1, 1, 1, 1)
+    scale = dh ** -0.5
+    qp = torch.nn.functional.pad(q.to(torch.float32),
+                                 (0, 0, 0, nq * bq - s))
+    kp = torch.nn.functional.pad(k.to(torch.float32),
+                                 (0, 0, 0, nk * bk - t))
+    vp = torch.nn.functional.pad(v.to(torch.float32),
+                                 (0, 0, 0, nk * bk - t))
+    qp = qp.reshape(b, kv, g, nq * bq, dh)
+    kp = kp[:, :, None]                                # [B, KV, 1, Tp, dh]
+    vp = vp[:, :, None]
+    outs = []
+    for i in range(nq):
+        qb = qp[:, :, :, i * bq:(i + 1) * bq]           # [B, KV, G, bq, dh]
+        qpos = (i * bq + torch.arange(bq, device=dev))[:, None]
+        m = torch.full((b, kv, g, bq, 1), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, kv, g, bq, 1), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, kv, g, bq, dh), dtype=torch.float32,
+                          device=dev)
+        for j in range(nk):
+            if causal and j * bk > i * bq + bq - 1:
+                continue            # fully above the diagonal: a no-op
+            kb = kp[:, :, :, j * bk:(j + 1) * bk]        # [B, KV, 1, bk, dh]
+            vb = vp[:, :, :, j * bk:(j + 1) * bk]
+            kpos = (j * bk + torch.arange(bk, device=dev))[None, :]
+            mask = _visible(qpos, kpos, kend, causal, window)
+            sc = torch.sum(qb[:, :, :, :, None] * kb[:, :, :, None],
+                           dim=-1) * scale                # [B,KV,G,bq,bk]
+            sc = torch.where(mask, sc, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(sc, dim=-1, keepdim=True))
+            p = torch.where(mask, torch.exp(sc - m_new), 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1, keepdim=True)
+            acc = acc * corr + torch.sum(p[..., None] * vb[:, :, :, None],
+                                         dim=-2)
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30))
+    out = torch.cat(outs, dim=3)[:, :, :, :s]
+    return out.reshape(b, h, s, dh).to(q.dtype)
+
+
+def ref_attention(q, k, v, causal: bool, window: int):
+    """The reference's oracle ``_ref_attention`` in the [B, H, S, dh]
+    layout: masked scores, a full softmax, p @ V; differentiable, and what
+    the flash kernel's backward recomputes through.  Batched matmuls, as
+    the reference's einsums: its temporaries are [B, H, S, T], so the
+    backward fits long training sequences (the gradient is held to a
+    tolerance, not to bits)."""
+    b, h, s, dh = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    g = h // kv
+    dev = q.device
+    qr = q.to(torch.float32).reshape(b, kv, g, s, dh)
+    kr = k.to(torch.float32)[:, :, None]               # [B, KV, 1, T, dh]
+    vr = v.to(torch.float32)[:, :, None]
+    sc = torch.matmul(qr, kr.transpose(-1, -2)) * dh ** -0.5  # [B,KV,G,S,T]
+    qpos = torch.arange(s, device=dev)[:, None]
+    kpos = torch.arange(t, device=dev)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window > 0:
+        mask = mask & ((qpos - kpos) < window)
+    p = torch.softmax(torch.where(mask, sc, -torch.inf), dim=-1)
+    out = torch.matmul(p, vr)                          # [B, KV, G, S, dh]
+    return out.reshape(b, h, s, dh).to(q.dtype)

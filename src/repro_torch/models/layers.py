@@ -1,4 +1,6 @@
-"""Neural net primitives of the serving slice (``repro/models/layers.py``).
+"""Neural net primitives of the dense decoder (``repro/models/layers.py``):
+norms, RoPE, attention (the flash kernel on the card), MLP, embeddings and
+the training losses.
 
 Conventions kept from the reference so parameters cross unchanged:
 
@@ -22,8 +24,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.bucketing import seq_bucket
+from ..kernels.flash import flash_attention
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -157,19 +161,29 @@ def qkv_project(cfg, p, x, positions, matmul=torch.matmul):
 
 
 def blockwise_attention(q, k, v, *, causal: bool, q_block: int = 512,
-                        kv_block: int = 512, window: int = 0,
-                        kv_positions=None, q_positions=None):
+                        kv_block: int = 512, window: int = 0):
     """Memory-bounded attention via online softmax over blocks.
 
-    q: [B, S, H, dh]; k, v: [B, T, KV, dh] with H = KV * G (GQA).  Loops
-    over KV blocks inside a loop over Q blocks, carrying the running
-    (max, sum, acc) of the streaming softmax; ``window`` > 0 adds a
-    sliding-window mask.  Block sizes snap to the geometric sequence ladder
-    (``seq_bucket``), never to the raw S/T, so right-padding inside a
-    bucket partitions the sequence into the same blocks and masked lanes
-    contribute exact zeros.  Plain torch; the flash kernel that takes this
-    role on the card is a later slice.
+    q: [B, S, H, dh]; k, v: [B, T, KV, dh] with H = KV * G (GQA).
+
+    Anywhere but on the CPU this is one call of
+    :func:`kernels.flash.flash_attention` (differentiable): one launch of
+    the flash kernel on a CUDA tensor, reading the [B, S, H, dh]
+    activations in place, and an error on any other device.
+
+    On a CPU tensor, plain torch with the reference's einsums: loops over
+    KV blocks inside a loop over Q blocks, carrying the running (max, sum,
+    acc) of the streaming softmax; ``window`` > 0 adds a sliding-window mask.  Block sizes snap
+    to the geometric sequence ladder (``seq_bucket``), never to the raw
+    S/T, so right-padding inside a bucket partitions the sequence into
+    the same blocks and masked lanes contribute exact zeros.  The keys
+    padded onto the last block are masked whether or not the attention is
+    causal (the reference masks them only through the causal mask).
     """
+    if q.device.type != "cpu":
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal, window)
+        return out.transpose(1, 2)
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -179,11 +193,8 @@ def blockwise_attention(q, k, v, *, causal: bool, q_block: int = 512,
     nk = -(-T // kv_block)
     Sp, Tp = nq * q_block, nk * kv_block
     dev = q.device
-
-    if q_positions is None:
-        q_positions = torch.arange(S, device=dev).expand(B, S)
-    if kv_positions is None:
-        kv_positions = torch.arange(T, device=dev).expand(B, T)
+    q_positions = torch.arange(S, device=dev).expand(B, S)
+    kv_positions = torch.arange(T, device=dev).expand(B, T)
 
     scale = dh ** -0.5
     qs = F.pad(q, (0, 0, 0, 0, 0, Sp - S))
@@ -197,6 +208,7 @@ def blockwise_attention(q, k, v, *, causal: bool, q_block: int = 512,
     vs = vs.reshape(B, nk, kv_block, KV, dh)
     qpos = qpos.reshape(B, nq, q_block)
     kpos = kpos.reshape(B, nk, kv_block)
+    kreal = (torch.arange(Tp, device=dev) < T).reshape(nk, kv_block)
 
     # masks fill with Python scalars (no host-to-device copies in the loop)
     outs = []
@@ -209,8 +221,7 @@ def blockwise_attention(q, k, v, *, causal: bool, q_block: int = 512,
             kb, vb, kp = ks[:, j], vs[:, j], kpos[:, j]
             s = torch.einsum("bqkgd,btkd->bkgqt", qb.to(torch.float32),
                              kb.to(torch.float32)) * scale
-            mask = torch.ones((B, 1, 1, q_block, kv_block), dtype=torch.bool,
-                              device=dev)
+            mask = kreal[j].expand(B, 1, 1, q_block, kv_block)
             if causal:
                 mask = mask & (qp[:, None, None, :, None]
                                >= kp[:, None, None, None, :])
@@ -328,6 +339,55 @@ def unembed(cfg, p, x, matmul=torch.matmul):
     if cfg.tie_embeddings:
         return matmul(x, p["tok"].to(x.dtype).T)
     return matmul(x, p["unembed"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """Mean next-token CE in float32.  logits [..., V], labels [...] int."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        nll = nll * mask
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def chunked_cross_entropy(cfg, x, embed_params, labels, mask=None,
+                          chunk: int = 256):
+    """CE from final *hidden states* with sequence-chunked unembedding.
+
+    The [B, S, V] logits dominate a training step's temporary memory at
+    large vocabularies, so for S a multiple of ``chunk`` (and longer) the
+    unembedding and logsumexp run per sequence chunk under
+    ``torch.utils.checkpoint``: backward recomputes each chunk's logits,
+    and only one chunk's are ever live.  x [B, S, D] (final-normed),
+    labels [B, S], mask [B, S] or None; returns the mean NLL (masked mean
+    when a mask is given).
+    """
+    b, s, _ = x.shape
+    if s <= chunk or s % chunk != 0:
+        return softmax_cross_entropy(unembed(cfg, embed_params, x), labels,
+                                     mask)
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+
+    def one(xi, li, mi):
+        logits = unembed(cfg, embed_params, xi).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        return torch.sum((lse - ll) * mi)
+
+    tot = x.new_zeros((), dtype=torch.float32)
+    for c in range(0, s, chunk):
+        sl = slice(c, c + chunk)
+        tot = tot + checkpoint(one, x[:, sl], labels[:, sl], mask[:, sl],
+                               use_reentrant=False)
+    return tot / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def row_matmul(x, w):

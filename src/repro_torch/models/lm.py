@@ -10,9 +10,10 @@ The parameter dict has the reference's structure and layouts::
 
 so ``bridge.params_from_jax`` carries the reference's pytree across leaf
 for leaf.  The layer stack runs as a plain Python loop (the reference's
-``lax.scan`` / ``while_loop``).  The decode protocol (``prefill``,
-``init_cache``, ``cache_axes``, ``decode_step``, ``decode_step_q``) serves
-``runtime.decode_engine``; MoE layers wait for a later slice.
+``lax.scan`` / ``while_loop``).  ``loss`` serves ``runtime.train_loop``;
+the decode protocol (``prefill``, ``init_cache``, ``cache_axes``,
+``decode_step``, ``decode_step_q``) serves ``runtime.decode_engine``; MoE
+layers wait for a later slice.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attn import quantized_decode_attention
 from ..kernels.quantize import kv_quantize
@@ -31,6 +33,19 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def unstack_layers(tree, n: int):
+    """The n per-layer slices of a layer-stacked tree, as a list of trees.
+
+    Through ``unbind``, whose backward stacks the slices' gradients in one
+    op; indexing each layer instead would make autograd add a zero-filled
+    gradient of the whole stack per layer (O(L^2) bytes in a training
+    step)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def tree_leaves(tree):
@@ -99,12 +114,32 @@ class DecoderLM:
         cfg = self.cfg
         h = L.apply_norm(cfg, x, lp["ln1"])
         q, k, v = L.qkv_project(cfg, lp["attn"], h, positions)
-        attn = L.blockwise_attention(q, k, v, causal=True,
-                                     window=cfg.sliding_window)
+        attn = self.attend(q, k, v)
         x = x + attn.reshape(x.shape[:2] + (cfg.q_dim,)) \
             @ lp["attn"]["wo"].to(x.dtype)
         h2 = L.apply_norm(cfg, x, lp["ln2"])
         return x + L.apply_mlp(cfg, lp["ffn"], h2)
+
+    def attend(self, q, k, v):
+        """One layer's full-sequence causal attention, q [B, S, H, dh],
+        k/v [B, S, KV, dh]: the flash kernel on the card
+        (:func:`layers.blockwise_attention`).  Every full-sequence pass
+        (forward, both co-inference stages, prefill, training) attends
+        through this hook."""
+        return L.blockwise_attention(q, k, v, causal=True,
+                                     window=self.cfg.sliding_window)
+
+    def _run_stack(self, params, x, positions, *, remat: bool = False):
+        """All layers for training; ``remat`` recomputes each layer in the
+        backward pass (``torch.utils.checkpoint``), keeping only the layer
+        inputs alive, as the reference's per-layer ``jax.checkpoint``."""
+        for lp_i in unstack_layers(params["layers"], self.cfg.n_layers):
+            if remat:
+                x = checkpoint(self._block, lp_i, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._block(lp_i, x, positions)
+        return x
 
     def run_layers_window(self, params, x, positions, lo: int, hi: int):
         """Layers [lo, hi) applied in order; returns (x, aux=0.0)."""
@@ -145,6 +180,20 @@ class DecoderLM:
         x = L.apply_norm(self.cfg, x, params["final_norm"])
         return L.unembed(self.cfg, params["embed"], x), aux
 
+    def loss(self, params, batch, *, remat: bool = False):
+        """Mean next-token CE of ``batch["labels"]`` (masked by
+        ``batch["loss_mask"]`` when present) from the final hidden states,
+        with the chunked unembedding: the full [B, S, V] logits never
+        materialize for long sequences."""
+        x, positions = self._embed(params, batch)
+        x = self._run_stack(params, x, positions, remat=remat)
+        x = L.apply_norm(self.cfg, x, params["final_norm"])
+        labels = batch["labels"]
+        if x.shape[1] != labels.shape[1]:
+            x = x[:, -labels.shape[1]:]
+        return L.chunked_cross_entropy(self.cfg, x, params["embed"], labels,
+                                       batch.get("loss_mask"))
+
     # ------------------------------------------------------------------
     # serving: the decode protocol
     # ------------------------------------------------------------------
@@ -168,8 +217,7 @@ class DecoderLM:
             p_i = tree_map(lambda a: a[i], lp)
             h = L.apply_norm(cfg, x, p_i["ln1"])
             q, k, v = L.qkv_project(cfg, p_i["attn"], h, positions)
-            attn = L.blockwise_attention(q, k, v, causal=True,
-                                         window=cfg.sliding_window)
+            attn = self.attend(q, k, v)
             x = x + attn.reshape(b, s, cfg.q_dim) \
                 @ p_i["attn"]["wo"].to(x.dtype)
             h2 = L.apply_norm(cfg, x, p_i["ln2"])

@@ -96,10 +96,11 @@ def layer_side_tree(lp: dict, cfg) -> dict:
     return t
 
 
-def quantized_block(cfg, apply_w, w, lp_i, x, positions):
+def quantized_block(cfg, apply_w, w, lp_i, x, positions, attend):
     """One dense decoder block whose seven matmuls go through
-    ``apply_w(w, x)``; ``lp_i`` is this layer's :func:`layer_side_tree`
-    slice."""
+    ``apply_w(w, x)`` and whose attention is ``attend(q, k, v)`` (the
+    model's hook, ``DecoderLM.attend``); ``lp_i`` is this layer's
+    :func:`layer_side_tree` slice."""
     h = L.apply_norm(cfg, x, lp_i["ln1"])
     q = apply_w(w["attn"]["wq"], h)
     k = apply_w(w["attn"]["wk"], h)
@@ -113,8 +114,7 @@ def quantized_block(cfg, apply_w, w, lp_i, x, positions):
     v = v.reshape(v.shape[:-1] + (cfg.n_kv_heads, cfg.head_dim))
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    attn = L.blockwise_attention(q, k, v, causal=True,
-                                 window=cfg.sliding_window)
+    attn = attend(q, k, v)
     x = x + apply_w(w["attn"]["wo"],
                     attn.reshape(x.shape[:2] + (cfg.q_dim,)))
     h2 = L.apply_norm(cfg, x, lp_i["ln2"])
@@ -127,7 +127,7 @@ def quantized_block(cfg, apply_w, w, lp_i, x, positions):
 
 
 def scan_segment(cfg, desc: SegmentDesc, seg_arrays, side_tree, x,
-                 positions, n_layers: int):
+                 positions, n_layers: int, attend):
     """Loop :func:`quantized_block` over the first ``n_layers`` layers of
     one homogeneous segment."""
     ap = _segment_apply(desc.kind)
@@ -136,7 +136,7 @@ def scan_segment(cfg, desc: SegmentDesc, seg_arrays, side_tree, x,
     for i in range(int(n_layers)):
         w = tree_map(lambda a: a[i], seg_arrays)
         lp_i = tree_map(lambda a: a[i], lp_slice)
-        x = quantized_block(cfg, ap, w, lp_i, x, positions)
+        x = quantized_block(cfg, ap, w, lp_i, x, positions, attend)
     return x
 
 

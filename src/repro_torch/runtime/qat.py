@@ -1,10 +1,12 @@
 """Fake quantization of the agent partition (``repro/runtime/qat.py``).
 
-Serving uses it for the operating points no kernel container covers: a
-uniform b̂ outside {4, 8} and the > 8-bit layers of a plan.  Stacked weight
-leaves (leading 'layers'/'blocks' axis, >= 3 dims, floating) are quantized
-per layer and only for the agent-owned layers ``[0, split)``.  The
-straight-through gradient of QAT waits for the training slice.
+Training sees the quantized forward of the agent layers at the b̂ they
+will be served at, with straight-through gradients
+(``core.quantization.qat_quantize``).  Serving uses the same masking for
+the operating points no kernel container covers: a uniform b̂ outside
+{4, 8} and the > 8-bit layers of a plan.  Stacked weight leaves (leading
+'layers'/'blocks' axis, >= 3 dims, floating) are quantized per layer and
+only for the agent-owned layers ``[0, split)``.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from typing import Any
 
 import torch
 
-from ..core.quantization import QuantPlan, quantize_dequantize
+from ..core.quantization import (QuantPlan, qat_quantize,
+                                 quantize_dequantize)
 
 
 def _is_axes(x) -> bool:
@@ -44,16 +47,16 @@ def agent_mask_fn(cfg):
 
 
 def fake_quantize_agent(params: Any, axes: Any, cfg, qcfg,
-                        *, ste: bool = False) -> Any:
+                        *, ste: bool = True) -> Any:
     """Return params with the agent partition fake-quantized.
 
     ``qcfg`` is a single :class:`QuantConfig` (uniform b̂) or a
     :class:`QuantPlan` whose ``layers/<i>`` entries give layer i its own
     bit-width.  Server layers and non-stacked leaves pass through.
+    ``ste`` (training) quantizes through :func:`qat_quantize`, whose
+    gradient is the identity; serving passes ``ste=False``.
     """
-    if ste:
-        raise NotImplementedError("straight-through QAT is not yet ported "
-                                  "to repro_torch (serving uses ste=False)")
+    q1 = qat_quantize if ste else quantize_dequantize
     n_agent = agent_mask_fn(cfg).n_agent
 
     def one(ax, leaf):
@@ -65,9 +68,11 @@ def fake_quantize_agent(params: Any, axes: Any, cfg, qcfg,
             return leaf
         n = leaf.shape[0]
         na = n_agent(ax[0], n)
-        flat = leaf.reshape(n, -1, leaf.shape[-1])          # [L, in*, out]
+        # [L, in*, out], unbound: one stack op in the backward, where
+        # indexing would add a zero-filled copy of the stack per layer
+        flat = leaf.reshape(n, -1, leaf.shape[-1]).unbind(0)
         per_layer = [
-            quantize_dequantize(flat[i], qcfg.config_for_layer(i)
+            q1(flat[i], qcfg.config_for_layer(i)
                                 if isinstance(qcfg, QuantPlan) else qcfg)
             if i < na else flat[i] for i in range(n)]
         return torch.stack(per_layer).reshape(leaf.shape)

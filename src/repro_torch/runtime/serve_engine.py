@@ -236,7 +236,7 @@ class CoInferenceEngine:
                 self._agent_params = None
             else:
                 self._agent_params = fake_quantize_agent(
-                    self.params, self._axes, self.cfg, plan)
+                    self.params, self._axes, self.cfg, plan, ste=False)
                 self._qlinears = None
         elif kernel_ok and self.b_hat in (4, 8):
             self._qlinears = self._quantize_kernel_weights(
@@ -246,7 +246,7 @@ class CoInferenceEngine:
             qcfg = QuantConfig(bits=self.b_hat, scheme=self.scheme,
                                granularity="per-channel")
             self._agent_params = fake_quantize_agent(
-                self.params, self._axes, self.cfg, qcfg)
+                self.params, self._axes, self.cfg, qcfg, ste=False)
             self._qlinears = None
         self._segments = fp.restack_segments(self._qlinears) \
             if self._qlinears is not None else None
@@ -313,7 +313,7 @@ class CoInferenceEngine:
         side = fp.layer_side_tree(self.params["layers"], self.cfg)
         for desc, seg in zip(descs, arrays):
             x = fp.scan_segment(self.cfg, desc, seg, side, x, positions,
-                                desc.length)
+                                desc.length, self.model.attend)
         return x
 
     # ------------------------------------------------------------------

@@ -11,6 +11,10 @@ int4 with K % 256 != 0.  Codes and scales must be equal; matmuls agree at
 rtol = atol = 1e-4, the tolerance of tests/test_kernels.py.  Decode
 attention agrees with its plain version within 1e-5 x max|out| (f32 sums
 in another order), and is bitwise row-independent and padding-invisible.
+Flash attention agrees at rtol = atol = 2e-5 (tests/test_flash.py's
+tolerance) in f32 and within one bf16 ulp in bf16, bitwise
+row-independent and padding-invisible; its gradient agrees with the
+plain oracle's at 2e-4.
 """
 
 import numpy as np
@@ -133,3 +137,103 @@ def test_decode_attention_padding_is_invisible(dev, b_kv):
         torch.nn.functional.pad(ks, pad[2:]),
         torch.nn.functional.pad(vs, pad[2:]), lens)
     assert torch.equal(out, grown)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: kernel vs plain at qwen2-0.5b's heads (H = 14 over
+# KV = 2, dh = 64), f32 within rtol = atol = 2e-5 (tests/test_flash.py's
+# tolerance); bf16 outputs within one bf16 rounding step of the plain one
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import flash as tflash  # noqa: E402
+from repro_torch.models import layers as tL  # noqa: E402
+
+
+def _flash_case(dev, b, s, h=14, kv=2, dh=64, dtype=torch.float32, seed=0):
+    q = _normal(seed, (b, s, h, dh), dev).to(dtype)
+    k = _normal(seed + 1, (b, s, kv, dh), dev).to(dtype)
+    v = _normal(seed + 2, (b, s, kv, dh), dev).to(dtype)
+    # the model's [B, S, H, dh] activations, seen as [B, H, S, dh]
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+FLASH_CASES = [  # (b, s, causal, window, dh, kv_len)
+    (4, 64, True, 0, 64, None), (1, 100, True, 0, 64, None),
+    (2, 512, True, 0, 64, None), (1, 1024, True, 0, 64, None),
+    (2, 300, True, 128, 64, None), (2, 200, False, 0, 64, [200, 77]),
+    (1, 384, True, 0, 128, None), (2, 130, False, 0, 32, None),
+]
+
+
+@pytest.mark.parametrize("b,s,causal,window,dh,kv_len", FLASH_CASES)
+def test_flash_equals_plain(dev, b, s, causal, window, dh, kv_len):
+    q, k, v = _flash_case(dev, b, s, dh=dh, seed=s + dh)
+    lens = None if kv_len is None else torch.tensor(kv_len, device=dev)
+    before = tflash.flash_attention_fwd.launches
+    out = tflash.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     kv_len=lens)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention_fwd.launches == before + 1
+    assert out.stride() == q.stride()
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   kv_len=lens)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    for i in range(b):           # each row alone is bitwise the batched row
+        alone = tflash.flash_attention_fwd(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal,
+            window=window, kv_len=None if lens is None else lens[i:i + 1])
+        assert torch.equal(alone[0], out[i]), f"row {i}"
+
+
+def test_flash_bf16_within_one_rounding(dev):
+    # both round f32 results that agree to ~1e-6 into bf16, so they may
+    # land on neighbouring bf16 values: one ulp, at most 2^-7 relative
+    q, k, v = _flash_case(dev, 2, 256, dtype=torch.bfloat16, seed=5)
+    out = tflash.flash_attention_fwd(q, k, v)
+    assert out.dtype == torch.bfloat16
+    want = ref.flash_attention_ref(q, k, v).float()
+    d = (out.float() - want).abs()
+    assert bool((d <= want.abs() * 2.0 ** -7 + 2e-5).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_padding_is_invisible(dev, causal):
+    q, k, v = _flash_case(dev, 1, 128, seed=9)
+    s = 100
+    lens = None if causal else torch.tensor([s], device=dev)
+    short = tflash.flash_attention_fwd(q[:, :, :s], k[:, :, :s], v[:, :, :s],
+                                       causal=causal)
+    padded = tflash.flash_attention_fwd(q, k, v, causal=causal, kv_len=lens)
+    assert torch.equal(padded[:, :, :s], short)
+
+
+def test_flash_grad_equals_plain(dev):
+    q, k, v = (x.contiguous().requires_grad_(True)
+               for x in _flash_case(dev, 1, 128, h=4, kv=2, dh=32, seed=11))
+    g = tflash.flash_attention(q, k, v, True, 0)
+    grads = torch.autograd.grad((g ** 2).sum(), (q, k, v))
+    r = ref.ref_attention(q, k, v, True, 0)
+    want = torch.autograd.grad((r ** 2).sum(), (q, k, v))
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+def test_blockwise_attention_dispatches_to_the_kernel(dev):
+    q, k, v = (x.transpose(1, 2) for x in _flash_case(dev, 2, 100, seed=13))
+    before = tflash.flash_attention_fwd.launches
+    out = tL.blockwise_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention_fwd.launches == before + 1
+    want = tL.blockwise_attention(q.cpu(), k.cpu(), v.cpu(), causal=True)
+    torch.testing.assert_close(out.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_blockwise_attention_raises_where_the_kernel_cannot_run(dev):
+    """A head size the kernel does not take raises on the card: the model's
+    call site never falls back to a plain attention there."""
+    q, k, v = (x.transpose(1, 2)
+               for x in _flash_case(dev, 1, 64, h=2, kv=1, dh=160, seed=14))
+    before = tflash.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        tL.blockwise_attention(q, k, v, causal=True)
+    assert tflash.flash_attention_fwd.launches == before

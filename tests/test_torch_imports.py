@@ -19,7 +19,11 @@ def _modules():
 
 def test_importing_every_module_pulls_in_no_jax():
     mods = list(_modules())
-    assert "repro_torch.runtime.serve_engine" in mods
+    for m in ("repro_torch.runtime.serve_engine", "repro_torch.kernels.flash",
+              "repro_torch.optim", "repro_torch.optim.adamw",
+              "repro_torch.optim.grad_compress", "repro_torch.data.loader",
+              "repro_torch.runtime.train_loop", "repro_torch.launch.train"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -37,7 +37,8 @@ def _zero_counts():
     # every call in this file ran on CPU tensors: no kernel may launch
     assert tk.launch_counts() == {"group_quantize": 0, "qmm": 0,
                                   "qmm_int4": 0,
-                                  "quantized_decode_attention": 0}
+                                  "quantized_decode_attention": 0,
+                                  "flash_attention_fwd": 0}
 
 
 # (k, n, group, bits): tests/test_kernels.py's shapes, the qwen2 MLP

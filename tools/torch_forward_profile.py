@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of one served forward, or one decode step, goes on the
-CUDA card.
+"""Where the time of one served forward, one decode step, or one training
+step goes on the CUDA card.
 
     python3 tools/torch_forward_profile.py [--seq 64] [--batch 4]
     python3 tools/torch_forward_profile.py --decode [--batch 4] [--cache 1024]
+    python3 tools/torch_forward_profile.py --train [--seq 128] [--batch 8]
 
 Serves qwen2-0.5b at full width (24 layers, seeded random weights).
 By default through ``repro_torch``'s ``CoInferenceEngine(path="kernel")``
@@ -20,6 +21,19 @@ With ``--decode``: ``--batch`` prompts are prefilled through
 positions (b̂ = 8, b_kv = 8), and the greedy token step
 (``DecoderLM.decode_step_q`` then argmax) over that state is timed the
 same way: wall per step (median of 10) and a trace of 3 steps.
+
+With ``--train``: one training step of ``Trainer`` (QAT at 8 bits, int8
+error-feedback gradients, per-layer recompute) at ``--batch`` x ``--seq``:
+the wall of the whole step and of its parts (loss and backward, gradient
+compression, AdamW update; host clock, medians of 3), the step's peak
+device memory (``torch.cuda.max_memory_allocated``), and a trace of 2
+steps.
+
+Every trace names the port's own kernels (the flash kernel's launches in
+a training step are its forward and its recompute under remat, equal work
+each) and sums the device time by kind: the port's kernels, cuBLAS GEMMs,
+and everything else (elementwise, reductions, copies: the optimizer, the
+quantizers and the attention backward).
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -62,15 +76,31 @@ def _kernel_us(evt) -> float:
     return 0.0
 
 
+# the CUDA symbol of each of the port's kernels (csrc/*.cu)
+PORT_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
+                "qmm_kernel": "qmm / qmm_int4",
+                "decode_attn_kernel": "quantized_decode_attention",
+                "group_quantize": "group_quantize"}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--seq", type=int, default=64)
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--decode", action="store_true",
-                    help="profile the decode token step instead")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="tokens per request (64; 128 with --train)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="requests (4; 8 with --train)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--decode", action="store_true",
+                      help="profile the decode token step instead")
+    mode.add_argument("--train", action="store_true",
+                      help="profile one training step instead")
     ap.add_argument("--cache", type=int, default=1024,
                     help="decode cache bucket (--decode)")
     args = ap.parse_args(argv)
+    if args.seq is None:
+        args.seq = 128 if args.train else 64
+    if args.batch is None:
+        args.batch = 8 if args.train else 4
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -92,8 +122,12 @@ def main(argv=None) -> int:
     cfg = FULL
     model = DecoderLM(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    if args.decode:
-        _profile_decode(cfg, model, params, args)
+    if args.decode or args.train:
+        if args.decode:
+            _profile_decode(cfg, model, params, args)
+        else:
+            del params
+            _profile_train(cfg, args)
         print(card.splitlines()[0])
         return 0
     eng = CoInferenceEngine(model, params,
@@ -144,6 +178,20 @@ def _print_trace(prof, wall_us: float, n: int, what: str) -> None:
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {us / 1e3 / n:9.3f} ms/{what}  {count // n:5d}x  "
               f"{key[:90]}")
+    kinds = {}
+    for key, us, count in rows:
+        port = [name for sym, name in PORT_KERNELS.items() if sym in key]
+        if port:
+            kind = port[0]
+        elif "gemm" in key.lower() or "cutlass" in key.lower():
+            kind = "cuBLAS GEMMs"
+        else:
+            kind = "other (elementwise, reductions, copies)"
+        t, c = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (t + us, c + count)
+    print(f"  device time by kind, per {what}:")
+    for kind, (us, count) in sorted(kinds.items(), key=lambda r: -r[1][0]):
+        print(f"  {us / 1e3 / n:9.3f} ms/{what}  {count // n:5d}x  {kind}")
 
 
 def _profile_decode(cfg, model, params, args) -> None:
@@ -200,6 +248,73 @@ def _profile_decode(cfg, model, params, args) -> None:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     _print_trace(prof, wall_us, 3, "step")
+
+
+def _profile_train(cfg, args) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import (MarkovLMConfig, MarkovLMDataset,
+                                  ShardedLoader)
+    from repro_torch.models.lm import DecoderLM, tree_map
+    from repro_torch.optim import AdamW, compress_tree, cosine_schedule
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    tr = Trainer(DecoderLM(cfg),
+                 AdamW(learning_rate=cosine_schedule(3e-4, 20, 100)), "cuda",
+                 TrainConfig(qat_bits=8, grad_compression="int8_ef"))
+    state = tr.init_state(0)
+    batch = next(ShardedLoader(MarkovLMDataset(MarkovLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq,
+        batch_size=args.batch)), device="cuda"))
+
+    def step():
+        # each step restarts from the same state: equal work every time
+        return tr._plain_step(*state, batch)
+
+    def parts():
+        """Walls of the step's parts, each ended by a synchronize."""
+        params, opt_state, err = state
+        walls = []
+        t0 = time.perf_counter()
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        tr._loss_fn(leaves, batch).backward()
+        grads = tree_map(lambda p: p.grad, leaves)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        grads, _ = compress_tree(grads, err)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        tr.opt.update(grads, opt_state, params)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return walls
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_step = _wall_ms(step, reps=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = [statistics.median(w) * 1e3 for w in zip(*[parts()
+                                                       for _ in range(3)])]
+    print(f"\ntrain step [{cfg.name} B={args.batch} S={args.seq}, qat_bits=8, "
+          f"int8_ef, remat]: {t_step:.2f} ms wall (median of 3) = loss and "
+          f"backward {split[0]:.2f} + compress {split[1]:.2f} + AdamW "
+          f"{split[2]:.2f} ms (walls of the parts, medians of 3); peak "
+          f"device memory {peak:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _print_trace(prof, wall_us, 2, "step")
 
 
 if __name__ == "__main__":
