@@ -13,18 +13,24 @@ nothing of JAX or of the JAX package ``repro``.
    ``build/kernels/`` (one ``nvcc`` per source, in parallel).
 3. Kernels against their plain versions at the shapes of qwen2-0.5b's
    agent matmuls: ``group_quantize`` codes and scales ``torch.equal``;
-   ``qmm``/``qmm_int4`` at M in {1, 256, 1024} within rtol = atol = 1e-4
-   (the tolerance of tests/test_kernels.py), and every row of M = 256
-   bitwise equal to the row computed alone.  Times each kernel, its plain
-   version and one library call (``torch.matmul`` on the dequantized
-   weight), with CUDA events, L2 flushed before every launch.
+   ``qmm``/``qmm_int4`` on their tensor-core route at M in {1, 64, 256,
+   1024} (64: the sequential engine, 256: the batched one) within
+   rtol = atol = 1e-4 (the tolerance of tests/test_kernels.py), and every
+   row of M = 64 and M = 256 bitwise equal to the row computed alone; one
+   G = 1 shape on the SIMT route against the plain version.  Times each
+   kernel, its plain version and one library call (``torch.matmul`` on
+   the dequantized weight), with CUDA events, L2 flushed before every
+   launch; the qmm bound is the arithmetic the kernel issues (3 bf16
+   passes, 3 x 2MNK at 989 TFLOP/s) against its bytes, with the f32-SIMT
+   bound (2MNK at 67 TFLOP/s) printed beside it.
 4. The main path: qwen2-0.5b at full width (24 layers, seeded random
    weights) served through ``CoInferenceEngine(path="kernel")`` at
    b̂ = 8, b̂ = 4 and the plan [4, 4, 4, 8, 8, 8], 4 requests x 64 tokens
    as one batch and one at a time, then once more at the codesign's
    choice for T0 = 3.5 s, E0 = 2 J.  Launch counters are zeroed just
    before and read just after; every agent matmul must have gone through
-   a kernel (7 per agent layer per forward).  The boundary activation and
+   a kernel (7 per agent layer per forward), all on the tensor-core
+   route (0 SIMT launches).  The boundary activation and
    the logits are then held against a forward on the card that runs the
    plain versions (tolerances at E2E_TOL and KERNEL_TOL below).
 5. Decode attention against its plain version at qwen2-0.5b's heads
@@ -93,6 +99,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12           # float32 outside the tensor cores
+BF16_FLOPS = 989e12         # bf16 tensor cores, dense
+QMM_PASSES = 3              # bf16 products per code on the wgmma route
+QMM_M = (1, 64, 256, 1024)  # 64: the sequential engine, 256: the batch
 KERNEL_TOL = 1e-4           # kernel vs plain: one matmul, the agent stage
 E2E_TOL = 1e-2              # logits vs plain, relative to their max|.|
 B, S = 4, 64
@@ -137,9 +146,9 @@ def time_ms(fn, flush, reps: int = 15) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, flops: float = F32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOPS * 1e3
+    t_ops = n_ops / flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -173,8 +182,10 @@ def check_kernels(cfg, dev, flush, detail):
         # one forward = this matmul once in each of the split agent layers
         for kern, rec in seen[key].items():
             s = summary[kern]
-            for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
-                if rec[f] is not None:
+            for f in ("ms", "plain_ms", "bound_ms", "library_ms",
+                      "bound_f32_ms"):
+                if rec.get(f) is not None:
+                    s.setdefault(f, 0.0)
                     s[f] += split * rec[f]
             s["max_abs_err"] = max(s["max_abs_err"], rec["max_abs_err"])
             s["bound_by"].add(rec["bound_by"])
@@ -214,33 +225,74 @@ def per_shape(cfg, w, x_all, flush, tk, ref, detail):
         plain = ref.qmm_ref if bits == 8 else ref.qmm_int4_ref
         w_deq = ref.dequantize_ref(ref.unpack_int4_ref(codes)
                                    if bits == 4 else codes, scales)
+        assert qmm_module().route(k, n, g) == "wgmma"
         err = 0.0
-        for m in (1, 256, 1024):
+        for m in QMM_M:
             x = x_all[:m]
+            before = fn.route_launches["wgmma"]
             got, want = fn(x, codes, scales), plain(x, codes, scales)
             torch.cuda.synchronize()
+            assert fn.route_launches["wgmma"] == before + 1, kern
             err = max(err, float((got - want).abs().max()))
             torch.testing.assert_close(got, want, rtol=KERNEL_TOL,
                                        atol=KERNEL_TOL)
-            if m == 256:
+            if m in (64, 256):
                 for i in range(m):
                     assert torch.equal(fn(x[i:i + 1], codes, scales)[0],
                                        got[i]), f"{kern} row {i} {k}x{n}"
-        for m in (1, B * S, 1024):
+        for m in QMM_M:
             x = x_all[:m]
             n_bytes = m * k * 4 + codes.numel() + scales.numel() * 4 \
                 + m * n * 4
-            b, by = bound_ms(n_bytes, 2.0 * m * n * k)
+            b, by = bound_ms(n_bytes, QMM_PASSES * 2.0 * m * n * k,
+                             BF16_FLOPS)
             row = dict(ms=time_ms(lambda: fn(x, codes, scales), flush),
                        plain_ms=time_ms(lambda: plain(x, codes, scales),
                                         flush),
                        library_ms=time_ms(lambda: torch.matmul(x, w_deq),
                                           flush),
-                       bound_ms=b, bound_by=by, max_abs_err=err)
+                       bound_ms=b, bound_by=by, max_abs_err=err,
+                       bound_f32_ms=bound_ms(n_bytes, 2.0 * m * n * k)[0])
             detail.append(dict(kernel=kern, m=m, k=k, n=n, g=g, **row))
             if m == B * S:
                 out[kern] = row
     return out
+
+
+def qmm_module():
+    """``repro_torch.kernels.qmm`` (the package's ``qmm`` is the wrapper)."""
+    import importlib
+    return importlib.import_module("repro_torch.kernels.qmm")
+
+
+def check_qmm_simt(dev):
+    """The SIMT route, held against the plain version at a per-element
+    group layout (G = 1, as ``group_layout`` gives K = 192)."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(2)
+    k, n, g = 192, 896, 1
+    w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+    x = torch.randn((B * S, k), generator=gen, device=dev)
+    err = 0.0
+    for kern, bits in (("qmm", 8), ("qmm_int4", 4)):
+        codes, scales = ref.group_quantize_ref(w, g, bits)
+        if bits == 4:
+            codes = ref.pack_int4_ref(codes)
+        fn = getattr(tk, kern)
+        plain = ref.qmm_ref if bits == 8 else ref.qmm_int4_ref
+        assert qmm_module().route(k, n, g) == "simt"
+        before = fn.route_launches["simt"]
+        got = fn(x, codes, scales)
+        torch.cuda.synchronize()
+        assert fn.route_launches["simt"] == before + 1, kern
+        want = plain(x, codes, scales)
+        torch.testing.assert_close(got, want, rtol=KERNEL_TOL,
+                                   atol=KERNEL_TOL)
+        err = max(err, float((got - want).abs().max()))
+    print(f"qmm SIMT route (M={B * S} K={k} N={n} G={g}, int8 and int4) "
+          f"vs plain: ok, max|d|={err:.3e}")
 
 
 def plain_attend(cfg):
@@ -836,13 +888,23 @@ def main() -> int:
     detail = []
     t0 = time.perf_counter()
     summary = check_kernels(cfg, dev, flush, detail)
+    check_qmm_simt(dev)
     print(f"kernels vs plain: ok in {time.perf_counter() - t0:.1f}s")
+    for name in ("qmm", "qmm_int4"):
+        s = summary[name]
+        print(f"  {name} per forward (M={B * S}, {7 * cfg.split_layer} "
+              f"launches): ms={s['ms']:.4f} torch.matmul={s['library_ms']:.4f}"
+              f" plain={s['plain_ms']:.4f} bound={s['bound_ms']:.4f} "
+              f"({s['bound_by']}, {QMM_PASSES} bf16 passes) "
+              f"f32-simt-bound={s['bound_f32_ms']:.4f}")
     for d in detail:
         shape = f"m={d.get('m', '-')} k={d['k']} n={d['n']}"
         print(f"  {d['kernel']:15s} {shape:22s} ms={d['ms']:.4f} "
               f"plain={d['plain_ms']:.4f} lib={d['library_ms']} "
               f"bound={d['bound_ms']:.4f} ({d['bound_by']}) "
-              f"err={d['max_abs_err']:.2e}")
+              + (f"f32-simt-bound={d['bound_f32_ms']:.4f} "
+                 if "bound_f32_ms" in d else "")
+              + f"err={d['max_abs_err']:.2e}")
 
     # 4. the main path at full width
     t0 = time.perf_counter()
@@ -894,6 +956,9 @@ def main() -> int:
     counts = tk.launch_counts()
     print(f"main path: {time.perf_counter() - t0:.1f}s, launches {counts}")
     assert counts == want, f"launch counts {counts} != expected {want}"
+    for name in ("qmm", "qmm_int4"):
+        routes = getattr(tk, name).route_launches
+        assert routes == {"wgmma": counts[name], "simt": 0}, (name, routes)
     for name in ("group_quantize", "qmm", "qmm_int4", "flash_attention_fwd"):
         assert counts[name] > 0, f"{name} never launched on the main path"
     print(f"auto_configure: b_hat={sol.b_hat} f={sol.f / 1e9:.3f}GHz "

@@ -4,8 +4,10 @@
 wrapper            CUDA source           TPU kernel it replaces
 =================  ====================  ==================================
 ``group_quantize`` csrc/group_quantize   repro/kernels/quantize.py
-``qmm``            csrc/qmm              repro/kernels/qmm.py ``qmm``
-``qmm_int4``       csrc/qmm              repro/kernels/qmm.py ``qmm_int4``
+``qmm``            csrc/qmm (bf16 wgmma  repro/kernels/qmm.py ``qmm``
+                   on a 3-piece split
+                   of x; SIMT route)
+``qmm_int4``       csrc/qmm (the same)   repro/kernels/qmm.py ``qmm_int4``
 ``quantized_       csrc/decode_attn      repro/kernels/decode_attn.py
 decode_attention``                       ``quantized_decode_attention``
 ``flash_attention  csrc/flash_attn       repro/kernels/flash.py
@@ -14,7 +16,8 @@ _fwd``                                   ``flash_attention_fwd``
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 torch version (``ref.py``) for a CPU tensor; it counts its kernel launches
-in a ``launches`` attribute.  ``flash.flash_attention`` differentiates
+in a ``launches`` attribute (``qmm`` and ``qmm_int4`` also per route, in
+``route_launches``).  ``flash.flash_attention`` differentiates
 ``flash_attention_fwd`` (backward through the plain oracle, as in the
 reference).
 """
@@ -23,7 +26,7 @@ from __future__ import annotations
 
 from .decode_attn import quantized_decode_attention
 from .flash import flash_attention_fwd
-from .qmm import qmm, qmm_int4
+from .qmm import qmm, qmm_int4, reset_route_launches
 from .quantize import group_quantize
 
 KERNELS = {"group_quantize": group_quantize, "qmm": qmm,
@@ -40,3 +43,4 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    reset_route_launches()

@@ -100,6 +100,38 @@ def qmm_int4_ref(x: torch.Tensor, packed: torch.Tensor,
     return qmm_ref(x, unpack_int4_ref(packed), scales)
 
 
+def split_bf16(x: torch.Tensor):
+    """f32 x -> (hi, mid, lo) bf16 with hi + mid + lo == x exactly (for
+    |x| from ~1e-31 up): the split the tensor-core qmm kernel makes."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16)
+    r = x - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def qmm_split_emulation(x: torch.Tensor, codes: torch.Tensor,
+                        scales: torch.Tensor) -> torch.Tensor:
+    """The tensor-core qmm kernel's order of arithmetic, in plain torch
+    (for the tests; no caller on a path): per group, the three bf16
+    pieces of x times the exact codes summed in f32, then
+    ``total = fma(partial, scale, total)`` (the product and sum formed in
+    float64 and rounded once to f32).  int8 codes [K, N]; f32 out."""
+    k = codes.shape[0]
+    g = k // scales.shape[0]
+    c = codes.to(torch.float32)
+    pieces = [p.to(torch.float32) for p in split_bf16(x)]
+    total = torch.zeros(x.shape[0], codes.shape[1], dtype=torch.float32,
+                        device=x.device)
+    for i in range(scales.shape[0]):
+        rows = slice(i * g, (i + 1) * g)
+        partial = sum(p[:, rows] @ c[rows] for p in pieces)
+        total = (partial.double() * scales[i].double()
+                 + total.double()).to(torch.float32)
+    return total
+
+
 # ---------------------------------------------------------------------------
 # Decode attention over a quantized KV cache (``repro/kernels/decode_attn.py``)
 # ---------------------------------------------------------------------------

@@ -7,8 +7,12 @@ with a card (and no JAX) run them with
 
 Shapes cover what the reference accepts beyond the serving path: any G
 dividing K (1, 64, 128, 256, and one group of K < 128 rows), odd N, and
-int4 with K % 256 != 0.  Codes and scales must be equal; matmuls agree at
-rtol = atol = 1e-4, the tolerance of tests/test_kernels.py.  Decode
+int4 with K % 256 != 0; the qmm cases take both of its routes (the
+tensor cores at ragged M, N and K tiles and groups ending inside a stage;
+SIMT at G = 1 and odd N), each checked by its route's launch counter.
+Codes and scales must be equal; matmuls agree at rtol = atol = 1e-4, the
+tolerance of tests/test_kernels.py, and a row's bits are the same alone,
+at M = 64 and at M = 256.  Decode
 attention agrees with its plain version within 1e-5 x max|out| (f32 sums
 in another order), and is bitwise row-independent and padding-invisible.
 Flash attention agrees at rtol = atol = 2e-5 (tests/test_flash.py's
@@ -17,6 +21,8 @@ row-independent and padding-invisible; its gradient agrees with the
 plain oracle's at 2e-4.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +30,9 @@ import torch
 from repro_torch import kernels as tk
 from repro_torch.kernels import ref
 from repro_torch.kernels.quantize import kv_quantize
+
+# the module (the package's name ``qmm`` is the wrapper function)
+tqmm = importlib.import_module("repro_torch.kernels.qmm")
 
 pytestmark = pytest.mark.cuda
 
@@ -59,6 +68,11 @@ def test_group_quantize_equals_plain(dev, k, n, g, bits):
 QMM_SHAPES = [  # (m, k, n, g)
     (1, 896, 4864, 128), (256, 4864, 896, 128), (7, 96, 127, 96),
     (130, 640, 129, 64), (33, 512, 256, 256), (5, 200, 31, 1),
+    # the tensor-core route at ragged M, a ragged K tile (K % 64 != 0) and
+    # groups that end inside a stage, a ragged N tile (N % 64 != 0)
+    (1, 896, 896, 128), (63, 896, 128, 128), (65, 4864, 128, 128),
+    (257, 896, 4864, 128), (64, 96, 64, 32), (9, 96, 48, 48),
+    (3, 4864, 128, 128), (70, 160, 80, 16),
 ]
 
 
@@ -72,15 +86,38 @@ def test_qmm_equals_plain(dev, m, k, n, g, bits):
         (tk.qmm_int4, ref.qmm_int4_ref)
     if bits == 4:
         codes = ref.pack_int4_ref(codes)
-    before = fn.launches
+    way = tqmm.route(k, n, g)
+    before, routed = fn.launches, fn.route_launches[way]
     out = fn(x, codes, scales)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
+    assert fn.route_launches[way] == routed + 1, way
     torch.testing.assert_close(out, plain(x, codes, scales), rtol=1e-4,
                                atol=1e-4)
     # row independence: each row alone is bitwise the batched row
     for i in {0, m // 2, m - 1}:
         assert torch.equal(fn(x[i:i + 1], codes, scales)[0], out[i])
+
+
+@pytest.mark.parametrize("k,n", [(4864, 896), (896, 4864)])  # down, gate
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qmm_rows_bitwise_across_m(dev, k, n, bits):
+    """Every row's bits are the same alone, at the sequential engine's
+    M = 64 and at the batched engine's M = 256."""
+    x = _normal(7, (256, k), dev)
+    codes, scales = ref.group_quantize_ref(
+        _normal(k + n, (k, n), dev) * k ** -0.5, 128, bits)
+    fn = tk.qmm if bits == 8 else tk.qmm_int4
+    if bits == 4:
+        codes = ref.pack_int4_ref(codes)
+    assert tqmm.route(k, n, 128) == "wgmma"
+    full = fn(x, codes, scales)
+    for i in range(4):
+        assert torch.equal(fn(x[64 * i:64 * (i + 1)], codes, scales),
+                           full[64 * i:64 * (i + 1)]), f"M=64 tile {i}"
+    for i in range(256):
+        assert torch.equal(fn(x[i:i + 1], codes, scales)[0], full[i]), \
+            f"row {i} alone"
 
 
 def test_bf16_activation_keeps_its_dtype(dev):

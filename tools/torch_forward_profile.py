@@ -78,7 +78,7 @@ def _kernel_us(evt) -> float:
 
 # the CUDA symbol of each of the port's kernels (csrc/*.cu)
 PORT_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
-                "qmm_kernel": "qmm / qmm_int4",
+                "qmm_": "qmm / qmm_int4",  # qmm_wgmma_kernel, qmm_kernel
                 "decode_attn_kernel": "quantized_decode_attention",
                 "group_quantize": "group_quantize"}
 
