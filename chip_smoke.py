@@ -36,12 +36,16 @@ nothing of JAX or of the JAX package ``repro``.
 5. Decode attention against its plain version at qwen2-0.5b's heads
    (H = 14 over KV = 2, dh = 64): B in {1, 4}, T in {128, 1024, 4096},
    b_kv in {4, 8, 16}, ragged lengths including 0, one sliding window;
-   within DECODE_TOL x max|out|, every row of B = 4 bitwise equal to the
-   row alone, and T grown to 2T with the lengths fixed bitwise equal.
-   Times the kernel, its plain version and one library call
-   (``scaled_dot_product_attention`` on the already-dequantized f32
-   cache, ``enable_gqa=True``, a length mask: its time leaves the dequant
-   out) at the decode path's widest shape, L2 flushed.
+   six rows at lengths on and beside the kernel's chunk boundaries
+   {0, 1, C - 1, C, C + 1, T} at T = 1024, and at T = 4096 under windows
+   of 100 and 1000; within DECODE_TOL x max|out|, every row of a batch
+   bitwise equal to the row alone, T grown to 2T with the lengths fixed
+   bitwise equal, and a second launch on the same inputs bitwise equal
+   to the first (the arrival counters reset).  Times the kernel, its
+   plain version and one library call (``scaled_dot_product_attention``
+   on the already-dequantized f32 cache, ``enable_gqa=True``, a length
+   mask: its time leaves the dequant out) at the decode path's widest
+   shape, L2 flushed, and prints the kernel's ratio to it.
 6. The decode path at full width: ``DecodeEngine`` (max_batch 4) serves
    six prompts of 100-500 tokens, 32 new tokens each, arriving so that
    admission is continuous and the cache buckets span 256-1024; pinned at
@@ -55,7 +59,8 @@ nothing of JAX or of the JAX package ``repro``.
    run is below twice the logit difference measured on one step from the
    same state (batched against alone, or plain against kernel).  Prints
    the wall ms per token step at B = 4, tokens/s, the prefill wall per
-   request and the kernel's device ms per step.
+   request and the kernel's device ms per step (CUDA events around each
+   of one step's 24 launches).
 7. Flash attention against its plain version at qwen2-0.5b's heads
    (H = 14 over KV = 2, dh = 64), operands in the model's [B, S, H, dh]
    layout: B in {1, 4} x S = T in {64, 100, 512, 1024} causal, the
@@ -67,7 +72,9 @@ nothing of JAX or of the JAX package ``repro``.
    right-padded inside its bucket bitwise equal on its real positions.
    Times the kernel, its plain version and ``scaled_dot_product_attention
    (is_causal=True, enable_gqa=True)`` on f32 at the serve shape (B = 4,
-   S = 64), the training shape (B = 8, S = 128) and S = 1024, B = 1.
+   S = 64), the training shape (B = 8, S = 128) and S = 1024, B = 1,
+   beside two bounds: the three TF32 passes the kernel issues at 495
+   TFLOP/s (the JSON line's bound) and f32 outside the tensor cores.
    Phases 4 and 6 count its launches too: 24 per forward and per prefill,
    and phase 4's plain forward runs the plain attention through the
    model's ``attend`` hook.
@@ -100,6 +107,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12           # float32 outside the tensor cores
 BF16_FLOPS = 989e12         # bf16 tensor cores, dense
+TF32_FLOPS = 495e12         # tf32 tensor cores, dense
 QMM_PASSES = 3              # bf16 products per code on the wgmma route
 QMM_M = (1, 64, 256, 1024)  # 64: the sequential engine, 256: the batch
 KERNEL_TOL = 1e-4           # kernel vs plain: one matmul, the agent stage
@@ -114,6 +122,7 @@ DECODE_NEW = 32
 DECODE_BUDGET = (6.0, 2.0)  # (T0, E0) of the auto run: both CLI classes
                             # feasible at full width
 FLASH_TOL = 2e-5            # flash vs plain, f32: tests/test_flash.py's
+FLASH_PASSES = 3            # tf32 products per f32 product in the kernel
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 10
 
 
@@ -400,13 +409,18 @@ def check_decode_kernel(dev, flush):
     import torch.nn.functional as F
     from repro_torch import kernels as tk
     from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attn import CHUNK as c
     from repro_torch.kernels.quantize import kv_dequantize
 
     err = 0.0
-    cases = [(b, t, b_kv, 0) for b in (1, 4) for t in (128, 1024, 4096)
-             for b_kv in (4, 8, 16)] + [(4, 1024, 8, 100)]
-    for b, t, b_kv, window in cases:
-        lens = [0, 1, t // 2 + 3, t] if b == 4 else [t - 5]
+    cases = [(b, t, b_kv, 0, [0, 1, t // 2 + 3, t] if b == 4 else [t - 5])
+             for b in (1, 4) for t in (128, 1024, 4096) for b_kv in (4, 8, 16)]
+    cases.append((4, 1024, 8, 100, [0, 1, 1024 // 2 + 3, 1024]))
+    # lengths on and beside the chunk boundaries; the long cache windowed
+    cases += [(6, t, b_kv, window, [0, 1, c - 1, c, c + 1, t])
+              for t, window in ((1024, 0), (4096, 100), (4096, 1000))
+              for b_kv in (4, 8, 16)]
+    for b, t, b_kv, window, lens in cases:
         args = decode_case(dev, b, t, b_kv, seed=t + b_kv, lens=lens)
         out = tk.quantized_decode_attention(*args, window=window)
         want = ref.quantized_decode_attention_ref(*args, window=window)
@@ -414,9 +428,10 @@ def check_decode_kernel(dev, flush):
         scale = float(want.abs().max())
         diff = float((out - want).abs().max())
         assert diff <= DECODE_TOL * scale, \
-            f"decode attention B={b} T={t} b_kv={b_kv}: {diff} of {scale}"
+            f"decode attention B={b} T={t} b_kv={b_kv} window={window}: " \
+            f"{diff} of {scale}"
         err = max(err, diff)
-        if b == 4:
+        if b > 1:
             assert bool((out[0] == 0).all()), "cache_len 0 attended"
             for i in range(b):
                 alone = tk.quantized_decode_attention(
@@ -430,8 +445,18 @@ def check_decode_kernel(dev, flush):
             F.pad(vs, pad[2:], value=1.0), ln, window=window)
         assert torch.equal(grown, out), \
             f"decode attention at 2T != at T={t} (B={b}, b_kv={b_kv})"
-    print(f"decode attention vs plain: ok over {len(cases)} cases, "
-          f"max|d|={err:.3e}; rows alone and T -> 2T bitwise")
+    # twice on the same inputs: the arrival counters were left at zero
+    args = decode_case(dev, 4, 1024, 8, seed=8, lens=[1024, 800, 532, 300])
+    before = tk.quantized_decode_attention.launches
+    first = tk.quantized_decode_attention(*args)
+    second = tk.quantized_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert tk.quantized_decode_attention.launches == before + 2
+    assert torch.equal(first, second), "decode attention: a second launch " \
+        "on the same inputs changed bits"
+    print(f"decode attention vs plain: ok over {len(cases)} cases (chunk "
+          f"edges, windows 100 and 1000 at T=4096), max|d|={err:.3e}; rows "
+          f"alone, T -> 2T and a second launch bitwise")
 
     # times at the decode path's widest shape: B = 4 slots of a 1024
     # bucket, int8 codes, lengths as the path gives them
@@ -465,8 +490,8 @@ def check_decode_kernel(dev, flush):
         print(f"  quantized_decode_attention B=4 T=1024 b_kv={b_kv:2d} "
               f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
               f"sdpa={r['library_ms']:.4f} (f32 cache, dequant not "
-              f"timed; max|d| vs kernel {lib_d:.2e}) bound={b_ms:.6f} "
-              f"({by})")
+              f"timed; max|d| vs kernel {lib_d:.2e}) kernel/sdpa="
+              f"{r['ms'] / r['library_ms']:.3f} bound={b_ms:.6f} ({by})")
     return rows[8]
 
 
@@ -482,14 +507,19 @@ def flash_case(dev, b, s, seed, dh=64, dtype=None, h=14, kv=2):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def flash_bound(q, k, causal=True):
+def flash_bound(q, k, causal=True, passes=FLASH_PASSES):
     """(ms, "bytes"|"operations") of one flash call: q, k, v and the
-    output once each; 4 * dh f32 flops per visible (query, key) pair."""
+    output once each against 4 * dh flops per visible (query, key) pair,
+    issued as ``passes`` TF32 tensor-core products each (3 for f32
+    inputs; ``passes=None``: f32 outside the tensor cores)."""
     b, h, s, dh = q.shape
     kv, t = k.shape[1], k.shape[2]
     pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
     n_bytes = q.element_size() * (2 * b * h * s * dh + 2 * b * kv * t * dh)
-    return bound_ms(n_bytes, 4.0 * dh * pairs * b * h)
+    n_ops = 4.0 * dh * pairs * b * h
+    if passes is None:
+        return bound_ms(n_bytes, n_ops)
+    return bound_ms(n_bytes, passes * n_ops, TF32_FLOPS)
 
 
 def check_flash_kernel(dev, flush):
@@ -555,6 +585,7 @@ def check_flash_kernel(dev, flush):
 
         lib_d = float((library() - fwd(q, k, v)).abs().max())
         b_ms, by = flash_bound(q, k)
+        simt_ms, simt_by = flash_bound(q, k, passes=None)
         rows[(b, s)] = r = dict(
             ms=time_ms(lambda: fwd(q, k, v), flush),
             plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v),
@@ -564,7 +595,8 @@ def check_flash_kernel(dev, flush):
         print(f"  flash_attention_fwd B={b} S=T={s} H=14 KV=2 dh=64 f32 "
               f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
               f"sdpa={r['library_ms']:.4f} (max|d| vs kernel {lib_d:.2e}) "
-              f"bound={b_ms:.6f} ({by})")
+              f"bound={b_ms:.6f} ({by}, {FLASH_PASSES} tf32 passes) "
+              f"f32-simt-bound={simt_ms:.6f} ({simt_by})")
     return rows[(B, S)]
 
 
@@ -673,6 +705,35 @@ def decode_path(cfg, params, dev, kernel_ms: float):
     print(f"decode step from one state (B=4, T=1024, b_kv=8): batched vs "
           f"alone max|d logits|={d_batch:.3e}, plain vs kernel "
           f"{d_plain:.3e}")
+
+    class TimedLM(DecoderLM):
+        """CUDA events around each decode-attention call of a step; a
+        device-side sleep before each keeps the card busy while the host
+        enqueues the call, so the events bracket its device work."""
+
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.events = []
+
+        def decode_attend(self, *a):
+            torch.cuda._sleep(SLEEP_CYCLES)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = super().decode_attend(*a)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+
+    timed = TimedLM(cfg)
+    with torch.no_grad():
+        per_step = []
+        for _ in range(3):
+            timed.events.clear()
+            step(timed, range(4))
+            torch.cuda.synchronize()
+            assert len(timed.events) == cfg.n_layers
+            per_step.append(sum(a.elapsed_time(b) for a, b in timed.events))
+    kernel_step_ms = statistics.median(per_step)
     prefill = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -684,8 +745,10 @@ def decode_path(cfg, params, dev, kernel_ms: float):
     print(f"decode wall: {step_ms:.2f} ms per token step at B=4 (median of "
           f"10), {4e3 / step_ms:.1f} tokens/s; prefill of "
           f"{prompts[5].size} tokens {statistics.median(prefill):.2f} ms "
-          f"per request; kernel device {cfg.n_layers * kernel_ms:.4f} ms "
-          f"per step ({cfg.n_layers} launches)")
+          f"per request; kernel device {kernel_step_ms:.4f} ms per step "
+          f"({cfg.n_layers} launches, CUDA events in the step, median of "
+          f"3; {cfg.n_layers} x the L2-flushed launch "
+          f"{cfg.n_layers * kernel_ms:.4f})")
 
     runs = [("pinned 8/8", [pin], (8, 8)), ("pinned 4/4", [pin], (4, 4)),
             ("pinned 8/16", [pin], (8, 16)),

@@ -9,9 +9,12 @@ wrapper            CUDA source           TPU kernel it replaces
                    of x; SIMT route)
 ``qmm_int4``       csrc/qmm (the same)   repro/kernels/qmm.py ``qmm_int4``
 ``quantized_       csrc/decode_attn      repro/kernels/decode_attn.py
-decode_attention``                       ``quantized_decode_attention``
+decode_attention`` (split over the       ``quantized_decode_attention``
+                   cache, fixed-order
+                   combine)
 ``flash_attention  csrc/flash_attn       repro/kernels/flash.py
-_fwd``                                   ``flash_attention_fwd``
+_fwd``             (three-pass TF32      ``flash_attention_fwd``
+                   wgmma)
 =================  ====================  ==================================
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain

@@ -24,6 +24,8 @@ import subprocess
 import time
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("group_quantize", "qmm", "decode_attn", "flash_attn")
@@ -94,6 +96,25 @@ def library(name: str) -> ctypes.CDLL:
         build_all((name,))
         _loaded[name] = ctypes.CDLL(str(lib_path(name)))
     return _loaded[name]
+
+
+_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def arrival_counters(device, n: int):
+    """Zeroed int32 arrival counters, at least ``n``, kept per device.
+
+    A kernel that combines partial results across blocks in one launch
+    (qmm's split K, decode attention's chunks) counts its blocks in on
+    them, and the last block to arrive resets its counter, so they are
+    zero again after every launch.  The kernels that use them must not
+    run concurrently on one device (the port launches on one stream).
+    """
+    have = _counters.get(device)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[device] = have
+    return have
 
 
 def check(status: int, what: str) -> None:

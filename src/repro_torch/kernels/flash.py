@@ -4,7 +4,10 @@ differentiable wrapper.
 Port of the TPU kernel ``flash_attention_fwd`` (``repro/kernels/flash.py``):
 causal, sliding-window or bidirectional GQA attention with an online
 softmax, fully masked kv tiles skipped.  The kernel is
-``csrc/flash_attn.cu``; the plain version is ``ref.flash_attention_ref``.
+``csrc/flash_attn.cu``: both products on the tensor cores as three TF32
+passes (an error-compensated split of each f32 operand, f32 parity);
+``ref.flash_split_emulation`` models its arithmetic for the tests.  The
+plain version is ``ref.flash_attention_ref``.
 :func:`flash_attention` is the reference's ``custom_vjp``: its forward is
 :func:`flash_attention_fwd` and its backward recomputes through
 ``ref.ref_attention`` with autograd, as the reference's ``_fa_bwd`` does
@@ -32,9 +35,16 @@ MAX_HEAD_DIM = 128
 def _entry(symbol: str):
     """The bound C entry point, looked up and typed once."""
     fn = getattr(build.library("flash_attn"), symbol)
-    fn.argtypes = [_P] * 6 + [_I] * 8 + [_F, _P]
+    fn.argtypes = [_P] * 6 + [_I] * 8 + [_F, _I, _P]
     fn.restype = _I
     return fn
+
+
+def _copies_16(*xs) -> bool:
+    """Whether the kernel may stage these f32 operands 16 bytes at a time:
+    rows of a multiple of 4 elements at 16-byte-aligned addresses."""
+    return all(x.shape[-1] % 4 == 0 and x.data_ptr() % 16 == 0
+               and all(x.stride(i) % 4 == 0 for i in range(3)) for x in xs)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
@@ -51,7 +61,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     Launches the CUDA kernel on a CUDA tensor and runs the plain version
     on a CPU tensor; nothing else is accepted.  ``block_q``/``block_k``
     set the plain version's tiles (the reference's); the kernel's tiles
-    are a fixed 64 x 64, so its bits depend on neither.
+    are a fixed 64 x 64, so its bits depend on neither.  Raises on a CUDA
+    tensor the kernel cannot take (head_dim > MAX_HEAD_DIM, another dtype).
     """
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"needs q [B, H, S, dh] and k, v [B, KV, T, dh], "
@@ -92,14 +103,14 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     if out.numel():
         strides = (ctypes.c_longlong * 12)(
             *(x.stride(i) for x in (q, k, v, out) for i in range(3)))
-        symbol = "flash_attn_f32" if q.dtype == torch.float32 \
-            else "flash_attn_bf16"
+        f32 = q.dtype == torch.float32
+        symbol = "flash_attn_f32" if f32 else "flash_attn_bf16"
         with torch.cuda.device(q.device):
             status = _entry(symbol)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lens is None else lens.data_ptr(),
                 ctypes.addressof(strides), b, h, kv, s, t, dh, int(causal),
-                int(window), dh ** -0.5,
+                int(window), dh ** -0.5, int(f32 and _copies_16(q, k, v)),
                 torch.cuda.current_stream().cuda_stream)
         build.check(status, "flash_attention_fwd")
         flash_attention_fwd.launches += 1

@@ -85,22 +85,6 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_counters: dict = {}
-
-
-def _arrival_counters(device: torch.device, tiles: int) -> torch.Tensor:
-    """Zeroed int32 arrival counters, one per output tile, kept per
-    device: the kernel leaves them zero again after each launch.  Split-K
-    launches on one device must therefore not overlap (the port launches
-    on one stream)."""
-    have = _counters.get(device)
-    if have is None or have.numel() < tiles:
-        have = torch.zeros(max(tiles, 4096), dtype=torch.int32,
-                           device=device)
-        _counters[device] = have
-    return have
-
-
 def _check_args(x, w, scales, packed: bool, what: str) -> int:
     """Validate shapes; returns the group size G."""
     if x.ndim != 2 or w.ndim != 2 or scales.ndim != 2:
@@ -152,7 +136,7 @@ def _launch(fn, packed: bool, x, w, scales, group: int) -> torch.Tensor:
             if s > 1:
                 ws = torch.empty((s, m, n), dtype=torch.float32,
                                  device=x.device)
-                cnt = _arrival_counters(
+                cnt = build.arrival_counters(
                     x.device, -(-m // TILE_M) * -(-n // TILE_N))
             symbol = "qmm_int4_wgmma_f32" if packed else "qmm_wgmma_f32"
             status = _entry(symbol)(

@@ -201,6 +201,71 @@ def quantized_decode_attention_ref(q, k_codes, v_codes, k_scales, v_scales,
     return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
+def decode_attention_chunked_ref(q, k_codes, v_codes, k_scales, v_scales,
+                                 cache_len, *, window: int = 0):
+    """The decode kernel's order of arithmetic, in plain torch (for the
+    tests; no caller on a path).
+
+    Same inputs and output as :func:`quantized_decode_attention_ref`.
+    Each row walks the live chunks of ``decode_attn.chunks`` (CHUNK
+    positions at fixed multiples of CHUNK; positions outside the live
+    range dequantized as 0): a chunk's state is ``_tile_update`` from the
+    initial one (m = the chunk's max score, p = exp(s - m) or 0, l = sum
+    p, acc = p . V); then the states combine in ascending chunk order,
+    m* = max m_c, l = sum l_c exp(m_c - m*), acc = sum acc_c exp(m_c -
+    m*), out = acc / max(l, 1e-30).  A row with no live position gets 0.
+    Rows are computed one at a time on fixed-size chunks, so a row's bits
+    depend neither on B nor on T once T >= its length.
+    """
+    from .decode_attn import CHUNK, chunks
+    b, _, h, dh = q.shape
+    t, kv = k_codes.shape[1], k_codes.shape[2]
+    g = h // kv
+    dev = q.device
+    lens = torch.as_tensor(cache_len).reshape(-1).expand(b).tolist()
+    scale = dh ** -0.5
+    pos = torch.arange(CHUNK, device=dev)
+    out = torch.zeros((b, kv, g, dh), dtype=torch.float32, device=dev)
+    for i in range(b):
+        n = int(lens[i])
+        hi = min(n, t)
+        lo = max(n - window, 0) if window > 0 else 0
+        qr = q[i, 0].reshape(kv, g, 1, dh).to(torch.float32)
+        states = []
+        for c in chunks(t, n, window):
+            t0 = c * CHUNK
+            valid = (t0 + pos >= lo) & (t0 + pos < hi)            # [C]
+            rows = slice(t0, min(t0 + CHUNK, t))
+            kd = torch.zeros((CHUNK, kv, dh), device=dev)
+            vd = torch.zeros((CHUNK, kv, dh), device=dev)
+            kd[:rows.stop - t0] = (k_codes[i, rows].to(torch.float32)
+                                   * k_scales[i, rows, :, None])
+            vd[:rows.stop - t0] = (v_codes[i, rows].to(torch.float32)
+                                   * v_scales[i, rows, :, None])
+            kd = torch.where(valid[:, None, None], kd, 0.0)
+            vd = torch.where(valid[:, None, None], vd, 0.0)
+            kd, vd = kd.permute(1, 0, 2)[:, None], vd.permute(1, 0, 2)
+            sc = torch.sum(qr * kd, dim=-1) * scale               # [KV,G,C]
+            sc = torch.where(valid, sc, NEG_INF)
+            m = torch.amax(sc, dim=-1, keepdim=True)
+            p = torch.where(valid, torch.exp(sc - m), 0.0)
+            states.append((m, torch.sum(p, dim=-1, keepdim=True),
+                           torch.sum(p[..., None] * vd[:, None], dim=-2)))
+        if not states:
+            continue
+        m_star = states[0][0]
+        for m, _, _ in states[1:]:
+            m_star = torch.maximum(m_star, m)
+        l = torch.zeros_like(m_star)
+        acc = torch.zeros((kv, g, dh), device=dev)
+        for m, lc, ac in states:
+            w = torch.exp(m - m_star)
+            l = lc * w + l
+            acc = ac * w + acc
+        out[i] = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Flash attention (``repro/kernels/flash.py``)
 # ---------------------------------------------------------------------------
@@ -320,4 +385,124 @@ def ref_attention(q, k, v, causal: bool, window: int):
         mask = mask & ((qpos - kpos) < window)
     p = torch.softmax(torch.where(mask, sc, -torch.inf), dim=-1)
     out = torch.matmul(p, vr)                          # [B, KV, G, S, dh]
+    return out.reshape(b, h, s, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The flash kernel's error-compensated TF32 products (``csrc/flash_attn.cu``)
+# ---------------------------------------------------------------------------
+
+MMA_K = 8          # the depth of one tf32 tensor-core product (m64n64k8)
+FLASH_TILE = 64    # the kernel's query rows per block and kv tile
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on the bits: round f32 to 10 stored mantissa
+    bits, ties away from zero (finite inputs)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """f32 x -> (hi, lo) TF32 values, hi = tf32(x), lo = tf32(x - hi):
+    hi + lo equals x to ~2^-22 relative."""
+    x = x.to(torch.float32)
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, acc=None,
+                  exact_a: bool = False,
+                  exact_b: bool = False) -> torch.Tensor:
+    """a [..., M, K] @ b [..., K, N] as the kernel forms it on the tensor
+    cores: per MMA_K-deep step, lo_a hi_b, then hi_a lo_b, then hi_a hi_b
+    added into one f32 accumulator (``acc``, default zero); lo lo is
+    dropped.  An operand that is exact in TF32 (``exact_*``: bf16 inputs)
+    is not split, and the passes with its lo part are skipped.  Each
+    step's products are exact in f32; their sum rounds in f32 here, where
+    the tensor cores add at their own internal precision."""
+    ah, al = (a.to(torch.float32), None) if exact_a else split_tf32(a)
+    bh, bl = (b.to(torch.float32), None) if exact_b else split_tf32(b)
+    k = a.shape[-1]
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32,
+                      device=a.device) if acc is None else acc
+    for k0 in range(0, k, MMA_K):
+        ks = slice(k0, k0 + MMA_K)
+        if al is not None:
+            out = out + al[..., ks] @ bh[..., ks, :]
+        if bl is not None:
+            out = out + ah[..., ks] @ bl[..., ks, :]
+        out = out + ah[..., ks] @ bh[..., ks, :]
+    return out
+
+
+def flash_split_emulation(q, k, v, *, causal: bool = True, window: int = 0,
+                          kv_len=None):
+    """The flash kernel's schedule and order of arithmetic, in plain torch
+    (for the tests; no caller on a path).  Same layout and masks as
+    :func:`flash_attention_ref`.
+
+    Query tiles and kv tiles of FLASH_TILE, only kv tiles holding a key
+    visible to some row of the query tile walked; per tile S =
+    :func:`tf32x3_matmul` (q, k^T) * dh**-0.5, NEG_INF where masked, the
+    reference's online softmax in f32 (m_new, p = exp(s - m_new) or 0,
+    corr, l = l * corr + sum p), then acc = acc * corr + pv with pv =
+    :func:`tf32x3_matmul` (p, v) formed fresh for the tile; the output is
+    acc / max(l, 1e-30).  bf16 inputs are exact in TF32: one pass for
+    q k^T, two for p v.
+    """
+    b, h, s, dh = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    g = h // kv
+    dev = q.device
+    exact = q.dtype == torch.bfloat16
+    ft = FLASH_TILE
+    kend = torch.full((b,), t, dtype=torch.int64, device=dev) \
+        if kv_len is None else torch.clamp(
+            torch.as_tensor(kv_len, device=dev).reshape(-1).expand(b)
+            .to(torch.int64), min=0, max=t)
+    kend_b = kend.reshape(b, 1, 1, 1, 1)
+    nq, nk = -(-s // ft), -(-t // ft)
+    qp = torch.nn.functional.pad(q.to(torch.float32), (0, 0, 0, nq * ft - s))
+    kp = torch.nn.functional.pad(k.to(torch.float32), (0, 0, 0, nk * ft - t))
+    vp = torch.nn.functional.pad(v.to(torch.float32), (0, 0, 0, nk * ft - t))
+    qp = qp.reshape(b, kv, g, nq * ft, dh)
+    kp, vp = kp[:, :, None], vp[:, :, None]            # [B, KV, 1, Tp, dh]
+    scale = dh ** -0.5
+    outs = []
+    for i in range(nq):
+        q0 = i * ft
+        qb = qp[:, :, :, q0:q0 + ft]
+        qpos = (q0 + torch.arange(ft, device=dev))[:, None]
+        m = torch.full((b, kv, g, ft, 1), NEG_INF, device=dev)
+        l = torch.zeros((b, kv, g, ft, 1), device=dev)
+        acc = torch.zeros((b, kv, g, ft, dh), device=dev)
+        # the tiles the kernel walks: as csrc/flash_attn.cu, per row of B
+        q_last = min(q0 + ft, s) - 1
+        hi = torch.clamp(kend, max=q_last + 1) if causal else kend
+        lo = max(q0 - window + 1, 0) if window > 0 else 0
+        for j in range(lo // ft, nk):
+            walk = (hi > lo) & (j * ft < hi)                         # [B]
+            if not bool(walk.any()):
+                continue
+            kb = kp[:, :, :, j * ft:(j + 1) * ft]
+            vb = vp[:, :, :, j * ft:(j + 1) * ft]
+            kpos = (j * ft + torch.arange(ft, device=dev))[None, :]
+            mask = _visible(qpos, kpos, kend_b, causal, window)
+            sc = tf32x3_matmul(qb, kb.transpose(-1, -2), exact_a=exact,
+                               exact_b=exact) * scale
+            sc = torch.where(mask, sc, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(sc, dim=-1, keepdim=True))
+            p = torch.where(mask, torch.exp(sc - m_new), 0.0)
+            corr = torch.exp(m - m_new)
+            l_new = l * corr + torch.sum(p, dim=-1, keepdim=True)
+            pv = tf32x3_matmul(p, vb.expand(-1, -1, g, -1, -1),
+                               exact_b=exact)
+            acc_new = acc * corr + pv
+            w = walk.reshape(b, 1, 1, 1, 1)
+            m = torch.where(w, m_new, m)
+            l = torch.where(w, l_new, l)
+            acc = torch.where(w, acc_new, acc)
+        outs.append(acc / torch.clamp(l, min=1e-30))
+    out = torch.cat(outs, dim=3)[:, :, :, :s]
     return out.reshape(b, h, s, dh).to(q.dtype)

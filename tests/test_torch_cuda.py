@@ -14,11 +14,16 @@ Codes and scales must be equal; matmuls agree at rtol = atol = 1e-4, the
 tolerance of tests/test_kernels.py, and a row's bits are the same alone,
 at M = 64 and at M = 256.  Decode
 attention agrees with its plain version within 1e-5 x max|out| (f32 sums
-in another order), and is bitwise row-independent and padding-invisible.
-Flash attention agrees at rtol = atol = 2e-5 (tests/test_flash.py's
-tolerance) in f32 and within one bf16 ulp in bf16, bitwise
+in another order: the kernel's chunks combine in another order than the
+plain version's sequential walk), at lengths on and beside its chunk
+boundaries and under windows at T = 4096, and is bitwise
+row-independent, padding-invisible and the same on a second launch.
+Flash attention (tensor-core products) agrees at rtol = atol = 2e-5
+(tests/test_flash.py's tolerance) in f32 and within one bf16 ulp in
+bf16, at lengths around its 16-row MMA tile and 64-row block, bitwise
 row-independent and padding-invisible; its gradient agrees with the
-plain oracle's at 2e-4.
+plain oracle's at 2e-4.  Shapes a kernel cannot take raise, with no
+launch.
 """
 
 import importlib
@@ -176,6 +181,108 @@ def test_decode_attention_padding_is_invisible(dev, b_kv):
     assert torch.equal(out, grown)
 
 
+from repro_torch.kernels import decode_attn as tdecode  # noqa: E402
+
+C = tdecode.CHUNK
+
+
+def _decode_close(out, want):
+    assert float((out - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("b_kv", [4, 8, 16])
+@pytest.mark.parametrize("t", [256, 1024])
+def test_decode_attention_at_chunk_edges(dev, b_kv, t):
+    """Lengths on and beside the chunk boundaries, each row alone bitwise
+    the batched row, and T -> 2T with the lengths fixed bitwise."""
+    lens = [0, 1, C - 1, C, C + 1, t]
+    args = _decode_case(dev, len(lens), t, b_kv, seed=t + 7 * b_kv,
+                        lens=lens)
+    before = tk.quantized_decode_attention.launches
+    out = tk.quantized_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert tk.quantized_decode_attention.launches == before + 1
+    _decode_close(out, ref.quantized_decode_attention_ref(*args))
+    assert (out[0] == 0).all()                  # cache_len 0
+    for i in range(len(lens)):
+        alone = tk.quantized_decode_attention(*(a[i:i + 1] for a in args))
+        assert torch.equal(alone[0], out[i]), f"row {i} (len {lens[i]})"
+    q, kc, vc, ks, vs, ln = args
+    pad = (0, 0, 0, 0, 0, t)
+    grown = tk.quantized_decode_attention(
+        q, torch.nn.functional.pad(kc, pad), torch.nn.functional.pad(vc, pad),
+        torch.nn.functional.pad(ks, pad[2:]),
+        torch.nn.functional.pad(vs, pad[2:]), ln)
+    assert torch.equal(grown, out)
+
+
+@pytest.mark.parametrize("b_kv", [4, 8, 16])
+@pytest.mark.parametrize("window", [100, 1000])
+def test_decode_attention_long_cache_windowed(dev, b_kv, window):
+    t = 4096
+    lens = [0, 99, 1000, 2049, t]
+    args = _decode_case(dev, len(lens), t, b_kv, seed=window + b_kv,
+                        lens=lens)
+    out = tk.quantized_decode_attention(*args, window=window)
+    _decode_close(out, ref.quantized_decode_attention_ref(*args,
+                                                          window=window))
+    for i in range(len(lens)):
+        alone = tk.quantized_decode_attention(*(a[i:i + 1] for a in args),
+                                              window=window)
+        assert torch.equal(alone[0], out[i]), f"row {i}"
+    q, kc, vc, ks, vs, ln = args
+    pad = (0, 0, 0, 0, 0, t)
+    grown = tk.quantized_decode_attention(
+        q, torch.nn.functional.pad(kc, pad), torch.nn.functional.pad(vc, pad),
+        torch.nn.functional.pad(ks, pad[2:]),
+        torch.nn.functional.pad(vs, pad[2:]), ln, window=window)
+    assert torch.equal(grown, out)
+
+
+@pytest.mark.parametrize("b_kv,dh", [(8, 24), (16, 6)])
+def test_decode_attention_rows_off_16_bytes(dev, b_kv, dh):
+    """Cache rows that are not whole 16-byte loads (int8 dh = 24, f32
+    dh = 6) take the kernel's element-wise staging."""
+    lens = [0, C + 3, 200]
+    args = _decode_case(dev, len(lens), 256, b_kv, seed=dh, lens=lens, h=4,
+                        kv=2, dh=dh)
+    before = tk.quantized_decode_attention.launches
+    out = tk.quantized_decode_attention(*args, window=150)
+    torch.cuda.synchronize()
+    assert tk.quantized_decode_attention.launches == before + 1
+    _decode_close(out, ref.quantized_decode_attention_ref(*args,
+                                                          window=150))
+    for i in range(len(lens)):
+        alone = tk.quantized_decode_attention(*(a[i:i + 1] for a in args),
+                                              window=150)
+        assert torch.equal(alone[0], out[i]), f"row {i}"
+
+
+def test_decode_attention_twice_is_bitwise(dev):
+    """The arrival counters are left zero: a second launch on the same
+    inputs combines the same chunks and gives the same bits."""
+    args = _decode_case(dev, 4, 1024, 8, seed=21, lens=[1024, 800, 532, 300])
+    before = tk.quantized_decode_attention.launches
+    first = tk.quantized_decode_attention(*args)
+    second = tk.quantized_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert tk.quantized_decode_attention.launches == before + 2
+    assert torch.equal(first, second)
+
+
+def test_decode_attention_raises_where_the_kernel_cannot_run(dev):
+    """A head size whose chunk does not fit in shared memory raises on the
+    card, with no launch and no plain fallback."""
+    args = _decode_case(dev, 1, 64, 8, seed=5, lens=[64], h=2, kv=1,
+                        dh=1024)
+    assert tdecode.smem_bytes(2, 1024, 64) > tdecode.MAX_SMEM_BYTES
+    before = tk.quantized_decode_attention.launches
+    with pytest.raises(ValueError, match="shared"):
+        tk.quantized_decode_attention(*args)
+    assert tk.quantized_decode_attention.launches == before
+
+
 # ---------------------------------------------------------------------------
 # flash attention: kernel vs plain at qwen2-0.5b's heads (H = 14 over
 # KV = 2, dh = 64), f32 within rtol = atol = 2e-5 (tests/test_flash.py's
@@ -274,3 +381,65 @@ def test_blockwise_attention_raises_where_the_kernel_cannot_run(dev):
     with pytest.raises(ValueError, match="head_dim"):
         tL.blockwise_attention(q, k, v, causal=True)
     assert tflash.flash_attention_fwd.launches == before
+
+
+def test_flash_raises_where_the_kernel_cannot_run(dev):
+    q, k, v = _flash_case(dev, 1, 64, h=2, kv=1, dh=160, seed=15)
+    before = tflash.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        tflash.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tflash.flash_attention_fwd(*(x[..., :64].half() for x in (q, k, v)))
+    assert tflash.flash_attention_fwd.launches == before
+
+
+def test_flash_f32_rows_off_16_bytes(dev):
+    """dh = 30: f32 rows that are not whole 16-byte copies take the
+    kernel's plain-load staging, with the same products."""
+    q, k, v = _flash_case(dev, 2, 100, h=4, kv=2, dh=30, seed=16)
+    assert not tflash._copies_16(q, k, v)
+    out = tflash.flash_attention_fwd(q, k, v, window=40)
+    torch.testing.assert_close(
+        out, ref.flash_attention_ref(q, k, v, window=40), rtol=2e-5,
+        atol=2e-5)
+    for i in range(2):
+        alone = tflash.flash_attention_fwd(q[i:i + 1], k[i:i + 1],
+                                           v[i:i + 1], window=40)
+        assert torch.equal(alone[0], out[i]), f"row {i}"
+
+
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 63, 65, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_at_tile_edges(dev, s, dtype, dh):
+    """Lengths on and beside the MMA's 16 rows and the 64-row tile, f32
+    and bf16, causal, windowed and bidirectional with ragged kv_len: within
+    the tolerance, each row alone bitwise the batched row, and the
+    sequence right-padded to 128 bitwise on its real positions."""
+    q, k, v = _flash_case(dev, 2, 128, dh=dh, dtype=dtype, seed=s + dh)
+    lens = torch.tensor([s, max(s // 2, 1)], device=dev)
+    for causal, window, kv_len in ((True, 0, None), (True, 24, None),
+                                   (False, 0, lens)):
+        short = [x[:, :, :s] for x in (q, k, v)]
+        out = tflash.flash_attention_fwd(*short, causal=causal,
+                                         window=window, kv_len=kv_len)
+        want = ref.flash_attention_ref(*short, causal=causal, window=window,
+                                       kv_len=kv_len)
+        what = f"S={s} causal={causal} window={window} kv_len={kv_len}"
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5,
+                                       msg=what)
+        else:
+            d = (out.float() - want.float()).abs()
+            assert bool((d <= want.float().abs() * 2.0 ** -7
+                         + 2e-5).all()), what
+        for i in range(2):
+            alone = tflash.flash_attention_fwd(
+                *(x[i:i + 1] for x in short), causal=causal, window=window,
+                kv_len=None if kv_len is None else kv_len[i:i + 1])
+            assert torch.equal(alone[0], out[i]), f"{what}: row {i}"
+        padded = tflash.flash_attention_fwd(
+            q, k, v, causal=causal, window=window,
+            kv_len=kv_len if kv_len is not None
+            else (None if causal else s))
+        assert torch.equal(padded[:, :, :s], out), f"{what}: padding"

@@ -1,0 +1,159 @@
+#!/usr/bin/env python3
+"""Device time of the port's two attention kernels at their timed shapes.
+
+    python3 tools/attn_time.py [--src DIR] [--reps 25]
+    python3 tools/attn_time.py --clock
+
+Times ``quantized_decode_attention`` at B = 4 over a T = 1024 cache
+(lengths [1024, 800, 532, 300], b_kv 8, 4 and 16) and
+``flash_attention_fwd`` (causal, f32, qwen2-0.5b's heads: 14 over 2,
+dh = 64) at B x S = 4 x 64, 8 x 128 and 1 x 1024, each beside one
+``scaled_dot_product_attention`` call on the same inputs (the decode one
+on the already-dequantized cache).  Medians of CUDA-event times with the
+L2 flushed before every launch (``chip_smoke.time_ms``).  Then the floors
+the same clock reads: one tiny torch op, a decode call with one live
+chunk (one block, then its combine) and a flash call with one query and
+one key (one block, one tile).  Prints one JSON line per shape and the
+card line.
+
+``--src`` imports ``repro_torch`` from another tree's ``src`` (its kernels
+build into that tree's ``build/kernels``), so two versions of the kernels
+can be timed in one call on one card: run it on each, in turns.
+
+``--clock`` builds ``csrc/flash_attn.cu`` once more with
+``-DFLASH_STAGE_CLOCK`` (into ``build/kernels/``, apart from the port's
+library, and run in a process of its own: a second build of a kernel
+loaded beside the first refuses to launch) and prints, for the block with
+the longest causal walk at B x S = 1 x 1024 and 4 x 64, the clock64()
+cycles per kv tile of each part of a tile step, averaged over its 4
+warps: waiting for K, splitting it, q k^T, the barrier and the next K's
+copies, the softmax, waiting for V, splitting and transposing it, the
+next V's copies, and p V.
+
+Needs a CUDA card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+PARTS = ("wait K", "split K", "q k^T", "K copies", "softmax", "wait V",
+         "split V", "V copies", "p V")
+
+
+def stage_clock() -> None:
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    so = build.BUILD_DIR / "flash-stage-clock.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-DFLASH_STAGE_CLOCK",
+                    "-o", str(so), str(build.CSRC / "flash_attn.cu")],
+                   check=True)
+    fn = ctypes.CDLL(str(so)).flash_attn_f32_clock
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    for b, s in ((1, 1024), (4, 64)):
+        q, k, v = cs.flash_case(dev, b, s, seed=s)
+        out = torch.empty_like(q)
+        clock = torch.zeros(40, dtype=torch.int64, device=dev)
+        strides = (ctypes.c_longlong * 12)(
+            *(x.stride(i) for x in (q, k, v, out) for i in range(3)))
+        for _ in range(3):
+            status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), None, ctypes.addressof(strides), b,
+                        14, 2, s, s, 64, 1, 0, 64 ** -0.5, 1,
+                        torch.cuda.current_stream().cuda_stream,
+                        clock.data_ptr())
+            assert status == 0, f"cudaError_t {status}"
+        torch.cuda.synchronize()
+        clk = clock.tolist()
+        rows = [clk[10 * w:10 * w + 10] for w in range(4)]
+        tiles = rows[0][9]
+        per = [sum(r[i] for r in rows) / (4 * tiles) for i in range(9)]
+        print(f"flash B={b} S={s} f32 dh=64, block of the longest walk "
+              f"({tiles} kv tiles), cycles per tile step (mean of 4 warps): "
+              + ", ".join(f"{p} {c:.0f}" for p, c in zip(PARTS, per))
+              + f"; total {sum(per):.0f}", flush=True)
+    print(cs.card_line())
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=None,
+                    help="import repro_torch from this directory")
+    ap.add_argument("--reps", type=int, default=25)
+    ap.add_argument("--clock", action="store_true")
+    args = ap.parse_args(argv)
+    import chip_smoke as cs               # puts this tree's src on the path
+    if args.clock:
+        stage_clock()
+        return 0
+    if args.src is not None:
+        sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        print("error: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch import kernels as tk
+    from repro_torch.kernels.quantize import kv_dequantize
+    from repro_torch.device import set_float32_numerics
+
+    set_float32_numerics()
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
+    where = pathlib.Path(tk.__file__).resolve().parents[2]
+
+    def t(fn):
+        return cs.time_ms(fn, flush, reps=args.reps)
+
+    for b_kv in (8, 4, 16):
+        d = cs.decode_case(dev, 4, 1024, b_kv, seed=b_kv,
+                           lens=[1024, 800, 532, 300])
+        q, kc, vc, ks, vs, lens = d
+        qh = q.transpose(1, 2)
+        kd = kv_dequantize(kc, ks).transpose(1, 2).contiguous()
+        vd = kv_dequantize(vc, vs).transpose(1, 2).contiguous()
+        mask = (torch.arange(1024, device=dev)[None, :]
+                < lens[:, None].long())[:, None, None, :]
+        ms = t(lambda: tk.quantized_decode_attention(*d))
+        lib = t(lambda: F.scaled_dot_product_attention(
+            qh, kd, vd, attn_mask=mask, enable_gqa=True))
+        print(json.dumps(dict(kernel="quantized_decode_attention", b=4,
+                              t=1024, b_kv=b_kv, ms=ms, sdpa_ms=lib,
+                              bound_ms=cs.decode_bound(d)[0],
+                              src=str(where))))
+    for b, s in ((4, 64), (8, 128), (1, 1024)):
+        q, k, v = cs.flash_case(dev, b, s, seed=s)
+        ms = t(lambda: tk.flash_attention_fwd(q, k, v))
+        lib = t(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        print(json.dumps(dict(kernel="flash_attention_fwd", b=b, s=s, ms=ms,
+                              sdpa_ms=lib, src=str(where))))
+    one = torch.zeros(1, device=dev)
+    d = cs.decode_case(dev, 1, 1024, 8, seed=1, lens=[64])
+    q, k, v = cs.flash_case(dev, 1, 1, seed=1, h=1, kv=1)
+    print(json.dumps(dict(
+        floor_tiny_op_ms=t(lambda: one.add_(1.0)),
+        floor_decode_one_chunk_ms=t(
+            lambda: tk.quantized_decode_attention(*d)),
+        floor_flash_one_tile_ms=t(lambda: tk.flash_attention_fwd(q, k, v)),
+        src=str(where))))
+    print(cs.card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

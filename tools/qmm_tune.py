@@ -52,10 +52,10 @@ def _case(k, n, m, dev):
 def sweep_splits(dev) -> None:
     import torch
     from chip_smoke import time_ms
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import build, ref
     q = importlib.import_module("repro_torch.kernels.qmm")
     flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
-    counters = q._arrival_counters(dev, 4096)
+    counters = build.arrival_counters(dev, 4096)
     sms = q._sm_count(dev.index or 0)
     for k, n in SHAPES:
         for m in (64, 256):
