@@ -12,7 +12,13 @@ nothing of JAX or of the JAX package ``repro``.
 2. Build: compiles every kernel of ``src/repro_torch/kernels/csrc/`` into
    ``build/kernels/`` (one ``nvcc`` per source, in parallel).
 3. Kernels against their plain versions at the shapes of qwen2-0.5b's
-   agent matmuls: ``group_quantize`` codes and scales ``torch.equal``;
+   agent matmuls.  ``group_quantize`` on both routes (the main path's
+   seven shapes and a ragged column tile on the vector route, in one
+   launch; three SIMT shapes, one launch each) at bits 8, 4, 4 packed and
+   3 packed: codes, scales and packed nibbles ``torch.equal``; then one
+   configure (42 matrices) timed as the one grouped launch, as one vector
+   launch per matrix, and as the first design's kernel (the SIMT route)
+   per matrix, beside the plain version and the byte bound.
    ``qmm``/``qmm_int4`` on their tensor-core route at M in {1, 64, 256,
    1024} (64: the sequential engine, 256: the batched one) within
    rtol = atol = 1e-4 (the tolerance of tests/test_kernels.py), and every
@@ -30,9 +36,11 @@ nothing of JAX or of the JAX package ``repro``.
    choice for T0 = 3.5 s, E0 = 2 J.  Launch counters are zeroed just
    before and read just after; every agent matmul must have gone through
    a kernel (7 per agent layer per forward), all on the tensor-core
-   route (0 SIMT launches).  The boundary activation and
-   the logits are then held against a forward on the card that runs the
-   plain versions (tolerances at E2E_TOL and KERNEL_TOL below).
+   route (0 SIMT launches), and each configure must have quantized its
+   weights in one vector-route ``group_quantize`` launch.  The boundary
+   activation and the logits are then held against a forward on the
+   card that runs the plain versions (tolerances at E2E_TOL and
+   KERNEL_TOL below).
 5. Decode attention against its plain version at qwen2-0.5b's heads
    (H = 14 over KV = 2, dh = 64): B in {1, 4}, T in {128, 1024, 4096},
    b_kv in {4, 8, 16}, ragged lengths including 0, one sliding window;
@@ -86,7 +94,22 @@ nothing of JAX or of the JAX package ``repro``.
    with the kernel and one with the plain attention: losses within 1e-4
    relative, grad norms within 1e-3, and at most 1e-3 of the updated
    parameters apart by more than 1e-3 lr (see ``train_path``).
-9. Summary: one ``{"kernels": [...]}`` line, the card line, and last
+9. Compiled batched serving at full width:
+   ``BatchedCoInferenceEngine(path="kernel", compiled=True, max_batch=4)``
+   over two QoS classes whose codesign picks b̂ = 4 and b̂ = 8
+   (COMPILED_CLASSES); ``warmup(512)`` captures one CUDA graph per (class,
+   sequence bucket 16..512), then 12 requests of 16-512 tokens are
+   served.  Launch counters are zeroed before the engine is built and
+   read after serving; a graph's kernels count once per replay (its
+   capture launched nothing, its eager warm-up run counts as it ran).
+   After warm-up no request may miss the cache; every response must equal
+   the eager engine's at the same bucket bitwise and the request served
+   alone, unpadded and eager, within E2E_TOL of its logits' scale (the
+   count that is bitwise, the largest difference, and which server GEMM
+   shapes change their rows with M are printed: ROADMAP C.6).  Then the
+   4 x 64 forward's wall with and without the graph, and its device time
+   and busy share under ``torch.profiler``.
+10. Summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``; the per-shape numbers are printed
    in phases 3, 5 and 7.
 """
@@ -124,6 +147,10 @@ DECODE_BUDGET = (6.0, 2.0)  # (T0, E0) of the auto run: both CLI classes
 FLASH_TOL = 2e-5            # flash vs plain, f32: tests/test_flash.py's
 FLASH_PASSES = 3            # tf32 products per f32 product in the kernel
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 10
+# (name, T0, E0) of the compiled serving phase: the codesign's b̂ is 4 and
+# 8 for qwen2-0.5b's weights at the 4 x 64 workload (mid-region budgets)
+COMPILED_CLASSES = (("int4", 1.3, 0.675), ("int8", 1.5, 0.775))
+COMPILED_REQUESTS, COMPILED_SEQ = 12, (16, 512)
 
 
 def card_line() -> str:
@@ -180,7 +207,7 @@ def check_kernels(cfg, dev, flush, detail):
     gen = torch.Generator(device=dev).manual_seed(1)
     summary = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                        max_abs_err=0.0, bound_by=set())
-               for n in ("group_quantize", "qmm", "qmm_int4")}
+               for n in ("qmm", "qmm_int4")}
     seen = {}
     for name, k, n in shapes:
         key = (k, n)
@@ -198,7 +225,6 @@ def check_kernels(cfg, dev, flush, detail):
                     s[f] += split * rec[f]
             s["max_abs_err"] = max(s["max_abs_err"], rec["max_abs_err"])
             s["bound_by"].add(rec["bound_by"])
-    summary["group_quantize"]["library_ms"] = None
     for s in summary.values():
         s["bound_by"] = "/".join(sorted(s["bound_by"]))
     return summary
@@ -209,23 +235,6 @@ def per_shape(cfg, w, x_all, flush, tk, ref, detail):
     k, n = w.shape
     g = 128
     out = {}
-    # group_quantize at bits 8 and 4: bitwise equal to the plain version
-    err = 0.0
-    for bits in (8, 4):
-        codes, scales = tk.group_quantize(w, group_size=g, bits=bits)
-        codes_p, scales_p = ref.group_quantize_ref(w, g, bits)
-        torch.cuda.synchronize()
-        assert torch.equal(codes, codes_p), f"group_quantize codes {k}x{n}"
-        assert torch.equal(scales, scales_p), f"group_quantize scales {k}x{n}"
-        err = max(err, float((scales - scales_p).abs().max()))
-    n_bytes = k * n * 4 + k * n + (k // g) * n * 4
-    b, by = bound_ms(n_bytes, 2.0 * k * n)
-    rec = dict(ms=time_ms(lambda: tk.group_quantize(w, group_size=g), flush),
-               plain_ms=time_ms(lambda: ref.group_quantize_ref(w, g), flush),
-               bound_ms=b, bound_by=by, library_ms=None, max_abs_err=err)
-    out["group_quantize"] = rec
-    detail.append(dict(kernel="group_quantize", k=k, n=n, g=g, **rec))
-
     for kern, bits in (("qmm", 8), ("qmm_int4", 4)):
         codes, scales = ref.group_quantize_ref(w, g, bits)
         if bits == 4:
@@ -266,6 +275,111 @@ def per_shape(cfg, w, x_all, flush, tk, ref, detail):
             if m == B * S:
                 out[kern] = row
     return out
+
+
+def configure_weights(cfg, dev, seed=1):
+    """One configure's matrices: the seven of each agent layer, random
+    weights at qwen2-0.5b's widths."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+            for _ in range(cfg.split_layer)
+            for _, k, n in agent_weight_shapes(cfg)]
+
+
+def check_group_quantize(cfg, dev, flush):
+    """Phase 3, ``group_quantize``: both routes bitwise against the plain
+    version, then one configure's time; returns its summary numbers."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.kernels import build
+    from repro_torch.kernels import quantize as q
+    from repro_torch.kernels import ref
+
+    def plain(w, g, bits, pack):
+        codes, scales = ref.group_quantize_ref(w, g, bits)
+        return (ref.pack_int4_ref(codes) if pack and bits <= 4 else codes,
+                scales)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    mats = [(torch.randn((k, n), generator=gen, device=dev), g)
+            for k, n, g in [(k, n, 128)
+                            for _, k, n in agent_weight_shapes(cfg)[:5]]
+            + [(4864, 896, 128),          # down
+               (640, 132, 64),            # odd: a ragged column tile
+               (192, 896, 1),             # SIMT: per-element groups
+               (130, 7, 1), (256, 127, 64)]]
+    mats[0][0][:128] = 0.0                # an all-zero group
+    n_vec = sum(q.route(w.shape[0], w.shape[1], g) == "vector"
+                for w, g in mats)
+    assert n_vec == 7, n_vec
+    for bits, pack in ((8, False), (4, False), (4, True), (3, True)):
+        before = dict(tk.group_quantize.route_launches)
+        got = q.group_quantize_many([w for w, _ in mats],
+                                    [g for _, g in mats],
+                                    [bits] * len(mats), pack=pack)
+        torch.cuda.synchronize()
+        routes = tk.group_quantize.route_launches
+        assert routes["vector"] == before["vector"] + 1, routes
+        assert routes["simt"] == before["simt"] + len(mats) - n_vec, routes
+        for (w, g), (codes, scales) in zip(mats, got):
+            want = plain(w, g, bits, pack)
+            what = f"group_quantize {tuple(w.shape)} G={g} bits={bits} " \
+                f"pack={pack}"
+            assert torch.equal(codes, want[0]), what + ": codes"
+            assert torch.equal(scales, want[1]), what + ": scales"
+    print(f"group_quantize vs plain: ok, {len(mats)} matrices ({n_vec} on "
+          f"the vector route in one launch, {len(mats) - n_vec} SIMT) at "
+          f"bits 8, 4, 4 packed, 3 packed: codes, scales and packed nibbles "
+          f"equal")
+
+    # one configure at b = 8 (42 matrices), and at b = 4 packed
+    ws = configure_weights(cfg, dev)
+    groups = [128] * len(ws)
+    simt = q._entry("group_quantize_f32")
+
+    def first_design(bits=8):
+        # the first kernel (the SIMT route) on every matrix, one launch each
+        stream = torch.cuda.current_stream().cuda_stream
+        for w in ws:
+            codes = torch.empty(w.shape, dtype=torch.int8, device=dev)
+            scales = torch.empty((w.shape[0] // 128, w.shape[1]),
+                                 device=dev)
+            build.check(simt(w.data_ptr(), codes.data_ptr(),
+                             scales.data_ptr(), w.shape[0], w.shape[1], 128,
+                             bits, stream), "group_quantize_f32")
+
+    def grouped(bits=8, pack=False):
+        return q.group_quantize_many(ws, groups, [bits] * len(ws), pack=pack)
+
+    def per_matrix(bits=8):
+        for w in ws:
+            q.group_quantize_many([w], [128], [bits])
+
+    def plain_all(bits=8):
+        for w in ws:
+            ref.group_quantize_ref(w, 128, bits)
+
+    for a, b in zip(grouped(), [plain(w, 128, 8, False) for w in ws]):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    n_el = sum(w.numel() for w in ws)
+    n_bytes = 4 * n_el + n_el + 4 * n_el // 128
+    b8, by = bound_ms(n_bytes, 2.0 * n_el)
+    b4, _ = bound_ms(4 * n_el + n_el // 2 + 4 * n_el // 128, 2.0 * n_el)
+    row = dict(ms=time_ms(grouped, flush),
+               plain_ms=time_ms(plain_all, flush, reps=5),
+               bound_ms=b8, bound_by=by, library_ms=None, max_abs_err=0.0)
+    per = time_ms(per_matrix, flush)
+    first = time_ms(first_design, flush)
+    packed = time_ms(lambda: grouped(4, True), flush)
+    print(f"  group_quantize per configure ({len(ws)} matrices, "
+          f"{n_el / 1e6:.1f} M weights, G=128): grouped launch "
+          f"ms={row['ms']:.4f} (int4 packed {packed:.4f}, bound {b4:.4f}) "
+          f"per-matrix launches {per:.4f} first design (SIMT, "
+          f"{len(ws)} launches) {first:.4f} plain={row['plain_ms']:.4f} "
+          f"bound={b8:.4f} ({by}); {b8 / row['ms']:.1%} of the bound")
+    row["first_design_ms"] = first
+    return row
 
 
 def qmm_module():
@@ -824,6 +938,178 @@ def decode_path(cfg, params, dev, kernel_ms: float):
     return launches, flash_launches
 
 
+def device_busy(fn, n: int = 3):
+    """(wall ms, device ms, launches) per call of ``fn`` over ``n`` calls
+    under ``torch.profiler``: device time is the kernels' own (None when
+    the trace shows none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    dev_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            dev_us += us
+            launches += e.count
+    return wall, (dev_us / 1e3 / n if dev_us else None), launches // n
+
+
+def server_gemm_rows(cfg, params, dev, m_batch: int, m_alone: int):
+    """The server stage's GEMM shapes whose rows change with M: for each,
+    rows [0, m_alone) of x [m_batch, K] @ W against x[:m_alone] @ W
+    (ROADMAP C.6).  Returns {name: max|d|} of those that differ."""
+    import torch
+    lp = params["layers"]
+    mats = {"wq": lp["attn"]["wq"][-1], "wk": lp["attn"]["wk"][-1],
+            "wo": lp["attn"]["wo"][-1], "wi_gate": lp["ffn"]["wi_gate"][-1],
+            "ffn_wo": lp["ffn"]["wo"][-1],
+            "unembed": params["embed"]["tok"].T}
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for name, w in mats.items():
+        x = torch.randn((m_batch, w.shape[0]), generator=gen, device=dev)
+        d = float((torch.matmul(x, w)[:m_alone]
+                   - torch.matmul(x[:m_alone], w)).abs().max())
+        if d:
+            out[name] = d
+    return out
+
+
+def compiled_serving(cfg, model, params, sysp, dev, tokens):
+    """Phase 9; returns the kernel launches of its serving window (eager
+    warm-up runs and graph replays).  ``tokens``: phase 4's B x S batch,
+    whose forward is timed with and without the graph."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.kernels.bucketing import seq_ladder
+    from repro_torch.runtime import (BatchedCoInferenceEngine,
+                                     CoInferenceEngine, QosClass)
+
+    classes = [QosClass(n, t0, e0) for n, t0, e0 in COMPILED_CLASSES]
+    rng = np.random.default_rng(6)
+    lens = rng.integers(COMPILED_SEQ[0], COMPILED_SEQ[1] + 1,
+                        size=COMPILED_REQUESTS)
+    reqs = [(rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32),
+             classes[i % 2].name) for i, n in enumerate(lens)]
+
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = BatchedCoInferenceEngine(model, params, sysp, classes=classes,
+                                   max_batch=4, path="kernel", compiled=True,
+                                   device=dev)
+    assert [eng.solution_for(c.name).b_hat for c in classes] == [4, 8]
+    n_graphs = eng.warmup(COMPILED_SEQ[1])
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    cc = eng.engine.compile_cache
+    assert n_graphs == len(cc) == 2 * len(seq_ladder(COMPILED_SEQ[1]))
+    misses = cc.misses
+    sent = {eng.submit(t, q): (t, q) for t, q in reqs}
+    t0 = time.perf_counter()
+    batches = []
+    while eng.pending():
+        batches.append(eng.step())
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    for k, n in cc.kernel_launches().items():
+        if k in counts:
+            counts[k] += n
+    assert cc.misses == misses, "a capture while serving after warmup"
+    rep = eng.report()
+    print(f"compiled batched serving: {n_graphs} CUDA graphs captured in "
+          f"{t_warm:.1f}s (warmup({COMPILED_SEQ[1]}), 2 classes x "
+          f"{len(seq_ladder(COMPILED_SEQ[1]))} buckets), "
+          f"{rep.requests_served} requests of "
+          f"{int(lens.min())}-{int(lens.max())} tokens in "
+          f"{rep.batches_served} batches in {t_serve:.2f}s, "
+          f"{cc.replays()} replays, 0 misses after warmup "
+          f"(compile cache {rep.compile_hits} hits / {rep.compile_misses} "
+          f"misses); launches {counts}")
+    for b in eng.batch_history:
+        print(f"  [{b.qos}] n={b.batch_size} ({b.agent_path}) "
+              f"padded={b.padded_tokens} occupancy={b.occupancy:.2f}")
+    for name in ("group_quantize", "qmm", "qmm_int4",
+                 "flash_attention_fwd"):
+        assert counts[name] > 0, f"{name} never launched while serving"
+
+    # every response against the eager engine at the same bucket
+    # (bitwise), and against the request served alone, unpadded, eager
+    eager = CoInferenceEngine(model, params, sysp, path="kernel",
+                              cache_weights=True, device=dev)
+    worst, worst_rel, exact = 0.0, 0.0, 0
+    for rs in batches:
+        sol = eng.solution_for(sent[rs[0].request_id][1])
+        eager.configure(sol.b_hat, sol.f, sol.f_server)
+        toks = [sent[r.request_id][0] for r in rs]
+        bp, sp = eng.engine.bucket_shape(len(rs), max(t.size for t in toks))
+        padded = np.zeros((bp, sp), np.int32)
+        real = [0] * bp
+        for i, t in enumerate(toks):
+            padded[i, :t.size], real[i] = t, t.size
+        want, _ = eager.serve_batch({"tokens": padded}, lengths=real)
+        for i, r in enumerate(rs):
+            assert r.logits.shape == (real[i], cfg.vocab_size)
+            assert torch.isfinite(r.logits).all()
+            assert torch.equal(r.logits, want[i, :real[i]]), \
+                f"request {r.request_id}: graph != eager at the bucket"
+            alone, _ = eager.serve_batch({"tokens": toks[i][None]})
+            d = float((r.logits - alone[0]).abs().max())
+            scale = float(alone[0].abs().max())
+            exact += d == 0.0
+            worst, worst_rel = max(worst, d), max(worst_rel, d / scale)
+            assert d <= E2E_TOL * scale, \
+                f"request {r.request_id}: batched vs alone {d} of {scale}"
+    bucket, alone_m = (4, COMPILED_SEQ[1]), int(lens.max())
+    gemms = server_gemm_rows(cfg, params, dev, bucket[0] * bucket[1],
+                             alone_m)
+    print(f"  graph replay == eager at the bucket: bitwise for all "
+          f"{len(sent)} requests; batched vs alone: {exact}/{len(sent)} "
+          f"bitwise, max|d logits|={worst:.3e} ({worst_rel:.2e} of the "
+          f"logits' max, limit {E2E_TOL}); server GEMMs whose rows change "
+          f"between M={bucket[0] * bucket[1]} and M={alone_m}: "
+          f"{gemms or 'none'}")
+
+    # the 4 x 64 forward with and without the graph (after the counts
+    # were read: these launches count nowhere)
+    int8 = eng.solution_for(classes[1].name)
+    eager.configure(int8.b_hat)
+    eng.engine.configure(int8.b_hat)
+    rows = {}
+    for name, e in (("eager", eager), ("graph", eng.engine)):
+        def serve(e=e):
+            e.serve_batch({"tokens": tokens})
+        serve()
+        walls = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall, dev_ms, launched = device_busy(serve)
+        rows[name] = statistics.median(walls)
+        busy = "not measured" if dev_ms is None else \
+            f"{dev_ms:.2f} device ms, {dev_ms / wall:.1%} busy"
+        print(f"  serve_batch({B}x{S}) kernel-int8 {name}: wall "
+              f"{rows[name]:.2f} ms (median of 7); traced 3: wall "
+              f"{wall:.2f} ms, {busy}, {launched} launches per forward")
+    print(f"  graph / eager wall: {rows['graph'] / rows['eager']:.3f}")
+    return counts
+
+
 def train_path(cfg, dev):
     """Phase 8; returns the flash launches of the ``fit`` run.
 
@@ -952,6 +1238,7 @@ def main() -> int:
     t0 = time.perf_counter()
     summary = check_kernels(cfg, dev, flush, detail)
     check_qmm_simt(dev)
+    summary["group_quantize"] = check_group_quantize(cfg, dev, flush)
     print(f"kernels vs plain: ok in {time.perf_counter() - t0:.1f}s")
     for name in ("qmm", "qmm_int4"):
         s = summary[name]
@@ -993,10 +1280,10 @@ def main() -> int:
     tk.reset_launch_counts()
     t0 = time.perf_counter()
     eng = CoInferenceEngine(model, params, sysp, path="kernel")
-    want["group_quantize"] += 7 * cfg.split_layer
+    want["group_quantize"] += 1       # one launch quantizes a configure
     for point, path in points:
         eng.configure(point)
-        want["group_quantize"] += 7 * cfg.split_layer
+        want["group_quantize"] += 1
         assert eng.agent_path == path, (eng.agent_path, path)
         logits, stats = eng.serve_batch({"tokens": tokens})
         alone = [eng.serve_batch({"tokens": tokens[i:i + 1]})[0]
@@ -1009,7 +1296,7 @@ def main() -> int:
     sol = eng.auto_configure(QosClass("interactive", t0=3.5, e0=2.0))
     assert sol is not None, "(P1) infeasible at T0=3.5s E0=2J"
     if eng.agent_path != "fake":
-        want["group_quantize"] += 7 * cfg.split_layer
+        want["group_quantize"] += 1
     auto_logits, _ = eng.serve_batch({"tokens": tokens})
     n8, n4 = launches_per_forward(eng.agent_path, cfg.split_layer)
     want["qmm"] += n8
@@ -1019,9 +1306,10 @@ def main() -> int:
     counts = tk.launch_counts()
     print(f"main path: {time.perf_counter() - t0:.1f}s, launches {counts}")
     assert counts == want, f"launch counts {counts} != expected {want}"
-    for name in ("qmm", "qmm_int4"):
+    for name, way in (("qmm", "wgmma"), ("qmm_int4", "wgmma"),
+                      ("group_quantize", "vector")):
         routes = getattr(tk, name).route_launches
-        assert routes == {"wgmma": counts[name], "simt": 0}, (name, routes)
+        assert routes == {way: counts[name], "simt": 0}, (name, routes)
     for name in ("group_quantize", "qmm", "qmm_int4", "flash_attention_fwd"):
         assert counts[name] > 0, f"{name} never launched on the main path"
     print(f"auto_configure: b_hat={sol.b_hat} f={sol.f / 1e9:.3f}GHz "
@@ -1110,7 +1398,14 @@ def main() -> int:
     print(f"train path: {time.perf_counter() - t0:.1f}s")
     counts["flash_attention_fwd"] += flash_decode + flash_train
 
-    # 9. summary
+    # 9. compiled batched serving at full width
+    t0 = time.perf_counter()
+    served = compiled_serving(cfg, model, params, sysp, dev, tokens)
+    print(f"compiled serving: {time.perf_counter() - t0:.1f}s")
+    for name in ("group_quantize", "qmm", "qmm_int4", "flash_attention_fwd"):
+        counts[name] += served[name]
+
+    # 10. summary
     names = {"group_quantize": ("csrc/group_quantize.cu",
                                 "src/repro/kernels/quantize.py:35"),
              "qmm": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:67"),

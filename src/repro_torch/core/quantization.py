@@ -150,12 +150,15 @@ def uniform_step_size(absmax: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def _uniform_qdq(x: torch.Tensor, cfg: QuantConfig, *,
-                 compiled: bool = False) -> torch.Tensor:
+                 compiled: bool = False,
+                 amax: "torch.Tensor | None" = None) -> torch.Tensor:
     """``compiled`` forms the step as ``amax * fl(1/levels)``, the product
     XLA compiles the reference's ``amax / levels`` into inside a jitted
-    graph (its train step); otherwise the eager reference's true
-    division."""
-    amax = _absmax(x, cfg)
+    graph (its train step, the uplink's ``while_loop``); otherwise the
+    eager reference's true division.  ``amax`` (shaped to broadcast
+    against ``x``) replaces the granularity's own reduction."""
+    if amax is None:
+        amax = _absmax(x, cfg)
     if cfg.bits == 1:
         # sign-only code: reconstruct magnitude at its conditional mean proxy
         return torch.sign(x) * torch.broadcast_to(amax / 2.0, x.shape)
@@ -167,7 +170,9 @@ def _uniform_qdq(x: torch.Tensor, cfg: QuantConfig, *,
     step = torch.where(step <= 0, torch.ones_like(step), step)
     levels = 2 ** (cfg.bits - 1) - 1
     q = torch.clamp(torch.round(torch.abs(x) / step), 0, levels)
-    return torch.sign(x) * q * step
+    # sign(x) * q * step with jnp.sign's signed zero: -0.0 stays -0.0
+    # (torch.sign(-0.0) is +0.0); the magnitude is q * step either way
+    return torch.copysign(q * step, x)
 
 
 def _potlog_qdq(x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:

@@ -4,6 +4,9 @@
 wrapper            CUDA source           TPU kernel it replaces
 =================  ====================  ==================================
 ``group_quantize`` csrc/group_quantize   repro/kernels/quantize.py
+                   (one launch per
+                   configure; SIMT
+                   route)
 ``qmm``            csrc/qmm (bf16 wgmma  repro/kernels/qmm.py ``qmm``
                    on a 3-piece split
                    of x; SIMT route)
@@ -19,8 +22,10 @@ _fwd``             (three-pass TF32      ``flash_attention_fwd``
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 torch version (``ref.py``) for a CPU tensor; it counts its kernel launches
-in a ``launches`` attribute (``qmm`` and ``qmm_int4`` also per route, in
-``route_launches``).  ``flash.flash_attention`` differentiates
+in a ``launches`` attribute (``group_quantize``, ``qmm`` and ``qmm_int4``
+also per route, in ``route_launches``).  A launch recorded into a CUDA
+graph counts in the capture's record instead (``build.recording``), since
+it runs at each replay.  ``flash.flash_attention`` differentiates
 ``flash_attention_fwd`` (backward through the plain oracle, as in the
 reference).
 """
@@ -47,3 +52,5 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     reset_route_launches()
+    group_quantize.route_launches = dict.fromkeys(
+        group_quantize.route_launches, 0)

@@ -3,12 +3,15 @@
 ``seq_bucket`` is the sequence-length ladder ``base * 2^k`` (default base
 16).  ``models.layers.blockwise_attention`` snaps its block sizes to it,
 never to the raw S/T, so right-padding a sequence inside its bucket
-partitions it into the same blocks.  The reference's ``row_bucket`` is not
-needed: the port's quantized-matmul kernels mask the ragged M edge
-themselves and pad nothing.  ``seq_ladder`` comes with the compiled path.
+partitions it into the same blocks, and the compiled forward pads a
+batch's sequences to it (``seq_ladder`` is what ``warmup()`` captures).
+The reference's ``row_bucket`` is not needed: the port's quantized-matmul
+kernels mask the ragged M edge themselves and pad nothing.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 DEFAULT_SEQ_BASE = 16
 
@@ -29,3 +32,14 @@ def seq_bucket(s: int, base: int = DEFAULT_SEQ_BASE, ratio: int = 2) -> int:
     """The sequence-length bucket serving pads ``s`` up to."""
     return next_geometric(s, base, ratio)
 
+
+def seq_ladder(max_s: int, base: int = DEFAULT_SEQ_BASE,
+               ratio: int = 2) -> Tuple[int, ...]:
+    """Every bucket up to (and including) the one covering ``max_s``:
+    what ``warmup()`` captures."""
+    out, b = [], base
+    top = next_geometric(max_s, base, ratio)
+    while b <= top:
+        out.append(b)
+        b *= ratio
+    return tuple(out)

@@ -15,6 +15,7 @@ must stay IEEE true divisions to match the reference's codes.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,7 +23,7 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -112,9 +113,47 @@ def arrival_counters(device, n: int):
     """
     have = _counters.get(device)
     if have is None or have.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            # the graph would keep the old buffer's address
+            raise RuntimeError("arrival counters must be allocated before a "
+                               "CUDA graph capture (run the call eagerly "
+                               "first)")
         have = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _counters[device] = have
     return have
+
+
+# while a CUDA graph captures: {counter key: launches it recorded}
+_recorded: Optional[Dict[str, int]] = None
+
+
+def count(fn, route: Optional[str] = None) -> None:
+    """Count one launch of ``fn``'s kernel (on ``route``): on ``fn.launches``
+    (and ``fn.route_launches[route]``) when the kernel runs now; while a
+    CUDA graph captures (:func:`recording`), in that capture's record
+    instead, since the kernel then runs at each of the graph's replays."""
+    if _recorded is not None:
+        for key in (fn.__name__,) + ((f"{fn.__name__}.{route}",)
+                                     if route else ()):
+            _recorded[key] = _recorded.get(key, 0) + 1
+        return
+    fn.launches += 1
+    if route is not None:
+        fn.route_launches[route] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Around a CUDA graph capture: yields the dict that collects the
+    launches the capture records, ``{name: n, "name.route": n}``."""
+    global _recorded
+    if _recorded is not None:
+        raise RuntimeError("captures do not nest")
+    _recorded = {}
+    try:
+        yield _recorded
+    finally:
+        _recorded = None
 
 
 def check(status: int, what: str) -> None:

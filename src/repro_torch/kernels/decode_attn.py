@@ -152,7 +152,7 @@ def quantized_decode_attention(q, k_codes, v_codes, k_scales, v_scales,
                 int(window), vec, dh ** -0.5,
                 torch.cuda.current_stream().cuda_stream)
         build.check(status, "quantized_decode_attention")
-        quantized_decode_attention.launches += 1
+        build.count(quantized_decode_attention)
     return out.to(q.dtype)
 
 

@@ -113,7 +113,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                 int(window), dh ** -0.5, int(f32 and _copies_16(q, k, v)),
                 torch.cuda.current_stream().cuda_stream)
         build.check(status, "flash_attention_fwd")
-        flash_attention_fwd.launches += 1
+        build.count(flash_attention_fwd)
     return out
 
 

@@ -18,9 +18,8 @@ import dataclasses
 
 import torch
 
-from . import ref as _ref
 from .qmm import qmm, qmm_int4
-from .quantize import group_quantize as _group_quantize
+from .quantize import group_quantize_many
 
 
 def quantized_matmul(x: torch.Tensor, codes: torch.Tensor,
@@ -51,8 +50,8 @@ def group_layout(k: int, group_size: int) -> int:
 
 def group_quantize(w: torch.Tensor, *, group_size: int = 128, bits: int = 8):
     """Group quantizer with the reference's group-layout choice."""
-    return _group_quantize(
-        w, group_size=group_layout(w.shape[0], group_size), bits=bits)
+    return group_quantize_many([w], [group_layout(w.shape[0], group_size)],
+                               [bits])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -87,16 +86,25 @@ class QuantizedLinear:
 
 def quantize_linear(w: torch.Tensor, *, bits: int = 8,
                     group_size: int = 128) -> QuantizedLinear:
-    """Quantize one [K, N] weight for device residency.
+    """Quantize one [K, N] weight for device residency (the one-matrix
+    case of :func:`quantize_linears`)."""
+    return quantize_linears([w], [bits], group_size=group_size)[0]
 
-    bits <= 4 quantizes at ``bits``-bit levels then packs two codes per
+
+def quantize_linears(ws, bits, *, group_size: int = 128):
+    """Quantize [K, N] weights ``ws[i]`` at ``bits[i]`` for device residency.
+
+    bits <= 4 quantizes at ``bits``-bit levels with two codes packed per
     byte along K (served by the int4 kernel); 5..8 stays int8-resident.
+    Groups follow :func:`group_layout`.  On the card every matrix on the
+    quantizer's vector route (all of a dense model's) goes out in one
+    launch, packed codes written by the kernel itself.
     """
-    if not 1 <= bits <= 8:
-        raise ValueError(f"kernel residency needs bits in 1..8, got {bits}")
-    k = w.shape[0]
-    codes, scales = group_quantize(w, group_size=group_size, bits=bits)
-    if bits <= 4:
-        return QuantizedLinear(codes=_ref.pack_int4_ref(codes),
-                               scales=scales, bits=bits, k=k)
-    return QuantizedLinear(codes=codes, scales=scales, bits=bits, k=k)
+    for b in bits:
+        if not 1 <= b <= 8:
+            raise ValueError(f"kernel residency needs bits in 1..8, got {b}")
+    qs = group_quantize_many(
+        ws, [group_layout(w.shape[0], group_size) for w in ws], bits,
+        pack=True)
+    return [QuantizedLinear(codes=codes, scales=scales, bits=b, k=w.shape[0])
+            for w, b, (codes, scales) in zip(ws, bits, qs)]

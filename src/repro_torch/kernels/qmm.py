@@ -150,8 +150,7 @@ def _launch(fn, packed: bool, x, w, scales, group: int) -> torch.Tensor:
                 xf.data_ptr(), wc.data_ptr(), sc.data_ptr(), out.data_ptr(),
                 m, k, n, group, stream)
     build.check(status, symbol)
-    fn.launches += 1
-    fn.route_launches[way] += 1
+    build.count(fn, way)
     return out.to(x.dtype)
 
 

@@ -1,13 +1,18 @@
 """Co-inference serving from the command line:
-``python -m repro_torch.launch.serve --engine sequential --path kernel``
-or ``python -m repro_torch.launch.serve --decode``.
+``python -m repro_torch.launch.serve --path kernel [--compiled]``,
+``--engine sequential`` or ``--decode``.
 
-Two modes of ``repro/launch/serve.py``, each on a model built from a
+Three modes of ``repro/launch/serve.py``, each on a model built from a
 seeded ``torch.Generator``:
 
-* sequential: solve (P1) for one QoS class with the paper's SCA, print
-  the oracle and baseline solutions beside it, serve one batch of
-  Markov-chain requests agent -> uplink -> server, and print the modeled
+* batched (the default): three QoS classes, each with its (P1) solution
+  from the codesign cache, a queue of Markov-chain requests packed into
+  per-class batches, the batch-level and per-request delay/energy
+  accounting, and with ``--compiled`` every (class, sequence bucket)
+  forward captured by ``warmup()`` first (one CUDA graph each on the card);
+* sequential (``--engine sequential``): solve (P1) for one QoS class with
+  the paper's SCA, print the oracle and baseline solutions beside it,
+  serve one batch agent -> uplink -> server, and print the modeled
   delay/energy split;
 * ``--decode``: continuous-batching greedy decode over a quantized KV
   cache (``DecodeEngine``) for two QoS classes, each with its codesign
@@ -15,9 +20,8 @@ seeded ``torch.Generator``:
   ``greedy_decode_reference`` and requires equal tokens.
 
 Runs on the CUDA card unless ``--device cpu``.  The reference's other
-modes (batched, compiled, mixed precision, speculative, adaptive, fleet,
-chaos, trace/metrics output) are not yet ported: each exits 2 with a
-one-line error.
+modes (mixed precision, speculative, adaptive, fleet, chaos, trace/metrics
+output) are not yet ported: each exits 2 with a one-line error.
 """
 
 from __future__ import annotations
@@ -37,12 +41,13 @@ from ..core.cost_model import SystemParams
 from ..data import MarkovLMConfig, MarkovLMDataset
 from ..device import resolve_device
 from ..models.lm import DecoderLM
-from ..runtime import (CodesignCache, CoInferenceEngine, DecodeEngine,
-                       QosClass, greedy_decode_reference)
+from ..runtime import (BatchedCoInferenceEngine, CodesignCache,
+                       CoInferenceEngine, DecodeEngine, QosClass,
+                       greedy_decode_reference)
 
 # flags of the reference's serve CLI whose modes are not ported yet
-_NOT_PORTED = ("speculative", "compiled", "mixed_precision", "env_trace",
-               "fleet", "chaos_trace", "trace_out", "metrics_out")
+_NOT_PORTED = ("speculative", "mixed_precision", "env_trace", "fleet",
+               "chaos_trace", "trace_out", "metrics_out")
 
 
 def main(argv=None) -> int:
@@ -52,7 +57,8 @@ def main(argv=None) -> int:
     ap.add_argument("--engine", default="batched",
                     choices=["batched", "sequential"])
     ap.add_argument("--requests", type=int, default=12,
-                    help="number of queued requests (--decode)")
+                    help="number of queued requests (batched engine, "
+                         "--decode)")
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--batch", type=int, default=4,
                     help="requests per serve_batch (sequential engine)")
@@ -72,7 +78,12 @@ def main(argv=None) -> int:
                     help="replay every --decode request through the "
                          "batch-1 greedy reference and require equal "
                          "tokens")
-    for flag in ("speculative", "compiled", "mixed-precision"):
+    ap.add_argument("--compiled", action="store_true",
+                    help="serve through the compiled fast path: one "
+                         "bucket-padded agent -> transport -> server "
+                         "forward per (plan, bucket), a CUDA graph on the "
+                         "card, captured up front by warmup()")
+    for flag in ("speculative", "mixed-precision"):
         ap.add_argument(f"--{flag}", action="store_true",
                         help="not yet ported (exits 2)")
     for flag in ("env-trace", "fleet", "chaos-trace", "trace-out",
@@ -83,12 +94,10 @@ def main(argv=None) -> int:
 
     used = [f"--{n.replace('_', '-')}" for n in _NOT_PORTED
             if getattr(args, n)]
-    if args.engine != "sequential" and not args.decode:
-        used.insert(0, f"--engine {args.engine}")
     if used:
-        print(f"error: {' '.join(used)} is not yet ported to repro_torch; "
-              "run --engine sequential (the reference serves the rest: "
-              "python -m repro.launch.serve)", file=sys.stderr)
+        print(f"error: {' '.join(used)} is not yet ported to repro_torch "
+              "(the reference serves it: python -m repro.launch.serve)",
+              file=sys.stderr)
         return 2
     try:
         cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
@@ -106,16 +115,18 @@ def main(argv=None) -> int:
         * (cfg.n_layers - cfg.split_layer) * tokens)
     if args.decode:
         return serve_decode(cfg, model, params, sysp, device, args)
+    if args.engine == "batched":
+        return serve_batched(cfg, model, params, sysp, device, args)
     return serve_sequential(cfg, model, params, sysp, device, args)
 
 
 def serve_sequential(cfg, model, params, sysp, device, args) -> int:
 
     eng = CoInferenceEngine(model, params, sysp, path=args.path,
-                            device=device)
+                            compiled=args.compiled, device=device)
     print(f"arch={cfg.name} split={cfg.split_layer}/{cfg.n_layers} "
           f"lambda_hat={eng.lam:.2f} path={args.path} engine=sequential "
-          f"device={device}")
+          f"compiled={args.compiled} device={device}")
 
     sol = eng.auto_configure(QosClass("interactive", t0=args.t0, e0=args.e0))
     if sol is None:
@@ -145,6 +156,71 @@ def serve_sequential(cfg, model, params, sysp, device, args) -> int:
           f"{stats.server_delay_s * 1e3:.2f}ms = "
           f"{stats.total_delay_s * 1e3:.2f}ms, {stats.energy_j:.3f}J, "
           f"emb {stats.emb_bytes / 1024:.1f}KiB at b_emb={eng.b_emb}")
+    return 0
+
+
+def serve_batched(cfg, model, params, sysp, device, args) -> int:
+    """The batched engine over three QoS classes, printing what the
+    reference's batched mode prints."""
+    classes = [
+        QosClass("realtime", t0=max(args.t0 / 3.0, 0.2),
+                 e0=max(args.e0 / 2.0, 0.2)),
+        QosClass("interactive", t0=args.t0, e0=args.e0),
+        QosClass("batch", t0=args.t0 * 2.0, e0=args.e0 * 2.0),
+    ]
+    cache = CodesignCache()
+    try:
+        eng = BatchedCoInferenceEngine(
+            model, params, sysp, classes=classes, max_batch=args.max_batch,
+            path=args.path, codesign_cache=cache, compiled=args.compiled,
+            device=device)
+    except ValueError as e:
+        print(e)
+        return 1
+    print(f"arch={cfg.name} split={cfg.split_layer}/{cfg.n_layers} "
+          f"lambda_hat={eng.engine.lam:.2f} path={args.path} "
+          f"engine=batched max_batch={args.max_batch} "
+          f"mixed_precision=False compiled={args.compiled} device={device}")
+    if args.compiled:
+        # capture every (class plan, seq bucket) forward up front, so
+        # serving below never stalls on a capture
+        t0 = time.perf_counter()
+        n = eng.warmup(args.seq)
+        print(f"warmup: {n} forward variants compiled in "
+              f"{time.perf_counter() - t0:.1f}s")
+    for c in classes:
+        s = eng.solution_for(c.name)
+        print(f"  class {c.name:12s} (T0={c.t0:.2f}s, E0={c.e0:.2f}J): "
+              f"b_hat={s.b_hat} f={s.f / 1e9:.2f}GHz "
+              f"f~={s.f_server / 1e9:.2f}GHz gap={s.objective:.3e}")
+
+    rng = np.random.default_rng(0)
+    for i in range(args.requests):
+        toks = rng.integers(0, cfg.vocab_size,
+                            size=int(rng.integers(args.seq // 2,
+                                                  args.seq + 1)))
+        eng.submit(toks, classes[i % len(classes)].name)
+    responses = eng.drain()
+
+    print(f"served {len(responses)} requests in "
+          f"{len(eng.batch_history)} batches:")
+    for b in eng.batch_history:
+        print(f"  [{b.qos:12s}] n={b.batch_size} b_hat={b.b_hat:2d} "
+              f"({b.agent_path}) occupancy={b.occupancy:.2f} "
+              f"T={b.batch_delay_s * 1e3:.2f}ms "
+              f"(amortized {b.amortized_delay_s * 1e3:.2f}ms/req) "
+              f"E={b.energy_j:.3f}J wait<= {b.queue_wait_max_s * 1e3:.2f}ms")
+    rep = eng.report()
+    print(f"report: mean_batch={rep.mean_batch_size:.2f} "
+          f"occupancy={rep.mean_occupancy:.2f} "
+          f"throughput={rep.throughput_rps:.0f} req/s (modeled) "
+          f"energy={rep.total_energy_j:.3f}J")
+    print(f"codesign cache: {cache.misses} (P1) solves for "
+          f"{len(responses)} requests ({cache.hits} hits)")
+    if args.compiled:
+        print(f"compile cache: {rep.compiled_variants} variants, "
+              f"{rep.compile_hits} hits / {rep.compile_misses} misses "
+              f"(every batch after warmup is a hit)")
     return 0
 
 

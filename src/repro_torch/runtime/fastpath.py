@@ -1,8 +1,5 @@
-"""The per-layer pieces of the serving forward (``repro/runtime/fastpath.py``).
-
-The reference builds its compiled fast path from these; the port's eager
-engine runs them directly, and the compiled path (CUDA graphs) is a later
-slice:
+"""The serving forward's pieces and its compiled form
+(``repro/runtime/fastpath.py``).
 
 * :func:`restack_segments` regroups the engine's per-layer
   ``QuantizedLinear`` records into layer-stacked segments, one per run of
@@ -11,17 +8,35 @@ slice:
 * :func:`quantized_block` is the decoder block with quantized matmuls and
   :func:`scan_segment` loops it over a segment;
 * :func:`transport_quantize` is the uplink quantizer, masked past each
-  row's true length.
+  row's true length;
+* :func:`build_forward` closes agent stage, transport and server stage
+  into one ``forward(params, agent, tokens, lengths) -> logits``;
+  :func:`compile_forward` makes it a :class:`CompiledForward` for one
+  (B, S) bucket, and :class:`CompiledForwardCache` memoizes those.
+
+The reference AOT-compiles the forward with XLA.  The port's counterpart
+on the card is a CUDA graph: the closure runs once eagerly (so every
+lazily allocated buffer, kernel attribute and cuBLAS workspace exists),
+then is captured once over static token, length and output buffers, and
+every later call copies the batch into the static inputs and replays the
+graph, one launch for the ~1,600 kernels of a full-width forward.  The
+reference ships its loop bounds (``forward_bounds``) as a runtime argument
+only so that XLA cannot unroll its loops; a graph is shape-specific
+anyway, so the port bakes the bounds in, with ``n_rows`` = the bucket's
+batch as the reference passes it.  On a CPU engine ``compiled=True`` runs
+the same closure uncaptured, through the same cache and keys: which code
+runs follows from the tensor's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..core.quantization import QuantConfig, quantize_dequantize
+from ..core.quantization import QuantConfig, _uniform_qdq
+from ..kernels import build
 from ..kernels import ops as kops
 from ..models import layers as L
 from ..models.lm import tree_map
@@ -144,9 +159,18 @@ def transport_quantize(emb, lengths, b_emb: int, n_rows: int):
     """The uplink fake-quantizer.
 
     Zeroes every position past a row's true length (so padding can never
-    raise a row's absmax), then applies the per-request per-tensor absmax
-    quantize-dequantize at ``b_emb`` row by row: each row is one request's
-    own transmission and never shares a scale with another.
+    raise a row's absmax), then quantize-dequantizes each of the first
+    ``n_rows`` rows at ``b_emb`` with its own per-tensor absmax (one
+    request's own transmission never shares a scale with another); rows
+    from ``n_rows`` on come out zero.
+
+    The reference quantizes row by row inside a ``lax.while_loop``, where
+    XLA forms the step as ``amax * fl(1/levels)``; so does this
+    (``_uniform_qdq(compiled=True)``), bitwise equal to it.  It runs as one
+    batched op: a per-row absmax over [S, D] (a max is exact in any order),
+    then elementwise scale, round and clip, the same bits as the row loop
+    in a fixed number of launches, with nothing read back to the host
+    (``lengths`` is a device tensor), so a CUDA graph can capture it.
     """
     s = emb.shape[1]
     mask = torch.arange(s, device=emb.device)[None, :] < lengths[:, None]
@@ -155,7 +179,166 @@ def transport_quantize(emb, lengths, b_emb: int, n_rows: int):
         return emb
     qcfg = QuantConfig(bits=b_emb, scheme="uniform",
                        granularity="per-tensor")
-    out = torch.zeros_like(emb)
-    for i in range(int(n_rows)):
-        out[i] = quantize_dequantize(emb[i], qcfg)
+    amax = torch.amax(torch.abs(emb), dim=(1, 2), keepdim=True)
+    out = _uniform_qdq(emb, qcfg, compiled=True, amax=amax)
+    if n_rows < emb.shape[0]:
+        out[int(n_rows):] = 0.0
     return out
+
+
+# ---------------------------------------------------------------------------
+# the end-to-end forward
+# ---------------------------------------------------------------------------
+
+def build_forward(model, split: int, b_emb: int, descs, path: str,
+                  n_rows: int):
+    """Close agent stage + transport + server stage over ``model`` into one
+    ``forward(params, agent, tokens, lengths) -> logits``.
+
+    ``path`` is ``"kernel"`` (``agent`` = restacked segment arrays, looped
+    per ``descs``) or ``"fake"`` (``agent`` = the fake-quantized parameter
+    tree).  ``lengths`` [B] marks each row's true token count: the
+    transport mask zeroes every bucket-padded position, so a row's
+    per-request absmax cannot depend on the padding.  The ops are those the
+    eager engine dispatches (``agent_stage``, ``transport``,
+    ``server_stage``), in the same order.
+    """
+    cfg = model.cfg
+
+    def forward(params, agent, tokens, lengths):
+        batch = {"tokens": tokens}
+        if path == "kernel":
+            x, positions = model.embed(params, batch)
+            side = layer_side_tree(params["layers"], cfg)
+            for desc, seg in zip(descs, agent):
+                x = scan_segment(cfg, desc, seg, side, x, positions,
+                                 desc.length, model.attend)
+        else:
+            x, positions = model.embed(agent, batch)
+            x, _ = model.run_layers_window(agent, x, positions, 0, split)
+        x = transport_quantize(x, lengths, b_emb, n_rows)
+        x, _ = model.run_layers_window(params, x, positions, split,
+                                       cfg.n_layers)
+        x = L.apply_norm(cfg, x, params["final_norm"])
+        return L.unembed(cfg, params["embed"], x)
+
+    return forward
+
+
+class CompiledForward:
+    """One (B, S) bucket's forward over static ``tokens`` [B, S] and
+    ``lengths`` [B] buffers on the engine's device.
+
+    On the card the forward is a captured CUDA graph: :meth:`__call__`
+    replays it and returns its static output, which the next replay
+    overwrites (copy out what must survive).  ``launches`` is what one
+    replay launches of each kernel wrapper (``{name: n, "name.route":
+    n}``, from the capture's record) and ``replays`` how often it ran.  On
+    the CPU the closure runs as it stands at each call.  The entry keeps
+    the parameter and agent tensors the graph reads in place alive.
+    """
+
+    def __init__(self, forward, params, agent, batch: int, seq: int,
+                 device, pool=None):
+        self.tokens = torch.zeros((batch, seq), dtype=torch.long,
+                                  device=device)
+        self.lengths = torch.zeros((batch,), dtype=torch.long,
+                                   device=device)
+        self._run = lambda: forward(params, agent, self.tokens,
+                                    self.lengths)
+        self.keep = (params, agent)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[torch.Tensor] = None
+        self.launches: Dict[str, int] = {}
+        self.replays = 0
+        if torch.device(device).type == "cuda":
+            self._capture(device, pool)
+
+    def _capture(self, device, pool) -> None:
+        """Warm up on the capture stream, then capture.  A failure raises:
+        there is no eager fallback on the card."""
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.no_grad(), torch.cuda.stream(stream):
+            self._run()         # allocations, attributes, cuBLAS workspace
+        torch.cuda.current_stream(device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), build.recording() as rec, \
+                torch.cuda.graph(graph, pool=pool, stream=stream):
+            self.out = self._run()
+        self.graph, self.launches = graph, dict(rec)
+
+    def __call__(self) -> torch.Tensor:
+        self.replays += 1
+        if self.graph is None:
+            with torch.no_grad():
+                return self._run()
+        self.graph.replay()
+        return self.out
+
+
+def compile_forward(forward, params, agent, batch: int, seq: int, device,
+                    pool=None) -> CompiledForward:
+    """The forward for one (batch, seq) bucket: captured on a CUDA device
+    (graphs sharing ``pool``), as it stands on the CPU."""
+    return CompiledForward(forward, params, agent, batch, seq, device, pool)
+
+
+# ---------------------------------------------------------------------------
+# the compile cache
+# ---------------------------------------------------------------------------
+
+class CompiledForwardCache:
+    """Memoizes compiled end-to-end forwards (:class:`CompiledForward`).
+
+    Keys are the reference's ``(config, weight key, container signature,
+    (B, S) bucket, split, b_emb)``: everything that changes the captured
+    graph.  With the engine's shape bucketing the reachable keyspace is
+    ``len(bucket ladder) x active plans`` per engine, so warm traffic never
+    misses; ``hits``/``misses`` are surfaced in ``EngineReport`` (every
+    miss is exactly one capture on the card).  One cache serves engines on
+    one device; its graphs share one memory pool, so they must not replay
+    concurrently (the engines replay on one stream, one at a time).
+    """
+
+    def __init__(self):
+        self._exe: Dict[tuple, CompiledForward] = {}
+        self.hits = 0
+        self.misses = 0
+        self._pool = None
+
+    def __len__(self) -> int:
+        return len(self._exe)
+
+    def __contains__(self, key: tuple) -> bool:
+        """Membership probe that does NOT touch the hit/miss counters, so
+        an engine can trace an upcoming capture without double-counting."""
+        return key in self._exe
+
+    def pool(self):
+        """The memory pool this cache's CUDA graphs share."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def get(self, key: tuple, build: Callable[[], CompiledForward]):
+        """The forward for ``key``, building (capturing) it on a miss."""
+        if key in self._exe:
+            self.hits += 1
+        else:
+            self.misses += 1
+            self._exe[key] = build()
+        return self._exe[key]
+
+    def kernel_launches(self) -> Dict[str, int]:
+        """Kernel launches the cache's graphs made in their replays:
+        ``{name: n, "name.route": n}``, each graph's record times its
+        replays (its capture launched nothing)."""
+        out: Dict[str, int] = {}
+        for cf in self._exe.values():
+            for k, n in cf.launches.items():
+                out[k] = out.get(k, 0) + n * cf.replays
+        return out
+
+    def replays(self) -> int:
+        return sum(cf.replays for cf in self._exe.values())

@@ -1,7 +1,9 @@
 """``python -m repro_torch.launch.serve`` on the CPU: the sequential kernel
 path runs, prints the b̂ that the reference's SCA gives for the same
-problem, the decode mode prints the reference's lines and passes its own
-parity check, and every mode not ported yet exits 2 with one line."""
+problem, the batched engine (the default, eager and ``--compiled``) prints
+the reference's lines, the decode mode prints the reference's lines and
+passes its own parity check, and every mode not ported yet exits 2 with
+one line."""
 
 import os
 import pathlib
@@ -77,7 +79,8 @@ def test_decode_mode_runs_with_parity_check():
 
 
 @pytest.mark.parametrize("args", [
-    (), ("--engine", "sequential", "--compiled"),
+    ("--mixed-precision",), ("--engine", "sequential", "--env-trace",
+                             "wifi-markov"),
     ("--decode", "--speculative"),
     ("--engine", "sequential", "--fleet", "spec.json"),
 ])
@@ -92,3 +95,31 @@ def test_unported_arch_exits_2(capsys):
     assert main(["--arch", "stablelm-3b", "--engine", "sequential",
                  "--device", "cpu", "--smoke"]) == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("compiled", [False, True])
+def test_batched_mode_prints_reference_lines(capsys, compiled):
+    """The default engine, batched, on the kernel path: the reference's
+    lines, and with --compiled every batch after warm-up a cache hit."""
+    rc = main(["--smoke", "--device", "cpu", "--path", "kernel",
+               "--requests", "6"] + (["--compiled"] if compiled else []))
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    lines = out.out.splitlines()
+    assert lines[0].startswith("arch=qwen2-0.5b-smoke split=1/4 ")
+    assert (f"path=kernel engine=batched max_batch=4 mixed_precision=False "
+            f"compiled={compiled} device=cpu") in lines[0]
+    if compiled:
+        assert re.match(r"warmup: \d+ forward variants compiled in ",
+                        lines[1])
+        lines.pop(1)
+    assert re.match(r"  class realtime +\(T0=1\.17s, E0=1\.00J\): b_hat=",
+                    lines[1])
+    assert lines[4].startswith("served 6 requests in ")
+    assert re.search(r"  \[realtime    \] n=2 b_hat=\s*\d+ \(", out.out)
+    assert "report: mean_batch=" in out.out
+    assert "codesign cache: 3 (P1) solves for 6 requests (0 hits)" in out.out
+    if compiled:
+        m = re.search(r"compile cache: (\d+) variants, (\d+) hits / (\d+) "
+                      r"misses", out.out)
+        assert m and int(m.group(3)) == int(m.group(1)) > 0

@@ -7,7 +7,10 @@ with a card (and no JAX) run them with
 
 Shapes cover what the reference accepts beyond the serving path: any G
 dividing K (1, 64, 128, 256, and one group of K < 128 rows), odd N, and
-int4 with K % 256 != 0; the qmm cases take both of its routes (the
+int4 with K % 256 != 0; group_quantize takes both of its routes (the
+vector route's grouped launch over many matrices, past one launch's
+table, packed nibbles equal to pack_int4_ref; SIMT at G = 1 and odd N);
+the qmm cases take both of its routes (the
 tensor cores at ragged M, N and K tiles and groups ending inside a stage;
 SIMT at G = 1 and odd N), each checked by its route's launch counter.
 Codes and scales must be equal; matmuls agree at rtol = atol = 1e-4, the
@@ -23,7 +26,10 @@ Flash attention (tensor-core products) agrees at rtol = atol = 2e-5
 bf16, at lengths around its 16-row MMA tile and 64-row block, bitwise
 row-independent and padding-invisible; its gradient agrees with the
 plain oracle's at 2e-4.  Shapes a kernel cannot take raise, with no
-launch.
+launch.  The compiled forward (one CUDA graph per bucket, smoke config)
+returns the eager engine's bits at the same bucket, records its
+launches per replay, serves the batched engine without a miss after
+warm-up, and a forward that cannot be captured raises.
 """
 
 import importlib
@@ -38,6 +44,7 @@ from repro_torch.kernels.quantize import kv_quantize
 
 # the module (the package's name ``qmm`` is the wrapper function)
 tqmm = importlib.import_module("repro_torch.kernels.qmm")
+tquant = importlib.import_module("repro_torch.kernels.quantize")
 
 pytestmark = pytest.mark.cuda
 
@@ -62,12 +69,65 @@ def _normal(seed, shape, dev):
 def test_group_quantize_equals_plain(dev, k, n, g, bits):
     w = _normal(k + n, (k, n), dev)
     w[:g] = 0.0                                  # an all-zero group
-    before = tk.group_quantize.launches
+    way = tquant.route(k, n, g)
+    before = dict(tk.group_quantize.route_launches)
     codes, scales = tk.group_quantize(w, group_size=g, bits=bits)
     torch.cuda.synchronize()
-    assert tk.group_quantize.launches == before + 1
+    assert tk.group_quantize.route_launches[way] == before[way] + 1
     codes_p, scales_p = ref.group_quantize_ref(w, g, bits)
     assert torch.equal(codes, codes_p) and torch.equal(scales, scales_p)
+    if bits <= 4 and k % 2 == 0:
+        packed, scales = tk.group_quantize(w, group_size=g, bits=bits,
+                                           pack=True)
+        assert torch.equal(packed, ref.pack_int4_ref(codes_p))
+        assert torch.equal(scales, scales_p)
+
+
+# (k, n, g) on the vector route: the main path's shapes, a ragged column
+# tile, every register-slot count (G / 8 = 2 .. 32), a one-group matrix
+GROUPED = [(896, 896, 128), (896, 128, 128), (896, 4864, 128),
+           (4864, 896, 128), (640, 132, 64), (64, 256, 16), (96, 36, 32),
+           (512, 64, 256), (256, 1028, 128)]
+
+
+@pytest.mark.parametrize("bits,pack", [(8, False), (4, False), (4, True),
+                                       (2, True)])
+def test_group_quantize_many_is_one_launch(dev, bits, pack):
+    """The vector route quantizes many matrices in one launch, each equal
+    to its own call and to the plain version (nibbles packed by the
+    kernel equal to pack_int4_ref); SIMT matrices among them launch alone."""
+    ws = [_normal(k * n + g, (k, n), dev) for k, n, g in GROUPED]
+    ws[0][:128] = 0.0
+    gs = [g for _, _, g in GROUPED]
+    simt = _normal(7, (192, 127), dev)
+    before = dict(tk.group_quantize.route_launches)
+    got = tquant.group_quantize_many(ws + [simt], gs + [1],
+                                     [bits] * (len(ws) + 1), pack=pack)
+    torch.cuda.synchronize()
+    after = tk.group_quantize.route_launches
+    assert after["vector"] == before["vector"] + 1
+    assert after["simt"] == before["simt"] + 1
+    for (w, g), (codes, scales) in zip(zip(ws + [simt], gs + [1]), got):
+        codes_p, scales_p = ref.group_quantize_ref(w, g, bits)
+        if pack:
+            codes_p = ref.pack_int4_ref(codes_p)
+        assert torch.equal(codes, codes_p), (tuple(w.shape), g)
+        assert torch.equal(scales, scales_p), (tuple(w.shape), g)
+        alone = tk.group_quantize(w, group_size=g, bits=bits, pack=pack)
+        assert torch.equal(alone[0], codes) and torch.equal(alone[1], scales)
+
+
+def test_group_quantize_many_splits_past_the_table(dev):
+    """More matrices than one launch's table: MAX_DESCS a launch."""
+    n = tquant.MAX_DESCS + 6
+    ws = [_normal(i, (128, 128), dev) for i in range(n)]
+    before = tk.group_quantize.route_launches["vector"]
+    got = tquant.group_quantize_many(ws, [128] * n, [8] * n)
+    torch.cuda.synchronize()
+    assert tk.group_quantize.route_launches["vector"] == before + 2
+    for w, (codes, scales) in zip(ws, got):
+        codes_p, scales_p = ref.group_quantize_ref(w, 128, 8)
+        assert torch.equal(codes, codes_p) and torch.equal(scales, scales_p)
 
 
 QMM_SHAPES = [  # (m, k, n, g)
@@ -443,3 +503,135 @@ def test_flash_at_tile_edges(dev, s, dtype, dh):
             kv_len=kv_len if kv_len is not None
             else (None if causal else s))
         assert torch.equal(padded[:, :, :s], out), f"{what}: padding"
+
+
+# ---------------------------------------------------------------------------
+# the compiled forward: one CUDA graph per (plan, bucket)
+# ---------------------------------------------------------------------------
+
+from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.core.cost_model import SystemParams  # noqa: E402
+from repro_torch.models.lm import DecoderLM  # noqa: E402
+from repro_torch.runtime import (BatchedCoInferenceEngine,  # noqa: E402
+                                 CoInferenceEngine, QosClass)
+
+SMOKE_SYSP = SystemParams(n_flop_agent=6.4e10, n_flop_server=1.92e11)
+
+
+@pytest.fixture(scope="module")
+def smoke_lm():
+    cfg = get_smoke("qwen2-0.5b")
+    model = DecoderLM(cfg)
+    return model, model.init(torch.Generator().manual_seed(0))
+
+
+def _ragged(vocab, lens, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = np.zeros((len(lens), max(lens)), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, vocab, n)
+    return toks
+
+
+@pytest.mark.parametrize("path,target,b_emb", [
+    ("kernel", 8, 8), ("kernel", 4, 8), ("kernel", 8, 4), ("fake", 6, 8)])
+def test_compiled_forward_equals_eager_at_the_bucket(dev, smoke_lm, path,
+                                                     target, b_emb):
+    """A replayed graph returns the eager engine's bits for the same
+    bucket-padded batch, and its capture records every kernel launch of
+    one forward (counted per replay, not on the wrappers)."""
+    model, params = smoke_lm
+    lens = [6, 13, 16, 23]
+    toks = _ragged(model.cfg.vocab_size, lens)
+    eager = CoInferenceEngine(model, params, SMOKE_SYSP, path=path,
+                              b_emb=b_emb, device=dev)
+    comp = CoInferenceEngine(model, params, SMOKE_SYSP, path=path,
+                             b_emb=b_emb, compiled=True, device=dev)
+    eager.configure(target)
+    comp.configure(target)
+    bp, sp = comp.bucket_shape(*toks.shape)
+    padded = np.zeros((bp, sp), np.int32)
+    padded[:4, :23] = toks
+    want, _ = eager.serve_batch({"tokens": padded},
+                                lengths=lens + [0] * (bp - 4))
+    before = tk.launch_counts()
+    for _ in range(2):                           # replays reuse the graph
+        got, _ = comp.serve_batch({"tokens": toks}, lengths=lens)
+        torch.cuda.synchronize()
+        for i, n in enumerate(lens):
+            assert torch.equal(got[i, :n], want[i, :n]), (i, n)
+    (cf,) = comp.compile_cache._exe.values()
+    assert cf.graph is not None and cf.replays == 2
+    assert cf.launches.get("flash_attention_fwd") == model.cfg.n_layers
+    if path == "kernel":
+        name = "qmm_int4" if target <= 4 else "qmm"
+        assert cf.launches[name] == 7 * model.cfg.split_layer
+    # the warm-up run before the capture launched for real, once
+    assert tk.launch_counts()["flash_attention_fwd"] \
+        == before["flash_attention_fwd"] + model.cfg.n_layers
+
+
+def test_batched_compiled_on_card(dev, smoke_lm):
+    """Warm-up captures every (class, bucket); serving then never misses,
+    each response equals the eager engine at the same bucket, and each
+    request served alone (unpadded, eager) agrees within 1e-2 of the
+    logits' scale."""
+    model, params = smoke_lm
+    classes = [QosClass("realtime", t0=1.10, e0=0.9),
+               QosClass("batch", t0=2.50, e0=4.0)]
+    eng = BatchedCoInferenceEngine(model, params, SMOKE_SYSP,
+                                   classes=classes, max_batch=4,
+                                   path="kernel", compiled=True, device=dev)
+    assert eng.warmup(64) == len(eng.engine.compile_cache) >= 3
+    misses = eng.engine.compile_cache.misses
+    eager = CoInferenceEngine(model, params, SMOKE_SYSP, path="kernel",
+                              cache_weights=True, device=dev)
+    rng = np.random.default_rng(5)
+    sent = {}
+    for i in range(10):
+        t = rng.integers(0, model.cfg.vocab_size,
+                         size=int(rng.integers(5, 64)))
+        sent[eng.submit(t, classes[i % 2].name)] = (t, classes[i % 2].name)
+    batches = []
+    while eng.pending():
+        batches.append(eng.step())
+    assert eng.engine.compile_cache.misses == misses
+    for rs in batches:
+        qos = sent[rs[0].request_id][1]
+        sol = eng.solution_for(qos)
+        eager.configure(sol.b_hat, sol.f, sol.f_server)
+        s_max = max(len(sent[r.request_id][0]) for r in rs)
+        bp, sp = eng.engine.bucket_shape(len(rs), s_max)
+        padded = np.zeros((bp, sp), np.int32)
+        lens = [0] * bp
+        for i, r in enumerate(rs):
+            t = sent[r.request_id][0]
+            padded[i, :t.size] = t
+            lens[i] = t.size
+        want, _ = eager.serve_batch({"tokens": padded}, lengths=lens)
+        for i, r in enumerate(rs):
+            assert torch.equal(r.logits, want[i, :lens[i]])
+            alone, _ = eager.serve_batch({"tokens": padded[i:i + 1,
+                                                           :lens[i]]})
+            # the server's cuBLAS GEMMs pick kernels by M, and a ~1e-6
+            # difference at the b_emb = 8 uplink's rounding edge moves an
+            # element a whole step: chip_smoke.py's E2E_TOL
+            scale = float(alone[0].abs().max())
+            assert float((r.logits - alone[0]).abs().max()) <= 1e-2 * scale
+
+
+def test_capture_failure_raises(dev, smoke_lm):
+    """A forward that reads a value back to the host cannot be captured:
+    the engine raises and does not serve eagerly instead."""
+    model, params = smoke_lm
+
+    class SyncLM(DecoderLM):
+        def attend(self, q, k, v):
+            float(q.abs().max())                # a device-to-host read
+            return super().attend(q, k, v)
+
+    eng = CoInferenceEngine(SyncLM(model.cfg), params, SMOKE_SYSP,
+                            path="kernel", compiled=True, device=dev)
+    with pytest.raises(RuntimeError):
+        eng.serve_batch({"tokens": _ragged(model.cfg.vocab_size, [8])})
+    assert len(eng.compile_cache) == 0

@@ -22,7 +22,9 @@ def test_importing_every_module_pulls_in_no_jax():
     for m in ("repro_torch.runtime.serve_engine", "repro_torch.kernels.flash",
               "repro_torch.optim", "repro_torch.optim.adamw",
               "repro_torch.optim.grad_compress", "repro_torch.data.loader",
-              "repro_torch.runtime.train_loop", "repro_torch.launch.train"):
+              "repro_torch.runtime.train_loop", "repro_torch.launch.train",
+              "repro_torch.obs", "repro_torch.obs.trace",
+              "repro_torch.obs.metrics", "repro_torch.obs.report"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -28,7 +28,8 @@ from repro_torch.configs.qwen2_0_5b import FULL
 from repro_torch.core.cost_model import SystemParams
 from repro_torch.core.quantization import QuantPlan
 from repro_torch.models.lm import DecoderLM
-from repro_torch.runtime import CoInferenceEngine
+from repro_torch.runtime import (BatchedCoInferenceEngine, CoInferenceEngine,
+                                 QosClass)
 from repro_torch.runtime.serve_engine import fit_lambda
 
 CUT = dict(n_layers=3, d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
@@ -127,8 +128,9 @@ def test_entry_points_need_a_device_when_cuda_is_missing(engines):
         CoInferenceEngine(teng.model, teng.params, teng.sysp, path="kernel")
 
 
-def test_compiled_not_yet_ported(engines):
+def test_mixed_precision_not_yet_ported(engines):
     _, _, teng, _ = engines
-    with pytest.raises(NotImplementedError):
-        CoInferenceEngine(teng.model, teng.params, teng.sysp,
-                          compiled=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        BatchedCoInferenceEngine(teng.model, teng.params, teng.sysp,
+                                 classes=[QosClass("a", t0=1.0, e0=1.0)],
+                                 mixed_precision=True, device="cpu")

@@ -2,7 +2,7 @@
 """Where the time of one served forward, one decode step, or one training
 step goes on the CUDA card.
 
-    python3 tools/torch_forward_profile.py [--seq 64] [--batch 4]
+    python3 tools/torch_forward_profile.py [--seq 64] [--batch 4] [--compiled]
     python3 tools/torch_forward_profile.py --decode [--batch 4] [--cache 1024]
     python3 tools/torch_forward_profile.py --train [--seq 128] [--batch 8]
 
@@ -15,6 +15,12 @@ at b̂ = 8, b̂ = 4 and the plan [4, 4, 4, 8, 8, 8], and for each prints
   median of 5 after warm-up);
 * a ``torch.profiler`` trace of 3 forwards: device time by kernel name
   (top 12) and the device's busy share of the traced wall time.
+
+With ``--compiled`` each operating point is then served once more by a
+``CoInferenceEngine(compiled=True)``, whose forward is one captured CUDA
+graph (captured before timing): the wall of ``serve_batch`` (median of 5;
+it includes copying the tokens in and the logits out) and a trace of 3
+replays, read the same way.
 
 With ``--decode``: ``--batch`` prompts are prefilled through
 ``greedy_decode_reference`` into one cache bucket of ``--cache``
@@ -96,6 +102,9 @@ def main(argv=None) -> int:
                       help="profile one training step instead")
     ap.add_argument("--cache", type=int, default=1024,
                     help="decode cache bucket (--decode)")
+    ap.add_argument("--compiled", action="store_true",
+                    help="also serve each point through the captured "
+                         "forward (CUDA graph) and trace its replays")
     args = ap.parse_args(argv)
     if args.seq is None:
         args.seq = 128 if args.train else 64
@@ -161,8 +170,39 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         _print_trace(prof, wall_us, 3, "forward")
+        if args.compiled:
+            _profile_compiled(eng, point, batch, args)
     print(card.splitlines()[0])
     return 0
+
+
+def _profile_compiled(eager, point, batch, args) -> None:
+    """The same forward as one replayed CUDA graph: wall and trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import CoInferenceEngine
+    eng = CoInferenceEngine(eager.model, eager.params, eager.sysp,
+                            path="kernel", compiled=True)
+    eng.configure(point)
+    for _ in range(2):                  # the capture, then one replay
+        eng.serve_batch(batch)
+    t_all = _wall_ms(lambda: eng.serve_batch(batch))
+    (cf,) = eng.compile_cache._exe.values()
+    per = ", ".join(f"{k} {n}" for k, n in sorted(cf.launches.items())
+                    if "." not in k)
+    print(f"{eng.agent_path} [{args.batch}x{args.seq}] compiled (one CUDA "
+          f"graph; it launches {per}): serve_batch {t_all:.2f} ms (wall, "
+          f"median of 5)")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng.serve_batch(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _print_trace(prof, wall_us, 3, "forward")
 
 
 def _print_trace(prof, wall_us: float, n: int, what: str) -> None:
