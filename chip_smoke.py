@@ -54,22 +54,42 @@ nothing of JAX or of the JAX package ``repro``.
    on the already-dequantized f32 cache, ``enable_gqa=True``, a length
    mask: its time leaves the dequant out) at the decode path's widest
    shape, L2 flushed, and prints the kernel's ratio to it.
-6. The decode path at full width: ``DecodeEngine`` (max_batch 4) serves
-   six prompts of 100-500 tokens, 32 new tokens each, arriving so that
-   admission is continuous and the cache buckets span 256-1024; pinned at
-   (b̂, b_kv) = (8, 8), (4, 4), (8, 16), then with ``auto=True`` under the
-   CLI's two QoS classes.  The decode kernel's launch count, zeroed just
-   before each run and read just after, must be 24 x the token steps run.
-   Every response is held against ``greedy_decode_reference`` at batch 1,
-   and a run whose prefill and decode attentions are both the plain
-   versions (no launch at all) against the kernel run: tokens
-   equal up to the first step whose top-2 logit margin in the reference
-   run is below twice the logit difference measured on one step from the
-   same state (batched against alone, or plain against kernel).  Prints
-   the wall ms per token step at B = 4, tokens/s, the prefill wall per
-   request and the kernel's device ms per step (CUDA events around each
-   of one step's 24 launches).
-7. Flash attention against its plain version at qwen2-0.5b's heads
+6. The row-independent GEMM (``row_gemm``, the decode step's projections
+   and tied head) against its plain version (one product per row) at
+   the step's five shapes, wq/wo 896 -> 896, wk/wv 896 -> 128, gate/up
+   896 -> 4864, down 4864 -> 896 (w row-major) and the head 896 ->
+   151936 (the embedding's transposed view), at M in {1, 3, 4, 16}:
+   within ROW_GEMM_TOL x max|y|, every row bitwise the row alone.  Times
+   the kernel, the plain version and ``torch.matmul`` at M = 4, L2
+   flushed, against the byte bound, per shape and summed over one token
+   step's 169 products.
+7. The decode path at full width, through CUDA graphs.  First one step
+   from one state (B = 4, T = 1024, b_kv = 8): batched against alone and
+   plain attention against the kernels, the logit differences the token
+   rule allows for.  Then the captured token step and a captured 500-token
+   prefill against the module's closures run eagerly on a copy of the
+   same slot block: tokens and every buffer bitwise.  Prints the wall ms
+   per token step inside a 16-step chunk (graph and eager), tokens/s,
+   the graph's device time and busy share under ``torch.profiler``, the
+   prefill wall per request and the decode kernel's device ms per step
+   (CUDA events around each of one step's 24 launches).  Then ``DecodeEngine``
+   (max_batch 4) serves six prompts of 100-500 tokens, 32 new tokens each,
+   arriving so that admission is continuous and the cache buckets span
+   256-1024; pinned at (b̂, b_kv) = (8, 8) after ``warmup(500, 32)`` (no
+   capture while serving), then pinned at (4, 4) and (8, 16) and with
+   ``auto=True`` under the CLI's two QoS classes, capturing lazily while
+   serving.  Launch counts, zeroed just before each run and read just
+   after: the graphs' replays (each graph's record times its replays)
+   must be 24 decode attentions and 169 ``row_gemm`` per token step and
+   24 flash launches per prefill, and the only launches outside a graph
+   the eager warm-up runs of graphs captured while serving.  Every
+   response is held against ``greedy_decode_reference`` at batch 1 (its
+   graphs from one shared cache), and a run whose prefill and decode
+   attentions are both the plain versions against the kernel run: tokens
+   equal, or equal up to the first step whose top-2 logit margin (from an
+   eager batch-1 run of the closures, taken only then) is below twice the
+   logit difference measured on one step from the same state.
+8. Flash attention against its plain version at qwen2-0.5b's heads
    (H = 14 over KV = 2, dh = 64), operands in the model's [B, S, H, dh]
    layout: B in {1, 4} x S = T in {64, 100, 512, 1024} causal, the
    training shape B = 8 x S = 128, one sliding window of 128,
@@ -83,10 +103,10 @@ nothing of JAX or of the JAX package ``repro``.
    S = 64), the training shape (B = 8, S = 128) and S = 1024, B = 1,
    beside two bounds: the three TF32 passes the kernel issues at 495
    TFLOP/s (the JSON line's bound) and f32 outside the tensor cores.
-   Phases 4 and 6 count its launches too: 24 per forward and per prefill,
+   Phases 4 and 7 count its launches too: 24 per forward and per prefill,
    and phase 4's plain forward runs the plain attention through the
    model's ``attend`` hook.
-8. Training at full width: ``Trainer.fit`` takes TRAIN_STEPS steps of
+9. Training at full width: ``Trainer.fit`` takes TRAIN_STEPS steps of
    qwen2-0.5b ``FULL`` at batch 8 x seq 128 (the CLI's defaults) with
    QAT at 8 bits and int8 error-feedback gradients; loss and grad norm
    finite at every step, flash launches exactly 2 x 24 per step (the
@@ -94,7 +114,7 @@ nothing of JAX or of the JAX package ``repro``.
    with the kernel and one with the plain attention: losses within 1e-4
    relative, grad norms within 1e-3, and at most 1e-3 of the updated
    parameters apart by more than 1e-3 lr (see ``train_path``).
-9. Compiled batched serving at full width:
+10. Compiled batched serving at full width:
    ``BatchedCoInferenceEngine(path="kernel", compiled=True, max_batch=4)``
    over two QoS classes whose codesign picks b̂ = 4 and b̂ = 8
    (COMPILED_CLASSES); ``warmup(512)`` captures one CUDA graph per (class,
@@ -109,9 +129,9 @@ nothing of JAX or of the JAX package ``repro``.
    shapes change their rows with M are printed: ROADMAP C.6).  Then the
    4 x 64 forward's wall with and without the graph, and its device time
    and busy share under ``torch.profiler``.
-10. Summary: one ``{"kernels": [...]}`` line, the card line, and last
+11. Summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``; the per-shape numbers are printed
-   in phases 3, 5 and 7.
+   in phases 3, 5, 6 and 8.
 """
 
 from __future__ import annotations
@@ -144,6 +164,8 @@ DECODE_ARRIVE = (0, 0, 8, 8, 16, 4)               # 512 1024; x one step
 DECODE_NEW = 32
 DECODE_BUDGET = (6.0, 2.0)  # (T0, E0) of the auto run: both CLI classes
                             # feasible at full width
+ROW_GEMM_TOL = 1e-5         # row_gemm vs plain, x max|y|: f32 sums over
+ROW_GEMM_M = (1, 3, 4, 16)  # K <= 4864 in another order
 FLASH_TOL = 2e-5            # flash vs plain, f32: tests/test_flash.py's
 FLASH_PASSES = 3            # tf32 products per f32 product in the kernel
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 10
@@ -609,6 +631,77 @@ def check_decode_kernel(dev, flush):
     return rows[8]
 
 
+def row_gemm_shapes(cfg):
+    """(name, K, N, products per token step, w layout) of the decode step's
+    products: the seven of every layer and the tied head (``tok.T``)."""
+    d, f, layers = cfg.d_model, cfg.d_ff, cfg.n_layers
+    return [("wq/wo", d, cfg.q_dim, 2 * layers, "kn"),
+            ("wk/wv", d, cfg.kv_dim, 2 * layers, "kn"),
+            ("gate/up", d, f, 2 * layers, "kn"),
+            ("down", f, d, layers, "kn"),
+            ("head", d, cfg.vocab_size, 1, "nk")]
+
+
+def check_row_gemm(cfg, dev, flush):
+    """Phase 6; returns the kernel's numbers summed over one B = 4 token
+    step's products (169 launches)."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 n_bytes=0.0, n_ops=0.0, max_abs_err=0.0, launches=0)
+    for name, k, n, per_step, layout in row_gemm_shapes(cfg):
+        w = torch.randn((k, n) if layout == "kn" else (n, k), generator=gen,
+                        device=dev) * k ** -0.5
+        w = w if layout == "kn" else w.T          # the transposed view
+        x_all = torch.randn((16, k), generator=gen, device=dev)
+        err = 0.0
+        for m in ROW_GEMM_M:
+            x = x_all[:m]
+            before = tk.row_gemm.launches
+            got, want = tk.row_gemm(x, w), ref.row_gemm_ref(x, w)
+            torch.cuda.synchronize()
+            assert tk.row_gemm.launches == before + 1, name
+            d = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            assert d <= ROW_GEMM_TOL * scale, \
+                f"row_gemm {name} M={m}: {d} of {scale}"
+            err = max(err, d)
+            for i in range(m):
+                assert torch.equal(tk.row_gemm(x[i:i + 1], w)[0], got[i]), \
+                    f"row_gemm {name} M={m}: row {i} alone != in batch"
+        x = x_all[:B]
+        n_bytes = 4.0 * (B * k + k * n + B * n)
+        n_ops = 2.0 * B * n * k
+        b_ms, by = bound_ms(n_bytes, n_ops)
+        r = dict(ms=time_ms(lambda: tk.row_gemm(x, w), flush),
+                 plain_ms=time_ms(lambda: ref.row_gemm_ref(x, w), flush),
+                 library_ms=time_ms(lambda: torch.matmul(x, w), flush))
+        print(f"  row_gemm {name:8s} M={B} K={k} N={n} ({layout}) "
+              f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+              f"torch.matmul={r['library_ms']:.4f} bound={b_ms:.6f} ({by}) "
+              f"x{per_step} per step; max|d| {err:.2e} over M in "
+              f"{ROW_GEMM_M}")
+        for f in ("ms", "plain_ms", "library_ms"):
+            total[f] += per_step * r[f]
+        total["n_bytes"] += per_step * n_bytes
+        total["n_ops"] += per_step * n_ops
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        total["launches"] += per_step
+    total["bound_ms"], total["bound_by"] = bound_ms(total["n_bytes"],
+                                                    total["n_ops"])
+    print(f"row_gemm vs plain: ok, within {ROW_GEMM_TOL} x max|y| at M in "
+          f"{ROW_GEMM_M}, rows alone bitwise; one B={B} token step "
+          f"({total['launches']} launches, {total['n_bytes'] / 1e9:.3f} GB):"
+          f" ms={total['ms']:.4f} plain={total['plain_ms']:.4f} "
+          f"torch.matmul={total['library_ms']:.4f} "
+          f"bound={total['bound_ms']:.4f} ({total['bound_by']}); "
+          f"{card_line()}")
+    return total
+
+
 def flash_case(dev, b, s, seed, dh=64, dtype=None, h=14, kv=2):
     """q, k, v at qwen2-0.5b's heads in the model's [B, S, H, dh] layout,
     seen as [B, H, S, dh] (strided views, as the path passes them)."""
@@ -637,7 +730,7 @@ def flash_bound(q, k, causal=True, passes=FLASH_PASSES):
 
 
 def check_flash_kernel(dev, flush):
-    """Phase 7; returns the kernel's summary numbers at the serve shape."""
+    """Phase 8; returns the kernel's summary numbers at the serve shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels as tk
@@ -715,31 +808,34 @@ def check_flash_kernel(dev, flush):
 
 
 def decode_path(cfg, params, dev, kernel_ms: float):
-    """Phase 6; returns the decode and flash kernels' launches over the
-    engine runs."""
+    """Phase 7; returns {kernel: launches} over the engine runs (eager
+    launches plus each graph's record times its replays)."""
     import numpy as np
     import torch
     from repro_torch import kernels as tk
     from repro_torch.core.cost_model import SystemParams
     from repro_torch.kernels import ref
+    from repro_torch.kernels.bucketing import seq_bucket
     from repro_torch.launch.serve import decode_classes, decode_system_params
     from repro_torch.models.lm import DecoderLM
-    from repro_torch.runtime import (DecodeEngine, QosClass,
-                                     greedy_decode_reference)
+    from repro_torch.runtime import (CompiledForwardCache, DecodeEngine,
+                                     QosClass, greedy_decode_reference)
+    from repro_torch.runtime import decode_engine as de
 
     class RefLM(DecoderLM):
-        """The model with each step's top-2 logit margins recorded, and
-        with ``plain`` its attentions (prefill's and the decode step's)
-        through the kernels' plain versions."""
+        """The model with ``plain`` its attentions (prefill's and the
+        decode step's) through the kernels' plain versions, and with
+        ``record`` each eager step's top-2 logit margins noted."""
 
-        def __init__(self, cfg, plain=False):
+        def __init__(self, cfg, plain=False, record=False):
             super().__init__(cfg)
-            self.plain = plain
+            self.plain, self.record = plain, record
             self.margins = []
 
         def _note(self, logits):
-            top2 = logits.topk(2, dim=-1).values
-            self.margins.append(top2[:, 0] - top2[:, 1])
+            if self.record:
+                top2 = logits.topk(2, dim=-1).values
+                self.margins.append(top2[:, 0] - top2[:, 1])
 
         def prefill(self, *a, **kw):
             logits, cache = super().prefill(*a, **kw)
@@ -762,14 +858,38 @@ def decode_path(cfg, params, dev, kernel_ms: float):
                     q, kc, vc, ks, vs, lens, window=self.cfg.sliding_window)
             return super().decode_attend(q, kc, vc, ks, vs, lens)
 
+    def eager_margins(w, prompt, b_kv):
+        """The batch-1 greedy stream through the module's closures run
+        eagerly (the kernels, no graph), with each step's top-2 margin."""
+        lm = RefLM(cfg, record=True)
+        buf = de._SlotBuffers(cfg, seq_bucket(prompt.size + DECODE_NEW), 1,
+                              b_kv, dev)
+        s_b = seq_bucket(prompt.size)
+        padded = np.zeros((1, s_b), np.int32)
+        padded[0, :prompt.size] = prompt
+        io = buf.prefill_io(s_b)
+        toks = [de._run_prefill(
+            lambda: de._prefill_slot(lm, b_kv, w, buf, io), io, padded,
+            prompt.size, 0)]
+        blk, n = de._decode_chunk(
+            lambda: de._decode_step(lm, b_kv, w, buf, buf.step_io),
+            buf.step_io, np.ones(1, np.int32), DECODE_NEW - 1)
+        toks += blk[0, :n].cpu().tolist()
+        return (np.asarray(toks, np.int32),
+                torch.cat(lm.margins).cpu().numpy())
+
     def held(got, want, margins, d, what):
-        """Tokens equal up to the first step whose reference margin is
-        below 2 d; returns that step or None."""
-        close = np.flatnonzero(margins < 2.0 * d)
+        """Tokens equal, or equal up to the first step whose reference
+        margin (``margins()``, computed only then) is below 2 d; returns
+        that step or None."""
+        if np.array_equal(got, want):
+            return None
+        m = margins()
+        close = np.flatnonzero(m < 2.0 * d)
         upto = int(close[0]) if close.size else len(want)
-        assert np.array_equal(got[:upto], want[:upto]), \
+        assert close.size and np.array_equal(got[:upto], want[:upto]), \
             f"{what}: tokens differ before step {upto}: {got} vs {want}"
-        return upto if close.size else None
+        return upto
 
     model = DecoderLM(cfg)
     rng = np.random.default_rng(0)
@@ -786,9 +906,11 @@ def decode_path(cfg, params, dev, kernel_ms: float):
     # against kernel: the logit differences the token rule allows for
     w8 = DecodeEngine(model, params, sysp, classes=[pin], auto=False,
                       device=dev).class_params(pin.name)
+    ref_cache = CompiledForwardCache()
     states = [greedy_decode_reference(
         model, w8, p, 2, b_kv=8, reserve_tokens=1024 - p.size,
-        return_state=True, device=dev)[1] for p in prompts[:4]]
+        return_state=True, compile_cache=ref_cache, device=dev)[1]
+        for p in prompts[:4]]
 
     def step(lm, rows):
         qc = {k: torch.from_numpy(np.concatenate(
@@ -808,17 +930,107 @@ def decode_path(cfg, params, dev, kernel_ms: float):
         torch.cuda.synchronize()
         d_batch = float((full - alone).abs().max())
         d_plain = float((full - plain).abs().max())
-        walls = []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            torch.argmax(step(model, range(4)), dim=-1)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-    step_ms = statistics.median(walls)
     print(f"decode step from one state (B=4, T=1024, b_kv=8): batched vs "
           f"alone max|d logits|={d_batch:.3e}, plain vs kernel "
           f"{d_plain:.3e}")
+
+    # the captured step and prefill against the module's closures run
+    # eagerly on a copy of the same slot block: tokens and buffers bitwise
+    def slot_block():
+        buf = de._SlotBuffers(cfg, 1024, 4, 8, dev)
+        for k in ("k_codes", "v_codes", "k_scales", "v_scales"):
+            getattr(buf, k).copy_(torch.from_numpy(np.concatenate(
+                [st[k] for st in states], axis=1)))
+        buf.pos.copy_(torch.tensor([int(st["pos"]) for st in states]))
+        buf.tok.copy_(torch.tensor([int(st["last_token"]) for st in states]))
+        return buf
+
+    live = np.ones(4, np.int32)
+    cache = CompiledForwardCache()
+    graph_buf, eager_buf = slot_block(), slot_block()
+    t0 = time.perf_counter()
+    graph_step = de._step_call(cache, model, 8, w8, graph_buf)
+    graph_prefill = de._prefill_call(cache, model, 8, w8, graph_buf, 512)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+
+    def eager_step():
+        de._decode_step(model, 8, w8, eager_buf, eager_buf.step_io)
+
+    eio = eager_buf.prefill_io(512)
+
+    def eager_prefill():
+        de._prefill_slot(model, 8, w8, eager_buf, eio)
+
+    padded = np.zeros((1, 512), np.int32)
+    padded[0, :prompts[5].size] = prompts[5]
+    first = [de._run_prefill(f, b.prefill_io(512), padded, prompts[5].size,
+                             1)
+             for f, b in ((graph_prefill, graph_buf),
+                          (eager_prefill, eager_buf))]
+    blocks = [de._decode_chunk(f, b.step_io, live, 8)[0].clone()
+              for f, b in ((graph_step, graph_buf),
+                           (eager_step, eager_buf))]
+    torch.cuda.synchronize()
+    assert first[0] == first[1], "captured prefill != eager"
+    assert torch.equal(blocks[0], blocks[1]), "captured step != eager"
+    for a, b in zip(graph_buf.written(), eager_buf.written()):
+        assert torch.equal(a, b), "captured decode buffers != eager"
+    assert graph_step.launches["row_gemm"] == 7 * cfg.n_layers + 1
+    print(f"captured == eager (B=4, T=1024, b_kv=8): the first token of a "
+          f"{prompts[5].size}-token prefill into slot 1 and 8 token steps, "
+          f"tokens and every buffer bitwise; step and prefill captured in "
+          f"{t_capture:.2f}s; one step graph launches "
+          f"{graph_step.launches}")
+
+    # wall per token step inside a chunk of 16 (what the engine pays: 16
+    # replays, then the token block read back), and eagerly
+    def chunk(fn, buf, k=16):
+        de._decode_chunk(fn, buf.step_io, live, k)[0].cpu()
+
+    # (the eager step's device time is the graph's: the same kernels;
+    # tools/torch_forward_profile.py --decode --eager traces it)
+    walls = {}
+    for name, fn, buf, reps in (("graph", graph_step, graph_buf, 7),
+                                ("eager", eager_step, eager_buf, 2)):
+        with torch.no_grad():
+            chunk(fn, buf)
+            ms = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                chunk(fn, buf)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3 / 16)
+            busy = ""
+            if name == "graph":
+                wall, dev_ms, launched = device_busy(
+                    lambda: chunk(fn, buf), n=2)
+                busy = "; device time not measured" if dev_ms is None \
+                    else (f"; {dev_ms / 16:.3f} device ms per step, "
+                          f"{dev_ms / wall:.1%} busy traced, "
+                          f"{dev_ms / 16 / statistics.median(ms):.1%} of "
+                          f"the untraced wall, {launched / 16:.0f} launches "
+                          "per step")
+        walls[name] = statistics.median(ms)
+        print(f"decode token step {name} (B=4, T=1024, b_kv=8): "
+              f"{walls[name]:.3f} ms wall per step in a 16-step chunk "
+              f"(median of {reps}), {4e3 / walls[name]:.1f} tokens/s{busy}; "
+              f"{card_line()}")
+    prefill = {}
+    for name, fn, buf in (("graph", graph_prefill, graph_buf),
+                          ("eager", eager_prefill, eager_buf)):
+        ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            de._run_prefill(fn, buf.prefill_io(512), padded,
+                            prompts[5].size, 1)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        prefill[name] = statistics.median(ms[1:])
+    print(f"decode prefill of {prompts[5].size} tokens: graph "
+          f"{prefill['graph']:.2f} ms, eager {prefill['eager']:.2f} ms per "
+          f"request (median of 3)")
 
     class TimedLM(DecoderLM):
         """CUDA events around each decode-attention call of a step; a
@@ -847,29 +1059,23 @@ def decode_path(cfg, params, dev, kernel_ms: float):
             torch.cuda.synchronize()
             assert len(timed.events) == cfg.n_layers
             per_step.append(sum(a.elapsed_time(b) for a, b in timed.events))
-    kernel_step_ms = statistics.median(per_step)
-    prefill = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        greedy_decode_reference(model, w8, prompts[5], 1, b_kv=8,
-                                device=dev)
-        torch.cuda.synchronize()
-        prefill.append((time.perf_counter() - t0) * 1e3)
-    print(f"decode wall: {step_ms:.2f} ms per token step at B=4 (median of "
-          f"10), {4e3 / step_ms:.1f} tokens/s; prefill of "
-          f"{prompts[5].size} tokens {statistics.median(prefill):.2f} ms "
-          f"per request; kernel device {kernel_step_ms:.4f} ms per step "
-          f"({cfg.n_layers} launches, CUDA events in the step, median of "
-          f"3; {cfg.n_layers} x the L2-flushed launch "
+    print(f"decode attention device {statistics.median(per_step):.4f} ms "
+          f"per step ({cfg.n_layers} launches, CUDA events in the step, "
+          f"median of 3; {cfg.n_layers} x the L2-flushed launch "
           f"{cfg.n_layers * kernel_ms:.4f})")
 
-    runs = [("pinned 8/8", [pin], (8, 8)), ("pinned 4/4", [pin], (4, 4)),
-            ("pinned 8/16", [pin], (8, 16)),
-            ("auto", decode_classes(*DECODE_BUDGET), None),
-            ("plain 8/8", [pin], (8, 8))]
-    launches, flash_launches, kernel_tokens = 0, 0, {}
-    for name, classes, point in runs:
+    # (name, classes, operating point, warm-up first): the warmed runs
+    # capture every variant up front and may not capture while serving;
+    # the others capture lazily, mid-traffic, with live rows in the block
+    runs = [("pinned 8/8", [pin], (8, 8), True),
+            ("pinned 4/4", [pin], (4, 4), False),
+            ("pinned 8/16", [pin], (8, 16), False),
+            ("auto", decode_classes(*DECODE_BUDGET), None, False),
+            ("plain 8/8", [pin], (8, 8), False)]
+    launches = dict.fromkeys(("quantized_decode_attention",
+                              "flash_attention_fwd", "row_gemm"), 0)
+    kernel_tokens = {}
+    for name, classes, point, warm in runs:
         plain_run = name.startswith("plain")
         lm = RefLM(cfg, plain=True) if plain_run else model
         eng = DecodeEngine(lm, params, sysp, classes=classes,
@@ -877,65 +1083,89 @@ def decode_path(cfg, params, dev, kernel_ms: float):
                            max_new_tokens=DECODE_NEW, device=dev)
         if point is not None:
             eng.set_operating_point(pin.name, *point)
+        t0 = time.perf_counter()
+        n_warm = eng.warmup(max(DECODE_PROMPTS), DECODE_NEW) if warm else 0
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
         t_round = eng.decode_round_cost(classes[0].name, 512)[0]
         rids = {}
         for i, p in enumerate(prompts):
             qos = classes[i % len(classes)].name
             rids[eng.submit(p, qos, arrival_s=DECODE_ARRIVE[i] * t_round)] \
                 = i
+        cc = eng.compile_cache
+        before = set(cc._exe)
         tk.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         responses = eng.drain()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = tk.launch_counts()
+        eager = tk.launch_counts()
+        replayed = cc.kernel_launches()
         rep = eng.report()
-        # every prefill is one full-sequence pass: one flash launch a
-        # layer; the plain run launches nothing
-        want = 0 if plain_run else cfg.n_layers * rep.decode_rounds
-        want_flash = 0 if plain_run else cfg.n_layers * rep.prefills
-        assert counts == {"group_quantize": 0, "qmm": 0, "qmm_int4": 0,
-                          "quantized_decode_attention": want,
-                          "flash_attention_fwd": want_flash}, \
-            f"{name}: launches {counts}, {rep.decode_rounds} token steps, " \
-            f"{rep.prefills} prefills"
+        if warm:
+            assert rep.compile_misses == n_warm, \
+                f"{name}: {rep.compile_misses - n_warm} captures after warmup"
+        # outside the graphs only the eager warm-up runs of the graphs
+        # captured while serving launched (each once its record)
+        new = [cc._exe[k] for k in cc._exe if k not in before]
+        assert eager == {k: sum(e.launches.get(k, 0) for e in new)
+                         for k in eager}, f"{name}: eager launches {eager}"
+        # every prefill replays one full-sequence pass (one flash launch a
+        # layer), every token step 24 decode attentions and 169 products;
+        # the plain run's attentions launch nothing
+        want = {"quantized_decode_attention":
+                0 if plain_run else cfg.n_layers * rep.decode_rounds,
+                "flash_attention_fwd":
+                0 if plain_run else cfg.n_layers * rep.prefills,
+                "row_gemm": (7 * cfg.n_layers + 1) * rep.decode_rounds}
+        assert {k: replayed.get(k, 0) for k in eager} == \
+            {k: want.get(k, 0) for k in eager}, \
+            f"{name}: replayed launches {replayed} != {want}, " \
+            f"{rep.decode_rounds} token steps, {rep.prefills} prefills"
+        counts = {k: eager[k] + replayed.get(k, 0) for k in eager}
         assert rep.requests_served == len(prompts)
         assert rep.tokens_generated == len(prompts) * DECODE_NEW
         points = ", ".join(f"{c.qos} b_hat={c.b_hat} b_kv={c.b_kv}"
                            for c in rep.classes)
-        print(f"  decode {name:11s} {points}: {rep.prefills} prefills, "
-              f"{rep.decode_rounds} token steps, {rep.tokens_generated} "
-              f"tokens in {wall:.2f}s wall, kernel launches "
+        print(f"  decode {name:11s} {points}: "
+              + (f"warmup {n_warm} graphs in {t_warm:.2f}s, 0 captures "
+                 "after; " if warm else
+                 f"{rep.compile_misses} graphs captured while serving; ")
+              + f"{rep.prefills} prefills, {rep.decode_rounds} token steps, "
+              f"{rep.tokens_generated} tokens in {wall:.2f}s wall; launches "
               f"{counts['quantized_decode_attention']} decode, "
-              f"{counts['flash_attention_fwd']} flash")
-        if not plain_run:
-            launches += counts["quantized_decode_attention"]
-        flash_launches += counts["flash_attention_fwd"]
+              f"{counts['flash_attention_fwd']} flash, "
+              f"{counts['row_gemm']} row_gemm")
+        for k in launches:
+            if not (plain_run and k != "row_gemm"):
+                launches[k] += counts[k]
         for r in responses:
             i = rids[r.request_id]
             assert r.tokens.shape == (DECODE_NEW,)
             assert ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()
+            w = eng.class_params(r.qos)
             if plain_run:
-                want_toks, margins = kernel_tokens[i]
-                at = held(r.tokens, want_toks, margins, d_plain,
-                          f"plain run request {i}")
+                want_toks = kernel_tokens[i]
+                at = held(r.tokens, want_toks,
+                          lambda: eager_margins(w, prompts[i], r.b_kv)[1],
+                          d_plain, f"plain run request {i}")
             else:
-                rlm = RefLM(cfg)
                 want_toks = greedy_decode_reference(
-                    rlm, eng.class_params(r.qos), prompts[i], DECODE_NEW,
-                    b_kv=r.b_kv, device=dev)
-                margins = torch.cat(rlm.margins).cpu().numpy()
-                at = held(r.tokens, want_toks, margins, d_batch,
-                          f"{name} request {i}")
+                    model, w, prompts[i], DECODE_NEW, b_kv=r.b_kv,
+                    compile_cache=ref_cache, device=dev)
+                at = held(r.tokens, want_toks,
+                          lambda: eager_margins(w, prompts[i], r.b_kv)[1],
+                          d_batch, f"{name} request {i}")
                 if name == "pinned 8/8":
-                    kernel_tokens[i] = (r.tokens, margins)
+                    kernel_tokens[i] = r.tokens
             if at is not None:
                 print(f"    request {i}: reference margin below the "
                       f"measured noise at step {at}; compared up to it")
         print(f"    tokens held to the "
               f"{'kernel run' if plain_run else 'batch-1 reference'}: ok")
-    return launches, flash_launches
+    return launches
 
 
 def device_busy(fn, n: int = 3):
@@ -987,7 +1217,7 @@ def server_gemm_rows(cfg, params, dev, m_batch: int, m_alone: int):
 
 
 def compiled_serving(cfg, model, params, sysp, dev, tokens):
-    """Phase 9; returns the kernel launches of its serving window (eager
+    """Phase 10; returns the kernel launches of its serving window (eager
     warm-up runs and graph replays).  ``tokens``: phase 4's B x S batch,
     whose forward is timed with and without the graph."""
     import numpy as np
@@ -1111,7 +1341,7 @@ def compiled_serving(cfg, model, params, sysp, dev, tokens):
 
 
 def train_path(cfg, dev):
-    """Phase 8; returns the flash launches of the ``fit`` run.
+    """Phase 9; returns the flash launches of the ``fit`` run.
 
     The kernel-vs-plain step: both start from one state and see one batch,
     so their losses differ only by the attention's rounding (1e-4
@@ -1154,7 +1384,8 @@ def train_path(cfg, dev):
     assert tc.remat
     assert counts == {"group_quantize": 0, "qmm": 0, "qmm_int4": 0,
                       "quantized_decode_attention": 0,
-                      "flash_attention_fwd": per_step * TRAIN_STEPS}, \
+                      "flash_attention_fwd": per_step * TRAIN_STEPS,
+                      "row_gemm": 0}, \
         f"training launches {counts}"
     assert [h["step"] for h in hist] == list(range(1, TRAIN_STEPS + 1))
     for h in hist:
@@ -1276,7 +1507,8 @@ def main() -> int:
               (plan, "kernel-mixed[4/4/4/8/8/8]")]
     served = []
     want = {"group_quantize": 0, "qmm": 0, "qmm_int4": 0,
-            "quantized_decode_attention": 0, "flash_attention_fwd": 0}
+            "quantized_decode_attention": 0, "flash_attention_fwd": 0,
+            "row_gemm": 0}
     tk.reset_launch_counts()
     t0 = time.perf_counter()
     eng = CoInferenceEngine(model, params, sysp, path="kernel")
@@ -1381,31 +1613,39 @@ def main() -> int:
     summary["quantized_decode_attention"] = check_decode_kernel(dev, flush)
     print(f"decode kernel phase: {time.perf_counter() - t0:.1f}s")
 
-    # 6. the decode path at full width
+    # 6. the row-independent GEMM against its plain version
     t0 = time.perf_counter()
-    counts["quantized_decode_attention"], flash_decode = decode_path(
-        cfg, params, dev, summary["quantized_decode_attention"]["ms"])
-    print(f"decode path: {time.perf_counter() - t0:.1f}s")
+    summary["row_gemm"] = check_row_gemm(cfg, dev, flush)
+    print(f"row_gemm phase: {time.perf_counter() - t0:.1f}s")
 
-    # 7. flash attention against its plain version
+    # 7. the decode path at full width, through CUDA graphs
+    t0 = time.perf_counter()
+    decoded = decode_path(cfg, params, dev,
+                          summary["quantized_decode_attention"]["ms"])
+    print(f"decode path: {time.perf_counter() - t0:.1f}s")
+    for name in ("quantized_decode_attention", "row_gemm"):
+        counts[name] = decoded[name]
+
+    # 8. flash attention against its plain version
     t0 = time.perf_counter()
     summary["flash_attention_fwd"] = check_flash_kernel(dev, flush)
     print(f"flash kernel phase: {time.perf_counter() - t0:.1f}s")
 
-    # 8. training at full width
+    # 9. training at full width
     t0 = time.perf_counter()
     flash_train = train_path(cfg, dev)
     print(f"train path: {time.perf_counter() - t0:.1f}s")
-    counts["flash_attention_fwd"] += flash_decode + flash_train
+    counts["flash_attention_fwd"] += decoded["flash_attention_fwd"] \
+        + flash_train
 
-    # 9. compiled batched serving at full width
+    # 10. compiled batched serving at full width
     t0 = time.perf_counter()
     served = compiled_serving(cfg, model, params, sysp, dev, tokens)
     print(f"compiled serving: {time.perf_counter() - t0:.1f}s")
     for name in ("group_quantize", "qmm", "qmm_int4", "flash_attention_fwd"):
         counts[name] += served[name]
 
-    # 10. summary
+    # 11. summary
     names = {"group_quantize": ("csrc/group_quantize.cu",
                                 "src/repro/kernels/quantize.py:35"),
              "qmm": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:67"),
@@ -1414,7 +1654,12 @@ def main() -> int:
                  "csrc/decode_attn.cu",
                  "src/repro/kernels/decode_attn.py:129"),
              "flash_attention_fwd": ("csrc/flash_attn.cu",
-                                     "src/repro/kernels/flash.py:93")}
+                                     "src/repro/kernels/flash.py:93"),
+             # the port's own: no TPU kernel; it stands for XLA's batched
+             # dot in the reference's decode step
+             "row_gemm": ("csrc/row_gemm.cu",
+                          "none (port-own; stands for the XLA dots of "
+                          "src/repro/models/lm.py:346 decode_step_q)")}
     kernels = []
     for name, (src, replaces) in names.items():
         s = summary[name]

@@ -18,6 +18,8 @@ decode_attention`` (split over the       ``quantized_decode_attention``
 ``flash_attention  csrc/flash_attn       repro/kernels/flash.py
 _fwd``             (three-pass TF32      ``flash_attention_fwd``
                    wgmma)
+``row_gemm``       csrc/row_gemm (rows   none: the port's own, for the
+                   independent of M)     decode step's projections
 =================  ====================  ==================================
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
@@ -36,11 +38,13 @@ from .decode_attn import quantized_decode_attention
 from .flash import flash_attention_fwd
 from .qmm import qmm, qmm_int4, reset_route_launches
 from .quantize import group_quantize
+from .row_gemm import row_gemm
 
 KERNELS = {"group_quantize": group_quantize, "qmm": qmm,
            "qmm_int4": qmm_int4,
            "quantized_decode_attention": quantized_decode_attention,
-           "flash_attention_fwd": flash_attention_fwd}
+           "flash_attention_fwd": flash_attention_fwd,
+           "row_gemm": row_gemm}
 
 
 def launch_counts() -> dict:

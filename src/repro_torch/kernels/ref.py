@@ -11,7 +11,8 @@ Shapes / conventions shared with ``qmm.py`` and ``quantize.py``:
 ``quantized_decode_attention_ref`` is the plain version of the decode
 attention kernel, on the reference's decode layouts; ``flash_attention_ref``
 (at the end) that of the flash kernel, and ``ref_attention`` the oracle its
-backward recomputes through.
+backward recomputes through; ``row_gemm_ref`` that of the row-independent
+GEMM.
 
 Every wrapper runs these on a CPU tensor; on the card they are what the
 CUDA kernels are held against.  Division is true division and rounding is
@@ -39,6 +40,18 @@ def qmm_ref(x: torch.Tensor, codes: torch.Tensor,
     """Dequantize, then matmul in f32; output in x's dtype."""
     w = dequantize_ref(codes, scales)
     return (x.to(torch.float32) @ w).to(x.dtype)
+
+
+def row_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [M, K] @ w [K, N], one product per row.
+
+    BLAS libraries sum a one-row product in another order than a product
+    of several rows (a gemv against a gemm on the CPU), so a row's bits
+    would depend on M; one product per row keeps them the row's own.
+    """
+    if x.shape[0] == 0:
+        return x.new_zeros((0, w.shape[1]))
+    return torch.cat([x[i:i + 1] @ w for i in range(x.shape[0])])
 
 
 def group_quantize_ref(w: torch.Tensor, group_size: int, bits: int = 8):

@@ -19,9 +19,12 @@ seeded ``torch.Generator``:
   (b̂, b_kv); ``--parity-check`` replays every response through
   ``greedy_decode_reference`` and requires equal tokens.
 
-Runs on the CUDA card unless ``--device cpu``.  The reference's other
-modes (mixed precision, speculative, adaptive, fleet, chaos, trace/metrics
-output) are not yet ported: each exits 2 with a one-line error.
+Every mode takes ``--trace-out TRACE.json`` (a Chrome trace-event JSON of
+the run) and ``--metrics-out METRICS.json`` (a metrics snapshot), written at
+the end of the run even when it fails, as the reference's are.  Runs on the
+CUDA card unless ``--device cpu``.  The reference's other modes (mixed
+precision, speculative, adaptive, fleet, chaos) are not yet ported: each
+exits 2 with a one-line error.
 """
 
 from __future__ import annotations
@@ -41,13 +44,14 @@ from ..core.cost_model import SystemParams
 from ..data import MarkovLMConfig, MarkovLMDataset
 from ..device import resolve_device
 from ..models.lm import DecoderLM
+from ..obs import NULL_METRICS, NULL_TRACER, MetricsRegistry, Tracer
 from ..runtime import (BatchedCoInferenceEngine, CodesignCache,
                        CoInferenceEngine, DecodeEngine, QosClass,
                        greedy_decode_reference)
 
 # flags of the reference's serve CLI whose modes are not ported yet
 _NOT_PORTED = ("speculative", "mixed_precision", "env_trace", "fleet",
-               "chaos_trace", "trace_out", "metrics_out")
+               "chaos_trace")
 
 
 def main(argv=None) -> int:
@@ -86,10 +90,14 @@ def main(argv=None) -> int:
     for flag in ("speculative", "mixed-precision"):
         ap.add_argument(f"--{flag}", action="store_true",
                         help="not yet ported (exits 2)")
-    for flag in ("env-trace", "fleet", "chaos-trace", "trace-out",
-                 "metrics-out"):
+    for flag in ("env-trace", "fleet", "chaos-trace"):
         ap.add_argument(f"--{flag}", default=None,
                         help="not yet ported (exits 2)")
+    ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
+                    help="write a Chrome trace-event JSON of the run")
+    ap.add_argument("--metrics-out", default=None, metavar="METRICS.json",
+                    help="write a JSON metrics snapshot (counters, gauges, "
+                         "histograms) at the end of the run")
     args = ap.parse_args(argv)
 
     used = [f"--{n.replace('_', '-')}" for n in _NOT_PORTED
@@ -113,17 +121,35 @@ def main(argv=None) -> int:
         n_flop_agent=2.0 * per_layer * cfg.split_layer * tokens,
         n_flop_server=2.0 * per_layer
         * (cfg.n_layers - cfg.split_layer) * tokens)
-    if args.decode:
-        return serve_decode(cfg, model, params, sysp, device, args)
-    if args.engine == "batched":
-        return serve_batched(cfg, model, params, sysp, device, args)
-    return serve_sequential(cfg, model, params, sysp, device, args)
+    # observability is opt-in: without the flags the engines get the
+    # no-op singletons and pay nothing
+    tracer = Tracer() if args.trace_out else NULL_TRACER
+    metrics = MetricsRegistry() if args.metrics_out else NULL_METRICS
+    mode = serve_decode if args.decode else (
+        serve_batched if args.engine == "batched" else serve_sequential)
+    try:
+        return mode(cfg, model, params, sysp, device, args, tracer, metrics)
+    finally:
+        _write_obs(args, tracer, metrics)
 
 
-def serve_sequential(cfg, model, params, sysp, device, args) -> int:
+def _write_obs(args, tracer, metrics) -> None:
+    """Flush --trace-out / --metrics-out (in a finally, so a failed run
+    still leaves a loadable partial trace behind)."""
+    if args.trace_out and tracer.enabled:
+        tracer.write(args.trace_out)
+        print(f"trace: {len(tracer.events)} events -> {args.trace_out}")
+    if args.metrics_out and metrics.enabled:
+        metrics.write(args.metrics_out)
+        print(f"metrics -> {args.metrics_out}")
+
+
+def serve_sequential(cfg, model, params, sysp, device, args, tracer,
+                     metrics) -> int:
 
     eng = CoInferenceEngine(model, params, sysp, path=args.path,
-                            compiled=args.compiled, device=device)
+                            compiled=args.compiled, tracer=tracer,
+                            metrics=metrics, device=device)
     print(f"arch={cfg.name} split={cfg.split_layer}/{cfg.n_layers} "
           f"lambda_hat={eng.lam:.2f} path={args.path} engine=sequential "
           f"compiled={args.compiled} device={device}")
@@ -159,7 +185,8 @@ def serve_sequential(cfg, model, params, sysp, device, args) -> int:
     return 0
 
 
-def serve_batched(cfg, model, params, sysp, device, args) -> int:
+def serve_batched(cfg, model, params, sysp, device, args, tracer,
+                  metrics) -> int:
     """The batched engine over three QoS classes, printing what the
     reference's batched mode prints."""
     classes = [
@@ -173,7 +200,7 @@ def serve_batched(cfg, model, params, sysp, device, args) -> int:
         eng = BatchedCoInferenceEngine(
             model, params, sysp, classes=classes, max_batch=args.max_batch,
             path=args.path, codesign_cache=cache, compiled=args.compiled,
-            device=device)
+            tracer=tracer, metrics=metrics, device=device)
     except ValueError as e:
         print(e)
         return 1
@@ -243,7 +270,8 @@ def decode_classes(t0: float, e0: float) -> list:
             QosClass("interactive", t0=t0, e0=e0)]
 
 
-def serve_decode(cfg, model, params, sysp, device, args) -> int:
+def serve_decode(cfg, model, params, sysp, device, args, tracer,
+                 metrics) -> int:
     """Continuous-batching greedy decode over a quantized KV cache through
     ``DecodeEngine``, printing what the reference's decode mode prints."""
     sysp = decode_system_params(cfg, sysp, args.max_batch, args.seq,
@@ -253,7 +281,8 @@ def serve_decode(cfg, model, params, sysp, device, args) -> int:
         eng = DecodeEngine(model, params, sysp, classes=classes,
                            max_batch=args.max_batch,
                            max_new_tokens=args.max_new,
-                           codesign_cache=CodesignCache(), device=device)
+                           codesign_cache=CodesignCache(), tracer=tracer,
+                           metrics=metrics, device=device)
     except ValueError as e:
         print(e)
         return 1
@@ -261,6 +290,8 @@ def serve_decode(cfg, model, params, sysp, device, args) -> int:
           f"lambda_hat={eng.lam:.2f} lambda_kv={eng.lam_kv:.2f} "
           f"engine=decode max_batch={args.max_batch} "
           f"max_new={args.max_new} admission={eng.admission}")
+    # capture every (class, bucket) prefill and token step up front, so
+    # serving below never stalls on a capture
     t0 = time.perf_counter()
     n = eng.warmup(args.seq)
     print(f"warmup: {n} decode variants compiled in "
@@ -305,7 +336,7 @@ def serve_decode(cfg, model, params, sysp, device, args) -> int:
             toks, qos = prompts[r.request_id]
             ref = greedy_decode_reference(
                 model, eng.class_params(qos), toks, len(r.tokens),
-                b_kv=r.b_kv, device=device)
+                b_kv=r.b_kv, compile_cache=eng.compile_cache, device=device)
             if not np.array_equal(np.asarray(r.tokens), ref):
                 print(f"error: parity mismatch on request {r.request_id}",
                       file=sys.stderr)

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.bucketing import seq_bucket
 from ..kernels.flash import flash_attention
+from ..kernels.row_gemm import row_gemm
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -391,13 +392,17 @@ def chunked_cross_entropy(cfg, x, embed_params, labels, mask=None,
 
 
 def row_matmul(x, w):
-    """``x [B, ..., K] @ w`` with each leading row its own product.
+    """``x [..., K] @ w [K, N]`` with each row (every leading index) its own
+    product: :func:`kernels.row_gemm.row_gemm`.
 
     BLAS libraries take another kernel, summing in another order, for a
     single row than for several (a gemv at M = 1 and a gemm at M >= 2 on
     the CPU; cuBLAS chooses by shape too).  The decode step runs its
-    projections through this, so a row's bits do not depend on how many
-    rows share the step: the engine's batched decode equals the batch-1
-    reference bit for bit.  It costs B launches instead of one.
+    projections and head through this, so a row's bits do not depend on
+    how many rows share the step: the engine's batched decode equals the
+    batch-1 reference bit for bit.  On the card that is one launch of the
+    row-independent GEMM kernel per product (float32, at most 16 rows); on
+    the CPU one BLAS product per row.
     """
-    return torch.cat([x[i:i + 1] @ w for i in range(x.shape[0])])
+    y = row_gemm(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(x.shape[:-1] + (w.shape[-1],))

@@ -328,7 +328,12 @@ class DecoderLM:
                 v_new, vs_new = kv_quantize(v[:, 0], b_kv)
             else:
                 k_new, v_new = k[:, 0], v[:, 0]
-                ks_new = vs_new = 1.0
+                # unit scales as a device tensor: a Python 1.0 would be
+                # copied from the host at every call (and cannot be, under
+                # a CUDA graph capture)
+                ks_new = vs_new = torch.ones(k_new.shape[:-1],
+                                             dtype=torch.float32,
+                                             device=k_new.device)
             kc[i, rows, at] = k_new.to(kc.dtype)
             vc[i, rows, at] = v_new.to(vc.dtype)
             ksc[i, rows, at] = ks_new

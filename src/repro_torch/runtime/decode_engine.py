@@ -22,16 +22,27 @@ engine keeps the reference's four commitments:
     :func:`greedy_decode_reference` (batch width 1) token for token: a
     request's cache bucket is a function of its own prompt and budget, and
     every per-row op of the decode step is row-independent (the
-    projections through ``layers.row_matmul``, attention through a kernel
-    with one block per row and head).
+    projections and head through ``layers.row_matmul``, the ``row_gemm``
+    kernel on the card; attention through a kernel whose blocks each read
+    one row).
 
-The reference's two AOT executables are plain functions here, run
-eagerly: :func:`_prefill_slot` (prefill, quantize, scatter into a slot)
-and :func:`_decode_chunk` (up to ``n_steps`` single ``decode_step_q``
-calls filling a ``[B, _CHUNK]`` token block, leaving early once every live
-row has emitted ``eos``).  Nothing is compiled, so :meth:`DecodeEngine.
-warmup` returns 0 and the report's compile fields read 0; capturing the
-step as a CUDA graph is the compiled path's work.
+The reference's two AOT executables are closures over static buffers
+here: :func:`_prefill_slot` (prefill, quantize, scatter into a slot) and
+:func:`_decode_step` (one ``decode_step_q`` writing its token into a
+``[B, _CHUNK]`` block), each reading and writing only tensors whose
+addresses are fixed for a (class, bucket): the slot block's buffers, a
+static prompt, last index and slot, a device step counter and eos flags.
+On the card each is captured once as a CUDA graph
+(``fastpath.CapturedCall``) and memoized in a
+``fastpath.CompiledForwardCache`` under the reference's keys (extended with
+the weights and the buffers the graph bakes in); :func:`_decode_chunk`
+replays the step graph up to ``n_steps`` times with no host sync between
+replays unless ``eos`` asks for the reference's early exit (one flag read
+per step).  On the CPU the same closures run uncaptured through the same
+cache.  :meth:`DecodeEngine.warmup` captures every reachable variant, and
+the report's compile fields count captures.  A capture's eager warm-up run
+is a real step, so each capture restores the slot block it ran on: a graph
+captured lazily, with live rows in the block, changes nothing.
 
 Costs are billed on a virtual clock exactly as in the reference: each
 token step of a chunk bills all ``max_batch`` slots plus the full cache
@@ -39,15 +50,18 @@ read at ``b_kv``, and a chunk never runs past a scheduling boundary (the
 tightest remaining budget, the next queued arrival, the eos exit), so
 admission and retirement times equal one-token-at-a-time stepping.
 
-Not yet ported: ``mixed_precision=True`` (per-layer bit allocation), the
-``tracer``/``metrics`` hooks and ``snapshot_request`` (the supervisor's);
-each raises.
+``tracer``/``metrics`` take the reference's spans (``decode.prefill``,
+``decode.chunk``, and ``forward.capture`` for a capture, the port's name
+for the reference's ``xla.compile``), instants and metrics.  Not yet
+ported: ``mixed_precision=True`` (per-layer bit allocation) and
+``snapshot_request`` (the supervisor's); each raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -59,9 +73,11 @@ from ..core.cost_model import (SystemParams, agent_delay, agent_energy,
 from ..core.quantization import QuantConfig, QuantPlan
 from ..core.rate_distortion import exponential_mle
 from ..device import resolve_device, set_float32_numerics
-from ..kernels.bucketing import DEFAULT_SEQ_BASE, seq_bucket
+from ..kernels.bucketing import DEFAULT_SEQ_BASE, seq_bucket, seq_ladder
 from ..kernels.quantize import kv_cache_bytes, kv_quantize
 from ..models.lm import tree_leaves, tree_map
+from ..obs import NULL_METRICS, NULL_TRACER
+from .fastpath import CapturedCall, CompiledForwardCache
 from .qat import fake_quantize_agent
 from .serve_engine import CodesignCache, QosClass, fit_lambda
 
@@ -170,9 +186,9 @@ class DecodeReport:
     kv_bytes_full: int = 0      # same cache at full precision
     codesign_hits: int = 0      # this engine's cache attribution
     codesign_misses: int = 0
-    compile_hits: int = 0       # nothing is compiled yet: always 0
-    compile_misses: int = 0
-    compiled_variants: int = 0
+    compile_hits: int = 0       # this engine's compile-cache lookups: a
+    compile_misses: int = 0     # miss is one capture on the card
+    compiled_variants: int = 0  # entries of the (maybe shared) cache
     h2d_bytes: int = 0          # host->device bytes of the interface
     d2h_bytes: int = 0          # device->host bytes of the interface
 
@@ -220,12 +236,45 @@ def _container_dtype(cfg, b_kv: int) -> torch.dtype:
     return torch.int8 if b_kv < 16 else getattr(torch, cfg.dtype)
 
 
+class _PrefillIO:
+    """A prefill graph's static inputs, filled before each call: the
+    padded prompt ``tokens [1, S]``, its last index ``last [1]`` and the
+    ``slot [1]`` to scatter into; and its output, the first greedy token
+    ``tok0 [1]``."""
+
+    def __init__(self, s_bucket: int, device):
+        self.tokens = torch.zeros((1, s_bucket), dtype=torch.int32,
+                                  device=device)
+        self.last = torch.zeros((1,), dtype=torch.int32, device=device)
+        self.slot = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.tok0 = torch.zeros((1,), dtype=torch.int32, device=device)
+
+
+class _StepIO:
+    """A token step's static state: the ``[B, _CHUNK]`` token block, the
+    device step counter that indexes it, the per-row eos flags and the eos
+    id (-1: never, and then a chunk never reads a flag back)."""
+
+    def __init__(self, batch: int, eos: int, device):
+        self.eos_exit = eos >= 0
+        self.out = torch.zeros((batch, _CHUNK), dtype=torch.int32,
+                               device=device)
+        self.step = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.eos_hit = torch.zeros((batch,), dtype=torch.bool,
+                                   device=device)
+        self.eos = torch.full((), eos, dtype=torch.int32, device=device)
+
+
 class _SlotBuffers:
     """A device-resident slot block: quantized cache [L, B, T, KV, dh],
-    scales [L, B, T, KV], and per-slot position and last token [B]."""
+    scales [L, B, T, KV], per-slot position and last token [B], and the
+    static inputs of its graphs (one :class:`_StepIO`, one
+    :class:`_PrefillIO` per prompt bucket)."""
 
-    def __init__(self, cfg, t_bucket: int, batch: int, b_kv: int, device):
+    def __init__(self, cfg, t_bucket: int, batch: int, b_kv: int, device,
+                 eos: int = -1):
         self.t_bucket = int(t_bucket)
+        self.device = torch.device(device)
         shape = (cfg.n_layers, batch, t_bucket, cfg.n_kv_heads,
                  cfg.head_dim)
         cont = _container_dtype(cfg, b_kv)
@@ -237,71 +286,133 @@ class _SlotBuffers:
                                    device=device)
         self.pos = torch.zeros((batch,), dtype=torch.int32, device=device)
         self.tok = torch.zeros((batch,), dtype=torch.int32, device=device)
+        self.step_io = _StepIO(batch, eos, device)
+        self._prefill_io: Dict[int, _PrefillIO] = {}
+
+    def prefill_io(self, s_bucket: int) -> _PrefillIO:
+        if s_bucket not in self._prefill_io:
+            self._prefill_io[s_bucket] = _PrefillIO(s_bucket, self.device)
+        return self._prefill_io[s_bucket]
+
+    def written(self) -> List[torch.Tensor]:
+        """Every tensor the block's graphs write."""
+        io = self.step_io
+        return [self.k_codes, self.v_codes, self.k_scales, self.v_scales,
+                self.pos, self.tok, io.out, io.step, io.eos_hit] \
+            + [p.tok0 for p in self._prefill_io.values()]
 
 
 @torch.no_grad()
-def _prefill_slot(model, b_kv: int, weights, tokens: torch.Tensor,
-                  p_len: int, slot: int, buf: _SlotBuffers) -> int:
-    """Prefill the padded prompt ``tokens [1, S]``, quantize its cache
-    block and write it into slot ``slot`` of ``buf``; returns the first
-    greedy token.  Positions past the prompt keep the previous occupant's
-    stale entries: attention masks them until this occupant overwrites
-    them token by token."""
-    last = torch.full((1,), p_len - 1, dtype=torch.int32,
-                      device=tokens.device)
-    logits, cache = model.prefill(weights, {"tokens": tokens},
-                                  last_index=last)
+def _prefill_slot(model, b_kv: int, weights, buf: _SlotBuffers,
+                  io: _PrefillIO) -> None:
+    """Prefill ``io.tokens``, quantize its cache block and write it into
+    slot ``io.slot`` of ``buf`` (position ``io.last + 1``, last token the
+    first greedy one, also in ``io.tok0``).  Positions past the prompt
+    keep the previous occupant's stale entries: attention masks them until
+    this occupant overwrites them token by token."""
+    logits, cache = model.prefill(weights, {"tokens": io.tokens},
+                                  last_index=io.last)
     tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
     k, v = cache["k"], cache["v"]            # [L, 1, S, KV, dh]
-    s = k.shape[2]
     if b_kv >= 16:
-        buf.k_codes[:, slot:slot + 1, :s] = k.to(buf.k_codes.dtype)
-        buf.v_codes[:, slot:slot + 1, :s] = v.to(buf.v_codes.dtype)
-        buf.k_scales[:, slot:slot + 1, :s] = 1.0
-        buf.v_scales[:, slot:slot + 1, :s] = 1.0
+        kq, vq = k, v
+        ksn = vsn = torch.ones(k.shape[:-1], dtype=torch.float32,
+                               device=k.device)
     else:
         kq, ksn = kv_quantize(k, b_kv)
         vq, vsn = kv_quantize(v, b_kv)
-        buf.k_codes[:, slot:slot + 1, :s] = kq
-        buf.v_codes[:, slot:slot + 1, :s] = vq
-        buf.k_scales[:, slot:slot + 1, :s] = ksn
-        buf.v_scales[:, slot:slot + 1, :s] = vsn
-    buf.pos[slot] = p_len
-    buf.tok[slot:slot + 1] = tok0
-    return int(tok0[0])
+    s = k.shape[2]
+    for dst, src in ((buf.k_codes, kq), (buf.v_codes, vq),
+                     (buf.k_scales, ksn), (buf.v_scales, vsn)):
+        dst[:, :, :s].index_copy_(1, io.slot, src.to(dst.dtype))
+    buf.pos.index_copy_(0, io.slot, cache["len"])
+    buf.tok.index_copy_(0, io.slot, tok0)
+    io.tok0.copy_(tok0)
 
 
 @torch.no_grad()
-def _decode_chunk(model, b_kv: int, weights, buf: _SlotBuffers,
-                  live: torch.Tensor, eos: int, n_steps: int):
-    """Up to ``n_steps`` greedy decode steps over every slot of ``buf``;
-    returns (token block [B, _CHUNK] int32 on the device, steps run).
+def _decode_step(model, b_kv: int, weights, buf: _SlotBuffers,
+                 io: _StepIO) -> None:
+    """One greedy decode step over every slot of ``buf``: the tokens go to
+    column ``io.step`` of ``io.out`` and into ``buf.tok``, positions
+    advance, ``io.eos_hit`` marks rows that emitted ``io.eos``.  Dead slots
+    still compute, but every op is row-independent, so nothing escapes
+    their row."""
+    logits, qc = model.decode_step_q(
+        weights, {"k_codes": buf.k_codes, "v_codes": buf.v_codes,
+                  "k_scales": buf.k_scales, "v_scales": buf.v_scales,
+                  "len": buf.pos},
+        {"token": buf.tok[:, None], "pos": buf.pos}, b_kv=b_kv)
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    io.out.index_copy_(1, io.step, nxt[:, None])
+    io.eos_hit.logical_or_(nxt == io.eos)
+    buf.tok.copy_(nxt)
+    buf.pos.copy_(qc["len"])
+    io.step.add_(1)
 
-    With ``eos >= 0`` the chunk ends early once every live slot has
-    emitted it (one flag read back per step); dead slots (live = 0) still
-    compute, but every op is row-independent, so nothing escapes their
-    row.
-    """
-    b = buf.tok.shape[0]
-    out = torch.zeros((b, _CHUNK), dtype=torch.int32, device=buf.tok.device)
-    live_m = live > 0
-    eos_hit = torch.zeros((b,), dtype=torch.bool, device=buf.tok.device)
+
+def _decode_chunk(step: Callable[[], Any], io: _StepIO, live: np.ndarray,
+                  n_steps: int):
+    """Up to ``n_steps`` calls of ``step`` (a graph's replay, or the eager
+    closure); returns (token block [B, _CHUNK] int32 on the device, steps
+    run).  With an eos id the chunk ends early once every live row has
+    emitted it (one flag read back per step); otherwise nothing is read
+    back between steps."""
+    io.out.zero_()
+    io.step.zero_()
+    io.eos_hit.zero_()
     steps = 0
     while steps < n_steps:
-        logits, qc = model.decode_step_q(
-            weights, {"k_codes": buf.k_codes, "v_codes": buf.v_codes,
-                      "k_scales": buf.k_scales, "v_scales": buf.v_scales,
-                      "len": buf.pos},
-            {"token": buf.tok[:, None], "pos": buf.pos}, b_kv=b_kv)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        out[:, steps] = nxt
-        buf.tok, buf.pos = nxt, qc["len"]
+        step()
         steps += 1
-        if eos >= 0:
-            eos_hit |= nxt == eos
-            if not bool(torch.any(live_m & ~eos_hit)):
-                break
-    return out, steps
+        if io.eos_exit and not np.any((live > 0)
+                                      & ~io.eos_hit.cpu().numpy()):
+            break
+    return io.out, steps
+
+
+def _tree_key(tree) -> tuple:
+    """The addresses of a weight tree's tensors: what a graph bakes in."""
+    return tuple(t.data_ptr() for t in tree_leaves(tree))
+
+
+def _capture(cache: CompiledForwardCache, run, buf: _SlotBuffers, keep):
+    """``run`` as a :class:`CapturedCall`.  On the card the capture's eager
+    warm-up run is a real prefill or step, so the block's buffers are
+    restored after it: a capture never changes the slots it ran on."""
+    if buf.device.type != "cuda":
+        return CapturedCall(run, buf.device, keep=keep)
+    saved = [t.clone() for t in buf.written()]
+    entry = CapturedCall(run, buf.device, cache.pool(), keep=keep)
+    for t, v in zip(buf.written(), saved):
+        t.copy_(v)
+    return entry
+
+
+def _prefill_call(cache, model, b_kv: int, weights, buf: _SlotBuffers,
+                  s_bucket: int) -> CapturedCall:
+    io = buf.prefill_io(s_bucket)
+    return _capture(cache, lambda: _prefill_slot(model, b_kv, weights, buf,
+                                                 io),
+                    buf, keep=(model, weights, buf))
+
+
+def _step_call(cache, model, b_kv: int, weights,
+               buf: _SlotBuffers) -> CapturedCall:
+    return _capture(cache, lambda: _decode_step(model, b_kv, weights, buf,
+                                                buf.step_io),
+                    buf, keep=(model, weights, buf))
+
+
+def _prefill_key(model, weights, buf: _SlotBuffers, s_bucket: int,
+                 b_kv: int) -> tuple:
+    return ("decode-prefill", model.cfg, s_bucket, buf.t_bucket,
+            buf.pos.shape[0], b_kv, id(model), _tree_key(weights), id(buf))
+
+
+def _step_key(model, weights, buf: _SlotBuffers, b_kv: int) -> tuple:
+    return ("decode-fused", model.cfg, buf.pos.shape[0], buf.t_bucket, b_kv,
+            id(model), _tree_key(weights), id(buf))
 
 
 # ---------------------------------------------------------------------------
@@ -341,8 +452,8 @@ class _Group(_SlotBuffers):
     position 0 is attended."""
 
     def __init__(self, cfg, qos_name: str, t_bucket: int, max_batch: int,
-                 b_kv: int, device):
-        super().__init__(cfg, t_bucket, max_batch, b_kv, device)
+                 b_kv: int, device, eos: int):
+        super().__init__(cfg, t_bucket, max_batch, b_kv, device, eos)
         self.qos_name = qos_name
         self.slots: List[Optional[_Active]] = [None] * max_batch
         self.barrier_open = True
@@ -371,8 +482,11 @@ class DecodeEngine:
     ``ValueError``.  ``auto=False`` pins b̂ = 8 / b_kv = 8 at the maximum
     frequencies until :meth:`set_operating_point` says otherwise.
     ``admission`` is ``"continuous"`` or ``"barrier"``; ``eos_id`` retires
-    a request at its first emission of that token.  Runs on the CUDA card
-    unless ``device="cpu"`` is asked for.
+    a request at its first emission of that token.  Prefills and token
+    steps run through ``compile_cache`` (one CUDA graph per variant on the
+    card; shared with other engines or the oracle when passed in), and
+    :meth:`warmup` captures them up front.  Runs on the CUDA card unless
+    ``device="cpu"`` is asked for.
     """
 
     def __init__(self, model, params, sysp: SystemParams, *,
@@ -389,6 +503,7 @@ class DecodeEngine:
                  lam_kv: Optional[float] = None,
                  eos_id: Optional[int] = None,
                  codesign_cache: Optional[CodesignCache] = None,
+                 compile_cache: Optional[CompiledForwardCache] = None,
                  seq_bucket_base: int = DEFAULT_SEQ_BASE,
                  tracer=None, metrics=None, device=None):
         gap = decode_protocol_gap(model)
@@ -403,8 +518,6 @@ class DecodeEngine:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if mixed_precision:
             raise _not_ported("mixed-precision decode")
-        if tracer is not None or metrics is not None:
-            raise _not_ported("the decode engine's tracer/metrics hooks")
         self.device = resolve_device(device)
         set_float32_numerics()
         self.model = model
@@ -428,7 +541,14 @@ class DecodeEngine:
             else fit_kv_lambda(model, self.params)
         self.codesign_cache = codesign_cache if codesign_cache is not None \
             else CodesignCache()
+        self.compile_cache = compile_cache if compile_cache is not None \
+            else CompiledForwardCache()
+        # the no-op singletons by default: an uninstrumented engine pays
+        # nothing on the decode path
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.metrics = metrics if metrics is not None else NULL_METRICS
         self._own_hits = self._own_misses = 0
+        self._own_compile_hits = self._own_compile_misses = 0
         self._weights: Dict[tuple, Any] = {}
         self._classes: Dict[str, Optional[_ClassState]] = {}
         self._groups: Dict[tuple, _Group] = {}
@@ -473,8 +593,16 @@ class DecodeEngine:
             self.lam, self.lam_kv, self.sysp, c, int(self.sysp.b_full),
             b_emb=self.b_emb, kv_ladder=self.kv_ladder,
             kv_weight=self.kv_weight)
-        self._own_hits += self.codesign_cache.hits - h0
-        self._own_misses += self.codesign_cache.misses - m0
+        dh = self.codesign_cache.hits - h0
+        dm = self.codesign_cache.misses - m0
+        self._own_hits += dh
+        self._own_misses += dm
+        if dh:
+            self.metrics.counter("codesign.cache_hits",
+                                 engine="DecodeEngine", qos=c.name).inc(dh)
+        if dm:
+            self.metrics.counter("codesign.cache_misses",
+                                 engine="DecodeEngine", qos=c.name).inc(dm)
         if sol is None:
             raise ValueError(
                 f"QoS class {c.name!r} (T0={c.t0}, E0={c.e0}) is "
@@ -539,9 +667,72 @@ class DecodeEngine:
         reference must decode with for parity."""
         return self._weights[self._classes[qos_name].plan_key]
 
+    # ------------------------------------------------------------------
+    # captured calls
+    # ------------------------------------------------------------------
+    def _cached(self, key: tuple, build: Callable, plan: str, bucket: str):
+        """The captured call for ``key`` through the compile cache; a miss
+        is one capture, traced as ``forward.capture`` and timed under its
+        (plan, bucket) tags."""
+        cc = self.compile_cache
+        h0, m0 = cc.hits, cc.misses
+        if key in cc:
+            exe = cc.get(key, build)
+        else:
+            with self.tracer.span("forward.capture", plan=plan,
+                                  bucket=bucket):
+                t0 = time.monotonic()
+                exe = cc.get(key, build)
+                self.metrics.histogram(
+                    "compile.seconds", plan=plan,
+                    bucket=bucket).observe(time.monotonic() - t0)
+        dh, dm = cc.hits - h0, cc.misses - m0
+        self._own_compile_hits += dh
+        self._own_compile_misses += dm
+        if dh:
+            self.metrics.counter("compile.cache_hits",
+                                 engine="DecodeEngine").inc(dh)
+        if dm:
+            self.metrics.counter("compile.cache_misses",
+                                 engine="DecodeEngine").inc(dm)
+        return exe
+
+    def _prefill_exe(self, c: _ClassState, g: _Group, s_bucket: int):
+        w = self._weights[c.plan_key]
+        return self._cached(
+            _prefill_key(self.model, w, g, s_bucket, c.b_kv),
+            lambda: _prefill_call(self.compile_cache, self.model, c.b_kv, w,
+                                  g, s_bucket),
+            plan=f"decode-prefill/bkv{c.b_kv}",
+            bucket=f"{s_bucket}->{g.t_bucket}x{self.max_batch}")
+
+    def _decode_exe(self, c: _ClassState, g: _Group):
+        w = self._weights[c.plan_key]
+        return self._cached(
+            _step_key(self.model, w, g, c.b_kv),
+            lambda: _step_call(self.compile_cache, self.model, c.b_kv, w, g),
+            plan=f"decode-fused/bkv{c.b_kv}",
+            bucket=f"{g.t_bucket}x{self.max_batch}")
+
     def warmup(self, max_prompt: int, max_new: Optional[int] = None) -> int:
-        """Nothing is compiled in this eager port: returns 0."""
-        return 0
+        """Capture every reachable variant; returns the number of captures
+        this triggered (on the CPU: cache entries made).  For each class:
+        one token step per cache bucket of the ladder up to ``max_prompt +
+        max_new``, and one prefill per (prompt bucket s, cache bucket t)
+        pair with s <= t (the scatter makes the slot block part of the
+        graph), as the reference's warm-up compiles.  After a warm-up
+        covering the traffic's bounds, serving never captures."""
+        m0 = self._own_compile_misses
+        mn = int(max_new) if max_new is not None else self.max_new_tokens
+        t_rungs = seq_ladder(max_prompt + mn, self.seq_bucket_base)
+        for name, c in self._classes.items():
+            for t in t_rungs:
+                self._decode_exe(c, self._group(name, t))
+            for s in seq_ladder(max_prompt, self.seq_bucket_base):
+                for t in t_rungs:
+                    if t >= s:
+                        self._prefill_exe(c, self._group(name, t), s)
+        return self._own_compile_misses - m0
 
     # ------------------------------------------------------------------
     # queue API
@@ -649,15 +840,23 @@ class DecodeEngine:
             out.extend(self.step())
         return out
 
-    def _group_for(self, req: DecodeRequest) -> _Group:
-        t = self.request_bucket(req)
-        key = (req.qos, t)
+    def _group(self, qos: str, t_bucket: int) -> _Group:
+        """The class's slot block at ``t_bucket`` (at its current b_kv),
+        made on first use; :meth:`warmup` makes them ahead of traffic."""
+        b_kv = self._classes[qos].b_kv
+        key = (qos, int(t_bucket), b_kv)
         if key not in self._groups:
-            self._groups[key] = _Group(self.cfg, req.qos, t, self.max_batch,
-                                       self._classes[req.qos].b_kv,
-                                       self.device)
-            self._rr.append(key)
+            self._groups[key] = _Group(
+                self.cfg, qos, t_bucket, self.max_batch, b_kv, self.device,
+                self.eos_id if self.eos_id is not None else -1)
         return self._groups[key]
+
+    def _group_for(self, req: DecodeRequest) -> _Group:
+        g = self._group(req.qos, self.request_bucket(req))
+        key = (req.qos, g.t_bucket, self._classes[req.qos].b_kv)
+        if key not in self._rr:
+            self._rr.append(key)        # round-robin in order of first use
+        return g
 
     def _admit(self, out: List[DecodeResponse]) -> None:
         admitted = True
@@ -686,11 +885,17 @@ class DecodeEngine:
         c = self._classes[req.qos]
         p_len = req.tokens.size
         s_bucket = int(seq_bucket(p_len, self.seq_bucket_base))
+        self.tracer.instant("decode.admit", rid=req.request_id,
+                            qos=req.qos, slot=slot, prompt_len=p_len,
+                            t_bucket=g.t_bucket)
         padded = np.zeros((1, s_bucket), np.int32)
         padded[0, :p_len] = req.tokens
-        first = _prefill_slot(self.model, c.b_kv, self._weights[c.plan_key],
-                              torch.from_numpy(padded).to(self.device),
-                              p_len, slot, g)
+        exe = self._prefill_exe(c, g, s_bucket)
+        with self.tracer.span("decode.prefill", rid=req.request_id,
+                              qos=req.qos, s_bucket=s_bucket,
+                              t_bucket=g.t_bucket):
+            first = _run_prefill(exe, g.prefill_io(s_bucket), padded,
+                                 p_len, slot)
         # the interface's traffic: the padded prompt and two scalars in,
         # the first token out
         self._h2d += padded.nbytes + 8
@@ -711,6 +916,15 @@ class DecodeEngine:
                       last_emit_s=self._clock, itls=[],
                       on_token=self._on_token.pop(req.request_id, None))
         g.slots[slot] = act
+        m = self.metrics
+        if m.enabled:
+            m.counter("decode.prefills", engine="DecodeEngine",
+                      qos=req.qos).inc()
+            m.counter("decode.h2d_bytes",
+                      engine="DecodeEngine").inc(padded.nbytes + 8)
+            m.counter("decode.d2h_bytes", engine="DecodeEngine").inc(4)
+            m.histogram("decode.ttft_s", engine="DecodeEngine",
+                        qos=req.qos).observe(act.ttft_s)
         if act.on_token is not None:
             act.on_token(req.request_id, first, self._clock)
         if len(act.generated) >= req.max_new_tokens:
@@ -750,16 +964,28 @@ class DecodeEngine:
         live = np.zeros((self.max_batch,), np.int32)
         live_rows = [i for i, a in enumerate(g.slots) if a is not None]
         live[live_rows] = 1
-        eos = self.eos_id if self.eos_id is not None else -1
-        blk, steps = _decode_chunk(self.model, c.b_kv,
-                                   self._weights[c.plan_key], g,
-                                   torch.from_numpy(live).to(self.device),
-                                   eos, k)
-        blk = blk.cpu().numpy()
+        exe = self._decode_exe(c, g)
+        with self.tracer.span("decode.chunk", qos=g.qos_name,
+                              live_rows=len(live_rows),
+                              t_bucket=g.t_bucket, max_steps=k):
+            blk, steps = _decode_chunk(exe, g.step_io, live, k)
+            blk = blk.cpu().numpy()
         # the interface's traffic, independent of the cache size: the live
         # mask and two scalars in, the token block and step count out
         self._h2d += live.nbytes + 8
         self._d2h += blk.nbytes + 4
+        m = self.metrics
+        if m.enabled:
+            m.counter("decode.chunks", engine="DecodeEngine",
+                      qos=g.qos_name).inc()
+            m.counter("decode.chunk_steps", engine="DecodeEngine",
+                      qos=g.qos_name).inc(steps)
+            m.counter("decode.h2d_bytes",
+                      engine="DecodeEngine").inc(live.nbytes + 8)
+            m.counter("decode.d2h_bytes",
+                      engine="DecodeEngine").inc(blk.nbytes + 4)
+            m.gauge("decode.live_rows", engine="DecodeEngine",
+                    qos=g.qos_name).set(len(live_rows))
         clock0 = self._clock
         self._clock += steps * t_round
         self._energy += steps * e_round
@@ -804,6 +1030,21 @@ class DecodeEngine:
             lat["itl"].extend(act.itls)
             lat["tokens"].append(len(act.generated))
         self._tokens_out += len(act.generated)
+        self.tracer.instant("decode.retire", rid=act.req.request_id,
+                            qos=act.req.qos, tokens=len(act.generated),
+                            cancelled=cancelled)
+        m = self.metrics
+        if m.enabled:
+            m.counter("decode.retired", engine="DecodeEngine",
+                      qos=act.req.qos).inc()
+            m.counter("decode.tokens", engine="DecodeEngine",
+                      qos=act.req.qos).inc(len(act.generated))
+            # per-token ITL, observed in one batch at retirement so the
+            # emission loop stays instrument-free
+            h = m.histogram("decode.itl_s", engine="DecodeEngine",
+                            qos=act.req.qos)
+            for v in act.itls:
+                h.observe(v)
         return DecodeResponse(
             request_id=act.req.request_id, qos=act.req.qos,
             tokens=np.asarray(act.generated, np.int32),
@@ -876,6 +1117,9 @@ class DecodeEngine:
             kv_bytes=self._kv_bytes, kv_bytes_full=self._kv_bytes_full,
             codesign_hits=self._own_hits,
             codesign_misses=self._own_misses,
+            compile_hits=self._own_compile_hits,
+            compile_misses=self._own_compile_misses,
+            compiled_variants=len(self.compile_cache),
             h2d_bytes=self._h2d, d2h_bytes=self._d2h)
 
 
@@ -883,19 +1127,34 @@ class DecodeEngine:
 # the non-batched sequential reference
 # ---------------------------------------------------------------------------
 
+def _run_prefill(exe, io: _PrefillIO, padded: np.ndarray, p_len: int,
+                 slot: int) -> int:
+    """Fill a prefill's static inputs, run it, return the first token."""
+    io.tokens.copy_(torch.from_numpy(padded))
+    io.last.fill_(p_len - 1)
+    io.slot.fill_(slot)
+    exe()
+    return int(io.tok0[0])
+
+
 def greedy_decode_reference(model, weights, tokens, max_new_tokens: int, *,
                             b_kv: int,
                             seq_bucket_base: int = DEFAULT_SEQ_BASE,
                             reserve_tokens: Optional[int] = None,
+                            compile_cache: Optional[
+                                CompiledForwardCache] = None,
                             state: Optional[dict] = None,
                             return_state: bool = False,
                             device=None):
     """One request at batch width 1: the parity oracle.
 
     Decodes ``max_new_tokens`` greedy tokens from ``tokens`` under the
-    same bucketing, prefill-and-scatter and quantized-cache step as
-    :class:`DecodeEngine`; the engine must reproduce it token for token
-    at any batch width, admission order and chunking.
+    same bucketing and the same captured prefill-and-scatter and token
+    step as :class:`DecodeEngine`, at batch width 1; the engine must
+    reproduce it token for token at any batch width, admission order and
+    chunking.  ``compile_cache`` memoizes its graphs and its batch-1 slot
+    block (a fresh cache by default, so each call captures anew on the
+    card); pass the engine's to reuse them across calls.
 
     ``reserve_tokens`` fixes the cache bucket from a larger planned budget
     (``T = seq_bucket(prompt + reserve)``) so a decode can be split across
@@ -907,6 +1166,8 @@ def greedy_decode_reference(model, weights, tokens, max_new_tokens: int, *,
     dev = resolve_device(device)
     set_float32_numerics()
     cfg = model.cfg
+    cache = compile_cache if compile_cache is not None \
+        else CompiledForwardCache()
     weights = tree_map(lambda a: a.to(dev), weights)
     out: List[int] = []
     if state is None:
@@ -917,26 +1178,33 @@ def greedy_decode_reference(model, weights, tokens, max_new_tokens: int, *,
         t_bucket = int(seq_bucket(
             p_len + (reserve_tokens if reserve_tokens is not None
                      else max_new_tokens), seq_bucket_base))
+    else:
+        t_bucket = int(state["t_bucket"])
+    buf = cache.buffers(("decode-slots", cfg, t_bucket, 1, b_kv, dev),
+                        lambda: _SlotBuffers(cfg, t_bucket, 1, b_kv, dev))
+    if state is None:
         s_bucket = int(seq_bucket(p_len, seq_bucket_base))
         padded = np.zeros((1, s_bucket), np.int32)
         padded[0, :p_len] = toks
-        buf = _SlotBuffers(cfg, t_bucket, 1, b_kv, dev)
-        out.append(_prefill_slot(model, b_kv, weights,
-                                 torch.from_numpy(padded).to(dev), p_len, 0,
-                                 buf))
+        exe = cache.get(_prefill_key(model, weights, buf, s_bucket, b_kv),
+                        lambda: _prefill_call(cache, model, b_kv, weights,
+                                              buf, s_bucket))
+        out.append(_run_prefill(exe, buf.prefill_io(s_bucket), padded,
+                                p_len, 0))
         remaining = max_new_tokens - 1
     else:
-        t_bucket = int(state["t_bucket"])
-        buf = _SlotBuffers(cfg, t_bucket, 1, b_kv, dev)
         for name in ("k_codes", "v_codes", "k_scales", "v_scales"):
             getattr(buf, name).copy_(torch.from_numpy(
                 np.asarray(state[name])))
         buf.pos.fill_(int(state["pos"]))
         buf.tok.fill_(int(state["last_token"]))
         remaining = max_new_tokens
-    live = torch.ones((1,), dtype=torch.int32, device=dev)
+    live = np.ones((1,), np.int32)
     while remaining > 0:
-        blk, steps = _decode_chunk(model, b_kv, weights, buf, live, -1,
+        step = cache.get(_step_key(model, weights, buf, b_kv),
+                         lambda: _step_call(cache, model, b_kv, weights,
+                                            buf))
+        blk, steps = _decode_chunk(step, buf.step_io, live,
                                    min(remaining, _CHUNK))
         out.extend(blk[0, :steps].cpu().tolist())
         remaining -= steps

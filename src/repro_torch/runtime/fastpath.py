@@ -12,7 +12,8 @@
 * :func:`build_forward` closes agent stage, transport and server stage
   into one ``forward(params, agent, tokens, lengths) -> logits``;
   :func:`compile_forward` makes it a :class:`CompiledForward` for one
-  (B, S) bucket, and :class:`CompiledForwardCache` memoizes those.
+  (B, S) bucket, and :class:`CompiledForwardCache` memoizes those and the
+  decode engine's captured prefill and token step (:class:`CapturedCall`).
 
 The reference AOT-compiles the forward with XLA.  The port's counterpart
 on the card is a CUDA graph: the closure runs once eagerly (so every
@@ -225,38 +226,35 @@ def build_forward(model, split: int, b_emb: int, descs, path: str,
     return forward
 
 
-class CompiledForward:
-    """One (B, S) bucket's forward over static ``tokens`` [B, S] and
-    ``lengths`` [B] buffers on the engine's device.
+class CapturedCall:
+    """A closure over static buffers, captured as one CUDA graph on the card.
 
-    On the card the forward is a captured CUDA graph: :meth:`__call__`
-    replays it and returns its static output, which the next replay
-    overwrites (copy out what must survive).  ``launches`` is what one
-    replay launches of each kernel wrapper (``{name: n, "name.route":
-    n}``, from the capture's record) and ``replays`` how often it ran.  On
-    the CPU the closure runs as it stands at each call.  The entry keeps
-    the parameter and agent tensors the graph reads in place alive.
+    ``run()`` must read and write only tensors whose addresses stay fixed
+    (weights, static inputs and state the caller fills or keeps in place).
+    On the card the closure runs once eagerly on the capture stream (so
+    every lazily allocated buffer, kernel attribute and cuBLAS workspace
+    exists), then is captured; :meth:`__call__` replays the graph and
+    returns what the captured run returned, which the next replay
+    overwrites.  A failed capture raises: there is no eager fallback on the
+    card.  On the CPU the closure runs as it stands at each call.
+    ``launches`` is what one replay launches of each kernel wrapper
+    (``{name: n, "name.route": n}``, from the capture's record) and
+    ``replays`` how often it ran; ``keep`` holds the tensors the graph
+    reads and writes in place alive.
     """
 
-    def __init__(self, forward, params, agent, batch: int, seq: int,
-                 device, pool=None):
-        self.tokens = torch.zeros((batch, seq), dtype=torch.long,
-                                  device=device)
-        self.lengths = torch.zeros((batch,), dtype=torch.long,
-                                   device=device)
-        self._run = lambda: forward(params, agent, self.tokens,
-                                    self.lengths)
-        self.keep = (params, agent)
+    def __init__(self, run: Callable[[], Any], device, pool=None,
+                 keep=()):
+        self._run = run
+        self.keep = keep
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.out: Optional[torch.Tensor] = None
+        self.out: Any = None
         self.launches: Dict[str, int] = {}
         self.replays = 0
         if torch.device(device).type == "cuda":
             self._capture(device, pool)
 
     def _capture(self, device, pool) -> None:
-        """Warm up on the capture stream, then capture.  A failure raises:
-        there is no eager fallback on the card."""
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.no_grad(), torch.cuda.stream(stream):
@@ -268,13 +266,31 @@ class CompiledForward:
             self.out = self._run()
         self.graph, self.launches = graph, dict(rec)
 
-    def __call__(self) -> torch.Tensor:
+    def __call__(self):
         self.replays += 1
         if self.graph is None:
             with torch.no_grad():
                 return self._run()
         self.graph.replay()
         return self.out
+
+
+class CompiledForward(CapturedCall):
+    """One (B, S) bucket's forward over static ``tokens`` [B, S] and
+    ``lengths`` [B] buffers on the engine's device: a :class:`CapturedCall`
+    whose replay returns the logits (copy out what must survive).  The
+    entry keeps the parameter and agent tensors the graph reads alive.
+    """
+
+    def __init__(self, forward, params, agent, batch: int, seq: int,
+                 device, pool=None):
+        self.tokens = torch.zeros((batch, seq), dtype=torch.long,
+                                  device=device)
+        self.lengths = torch.zeros((batch,), dtype=torch.long,
+                                   device=device)
+        super().__init__(lambda: forward(params, agent, self.tokens,
+                                         self.lengths),
+                         device, pool, keep=(params, agent))
 
 
 def compile_forward(forward, params, agent, batch: int, seq: int, device,
@@ -289,20 +305,36 @@ def compile_forward(forward, params, agent, batch: int, seq: int, device,
 # ---------------------------------------------------------------------------
 
 class CompiledForwardCache:
-    """Memoizes compiled end-to-end forwards (:class:`CompiledForward`).
+    """Memoizes captured calls (:class:`CapturedCall`): the serving
+    engines' forwards and the decode engine's prefill and token step.
 
-    Keys are the reference's ``(config, weight key, container signature,
-    (B, S) bucket, split, b_emb)``: everything that changes the captured
-    graph.  With the engine's shape bucketing the reachable keyspace is
-    ``len(bucket ladder) x active plans`` per engine, so warm traffic never
-    misses; ``hits``/``misses`` are surfaced in ``EngineReport`` (every
-    miss is exactly one capture on the card).  One cache serves engines on
-    one device; its graphs share one memory pool, so they must not replay
-    concurrently (the engines replay on one stream, one at a time).
+    Forward keys are the reference's ``(config, weight key, container
+    signature, (B, S) bucket, split, b_emb)``: everything that changes the
+    captured graph.  With the engine's shape bucketing the reachable
+    keyspace is ``len(bucket ladder) x active plans`` per engine, so warm
+    traffic never misses.
+
+    Decode keys are the reference's, ``("decode-prefill", config, S bucket,
+    T bucket, batch, b_kv)`` and ``("decode-fused", config, batch, T
+    bucket, b_kv)``, extended with what a graph bakes in and the
+    reference's executables take as arguments: the model, the class's
+    weight tree (its tensors' addresses) and the slot block's buffers.
+    Slot blocks are per (class, T bucket), so the port captures per class
+    where the reference compiles per b_kv: after a warm-up the two counts
+    are equal when every class has its own b_kv (and plan), and the port's
+    is the reference's times the classes sharing a b_kv otherwise.
+
+    ``hits``/``misses`` are surfaced in the engines' reports (every miss is
+    exactly one capture on the card).  One cache serves engines on one
+    device; its graphs share one memory pool, so they must not replay
+    concurrently (the engines replay on one stream, one at a time), and
+    only a graph's intermediates live in the pool: what must survive a
+    replay lives in buffers made outside the capture or is copied out.
     """
 
     def __init__(self):
-        self._exe: Dict[tuple, CompiledForward] = {}
+        self._exe: Dict[tuple, CapturedCall] = {}
+        self._buffers: Dict[tuple, Any] = {}
         self.hits = 0
         self.misses = 0
         self._pool = None
@@ -321,14 +353,23 @@ class CompiledForwardCache:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
 
-    def get(self, key: tuple, build: Callable[[], CompiledForward]):
-        """The forward for ``key``, building (capturing) it on a miss."""
+    def get(self, key: tuple, build: Callable[[], CapturedCall]):
+        """The captured call for ``key``, building (capturing) it on a
+        miss."""
         if key in self._exe:
             self.hits += 1
         else:
             self.misses += 1
             self._exe[key] = build()
         return self._exe[key]
+
+    def buffers(self, key: tuple, make: Callable[[], Any]):
+        """Static buffers that this cache's graphs read and write in place
+        (the decode oracle's batch-1 slot block), made once per ``key`` and
+        not counted among the variants."""
+        if key not in self._buffers:
+            self._buffers[key] = make()
+        return self._buffers[key]
 
     def kernel_launches(self) -> Dict[str, int]:
         """Kernel launches the cache's graphs made in their replays:

@@ -1,10 +1,12 @@
 """``python -m repro_torch.launch.serve`` on the CPU: the sequential kernel
 path runs, prints the b̂ that the reference's SCA gives for the same
 problem, the batched engine (the default, eager and ``--compiled``) prints
-the reference's lines, the decode mode prints the reference's lines and
-passes its own parity check, and every mode not ported yet exits 2 with
-one line."""
+the reference's lines, the decode mode prints the reference's lines
+(a non-zero warm-up) and passes its own parity check, every mode writes a
+loadable ``--trace-out`` and ``--metrics-out``, and every mode not ported
+yet exits 2 with one line."""
 
+import json
 import os
 import pathlib
 import re
@@ -17,6 +19,7 @@ from repro.configs import get_smoke
 from repro.core import codesign as jcd
 from repro.core.cost_model import SystemParams
 from repro_torch.launch.serve import main
+from repro_torch.obs import validate_chrome_trace
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -66,14 +69,23 @@ def test_decode_mode_runs_with_parity_check():
     assert lines[0].startswith("arch=qwen2-0.5b-smoke split=1/4 ")
     assert "engine=decode max_batch=4 max_new=4 admission=continuous" \
         in lines[0]
-    assert lines[1] == "warmup: 0 decode variants compiled in 0.0s"
+    # per class at --seq 64 --max-new 4: four token steps (cache buckets
+    # 16..128) and nine (prompt, cache) prefill pairs
+    m = re.match(r"warmup: (\d+) decode variants compiled in ", lines[1])
+    assert m and int(m.group(1)) == 2 * (4 + 9)
+    n_warm = int(m.group(1))
     assert re.match(r"  class realtime +\(T0=1\.17s, E0=1\.00J\): b_hat=\d+ "
                     r"b_kv=(4|8|16) ", lines[2])
     assert lines[3].startswith("  class interactive  (T0=3.50s, E0=2.00J)")
     assert "served 4 requests, 16 tokens in " in out.stdout
     assert re.search(r"  \[realtime    \] n=2 b_kv=\d+ ttft=", out.stdout)
     assert "decode report: throughput=" in out.stdout
-    assert "compile cache: 0 variants, 0 hits / 0 misses" in out.stdout
+    # after warm-up the traffic only hits (the parity check's batch-1
+    # oracle shares the engine's cache but runs after this line)
+    m = re.search(r"compile cache: (\d+) variants, (\d+) hits / (\d+) "
+                  r"misses", out.stdout)
+    assert m and int(m.group(1)) == int(m.group(3)) == n_warm
+    assert int(m.group(2)) > 0
     assert lines[-1] == ("parity: all 4 requests bitwise-match the "
                          "sequential reference")
 
@@ -123,3 +135,34 @@ def test_batched_mode_prints_reference_lines(capsys, compiled):
         m = re.search(r"compile cache: (\d+) variants, (\d+) hits / (\d+) "
                       r"misses", out.out)
         assert m and int(m.group(3)) == int(m.group(1)) > 0
+
+
+@pytest.mark.parametrize("mode,spans", [
+    (("--path", "kernel", "--requests", "4", "--compiled"),
+     {"batch.assemble", "batch.forward", "forward.capture"}),
+    (("--engine", "sequential", "--path", "kernel", "--compiled", "--batch",
+      "2", "--seq", "16"), {"forward.capture"}),
+    (("--decode", "--max-new", "3", "--requests", "3", "--seq", "16"),
+     {"decode.admit", "decode.prefill", "decode.chunk", "decode.retire",
+      "forward.capture"}),
+])
+def test_trace_and_metrics_out(capsys, tmp_path, mode, spans):
+    """Every ported mode writes a schema-valid Chrome trace and a metrics
+    snapshot, and prints the reference's two lines for them."""
+    trace, snap = tmp_path / "t.json", tmp_path / "m.json"
+    rc = main(["--smoke", "--device", "cpu", *mode, "--trace-out",
+               str(trace), "--metrics-out", str(snap)])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    obj = json.loads(trace.read_text(encoding="utf-8"))
+    assert validate_chrome_trace(obj) == []
+    assert spans <= {e["name"] for e in obj["traceEvents"]}
+    metrics = json.loads(snap.read_text(encoding="utf-8"))
+    assert "compile.cache_misses" in metrics
+    n = len(obj["traceEvents"])
+    assert f"trace: {n} events -> {trace}" in out.out
+    assert out.out.splitlines()[-1] == f"metrics -> {snap}"
+    if "--decode" in mode:
+        assert re.search(r"warmup: [1-9]\d* decode variants", out.out)
+        assert sum(r["value"] for r in metrics["decode.tokens"]["series"]) \
+            == 9

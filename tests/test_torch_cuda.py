@@ -513,7 +513,8 @@ from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.core.cost_model import SystemParams  # noqa: E402
 from repro_torch.models.lm import DecoderLM  # noqa: E402
 from repro_torch.runtime import (BatchedCoInferenceEngine,  # noqa: E402
-                                 CoInferenceEngine, QosClass)
+                                 CoInferenceEngine, QosClass,
+                                 greedy_decode_reference)
 
 SMOKE_SYSP = SystemParams(n_flop_agent=6.4e10, n_flop_server=1.92e11)
 
@@ -635,3 +636,159 @@ def test_capture_failure_raises(dev, smoke_lm):
     with pytest.raises(RuntimeError):
         eng.serve_batch({"tokens": _ragged(model.cfg.vocab_size, [8])})
     assert len(eng.compile_cache) == 0
+
+
+# ---------------------------------------------------------------------------
+# the row-independent GEMM and the captured decode engine
+# ---------------------------------------------------------------------------
+
+trg = importlib.import_module("repro_torch.kernels.row_gemm")
+
+# (K, N, w layout) of the decode step's products at qwen2-0.5b's full
+# width: wq/wo, wk/wv, gate/up, down, and the tied head (tok.T)
+ROW_GEMM_SHAPES = [(896, 896, "kn"), (896, 128, "kn"), (896, 4864, "kn"),
+                   (4864, 896, "kn"), (896, 151936, "nk")]
+
+
+def _row_gemm_w(k, n, layout, dev, seed=0):
+    if layout == "kn":
+        return _normal(seed, (k, n), dev)
+    return _normal(seed, (n, k), dev).T          # the transposed view
+
+
+@pytest.mark.parametrize("k,n,layout", ROW_GEMM_SHAPES)
+def test_row_gemm_equals_plain_rows_alone(dev, k, n, layout):
+    """Within 1e-5 x max|y| of the plain per-row products (f32 sums in
+    another order), every row bitwise the row computed alone at M = 1, 3,
+    4 and 16, one launch per call, a second launch bitwise the first."""
+    w = _row_gemm_w(k, n, layout, dev)
+    x = _normal(1, (16, k), dev)
+    for m in (1, 3, 4, 16):
+        before = tk.row_gemm.launches
+        y = tk.row_gemm(x[:m], w)
+        torch.cuda.synchronize()
+        assert tk.row_gemm.launches == before + 1
+        want = ref.row_gemm_ref(x[:m], w)
+        assert float((y - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+        for i in range(m):
+            assert torch.equal(y[i], tk.row_gemm(x[i:i + 1], w)[0])
+        assert torch.equal(y, tk.row_gemm(x[:m], w))
+
+
+def test_row_gemm_in_a_graph(dev):
+    """Captured with both routes (the split-K combine included), a replay
+    returns the eager launch's bits."""
+    ws = [_row_gemm_w(4864, 896, "kn", dev), _row_gemm_w(896, 1000, "nk",
+                                                         dev)]
+    x = torch.zeros((4, 4864), device=dev)
+    x2 = torch.zeros((4, 896), device=dev)
+    run = lambda: (tk.row_gemm(x, ws[0]), tk.row_gemm(x2, ws[1]))  # noqa
+    from repro_torch.runtime.fastpath import CapturedCall
+    call = CapturedCall(run, dev)
+    assert call.launches == {"row_gemm": 2}
+    x.copy_(_normal(3, (4, 4864), dev))
+    x2.copy_(_normal(4, (4, 896), dev))
+    got = [t.clone() for t in call()]
+    for g, w, xi in zip(got, ws, (x, x2)):
+        assert torch.equal(g, tk.row_gemm(xi, w))
+
+
+def test_row_gemm_raises_where_the_kernel_cannot_run(dev):
+    x = _normal(0, (17, 64), dev)
+    w = _normal(1, (64, 32), dev)
+    before = tk.row_gemm.launches
+    for bad in (lambda: tk.row_gemm(x, w),                    # M > 16
+                lambda: tk.row_gemm(x[:4].bfloat16(), w.bfloat16()),
+                lambda: tk.row_gemm(x[:4], w[:, :30]),        # N % 4
+                lambda: tk.row_gemm(x[:4, :63],
+                                    _normal(2, (30, 63), dev).T),  # K % 4
+                lambda: tk.row_gemm(x[:4], w.cpu())):
+        with pytest.raises(ValueError):
+            bad()
+    assert tk.row_gemm.launches == before
+
+
+def _decode_engine(model, params, dev, b_kv=8, **kw):
+    from repro_torch.runtime import DecodeEngine
+    eng = DecodeEngine(model, params, SMOKE_SYSP,
+                       classes=[QosClass("interactive", t0=3.5, e0=2.0)],
+                       auto=False, max_batch=3, max_new_tokens=6,
+                       device=dev, **kw)
+    eng.set_operating_point("interactive", 8, b_kv)
+    return eng
+
+
+def _decode_traffic(vocab, n=6, seed=3):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, size=int(rng.integers(4, 21))).astype(
+        np.int32), int(rng.integers(1, 7)), 0.05 * i) for i in range(n)]
+
+
+def test_captured_decode_equals_eager(dev, smoke_lm):
+    """The captured token step and prefill equal their closures run
+    eagerly on a copy of the same slot block, bitwise (tokens, codes,
+    scales, positions); a capture leaves the block it ran on as it was."""
+    from repro_torch.runtime import decode_engine as de
+    model, params = smoke_lm
+    eng = _decode_engine(model, params, dev)
+    w = eng.class_params("interactive")
+    cache = eng.compile_cache
+    cfg = model.cfg
+    bufs = [de._SlotBuffers(cfg, 32, 3, 8, dev) for _ in range(2)]
+    prefill = de._prefill_call(cache, model, 8, w, bufs[0], 16)
+    assert prefill.graph is not None
+    rng = np.random.default_rng(0)
+    for slot, p_len in ((0, 9), (2, 14)):
+        padded = np.zeros((1, 16), np.int32)
+        padded[0, :p_len] = rng.integers(0, cfg.vocab_size, p_len)
+        io = bufs[1].prefill_io(16)
+        eager = lambda: de._prefill_slot(model, 8, w, bufs[1], io)  # noqa
+        a = de._run_prefill(prefill, bufs[0].prefill_io(16), padded, p_len,
+                            slot)
+        b = de._run_prefill(eager, io, padded, p_len, slot)
+        assert a == b
+    # captured with two live rows: its warm-up step is undone
+    before = [t.clone() for t in bufs[0].written()]
+    step = de._step_call(cache, model, 8, w, bufs[0])
+    for t, b in zip(bufs[0].written(), before):
+        assert torch.equal(t, b)
+    assert step.launches["row_gemm"] == 7 * cfg.n_layers + 1
+    assert step.launches["quantized_decode_attention"] == cfg.n_layers
+    live = np.asarray([1, 0, 1], np.int32)
+    blk_a, n_a = de._decode_chunk(step, bufs[0].step_io, live, 5)
+    blk_b, n_b = de._decode_chunk(
+        lambda: de._decode_step(model, 8, w, bufs[1], bufs[1].step_io),
+        bufs[1].step_io, live, 5)
+    torch.cuda.synchronize()
+    assert n_a == n_b == 5 and torch.equal(blk_a, blk_b)
+    for ta, tb in zip(bufs[0].written(), bufs[1].written()):
+        assert torch.equal(ta, tb)
+
+
+@pytest.mark.parametrize("b_kv", [8, 16])
+@pytest.mark.parametrize("warm", [False, True])
+def test_captured_decode_engine_equals_reference(dev, smoke_lm, warm, b_kv):
+    """Through graphs on the card: the engine equals the batch-1 oracle
+    bitwise (the oracle's graphs from the same cache), with or without
+    warm-up (a lazily captured graph mid-traffic changes no live row), and
+    after warm-up no request captures; int8 codes and the raw f32 cache."""
+    model, params = smoke_lm
+    eng = _decode_engine(model, params, dev, b_kv)
+    n = eng.warmup(20) if warm else 0
+    traffic = _decode_traffic(model.cfg.vocab_size)
+    rids = {eng.submit(t, "interactive", max_new_tokens=m, arrival_s=a): i
+            for i, (t, m, a) in enumerate(traffic)}
+    got = {rids[r.request_id]: r for r in eng.drain()}
+    rep = eng.report()
+    if warm:
+        assert n > 0 and rep.compile_misses == n
+    launches = eng.compile_cache.kernel_launches()
+    assert launches["quantized_decode_attention"] \
+        == model.cfg.n_layers * rep.decode_rounds
+    for i, r in got.items():
+        toks, m, _ = traffic[i]
+        want = greedy_decode_reference(
+            model, eng.class_params("interactive"), toks, m, b_kv=b_kv,
+            compile_cache=eng.compile_cache, device=dev)
+        np.testing.assert_array_equal(r.tokens, want)

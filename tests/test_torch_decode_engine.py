@@ -6,7 +6,7 @@ through ``layers.row_matmul``, attention through a kernel whose plain
 version reduces each row alone), so a request's tokens do not depend on
 its batch-mates, the admission policy, or how the host cuts the steps
 into chunks.  Everything here runs on the CPU with the kernels' plain
-versions.
+versions, the captured calls uncaptured.
 """
 
 import numpy as np
@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs import get_smoke
 from repro_torch.core.cost_model import SystemParams
 from repro_torch.core.quantization import QuantPlan
+from repro_torch.kernels.bucketing import seq_ladder
 from repro_torch.models.lm import DecoderLM
 from repro_torch.runtime import (DecodeEngine, QosClass,
                                  greedy_decode_reference)
@@ -232,13 +233,22 @@ def test_dead_slot_past_the_cache_end(qwen):
 
 
 def test_report_and_warmup(qwen):
+    """warmup() makes one token step per cache bucket and one prefill per
+    (prompt bucket, cache bucket) pair with s <= t; traffic inside its
+    bounds then only hits."""
     model, params = qwen
-    eng = _assert_parity(*qwen, 8, 8, n=4)
-    assert eng.warmup(20) == 0
+    eng = _engine(model, params)
+    n = eng.warmup(20)
+    t_rungs = seq_ladder(20 + 6)
+    pairs = sum(1 for s in seq_ladder(20) for t in t_rungs if t >= s)
+    assert n == pairs + len(t_rungs) > 0
+    for toks, n_new, t in _ragged_traffic(model.cfg, 4, seed=3):
+        eng.submit(toks, QOS.name, max_new_tokens=n_new, arrival_s=t)
+    eng.drain()
     rep = eng.report()
     assert rep.requests_served == 4 and rep.prefills == 4
-    assert rep.compile_hits == rep.compile_misses == 0
-    assert rep.compiled_variants == 0
+    assert rep.compile_misses == rep.compiled_variants == n
+    assert rep.compile_hits > 0
     assert rep.kv_bytes < rep.kv_bytes_full
     assert rep.classes[0].b_kv == 8 and rep.classes[0].requests == 4
 
@@ -273,9 +283,7 @@ def test_rejects_bad_args(qwen):
         greedy_decode_reference(model, params, [], 3, b_kv=8, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(mixed_precision=True),
-                                dict(tracer=object()),
-                                dict(metrics=object())])
+@pytest.mark.parametrize("kw", [dict(mixed_precision=True)])
 def test_unported_options_raise(qwen, kw):
     model, params = qwen
     with pytest.raises(NotImplementedError, match="not yet ported"):

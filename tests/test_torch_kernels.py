@@ -38,7 +38,7 @@ def _zero_counts():
     assert tk.launch_counts() == {"group_quantize": 0, "qmm": 0,
                                   "qmm_int4": 0,
                                   "quantized_decode_attention": 0,
-                                  "flash_attention_fwd": 0}
+                                  "flash_attention_fwd": 0, "row_gemm": 0}
 
 
 # (k, n, group, bits): tests/test_kernels.py's shapes, the qwen2 MLP

@@ -78,7 +78,8 @@ def test_engine_matches_reference(engines, kind, bits, path):
     assert tk.launch_counts() == {"group_quantize": 0, "qmm": 0,
                                   "qmm_int4": 0,
                                   "quantized_decode_attention": 0,
-                                  "flash_attention_fwd": 0}  # CPU: plain
+                                  "flash_attention_fwd": 0,
+                                  "row_gemm": 0}  # CPU: plain
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert tstats.emb_bytes == jstats.emb_bytes
     assert tstats.emb_row_bytes == jstats.emb_row_bytes

@@ -3,7 +3,7 @@
 step goes on the CUDA card.
 
     python3 tools/torch_forward_profile.py [--seq 64] [--batch 4] [--compiled]
-    python3 tools/torch_forward_profile.py --decode [--batch 4] [--cache 1024]
+    python3 tools/torch_forward_profile.py --decode [--eager] [--batch 4] [--cache 1024]
     python3 tools/torch_forward_profile.py --train [--seq 128] [--batch 8]
 
 Serves qwen2-0.5b at full width (24 layers, seeded random weights).
@@ -23,10 +23,13 @@ it includes copying the tokens in and the logits out) and a trace of 3
 replays, read the same way.
 
 With ``--decode``: ``--batch`` prompts are prefilled through
-``greedy_decode_reference`` into one cache bucket of ``--cache``
-positions (b̂ = 8, b_kv = 8), and the greedy token step
-(``DecoderLM.decode_step_q`` then argmax) over that state is timed the
-same way: wall per step (median of 10) and a trace of 3 steps.
+``greedy_decode_reference`` into one slot block of ``--cache`` positions
+(b̂ = 8, b_kv = 8), and the decode engine's token step over that state
+(``decode_step_q``, argmax, the token block and position update) is timed
+as the engine runs it: replayed from its captured CUDA graph, or with
+``--eager`` its closure run eagerly; the wall per step inside a chunk of 16
+steps that ends by reading the token block back (median of 5), and a
+trace of 2 chunks.
 
 With ``--train``: one training step of ``Trainer`` (QAT at 8 bits, int8
 error-feedback gradients, per-layer recompute) at ``--batch`` x ``--seq``:
@@ -86,7 +89,8 @@ def _kernel_us(evt) -> float:
 PORT_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
                 "qmm_": "qmm / qmm_int4",  # qmm_wgmma_kernel, qmm_kernel
                 "decode_attn_kernel": "quantized_decode_attention",
-                "group_quantize": "group_quantize"}
+                "group_quantize": "group_quantize",
+                "row_gemm_": "row_gemm"}      # row_gemm_kn, row_gemm_nk
 
 
 def main(argv=None) -> int:
@@ -105,6 +109,9 @@ def main(argv=None) -> int:
     ap.add_argument("--compiled", action="store_true",
                     help="also serve each point through the captured "
                          "forward (CUDA graph) and trace its replays")
+    ap.add_argument("--eager", action="store_true",
+                    help="with --decode: run the token step eagerly, not "
+                         "from its CUDA graph")
     args = ap.parse_args(argv)
     if args.seq is None:
         args.seq = 128 if args.train else 64
@@ -240,14 +247,16 @@ def _profile_decode(cfg, model, params, args) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.cost_model import SystemParams
-    from repro_torch.runtime import (DecodeEngine, QosClass,
-                                     greedy_decode_reference)
+    from repro_torch.runtime import (CompiledForwardCache, DecodeEngine,
+                                     QosClass, greedy_decode_reference)
+    from repro_torch.runtime import decode_engine as de
 
     pin = QosClass("interactive", t0=6.0, e0=2.0)
     w = DecodeEngine(model, params, SystemParams(n_flop_agent=1.0,
                                                  n_flop_server=1.0),
                      classes=[pin], auto=False).class_params(pin.name)
     rng = np.random.default_rng(0)
+    cache = CompiledForwardCache()
     states = []
     for _ in range(args.batch):
         p = rng.integers(0, cfg.vocab_size,
@@ -255,39 +264,45 @@ def _profile_decode(cfg, model, params, args) -> None:
                                                args.cache // 2)))
         states.append(greedy_decode_reference(
             model, w, p, 2, b_kv=8, reserve_tokens=args.cache - p.size,
-            return_state=True)[1])
-    qc = {k: torch.from_numpy(np.concatenate([st[k] for st in states],
-                                             axis=1)).cuda()
-          for k in ("k_codes", "v_codes", "k_scales", "v_scales")}
-    pos = torch.tensor([int(st["pos"]) for st in states],
-                       dtype=torch.int32, device="cuda")
-    tok = torch.tensor([int(st["last_token"]) for st in states],
-                       dtype=torch.int32, device="cuda")
+            return_state=True, compile_cache=cache)[1])
+    buf = de._SlotBuffers(cfg, args.cache, args.batch, 8, "cuda")
+    for k in ("k_codes", "v_codes", "k_scales", "v_scales"):
+        getattr(buf, k).copy_(torch.from_numpy(np.concatenate(
+            [st[k] for st in states], axis=1)))
+    buf.pos.copy_(torch.tensor([int(st["pos"]) for st in states]))
+    buf.tok.copy_(torch.tensor([int(st["last_token"]) for st in states]))
+    if args.eager:
+        how = "eager"
 
-    def step():
-        # the engine's token step: attend, write at pos, greedy pick; the
-        # written position stays the same, so every step does equal work
-        logits, _ = model.decode_step_q(w, {**qc, "len": pos},
-                                        {"token": tok[:, None], "pos": pos},
-                                        b_kv=8)
-        return torch.argmax(logits, dim=-1)
+        def step():
+            de._decode_step(model, 8, w, buf, buf.step_io)
+    else:
+        step = de._step_call(cache, model, 8, w, buf)
+        how = (f"one CUDA graph; it launches "
+               + ", ".join(f"{k} {n}" for k, n in sorted(
+                   step.launches.items()) if "." not in k))
+    live = np.ones(args.batch, np.int32)
+
+    def chunk():
+        # the engine's chunk: 16 steps, then the token block read back;
+        # positions advance, so each step attends one position more
+        de._decode_chunk(step, buf.step_io, live, 16)[0].cpu()
 
     with torch.no_grad():
-        for _ in range(2):
-            step()
-        t_step = _wall_ms(step, reps=10)
+        chunk()
+        t_step = _wall_ms(chunk) / 16
         print(f"\ndecode step [B={args.batch}, T={args.cache}, b_hat=8, "
-              f"b_kv=8]: {t_step:.2f} ms wall (median of 10), "
-              f"{args.batch * 1e3 / t_step:.1f} tokens/s")
+              f"b_kv=8] {how}: {t_step:.3f} ms wall per step in a chunk of "
+              f"16 (median of 5), {args.batch * 1e3 / t_step:.1f} tokens/s")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(3):
-                step()
+            for _ in range(2):
+                chunk()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    _print_trace(prof, wall_us, 3, "step")
+    _print_trace(prof, wall_us, 32, "step")
 
 
 def _profile_train(cfg, args) -> None:
