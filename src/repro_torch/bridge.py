@@ -2,7 +2,8 @@
 
 The reference's parameter pytree is nested dicts of arrays with the same
 structure and layouts as the port's (``[in, out]`` matrices,
-layer-stacked ``[L, ...]`` leaves).  The caller turns every leaf into a
+layer-stacked ``[L, ...]`` leaves), or, for the FC-DNN, a list of
+``[out, in]`` matrices.  The caller turns every leaf into a
 numpy array (``np.asarray`` on each leaf); :func:`params_from_jax` turns
 those into tensors on a chosen device, and :func:`train_state_from_jax`
 does the same for a trainer's whole state (parameters, the AdamW state
@@ -22,13 +23,16 @@ from .optim import AdamWState
 
 
 def params_from_jax(tree: Any, device=None) -> Any:
-    """Nested dict of numpy arrays -> the same dict of torch tensors on
+    """Nested dicts and lists of numpy arrays (a DecoderLM's tree, or the
+    FC-DNN's list of matrices) -> the same structure of torch tensors on
     ``device`` (the CUDA card unless ``"cpu"`` is asked for)."""
     dev = resolve_device(device)
 
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v) for v in t]
         return torch.from_numpy(np.array(t, copy=True)).to(dev)
 
     return conv(tree)

@@ -2,15 +2,21 @@
 
 ``get_config(arch_id)`` returns the published full config and
 ``get_smoke(arch_id)`` its reduced CPU-test config, as in the reference.
-Only the architectures the port can serve are listed; any other id raises.
+Only the architectures the port can run are listed; any other id raises.
+``fcdnn-16`` has no ``ModelConfig`` (both return None): it is the
+paper's FC benchmark model of ``models/fcdnn.py``.
 """
 
 from __future__ import annotations
 
-from . import qwen2_0_5b
+from . import blip2_proxy, fcdnn16, git_proxy, qwen2_0_5b
 from .base import ModelConfig  # noqa: F401
 
-_PORTED = {"qwen2-0.5b": qwen2_0_5b}
+#: the paper's own evaluation models (§VI)
+PAPER_IDS = ("fcdnn-16", "blip2-proxy", "git-proxy")
+
+_PORTED = {"qwen2-0.5b": qwen2_0_5b, "fcdnn-16": fcdnn16,
+           "blip2-proxy": blip2_proxy, "git-proxy": git_proxy}
 
 
 def _mod(arch_id: str):

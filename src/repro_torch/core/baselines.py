@@ -3,20 +3,20 @@
   1) PPO-based design  — PPO-clip on a tabular softmax policy over a
      discretized (b_hat, f, f~) grid with penalty-driven constraints.
   2) Fixed-frequency   — f = f_max, f~ = f~_max; only b_hat is optimized.
-
-The feasible-random scheme (3) feeds only the reference's benchmarks and
-waits for their port.
+  3) Feasible random   — 400 bit-widths drawn uniformly, the feasible ones
+     kept (frequencies optimized per trial), all of them reported.
 
 Every scheme returns :class:`repro_torch.core.codesign.CodesignSolution`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
-from .codesign import CodesignSolution, _pack, distortion_gap
+from .codesign import (CodesignSolution, _pack, distortion_gap,
+                       feasible_bitwidth)
 from .cost_model import SystemParams, total_delay, total_energy
 
 
@@ -30,6 +30,21 @@ def solve_fixed_frequency(lam: float, p: SystemParams, t0: float, e0: float,
         if t <= t0 * (1 + 1e-9) and e <= e0 * (1 + 1e-9):
             return _pack(b_hat, f, fs, lam, p)
     return None
+
+
+def solve_feasible_random(lam: float, p: SystemParams, t0: float, e0: float,
+                          b_max: int = 16, trials: int = 400,
+                          seed: int = 0) -> List[CodesignSolution]:
+    """The paper's 400-trial random scheme; returns every feasible trial
+    (the reference's ``np.random.default_rng(seed)`` stream)."""
+    rng = np.random.default_rng(seed)
+    out: List[CodesignSolution] = []
+    for _ in range(trials):
+        b_hat = int(rng.integers(1, b_max + 1))
+        ok, f, fs, _ = feasible_bitwidth(b_hat, p, t0, e0)
+        if ok:
+            out.append(_pack(b_hat, f, fs, lam, p))
+    return out
 
 
 def solve_ppo(lam: float, p: SystemParams, t0: float, e0: float,

@@ -15,8 +15,12 @@ Port of the uniform (P1) solvers of ``repro/core/codesign.py``:
 * :func:`solve_decode` — (P1) extended with the stored KV-cache
   bit-width b_kv, enumerated over the container ladder.
 
-All math is float64 on the host.  The speculative and mixed solvers wait
-for their slices.
+* :func:`acceptance_rate` and :func:`expected_tokens_per_round` — the
+  speculative draft model the layer-wise allocator of
+  ``core.mixed_precision`` prices rounds with.
+
+All math is float64 on the host.  ``solve_speculative`` waits for the
+speculative slice.
 """
 
 from __future__ import annotations
@@ -353,3 +357,38 @@ def solve_decode(lam: float, lam_kv: float, p: SystemParams, t0: float,
         if best is None or cand.objective < best.objective:
             best = cand
     return best
+
+
+# ---------------------------------------------------------------------------
+# Speculative draft model (the reference's DESIGN.md §16)
+# ---------------------------------------------------------------------------
+
+# acceptance sharpness: how fast the modeled per-token acceptance decays
+# with the draft's normalized distortion bound (b_draft = 2/4/8 ->
+# alpha ~ 0.29/0.78/0.98)
+SPEC_GAMMA = 2.0
+
+
+def acceptance_from_distortion(d_rel: float,
+                               gamma: float = SPEC_GAMMA) -> float:
+    """Modeled per-token draft acceptance ``exp(-gamma d)`` from the
+    draft's normalized distortion bound ``d_rel = lam D^U(b_draft - 1)``:
+    1 at zero distortion, in [0, 1], non-increasing in the distortion."""
+    return math.exp(-gamma * max(float(d_rel), 0.0))
+
+
+def acceptance_rate(b_draft: float, lam: float,
+                    gamma: float = SPEC_GAMMA) -> float:
+    """Acceptance estimate for a draft quantized at ``b_draft`` bits; D^U
+    scales like 1/lam, so lam cancels and only the bit-width matters."""
+    return acceptance_from_distortion(
+        lam * _d_upper(b_draft - 1.0, lam), gamma)
+
+
+def expected_tokens_per_round(alpha: float, k: int) -> float:
+    """E[delivered tokens per round] with lookahead ``k`` under i.i.d.
+    acceptance ``alpha``: ``sum_{i=0..k} alpha^i``, in [1, k + 1]."""
+    a = min(max(float(alpha), 0.0), 1.0)
+    if a >= 1.0:
+        return float(k + 1)
+    return (1.0 - a ** (k + 1)) / (1.0 - a)

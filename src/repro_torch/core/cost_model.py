@@ -12,8 +12,9 @@ arithmetic (Python floats / numpy scalars):
 plus the optional uplink term for the boundary embedding at ``b_emb``
 (delay over ``link_bps``, transmit energy at ``tx_power_w``), 0 by
 default, and the decode step's KV-cache read (delay over ``kv_bw_bps``,
-access energy at ``kv_power_w``), 0 by default.  ``SystemParams`` keeps
-the reference's fields; the speculative terms come with their slice.
+access energy at ``kv_power_w``), 0 by default, and the terms of one
+speculative round (draft, verify, rollback) that the speculative
+allocator of ``core.mixed_precision`` prices.
 """
 
 from __future__ import annotations
@@ -97,17 +98,91 @@ def server_energy(f_server, p: SystemParams):
         * p.psi_server * f_server ** 2
 
 
-def total_delay(b_hat, f, f_server, p: SystemParams, b_emb=None):
-    """Eq. (8) (+ the optional transport term)."""
-    t = agent_delay(b_hat, f, p) + server_delay(f_server, p)
+def draft_delay(b_draft, k, p: SystemParams):
+    """Draft phase of one speculative round: ``k`` agent-partition
+    forwards at ``b_draft`` bits, pinned at ``f_max`` (so the term shrinks
+    the (T0, E0) budgets the way the transport share does)."""
+    return k * agent_delay(b_draft, p.f_max, p)
+
+
+def draft_energy(b_draft, k, p: SystemParams):
+    """Energy of the draft phase (eq. (6) at ``f_max``, ``k`` times)."""
+    return k * agent_energy(b_draft, p.f_max, p)
+
+
+def verify_delay(b_hat, f, f_server, k, p: SystemParams):
+    """Verify phase of one speculative round: one batched forward over the
+    ``k`` drafted positions and the bonus position costs one weight pass,
+    so ``k`` does not enter."""
+    del k
+    return agent_delay(b_hat, f, p) + server_delay(f_server, p)
+
+
+def verify_energy(b_hat, f, f_server, k, p: SystemParams):
+    """Energy of the verify phase: one weight pass (eqs. (6)-(7))."""
+    del k
+    return agent_energy(b_hat, f, p) + server_energy(f_server, p)
+
+
+def rollback_delay(b_kv, n_rejected, p: SystemParams):
+    """One discarded cache write per rejected draft at the stored
+    bit-width (0 when cache modeling is disabled)."""
+    return n_rejected * kv_delay(b_kv, p)
+
+
+def rollback_energy(b_kv, n_rejected, p: SystemParams):
+    """Energy of truncating rejected speculative cache writes."""
+    return n_rejected * kv_energy(b_kv, p)
+
+
+def speculative_round_delay(b_hat, f, f_server, b_draft, k, tau,
+                            p: SystemParams, b_emb=None, b_kv=None):
+    """Expected delay of one draft/uplink/verify/rollback round delivering
+    ``tau`` tokens in expectation: the uplink once a round, the cache read
+    ``k + 1`` times, the expected ``k + 1 - tau`` rejected entries billed
+    as rollback."""
+    t = draft_delay(b_draft, k, p) \
+        + verify_delay(b_hat, f, f_server, k, p)
     if b_emb is not None:
         t = t + transport_delay(b_emb, p)
+    if b_kv is not None:
+        t = t + (k + 1) * kv_delay(b_kv, p) \
+            + rollback_delay(b_kv, max(k + 1 - tau, 0.0), p)
     return t
 
 
-def total_energy(b_hat, f, f_server, p: SystemParams, b_emb=None):
-    """Eq. (9) (+ the optional uplink transmit energy)."""
+def speculative_round_energy(b_hat, f, f_server, b_draft, k, tau,
+                             p: SystemParams, b_emb=None, b_kv=None):
+    """Expected energy of one speculative round, term for term as
+    :func:`speculative_round_delay`."""
+    e = draft_energy(b_draft, k, p) \
+        + verify_energy(b_hat, f, f_server, k, p)
+    if b_emb is not None:
+        e = e + transport_energy(b_emb, p)
+    if b_kv is not None:
+        e = e + (k + 1) * kv_energy(b_kv, p) \
+            + rollback_energy(b_kv, max(k + 1 - tau, 0.0), p)
+    return e
+
+
+def total_delay(b_hat, f, f_server, p: SystemParams, b_emb=None,
+                b_kv=None):
+    """Eq. (8) (+ the optional transport and KV-cache terms)."""
+    t = agent_delay(b_hat, f, p) + server_delay(f_server, p)
+    if b_emb is not None:
+        t = t + transport_delay(b_emb, p)
+    if b_kv is not None:
+        t = t + kv_delay(b_kv, p)
+    return t
+
+
+def total_energy(b_hat, f, f_server, p: SystemParams, b_emb=None,
+                 b_kv=None):
+    """Eq. (9) (+ the optional uplink transmit and KV-cache access
+    energy)."""
     e = agent_energy(b_hat, f, p) + server_energy(f_server, p)
     if b_emb is not None:
         e = e + transport_energy(b_emb, p)
+    if b_kv is not None:
+        e = e + kv_energy(b_kv, p)
     return e

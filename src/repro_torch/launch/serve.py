@@ -19,12 +19,18 @@ seeded ``torch.Generator``:
   (b̂, b_kv); ``--parity-check`` replays every response through
   ``greedy_decode_reference`` and requires equal tokens.
 
+``--mixed-precision`` replaces the uniform b̂ by the layer-wise bit
+allocation of ``core.mixed_precision`` in all three modes, printing the
+reference's lines (the allocation, its bound beside the best uniform
+b̂'s, and the per-layer bits of every batch).
+
 Every mode takes ``--trace-out TRACE.json`` (a Chrome trace-event JSON of
 the run) and ``--metrics-out METRICS.json`` (a metrics snapshot), written at
 the end of the run even when it fails, as the reference's are.  Runs on the
-CUDA card unless ``--device cpu``.  The reference's other modes (mixed
-precision, speculative, adaptive, fleet, chaos) are not yet ported: each
-exits 2 with a one-line error.
+CUDA card unless ``--device cpu``.  The reference's other modes
+(speculative, adaptive, fleet, chaos) are not yet ported: each exits 2
+with a one-line error, as does an arch with no servable config
+(``fcdnn-16``).
 """
 
 from __future__ import annotations
@@ -50,8 +56,7 @@ from ..runtime import (BatchedCoInferenceEngine, CodesignCache,
                        greedy_decode_reference)
 
 # flags of the reference's serve CLI whose modes are not ported yet
-_NOT_PORTED = ("speculative", "mixed_precision", "env_trace", "fleet",
-               "chaos_trace")
+_NOT_PORTED = ("speculative", "env_trace", "fleet", "chaos_trace")
 
 
 def main(argv=None) -> int:
@@ -87,9 +92,11 @@ def main(argv=None) -> int:
                          "bucket-padded agent -> transport -> server "
                          "forward per (plan, bucket), a CUDA graph on the "
                          "card, captured up front by warmup()")
-    for flag in ("speculative", "mixed-precision"):
-        ap.add_argument(f"--{flag}", action="store_true",
-                        help="not yet ported (exits 2)")
+    ap.add_argument("--mixed-precision", action="store_true",
+                    help="per-layer bit allocation (core.mixed_precision) "
+                         "instead of one uniform b_hat per QoS class")
+    ap.add_argument("--speculative", action="store_true",
+                    help="not yet ported (exits 2)")
     for flag in ("env-trace", "fleet", "chaos-trace"):
         ap.add_argument(f"--{flag}", default=None,
                         help="not yet ported (exits 2)")
@@ -112,6 +119,13 @@ def main(argv=None) -> int:
         device = resolve_device(args.device)
     except (KeyError, RuntimeError) as e:
         print(f"error: {e.args[0]}", file=sys.stderr)
+        return 2
+    if cfg is None:
+        # fcdnn-16: the paper's FC benchmark model has no ModelConfig
+        print(f"error: arch {args.arch} has no servable model config "
+              "(it is the distortion-benchmark toy model, not a "
+              "transformer); pick a DecoderLM-family arch "
+              "(e.g. qwen2-0.5b)", file=sys.stderr)
         return 2
     model = DecoderLM(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(0))
@@ -154,14 +168,26 @@ def serve_sequential(cfg, model, params, sysp, device, args, tracer,
           f"lambda_hat={eng.lam:.2f} path={args.path} engine=sequential "
           f"compiled={args.compiled} device={device}")
 
-    sol = eng.auto_configure(QosClass("interactive", t0=args.t0, e0=args.e0))
+    qos = QosClass("interactive", t0=args.t0, e0=args.e0)
+    sol = eng.auto_configure_mixed(qos) if args.mixed_precision \
+        else eng.auto_configure(qos)
     if sol is None:
         print(f"(P1) infeasible under T0={args.t0}s E0={args.e0}J")
         return 1
-    print(f"codesign: b_hat={sol.b_hat} f={sol.f / 1e9:.2f}GHz "
-          f"f~={sol.f_server / 1e9:.2f}GHz gap={sol.objective:.3e} "
-          f"T={sol.delay:.3f}s E={sol.energy:.3f}J "
-          f"(SCA iters={sol.iterations}) agent_path={eng.agent_path}")
+    if args.mixed_precision:
+        print(f"mixed codesign: bits={list(sol.bits)} "
+              f"(mean {sol.mean_bits:.2f}, uniform best "
+              f"b_hat={sol.uniform_b}) f={sol.f / 1e9:.2f}GHz "
+              f"f~={sol.f_server / 1e9:.2f}GHz "
+              f"bound={sol.objective:.3e} (uniform "
+              f"{sol.uniform_objective:.3e}) "
+              f"T={sol.delay:.3f}s E={sol.energy:.3f}J "
+              f"agent_path={eng.agent_path}")
+    else:
+        print(f"codesign: b_hat={sol.b_hat} f={sol.f / 1e9:.2f}GHz "
+              f"f~={sol.f_server / 1e9:.2f}GHz gap={sol.objective:.3e} "
+              f"T={sol.delay:.3f}s E={sol.energy:.3f}J "
+              f"(SCA iters={sol.iterations}) agent_path={eng.agent_path}")
 
     for name, solver in (("oracle", cd.solve_oracle),
                          ("fixed-freq", bl.solve_fixed_frequency),
@@ -199,7 +225,8 @@ def serve_batched(cfg, model, params, sysp, device, args, tracer,
     try:
         eng = BatchedCoInferenceEngine(
             model, params, sysp, classes=classes, max_batch=args.max_batch,
-            path=args.path, codesign_cache=cache, compiled=args.compiled,
+            path=args.path, codesign_cache=cache,
+            mixed_precision=args.mixed_precision, compiled=args.compiled,
             tracer=tracer, metrics=metrics, device=device)
     except ValueError as e:
         print(e)
@@ -207,7 +234,8 @@ def serve_batched(cfg, model, params, sysp, device, args, tracer,
     print(f"arch={cfg.name} split={cfg.split_layer}/{cfg.n_layers} "
           f"lambda_hat={eng.engine.lam:.2f} path={args.path} "
           f"engine=batched max_batch={args.max_batch} "
-          f"mixed_precision=False compiled={args.compiled} device={device}")
+          f"mixed_precision={args.mixed_precision} "
+          f"compiled={args.compiled} device={device}")
     if args.compiled:
         # capture every (class plan, seq bucket) forward up front, so
         # serving below never stalls on a capture
@@ -217,9 +245,17 @@ def serve_batched(cfg, model, params, sysp, device, args, tracer,
               f"{time.perf_counter() - t0:.1f}s")
     for c in classes:
         s = eng.solution_for(c.name)
-        print(f"  class {c.name:12s} (T0={c.t0:.2f}s, E0={c.e0:.2f}J): "
-              f"b_hat={s.b_hat} f={s.f / 1e9:.2f}GHz "
-              f"f~={s.f_server / 1e9:.2f}GHz gap={s.objective:.3e}")
+        if args.mixed_precision:
+            print(f"  class {c.name:12s} (T0={c.t0:.2f}s, E0={c.e0:.2f}J): "
+                  f"bits={list(s.bits)} (mean {s.mean_bits:.2f}) "
+                  f"f={s.f / 1e9:.2f}GHz f~={s.f_server / 1e9:.2f}GHz "
+                  f"bound={s.objective:.3e} "
+                  f"(uniform b_hat={s.uniform_b}: "
+                  f"{s.uniform_objective:.3e})")
+        else:
+            print(f"  class {c.name:12s} (T0={c.t0:.2f}s, E0={c.e0:.2f}J): "
+                  f"b_hat={s.b_hat} f={s.f / 1e9:.2f}GHz "
+                  f"f~={s.f_server / 1e9:.2f}GHz gap={s.objective:.3e}")
 
     rng = np.random.default_rng(0)
     for i in range(args.requests):
@@ -232,7 +268,9 @@ def serve_batched(cfg, model, params, sysp, device, args, tracer,
     print(f"served {len(responses)} requests in "
           f"{len(eng.batch_history)} batches:")
     for b in eng.batch_history:
-        print(f"  [{b.qos:12s}] n={b.batch_size} b_hat={b.b_hat:2d} "
+        bdesc = "/".join(map(str, b.plan_bits)) if b.plan_bits \
+            else f"{b.b_hat:2d}"
+        print(f"  [{b.qos:12s}] n={b.batch_size} b_hat={bdesc} "
               f"({b.agent_path}) occupancy={b.occupancy:.2f} "
               f"T={b.batch_delay_s * 1e3:.2f}ms "
               f"(amortized {b.amortized_delay_s * 1e3:.2f}ms/req) "
@@ -281,6 +319,7 @@ def serve_decode(cfg, model, params, sysp, device, args, tracer,
         eng = DecodeEngine(model, params, sysp, classes=classes,
                            max_batch=args.max_batch,
                            max_new_tokens=args.max_new,
+                           mixed_precision=args.mixed_precision,
                            codesign_cache=CodesignCache(), tracer=tracer,
                            metrics=metrics, device=device)
     except ValueError as e:
@@ -298,8 +337,10 @@ def serve_decode(cfg, model, params, sysp, device, args, tracer,
           f"{time.perf_counter() - t0:.1f}s")
     for c in classes:
         s = eng.solution_for(c.name)
+        bdesc = "/".join(map(str, s.bits)) if args.mixed_precision \
+            else str(s.b_hat)
         print(f"  class {c.name:12s} (T0={c.t0:.2f}s, E0={c.e0:.2f}J): "
-              f"b_hat={s.b_hat} b_kv={s.b_kv} f={s.f / 1e9:.2f}GHz "
+              f"b_hat={bdesc} b_kv={s.b_kv} f={s.f / 1e9:.2f}GHz "
               f"f~={s.f_server / 1e9:.2f}GHz bound={s.objective:.3e}")
 
     rng = np.random.default_rng(0)

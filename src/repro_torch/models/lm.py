@@ -49,11 +49,14 @@ def unstack_layers(tree, n: int):
 
 
 def tree_leaves(tree):
-    """The tensor leaves of a nested dict in sorted-key order (the
-    reference's pytree order)."""
+    """The tensor leaves of nested dicts (in sorted-key order) and lists:
+    the reference's pytree order."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for sub in tree:
+            yield from tree_leaves(sub)
     else:
         yield tree
 

@@ -52,9 +52,12 @@ admission and retirement times equal one-token-at-a-time stepping.
 
 ``tracer``/``metrics`` take the reference's spans (``decode.prefill``,
 ``decode.chunk``, and ``forward.capture`` for a capture, the port's name
-for the reference's ``xla.compile``), instants and metrics.  Not yet
-ported: ``mixed_precision=True`` (per-layer bit allocation) and
-``snapshot_request`` (the supervisor's); each raises.
+for the reference's ``xla.compile``), instants and metrics.
+``mixed_precision=True`` solves each class's per-layer allocation with
+``core.mixed_precision.allocate_bits_decode`` and decodes with its plan's
+fake-quantized weight tree (one tree per ``plan.key()``; the captured
+prefill and token step key on that tree's tensors).  Not yet ported:
+``snapshot_request`` (the supervisor's), which raises.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import mixed_precision as mp
 from ..core.cost_model import (SystemParams, agent_delay, agent_energy,
                                kv_delay, kv_energy, server_delay,
                                server_energy)
@@ -476,7 +480,9 @@ class DecodeEngine:
     """Continuous-batching greedy decode over quantized KV-cache slots.
 
     Per class, ``auto=True`` runs one memoized ``solve_decode`` for
-    (b̂, f, f̃, b_kv); the class's agent partition is then materialized
+    (b̂, f, f̃, b_kv), or with ``mixed_precision`` one
+    ``solve_decode_mixed`` for (per-layer bits, f, f̃, b_kv); the class's
+    agent partition is then materialized
     once as a fake-quantized weight tree (``runtime.qat``), shared by
     classes with the same plan.  An infeasible class raises
     ``ValueError``.  ``auto=False`` pins b̂ = 8 / b_kv = 8 at the maximum
@@ -516,8 +522,6 @@ class DecodeEngine:
             raise ValueError("need at least one QoS class")
         if int(max_batch) < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        if mixed_precision:
-            raise _not_ported("mixed-precision decode")
         self.device = resolve_device(device)
         set_float32_numerics()
         self.model = model
@@ -528,7 +532,7 @@ class DecodeEngine:
         self.max_batch = int(max_batch)
         self.max_new_tokens = int(max_new_tokens)
         self.admission = admission
-        self.mixed_precision = False
+        self.mixed_precision = bool(mixed_precision)
         self.kv_ladder = tuple(int(b) for b in kv_ladder)
         self.kv_weight = float(kv_weight)
         self.b_emb = b_emb
@@ -550,6 +554,7 @@ class DecodeEngine:
         self._own_hits = self._own_misses = 0
         self._own_compile_hits = self._own_compile_misses = 0
         self._weights: Dict[tuple, Any] = {}
+        self._layer_stats: Optional[mp.LayerStats] = None
         self._classes: Dict[str, Optional[_ClassState]] = {}
         self._groups: Dict[tuple, _Group] = {}
         self._rr: List[tuple] = []          # round-robin group order
@@ -587,12 +592,26 @@ class DecodeEngine:
             * tokens
         return n_agent, n_server
 
+    def layer_stats(self) -> mp.LayerStats:
+        """Per-agent-layer (λ^(l), A^(l)) on the engine's device, memoized."""
+        if self._layer_stats is None:
+            self._layer_stats = mp.decoder_layer_stats(self.params,
+                                                       self.split)
+        return self._layer_stats
+
     def _resolve_class(self, c: QosClass) -> None:
         h0, m0 = self.codesign_cache.hits, self.codesign_cache.misses
-        sol = self.codesign_cache.solve_decode(
-            self.lam, self.lam_kv, self.sysp, c, int(self.sysp.b_full),
-            b_emb=self.b_emb, kv_ladder=self.kv_ladder,
-            kv_weight=self.kv_weight)
+        b_max = int(self.sysp.b_full)
+        if self.mixed_precision:
+            sol = self.codesign_cache.solve_decode_mixed(
+                self.layer_stats(), self.lam_kv, self.sysp, c, b_max,
+                b_emb=self.b_emb, kv_ladder=self.kv_ladder,
+                kv_weight=self.kv_weight)
+        else:
+            sol = self.codesign_cache.solve_decode(
+                self.lam, self.lam_kv, self.sysp, c, b_max,
+                b_emb=self.b_emb, kv_ladder=self.kv_ladder,
+                kv_weight=self.kv_weight)
         dh = self.codesign_cache.hits - h0
         dm = self.codesign_cache.misses - m0
         self._own_hits += dh
@@ -608,8 +627,10 @@ class DecodeEngine:
                 f"QoS class {c.name!r} (T0={c.t0}, E0={c.e0}) is "
                 "infeasible at every KV-cache bit-width "
                 f"{self.kv_ladder}")
+        target = mp.plan_from_bits(sol.inner.bits) \
+            if self.mixed_precision else sol.b_hat
         self._classes[c.name] = None
-        self.set_operating_point(c.name, sol.b_hat, sol.b_kv, f=sol.f,
+        self.set_operating_point(c.name, target, sol.b_kv, f=sol.f,
                                  f_server=sol.f_server, qos=c,
                                  solution=sol)
 

@@ -26,8 +26,9 @@ bucket) shape and serves it through one compiled forward per (plan,
 bucket) (``fastpath.CompiledForwardCache``): a replayed CUDA graph on the
 card, the same closure uncaptured on the CPU.  The engines run on the CUDA
 card unless ``device="cpu"`` is asked for; on the CPU every kernel wrapper
-runs its plain version.  Mixed-precision class solves
-(``mixed_precision=True``) are a later slice.
+runs its plain version.  ``BatchedCoInferenceEngine(mixed_precision=True)``
+solves the layer-wise allocation of ``core.mixed_precision`` per QoS class
+instead of (P1) and serves each class's :class:`QuantPlan`.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from ..core import codesign as cd
+from ..core import mixed_precision as mp
 from ..core.cost_model import (SystemParams, agent_delay, agent_energy,
                                server_delay, server_energy, transport_delay,
                                transport_energy)
@@ -181,7 +183,8 @@ class CodesignCache:
     constants, the class's (T0, E0)) is hashable, so one dict amortizes the
     host-side solve across every request of a class and across engines
     sharing the cache.  Infeasible classes are cached as ``None``.  The
-    mixed-precision ``solve_mixed`` waits for its slice.
+    uniform, decode and layer-wise solves live in disjoint keyspaces of
+    one store.
     """
 
     def __init__(self):
@@ -216,6 +219,19 @@ class CodesignCache:
             lambda: cd.solve_sca(lam, sysp, qos.t0, qos.e0, b_max=b_max,
                                  b_emb=b_emb))
 
+    def solve_mixed(self, stats: mp.LayerStats, sysp: SystemParams,
+                    qos: QosClass, b_max: int,
+                    b_emb: Optional[int] = None,
+                    env_key: Optional[tuple] = None
+                    ) -> Optional[mp.MixedSolution]:
+        """Memoized per-layer bit allocation, keyed on the layer statistics
+        (λ^(l), A^(l)), the allocation's whole decision input, in a
+        "mixed"-tagged keyspace beside :meth:`solve`'s."""
+        k = ("mixed", stats.key(), sysp, float(qos.t0), float(qos.e0),
+             int(b_max), b_emb, env_key)
+        return self._get(k, lambda: mp.allocate_bits(
+            stats, sysp, qos.t0, qos.e0, b_max=b_max, b_emb=b_emb))
+
     def solve_decode(self, lam: float, lam_kv: float, sysp: SystemParams,
                      qos: QosClass, b_max: int,
                      b_emb: Optional[int] = None,
@@ -232,6 +248,25 @@ class CodesignCache:
         return self._get(k, lambda: cd.solve_decode(
             lam, lam_kv, sysp, qos.t0, qos.e0, b_max=b_max, b_emb=b_emb,
             kv_ladder=kv_ladder, kv_weight=kv_weight))
+
+    def solve_decode_mixed(self, stats: mp.LayerStats, lam_kv: float,
+                           sysp: SystemParams, qos: QosClass, b_max: int,
+                           b_emb: Optional[int] = None,
+                           kv_ladder: "tuple[int, ...]" = (4, 8, 16),
+                           kv_weight: float = 1.0,
+                           env_key: Optional[tuple] = None
+                           ) -> Optional[mp.MixedDecodeSolution]:
+        """Memoized per-layer allocation and b_kv (the decode counterpart
+        of :meth:`solve_mixed`), in a "kv-mixed"-tagged keyspace."""
+        k = ("kv-mixed", stats.key(), round(float(lam_kv), 12), sysp,
+             float(qos.t0), float(qos.e0), int(b_max), b_emb,
+             tuple(int(b) for b in kv_ladder), float(kv_weight), env_key)
+        return self._get(k, lambda: mp.allocate_bits_decode(
+            stats, lam_kv, sysp, qos.t0, qos.e0, b_max=b_max, b_emb=b_emb,
+            kv_ladder=kv_ladder, kv_weight=kv_weight))
+
+    def __len__(self) -> int:
+        return len(self._store)
 
 
 class CoInferenceEngine:
@@ -294,6 +329,7 @@ class CoInferenceEngine:
         # quantized records
         self._agent_params = None
         self._qlinears = None
+        self._layer_stats: Optional[mp.LayerStats] = None
         # stable plan key -> materialized agent weights, so the batched
         # engine flips between QoS classes without re-quantizing
         self._weight_cache: Optional[Dict[tuple, tuple]] = \
@@ -399,6 +435,40 @@ class CoInferenceEngine:
         if sol is None:
             return None
         self.configure(sol.b_hat, sol.f, sol.f_server)
+        return sol
+
+    # ------------------------------------------------------------------
+    # mixed-precision configuration
+    # ------------------------------------------------------------------
+    def layer_stats(self) -> mp.LayerStats:
+        """Per-agent-layer (λ^(l), A^(l)) on the engine's device, computed
+        once and memoized: the allocation's whole decision input besides
+        the cost model."""
+        if self._layer_stats is None:
+            self._layer_stats = mp.decoder_layer_stats(self.params,
+                                                       self.split)
+        return self._layer_stats
+
+    def plan_of(self, sol: mp.MixedSolution) -> QuantPlan:
+        """The :class:`QuantPlan` realizing an allocation on this engine."""
+        return mp.plan_from_bits(sol.bits, scheme=self.scheme)
+
+    def auto_configure_mixed(self, qos: QosClass,
+                             cache: Optional[CodesignCache] = None
+                             ) -> Optional[mp.MixedSolution]:
+        """Solve the per-layer bit allocation for this QoS class and apply
+        its plan (the layer-wise :meth:`auto_configure`); with ``cache``
+        the allocation is memoized on the layer statistics."""
+        b_max = int(self.sysp.b_full)
+        if cache is not None:
+            sol = cache.solve_mixed(self.layer_stats(), self.sysp, qos,
+                                    b_max, b_emb=self.b_emb)
+        else:
+            sol = mp.allocate_bits(self.layer_stats(), self.sysp, qos.t0,
+                                   qos.e0, b_max=b_max, b_emb=self.b_emb)
+        if sol is None:
+            return None
+        self.configure(self.plan_of(sol), sol.f, sol.f_server)
         return sol
 
     # ------------------------------------------------------------------
@@ -696,10 +766,6 @@ class BatchedCoInferenceEngine:
                  seq_bucket_base: int = DEFAULT_SEQ_BASE,
                  tracer=None, metrics=None,
                  device=None):
-        if mixed_precision:
-            raise NotImplementedError(
-                "BatchedCoInferenceEngine(mixed_precision=True) is not yet "
-                "ported to repro_torch")
         if not classes:
             raise ValueError("need at least one QosClass")
         if max_batch < 1:
@@ -721,6 +787,7 @@ class BatchedCoInferenceEngine:
         self.sysp = sysp
         self.max_batch = int(max_batch)
         self.pad_token = int(pad_token)
+        self.mixed_precision = bool(mixed_precision)
         self.classes: Dict[str, QosClass] = {c.name: c for c in classes}
         if len(self.classes) != len(classes):
             raise ValueError("duplicate QosClass names")
@@ -732,12 +799,14 @@ class BatchedCoInferenceEngine:
         self.batch_history: List[BatchStats] = []
         self._served = 0
         self._energy = 0.0
-        # every class resolved up front, one (P1) solve per distinct
-        # decision input; hits/misses counted per call, so report()
-        # attributes this engine only its own lookups
+        # every class resolved up front, one (P1) solve (or, mixed, one
+        # layer-wise allocation) per distinct decision input; hits/misses
+        # counted per call, so report() attributes this engine only its
+        # own lookups
         self._own_hits = 0
         self._own_misses = 0
         self._solutions: Dict[str, Any] = {}
+        self._plans: Dict[str, QuantPlan] = {}
         for c in classes:
             sol = self._counted_solution(c)
             if sol is None:
@@ -745,18 +814,26 @@ class BatchedCoInferenceEngine:
                     f"QoS class {c.name!r} is infeasible under "
                     f"(T0={c.t0}, E0={c.e0})")
             self._solutions[c.name] = sol
+            if self.mixed_precision:
+                self._plans[c.name] = self.engine.plan_of(sol)
 
     # ------------------------------------------------------------------
     # per-class operating points
     # ------------------------------------------------------------------
     def _counted_solution(self, c: QosClass):
-        """One memoized (P1) solve for class ``c``, with this engine's own
+        """One memoized (P1) solve, or layer-wise allocation in
+        mixed-precision mode, for class ``c``, with this engine's own
         hit/miss attribution (the cache may be shared across engines)."""
         cache = self.codesign_cache
         h0, m0 = cache.hits, cache.misses
-        sol = cache.solve(self.engine.lam, self.sysp, c,
-                          b_max=int(self.sysp.b_full),
-                          b_emb=self.engine.b_emb)
+        if self.mixed_precision:
+            sol = cache.solve_mixed(self.engine.layer_stats(), self.sysp, c,
+                                    b_max=int(self.sysp.b_full),
+                                    b_emb=self.engine.b_emb)
+        else:
+            sol = cache.solve(self.engine.lam, self.sysp, c,
+                              b_max=int(self.sysp.b_full),
+                              b_emb=self.engine.b_emb)
         dh, dm = cache.hits - h0, cache.misses - m0
         self._own_hits += dh
         self._own_misses += dm
@@ -771,13 +848,20 @@ class BatchedCoInferenceEngine:
         return sol
 
     def solution_for(self, qos_name: str):
-        """The class's operating point (a ``CodesignSolution``)."""
+        """The class's operating point: a ``CodesignSolution`` (uniform
+        mode) or a ``MixedSolution`` (mixed-precision mode)."""
         return self._solutions[qos_name]
 
     def plan_for(self, qos_name: str) -> Optional[QuantPlan]:
-        """The class's :class:`QuantPlan`: None, every class serves a
-        uniform b̂ until mixed precision is ported."""
-        return None
+        """The class's :class:`QuantPlan` (None in uniform mode)."""
+        return self._plans.get(qos_name)
+
+    def _configure_class(self, name: str) -> None:
+        """Put the engine at the class's operating point (a weight-cache
+        lookup after the class's first batch)."""
+        sol = self._solutions[name]
+        self.engine.configure(self._plans.get(name, sol.b_hat), sol.f,
+                              sol.f_server)
 
     def warmup(self, max_seq: int) -> int:
         """Compile every (class plan, seq bucket) forward for requests up
@@ -790,8 +874,7 @@ class BatchedCoInferenceEngine:
         cc = self.engine.compile_cache
         m0 = cc.misses
         for name in self.classes:
-            sol = self._solutions[name]
-            self.engine.configure(sol.b_hat, sol.f, sol.f_server)
+            self._configure_class(name)
             for s in seq_ladder(max_seq, base=self.engine.seq_bucket_base):
                 self.engine.precompile(self.max_batch, s)
         return cc.misses - m0
@@ -870,9 +953,7 @@ class BatchedCoInferenceEngine:
         with self.tracer.span("batch.assemble"):
             reqs = self._take_batch()
             qos = self.classes[reqs[0].qos]
-            sol = self._solutions[qos.name]
-            # a dict lookup after the first batch of a class (weight cache)
-            self.engine.configure(sol.b_hat, sol.f, sol.f_server)
+            self._configure_class(qos.name)
             s_max = max(r.tokens.size for r in reqs)
             lengths = [r.tokens.size for r in reqs]
             padded = np.full((len(reqs), s_max), self.pad_token, np.int32)

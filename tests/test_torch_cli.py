@@ -17,6 +17,7 @@ import pytest
 
 from repro.configs import get_smoke
 from repro.core import codesign as jcd
+from repro.core import mixed_precision as jmp
 from repro.core.cost_model import SystemParams
 from repro_torch.launch.serve import main
 from repro_torch.obs import validate_chrome_trace
@@ -91,8 +92,7 @@ def test_decode_mode_runs_with_parity_check():
 
 
 @pytest.mark.parametrize("args", [
-    ("--mixed-precision",), ("--engine", "sequential", "--env-trace",
-                             "wifi-markov"),
+    ("--engine", "sequential", "--env-trace", "wifi-markov"),
     ("--decode", "--speculative"),
     ("--engine", "sequential", "--fleet", "spec.json"),
 ])
@@ -100,6 +100,91 @@ def test_unported_modes_exit_2(capsys, args):
     assert main(["--smoke", "--device", "cpu", *args]) == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err
+    assert len(err.strip().splitlines()) == 1
+
+
+def test_mixed_precision_sequential_prints_reference_line(capsys):
+    """``--mixed-precision`` in the sequential mode: the reference's
+    ``mixed codesign`` line; the smoke model has one agent layer, so the
+    allocation is the best uniform width the reference's frontier gives."""
+    rc = main(["--smoke", "--engine", "sequential", "--path", "kernel",
+               "--device", "cpu", "--t0", "0.00027", "--e0", "1.0",
+               "--mixed-precision"])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    m = re.search(r"^mixed codesign: bits=\[(\d+)\] \(mean (\d+\.\d\d), "
+                  r"uniform best b_hat=(\d+)\) f=\d+\.\d\dGHz "
+                  r"f~=\d+\.\d\dGHz bound=\S+ \(uniform \S+\) "
+                  r"T=\d+\.\d{3}s E=\d+\.\d{3}J agent_path=(\S+)$",
+                  out.out, re.MULTILINE)
+    assert m, out.out
+    cfg = get_smoke("qwen2-0.5b")
+    per_layer = cfg.active_param_count() / cfg.n_layers
+    sysp = SystemParams(
+        n_flop_agent=2.0 * per_layer * cfg.split_layer * 4 * 64,
+        n_flop_server=2.0 * per_layer * (cfg.n_layers - cfg.split_layer)
+        * 4 * 64)
+    want = jmp.best_uniform_bits(sysp, 0.00027, 1.0, b_emb=8)
+    assert int(m.group(1)) == int(m.group(3)) == want == 8
+    assert m.group(2) == "8.00" and m.group(4) == "kernel-int8"
+    assert "served batch (4, 64): logits (4, 64, 512)" in out.out
+
+
+def test_mixed_precision_batched_compiled_prints_reference_lines(capsys):
+    """The batched engine with ``--mixed-precision --compiled``: the
+    reference's per-class allocation lines and per-batch bit lists; the
+    interactive class's one-layer plan at 6 bits stays a kernel plan."""
+    rc = main(["--smoke", "--device", "cpu", "--path", "kernel",
+               "--requests", "6", "--compiled", "--mixed-precision",
+               "--t0", "0.00022", "--e0", "0.02"])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    lines = out.out.splitlines()
+    assert ("path=kernel engine=batched max_batch=4 mixed_precision=True "
+            "compiled=True device=cpu") in lines[0]
+    assert re.match(r"warmup: \d+ forward variants compiled in ", lines[1])
+    for line, name in zip(lines[2:5], ("realtime", "interactive", "batch")):
+        assert re.match(rf"  class {name} +\(T0=\d+\.\d\ds, E0=\d+\.\d\dJ\): "
+                        r"bits=\[\d+(, \d+)*\] \(mean \d+\.\d\d\) "
+                        r"f=\d+\.\d\dGHz f~=\d+\.\d\dGHz bound=\S+ "
+                        r"\(uniform b_hat=\d+: \S+\)$", line), line
+    assert "bits=[6] (mean 6.00)" in lines[3]
+    assert re.search(r"  \[interactive \] n=2 b_hat=6 \(kernel-mixed\[6\]\) ",
+                     out.out)
+    assert "codesign cache: 3 (P1) solves for 6 requests (0 hits)" in out.out
+    m = re.search(r"compile cache: (\d+) variants, (\d+) hits / (\d+) "
+                  r"misses", out.out)
+    assert m and int(m.group(3)) == int(m.group(1)) > 0
+
+
+def test_mixed_precision_decode_passes_its_parity_check(capsys):
+    rc = main(["--smoke", "--decode", "--device", "cpu", "--max-new", "4",
+               "--requests", "4", "--parity-check", "--mixed-precision"])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    lines = out.out.splitlines()
+    assert re.match(r"  class realtime +\(T0=1\.17s, E0=1\.00J\): "
+                    r"b_hat=\d+(/\d+)* b_kv=(4|8|16) f=", lines[2])
+    assert lines[-1] == ("parity: all 4 requests bitwise-match the "
+                         "sequential reference")
+
+
+@pytest.mark.parametrize("arch", ["blip2-proxy", "git-proxy"])
+def test_paper_proxies_serve_mixed_precision(capsys, arch):
+    rc = main(["--arch", arch, "--smoke", "--engine", "sequential",
+               "--path", "kernel", "--device", "cpu", "--batch", "2",
+               "--seq", "16", "--mixed-precision"])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    assert out.out.startswith(f"arch={arch} split=1/")
+    assert "mixed codesign: bits=[" in out.out
+    assert "served batch (2, 16): logits (2, 16, 512)" in out.out
+
+
+def test_fcdnn_arch_exits_2(capsys):
+    assert main(["--arch", "fcdnn-16", "--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert "has no servable model config" in err
     assert len(err.strip().splitlines()) == 1
 
 

@@ -29,7 +29,10 @@ plain oracle's at 2e-4.  Shapes a kernel cannot take raise, with no
 launch.  The compiled forward (one CUDA graph per bucket, smoke config)
 returns the eager engine's bits at the same bucket, records its
 launches per replay, serves the batched engine without a miss after
-warm-up, and a forward that cannot be captured raises.
+warm-up, and a forward that cannot be captured raises.  A mixed-bits
+table (1-8 bits, packed where <= 4) is one group_quantize launch, and a
+mixed plan's forward runs qmm and qmm_int4 together, against the same
+engine on the CPU.
 """
 
 import importlib
@@ -115,6 +118,30 @@ def test_group_quantize_many_is_one_launch(dev, bits, pack):
         assert torch.equal(scales, scales_p), (tuple(w.shape), g)
         alone = tk.group_quantize(w, group_size=g, bits=bits, pack=pack)
         assert torch.equal(alone[0], codes) and torch.equal(alone[1], scales)
+
+
+def test_group_quantize_mixed_bits_table_is_one_launch(dev):
+    """One vector launch over a table whose matrices differ in bits (a
+    mixed-precision configure: 1-8 bits, packed where <= 4), each equal to
+    the plain version; at 1 bit (levels 0) codes 0 and scales +inf, as the
+    reference's container gives (ROADMAP C.5(c))."""
+    bits = [2, 3, 5, 6, 7, 8, 1, 4, 3]
+    ws = [_normal(k * n + g + 1, (k, n), dev) for k, n, g in GROUPED]
+    gs = [g for _, _, g in GROUPED]
+    before = dict(tk.group_quantize.route_launches)
+    got = tquant.group_quantize_many(ws, gs, bits, pack=True)
+    torch.cuda.synchronize()
+    after = tk.group_quantize.route_launches
+    assert after["vector"] == before["vector"] + 1
+    assert after["simt"] == before["simt"]
+    for w, g, b, (codes, scales) in zip(ws, gs, bits, got):
+        codes_p, scales_p = ref.group_quantize_ref(w, g, b)
+        if b <= 4:
+            codes_p = ref.pack_int4_ref(codes_p)
+        assert torch.equal(codes, codes_p), (tuple(w.shape), g, b)
+        assert torch.equal(scales, scales_p), (tuple(w.shape), g, b)
+        if b == 1:
+            assert not codes.any() and torch.isposinf(scales).all()
 
 
 def test_group_quantize_many_splits_past_the_table(dev):
@@ -619,6 +646,46 @@ def test_batched_compiled_on_card(dev, smoke_lm):
             # element a whole step: chip_smoke.py's E2E_TOL
             scale = float(alone[0].abs().max())
             assert float((r.logits - alone[0]).abs().max()) <= 1e-2 * scale
+
+
+@pytest.mark.parametrize("bits", [(5, 3), (2, 7), (12, 4)])
+def test_mixed_plan_forward_kernels_vs_plain(dev, smoke_lm, bits):
+    """A two-layer mixed plan served through qmm and qmm_int4 in one
+    forward (a > 8-bit layer keeps fake-quantized matrices) against the
+    same engine on the CPU, where every wrapper runs its plain version:
+    the boundary activation within 1e-4 of its scale, the logits within
+    1e-2 of theirs (the b_emb = 8 uplink's rounding edge)."""
+    import dataclasses
+    from repro_torch.core.quantization import QuantPlan
+    model, params = smoke_lm
+    model = DecoderLM(dataclasses.replace(model.cfg, split_layer=2))
+    plan = QuantPlan.from_layer_bits(bits)
+    toks = _ragged(model.cfg.vocab_size, [16, 16])
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        eng = CoInferenceEngine(model, params, SMOKE_SYSP, path="kernel",
+                                device=d)
+        tk.reset_launch_counts()
+        eng.configure(plan)
+        assert eng.agent_path == "kernel-mixed[%d/%d]" % bits
+        emb, _ = eng.agent_stage({"tokens": toks})
+        logits, stats = eng.serve_batch({"tokens": toks})
+        assert stats.plan_bits == bits
+        outs[d.type] = (emb.cpu(), logits.cpu(), tk.launch_counts(),
+                        dict(tk.group_quantize.route_launches))
+    (emb, logits, counts, gq), (emb_p, logits_p, plain, _) = \
+        outs["cuda"], outs["cpu"]
+    # one vector launch for the configure (d_ff's K = 160 takes G = 1:
+    # those matrices go SIMT, one launch each)
+    assert gq["vector"] == 1
+    assert counts["qmm"] == 2 * 7 * sum(4 < b <= 8 for b in bits)
+    assert counts["qmm_int4"] == 2 * 7 * sum(b <= 4 for b in bits)
+    assert plain["qmm"] == plain["qmm_int4"] == 0
+    scale = float(emb_p.abs().max())
+    assert float((emb - emb_p).abs().max()) <= 1e-4 * scale
+    assert torch.isfinite(logits).all()
+    assert float((logits - logits_p).abs().max()) <= \
+        1e-2 * float(logits_p.abs().max())
 
 
 def test_capture_failure_raises(dev, smoke_lm):

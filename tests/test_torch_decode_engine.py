@@ -283,12 +283,8 @@ def test_rejects_bad_args(qwen):
         greedy_decode_reference(model, params, [], 3, b_kv=8, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(mixed_precision=True)])
-def test_unported_options_raise(qwen, kw):
+def test_unported_options_raise(qwen):
     model, params = qwen
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DecodeEngine(model, params, SYSP, classes=[QOS], auto=False,
-                     device="cpu", **kw)
     eng = _engine(model, params)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         eng.snapshot_request(0)

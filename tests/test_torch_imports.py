@@ -24,7 +24,12 @@ def test_importing_every_module_pulls_in_no_jax():
               "repro_torch.optim.grad_compress", "repro_torch.data.loader",
               "repro_torch.runtime.train_loop", "repro_torch.launch.train",
               "repro_torch.obs", "repro_torch.obs.trace",
-              "repro_torch.obs.metrics", "repro_torch.obs.report"):
+              "repro_torch.obs.metrics", "repro_torch.obs.report",
+              "repro_torch.core.distortion",
+              "repro_torch.core.rate_distortion",
+              "repro_torch.core.mixed_precision", "repro_torch.models.fcdnn",
+              "repro_torch.configs.fcdnn16", "repro_torch.configs.blip2_proxy",
+              "repro_torch.configs.git_proxy"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -280,12 +280,6 @@ def test_tracer_and_metrics_hooks(lm):
                for r in snap["compile.cache_misses"]["series"]) == n
 
 
-def test_mixed_precision_is_not_yet_ported(lm):
-    _, model, params = lm
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _batched(model, params, classes=CLASSES, mixed_precision=True)
-
-
 # ---------------------------------------------------------------------------
 # against the reference
 # ---------------------------------------------------------------------------
