@@ -161,7 +161,39 @@ nothing of JAX or of the JAX package ``repro``.
      plain versions as in phase 4.
    Each serving or decode run above is a counted window like phases 4, 7
    and 10; the proxies' forwards count nowhere.
-12. Summary: one ``{"kernels": [...]}`` line, the card line, and last
+12. Speculative decode from CUDA graphs at full width:
+   ``SpeculativeDecodeEngine`` (max_batch 4) on phase 7's six prompts, 32
+   new tokens each, (b̂, b_kv) pinned at (8, 8): (b_draft, k) = (4, 4)
+   after ``warmup(500, 32)`` (no capture while serving), then (2, 4) and
+   (4, 16), then the CLI's two classes through ``auto=True``
+   (``solve_speculative``) and through ``mixed_precision=True``
+   (``allocate_bits_speculative``) at the first rung of SPEC_BUDGETS
+   where both are feasible, each capturing lazily.  Every response equals
+   ``greedy_decode_reference`` at batch 1 bitwise; ``spec_stats()``, the
+   wall per delivered token and tokens/s beside phase 7's pinned run, and
+   the launches in each window (24 decode attentions and 169 ``row_gemm``
+   per draft or verify step, 24 flash launches per prefill, the eager
+   launches only the warm-up runs of graphs captured while serving).
+   Before the engines, one round on a B = 4, T = 1024 block from the
+   captured draft and verify steps against the closures run eagerly on a
+   copy: tokens, counts, codes, scales and positions bitwise; the device
+   ms of one draft and one verify step (CUDA events) and the wall per
+   delivered token of a round, reading the active flag back after each
+   verify step and with a fixed n_draft + 1 verify steps.
+13. Adaptive serving from CUDA graphs at full width:
+   ``AdaptiveCoInferenceEngine(path="kernel", compiled=True, max_batch=4)``
+   over ADAPTIVE_CLASSES and phase 10's 12 requests spread over the
+   ``edge-day`` trace (seed 0), once per policy (static, adaptive,
+   oracle), ``warmup(512)`` first: the ``adaptive_report()``, the replans,
+   the b̂ of every batch, the graphs captured while serving (a replan's
+   new plan captures its buckets on first use) and the ``group_quantize``
+   / ``qmm`` / ``qmm_int4`` / flash launches of each window.  Static never
+   replans, adaptive replans at least once, no batch is served below 2
+   bits and every logit is finite; one response per plan held against
+   the plain path on the card (phase 4's tolerances).  Then on the
+   ``constant`` trace the adaptive engine replays the batched engine's
+   graphs and returns its responses bitwise.
+14. Summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``; the per-shape numbers are printed
    in phases 3, 5, 6 and 8.
 """
@@ -221,6 +253,17 @@ STATS_TOL = 1e-5            # layer statistics card vs CPU: float32
                             # reductions over ~15 M weights a layer
 BA_SLACK = (0.90, 1.10)     # tests/test_rate_distortion.py's, in its rate
 BA_WINDOW = (0.5, 3.5)      # window
+# phase 12's pinned draft schedules (b_draft, k) at (b̂, b_kv) = (8, 8),
+# and the (T0, E0) ladder its auto and mixed runs take the first feasible
+# rung of (the CLI's two decode classes around it)
+SPEC_SCHEDULES = ((4, 4), (2, 4), (4, 16))
+SPEC_BUDGETS = ((6.0, 2.0), (12.0, 4.0), (24.0, 8.0))
+# phase 13's classes under edge-day at the 4 x 64 workload: b̂ = 6 and 8
+# (the int8 kernels) at full clock and charge; under the thermal cap and
+# the battery's derate no policy serves a batch below 2 bits (the
+# controller's decisions are host math: checked on the CPU with the
+# full-width FLOP counts and λ from 40 to 50)
+ADAPTIVE_CLASSES = (("edge-a", 1.3, 1.2), ("edge-b", 1.5, 1.5))
 
 
 def card_line() -> str:
@@ -276,7 +319,7 @@ def check_kernels(cfg, dev, flush, detail):
     split = cfg.split_layer
     gen = torch.Generator(device=dev).manual_seed(1)
     summary = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                       max_abs_err=0.0, bound_by=set())
+                       max_abs_err=0.0, bound_by={})
                for n in ("qmm", "qmm_int4")}
     seen = {}
     for name, k, n in shapes:
@@ -294,9 +337,12 @@ def check_kernels(cfg, dev, flush, detail):
                     s.setdefault(f, 0.0)
                     s[f] += split * rec[f]
             s["max_abs_err"] = max(s["max_abs_err"], rec["max_abs_err"])
-            s["bound_by"].add(rec["bound_by"])
+            by = s["bound_by"]
+            by[rec["bound_by"]] = by.get(rec["bound_by"], 0.0) \
+                + split * rec["bound_ms"]
     for s in summary.values():
-        s["bound_by"] = "/".join(sorted(s["bound_by"]))
+        # the forward's bound is named by the side that holds most of it
+        s["bound_by"] = max(s["bound_by"], key=s["bound_by"].get)
     return summary
 
 
@@ -914,7 +960,8 @@ def check_flash_kernel(dev, flush):
 
 def decode_path(cfg, params, dev, kernel_ms: float):
     """Phase 7; returns {kernel: launches} over the engine runs (eager
-    launches plus each graph's record times its replays)."""
+    launches plus each graph's record times its replays), the graph token
+    step's wall ms, and the pinned 8/8 engine run's (wall s, tokens)."""
     import numpy as np
     import torch
     from repro_torch import kernels as tk
@@ -1246,6 +1293,8 @@ def decode_path(cfg, params, dev, kernel_ms: float):
         for k in launches:
             if not (plain_run and k != "row_gemm"):
                 launches[k] += counts[k]
+        if name == "pinned 8/8":
+            engine_wall = (wall, rep.tokens_generated)
         for r in responses:
             i = rids[r.request_id]
             assert r.tokens.shape == (DECODE_NEW,)
@@ -1270,7 +1319,7 @@ def decode_path(cfg, params, dev, kernel_ms: float):
                       f"measured noise at step {at}; compared up to it")
         print(f"    tokens held to the "
               f"{'kernel run' if plain_run else 'batch-1 reference'}: ok")
-    return launches
+    return launches, walls["graph"], engine_wall
 
 
 def device_busy(fn, n: int = 3):
@@ -1902,6 +1951,402 @@ def train_path(cfg, dev):
     return counts["flash_attention_fwd"]
 
 
+def spec_block(cfg, model, w, prompts, dev, ref_cache):
+    """A B = 4, T = 1024 slot block filled from four batch-1 prefills at
+    b_kv = 8 (phase 7's state), made twice: for the graphs and for the
+    closures run eagerly."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime import greedy_decode_reference
+    from repro_torch.runtime import decode_engine as de
+    states = [greedy_decode_reference(
+        model, w, p, 2, b_kv=8, reserve_tokens=1024 - p.size,
+        return_state=True, compile_cache=ref_cache, device=dev)[1]
+        for p in prompts[:4]]
+    bufs = []
+    for _ in range(2):
+        buf = de._SlotBuffers(cfg, 1024, 4, 8, dev)
+        for k in ("k_codes", "v_codes", "k_scales", "v_scales"):
+            getattr(buf, k).copy_(torch.from_numpy(np.concatenate(
+                [st[k] for st in states], axis=1)))
+        buf.pos.copy_(torch.tensor([int(st["pos"]) for st in states]))
+        buf.tok.copy_(torch.tensor([int(st["last_token"]) for st in states]))
+        bufs.append(buf)
+    return bufs
+
+
+def spec_rounds(cfg, model, w, wd, prompts, dev, ref_cache, step_wall):
+    """Phase 12, part 1: one speculative round (b_draft 4, k 4) from the
+    captured draft and verify steps against the same closures run eagerly
+    on a copy of the same block, bitwise (delivered block, counts, codes,
+    scales, positions, tokens); the device ms of one draft and one verify
+    step (CUDA events); the wall per delivered token of a round with one
+    flag read per verify step and with a fixed n_draft + 1 verify steps,
+    beside phase 7's plain token step.  Returns (draft ms, verify ms)."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime import CompiledForwardCache
+    from repro_torch.runtime import decode_engine as de
+
+    graph_buf, eager_buf = spec_block(cfg, model, w, prompts, dev,
+                                      ref_cache)
+    cache = CompiledForwardCache()
+    t0 = time.perf_counter()
+    draft = de._spec_draft_call(cache, model, 8, wd, graph_buf)
+    verify = de._spec_verify_call(cache, model, 8, w, graph_buf)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    assert draft.launches["row_gemm"] == verify.launches["row_gemm"] \
+        == 7 * cfg.n_layers + 1
+    assert draft.launches["quantized_decode_attention"] == cfg.n_layers
+    live = np.ones(4, np.int32)
+    rem = np.full(4, DECODE_NEW - 1, np.int32)
+    eio = eager_buf.spec_io()
+    got = de._spec_round(draft, verify, graph_buf, live, rem, 4)
+    want = de._spec_round(
+        lambda: de._spec_draft_step(model, 8, wd, eio),
+        lambda: de._spec_verify_step(model, 8, w, eager_buf, eio),
+        eager_buf, live, rem, 4)
+    torch.cuda.synchronize()
+    assert got[3] == want[3]
+    for a, b in zip(got[:3], want[:3]):
+        assert np.array_equal(a, b), "captured spec round != eager"
+    for a, b in zip(graph_buf.written(), eager_buf.written()):
+        assert torch.equal(a, b), "captured spec buffers != eager"
+    print(f"spec round captured == eager (B=4, T=1024, b_kv=8, b_draft=4, "
+          f"k=4): delivered {got[1].tolist()} ({got[2].tolist()} accepted) "
+          f"in {got[3]} verify steps, block, counts and every buffer "
+          f"bitwise; draft and verify steps captured in {t_capture:.2f}s")
+
+    io = graph_buf.spec_io()
+
+    def event_ms(fn, reset, reps=9):
+        times = []
+        for _ in range(reps):
+            reset()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn()
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        return statistics.median(times)
+
+    draft_ms = event_ms(draft, io.di.zero_)
+    verify_ms = event_ms(verify, io.i.zero_)
+    walls = {}
+    for read_flags in (True, False):
+        per_tok, delivered = [], 0
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cnt, _, _ = de._spec_round(draft, verify, graph_buf, live,
+                                          rem, 4, read_flags)
+            ms = (time.perf_counter() - t0) * 1e3
+            per_tok.append(ms / int(cnt.sum()))
+            delivered += int(cnt.sum())
+        walls[read_flags] = statistics.median(per_tok[1:])
+    print(f"spec steps (graph, B=4, T=1024): draft {draft_ms:.3f} device "
+          f"ms, verify {verify_ms:.3f} device ms (CUDA events, median of 9); "
+          f"a round (k=4) {walls[True]:.3f} ms wall per delivered token "
+          f"({1e3 / walls[True]:.1f} tokens/s) with one flag read per "
+          f"verify step, {walls[False]:.3f} ms ({1e3 / walls[False]:.1f} "
+          f"tokens/s) with a fixed n_draft + 1 verify steps; plain decode "
+          f"step (phase 7) {step_wall / 4:.3f} ms per token "
+          f"({4e3 / step_wall:.1f} tokens/s); {card_line()}")
+    return draft_ms, verify_ms
+
+
+def speculative_path(cfg, params, dev, step_wall, engine_wall):
+    """Phase 12; returns {kernel: launches} over the engine runs (eager
+    launches plus each graph's record times its replays)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core import codesign as cd
+    from repro_torch.core import mixed_precision as mp
+    from repro_torch.core.cost_model import SystemParams
+    from repro_torch.launch.serve import decode_classes, decode_system_params
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.runtime import (CompiledForwardCache, QosClass,
+                                     SpeculativeDecodeEngine,
+                                     greedy_decode_reference)
+
+    model = DecoderLM(cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in DECODE_PROMPTS]
+    per_layer = cfg.active_param_count() / cfg.n_layers
+    sysp = decode_system_params(cfg, SystemParams(
+        n_flop_agent=2.0 * per_layer * cfg.split_layer * B * S,
+        n_flop_server=2.0 * per_layer * (cfg.n_layers - cfg.split_layer)
+        * B * S), 4, S, DECODE_NEW, speculative=True)
+    pin = QosClass("interactive", *DECODE_BUDGET)
+    ref_cache = CompiledForwardCache()
+
+    def engine(classes, **kw):
+        return SpeculativeDecodeEngine(model, params, sysp, classes=classes,
+                                       max_batch=4,
+                                       max_new_tokens=DECODE_NEW,
+                                       device=dev, **kw)
+
+    first = engine([pin], auto=False)
+    first.set_operating_point(pin.name, 8, 8, b_draft=4, k=4)
+    t0 = time.perf_counter()
+    n_warm = first.warmup(max(DECODE_PROMPTS), DECODE_NEW)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    draft_ms, verify_ms = spec_rounds(
+        cfg, model, first.class_params(pin.name), first.spec_params(pin.name),
+        prompts, dev, ref_cache, step_wall)
+
+    # auto and mixed: the first budget of the ladder at which both of the
+    # CLI's classes are feasible (the codesign's host math, before any
+    # engine is built)
+    menus = dict(kv_ladder=(4, 8, 16), draft_ladder=(2, 4, 8),
+                 lookahead=(2, 4, 8))
+    solved = {}
+    for mode in ("auto", "mixed"):
+        for budget in SPEC_BUDGETS:
+            classes = decode_classes(*budget)
+            if mode == "auto":
+                sols = [cd.solve_speculative(first.lam, first.lam_kv, sysp,
+                                             c.t0, c.e0, **menus)
+                        for c in classes]
+            else:
+                sols = [mp.allocate_bits_speculative(
+                    first.layer_stats(), first.lam_kv, sysp, c.t0, c.e0,
+                    **menus) for c in classes]
+            if all(s is not None for s in sols):
+                solved[mode] = classes
+                break
+        assert mode in solved, f"{mode}: infeasible at every budget"
+
+    runs = [("b_draft 4, k 4", first, True)]
+    for b_draft, k in SPEC_SCHEDULES[1:]:
+        eng = engine([pin], auto=False)
+        eng.set_operating_point(pin.name, 8, 8, b_draft=b_draft, k=k)
+        runs.append((f"b_draft {b_draft}, k {k}", eng, False))
+    runs.append(("auto", engine(solved["auto"]), False))
+    runs.append(("mixed", engine(solved["mixed"], mixed_precision=True),
+                 False))
+    launches = dict.fromkeys(("quantized_decode_attention",
+                              "flash_attention_fwd", "row_gemm"), 0)
+    plain_wall, plain_tokens = engine_wall
+    for name, eng, warm in runs:
+        classes = list(eng._classes)
+        t_round = eng.decode_round_cost(classes[0], 512)[0]
+        rids = {eng.submit(p, classes[i % len(classes)],
+                           arrival_s=DECODE_ARRIVE[i] * t_round): i
+                for i, p in enumerate(prompts)}
+        cc = eng.compile_cache
+        before = set(cc._exe)
+        assert cc.replays() == 0      # each engine's graphs replay here only
+        tk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        responses = eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eager = tk.launch_counts()
+        replayed = cc.kernel_launches()
+        rep, st = eng.report(), eng.spec_stats()
+        steps = sum(e.replays for k, e in cc._exe.items()
+                    if k[0].startswith("spec-"))
+        if warm:
+            assert rep.compile_misses == n_warm, \
+                f"{name}: {rep.compile_misses - n_warm} captures after warmup"
+        new = [cc._exe[k] for k in cc._exe if k not in before]
+        assert eager == {k: sum(e.launches.get(k, 0) for e in new)
+                         for k in eager}, f"{name}: eager launches {eager}"
+        # every draft and verify step replays 24 decode attentions and 169
+        # products, every prefill 24 flash launches
+        want = {"quantized_decode_attention": cfg.n_layers * steps,
+                "flash_attention_fwd": cfg.n_layers * rep.prefills,
+                "row_gemm": (7 * cfg.n_layers + 1) * steps}
+        assert {k: replayed.get(k, 0) for k in launches} == want, \
+            f"{name}: replayed launches {replayed} != {want}"
+        counts = {k: eager[k] + want[k] for k in launches}
+        assert rep.requests_served == len(prompts)
+        assert rep.tokens_generated == len(prompts) * DECODE_NEW
+        for r in responses:
+            i = rids[r.request_id]
+            assert r.tokens.shape == (DECODE_NEW,)
+            ref = greedy_decode_reference(
+                model, eng.class_params(r.qos), prompts[i], DECODE_NEW,
+                b_kv=r.b_kv, compile_cache=ref_cache, device=dev)
+            assert np.array_equal(np.asarray(r.tokens), ref), \
+                f"speculative {name} request {i}: {r.tokens} vs {ref}"
+        for k in launches:
+            launches[k] += counts[k]
+        points = ", ".join(
+            f"{c} b_hat={eng._classes[c].b_hat}"
+            + (f" bits={list(eng._classes[c].plan_bits)}"
+               if eng.mixed_precision else "")
+            + f" b_kv={eng.b_kv_for(c)} (b_draft, k)={eng.draft_schedule(c)}"
+            for c in classes)
+        print(f"  speculative {name:15s} {points}: "
+              + (f"warmup {n_warm} graphs in {t_warm:.2f}s, 0 captures "
+                 "after; " if warm else
+                 f"{rep.compile_misses} graphs captured while serving; ")
+              + f"{st.rounds} rounds, {steps} draft + verify steps, "
+              f"acceptance {st.acceptance_rate:.3f}, "
+              f"{st.tokens_per_round:.2f} tokens/round; "
+              f"{rep.tokens_generated} tokens in {wall:.2f}s wall "
+              f"({wall * 1e3 / rep.tokens_generated:.2f} ms/token, "
+              f"{rep.tokens_generated / wall:.1f} tokens/s; plain decode "
+              f"{plain_tokens / plain_wall:.1f}); launches "
+              f"{counts['quantized_decode_attention']} decode, "
+              f"{counts['flash_attention_fwd']} flash, "
+              f"{counts['row_gemm']} row_gemm; all {len(responses)} "
+              f"responses == the batch-1 reference bitwise")
+        print(f"    spec_stats {st}")
+    print(f"speculative: draft step {draft_ms:.3f} / verify step "
+          f"{verify_ms:.3f} device ms; {card_line()}")
+    return launches
+
+
+def hold_plan(eager, plain_model, b_hat, f, fs, logits, toks, dev):
+    """One response of an adaptive batch served at uniform ``b_hat``
+    against the plain path on the card: through ``hold_against_plain``
+    on the kernel path (b̂ = 4, 8), else (the fake path, whose only
+    kernel is flash) against the same forward with the plain attention,
+    at E2E_TOL of the logits' scale.  Returns the line to print."""
+    import torch
+    eager.configure(b_hat, f, fs)
+    tokens = toks[None]
+    tok_dev = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    if eager.agent_path != "fake":
+        return hold_against_plain(eager, plain_model, b_hat,
+                                  eager.agent_path, logits[None], tokens,
+                                  tok_dev)[0]
+    kernel_model, eager.model = eager.model, plain_model
+    try:
+        ref_logits, _ = eager.serve_batch({"tokens": tokens})
+    finally:
+        eager.model = kernel_model
+    scale = float(ref_logits.abs().max())
+    diff = float((logits - ref_logits[0]).abs().max())
+    assert diff <= E2E_TOL * scale, f"fake b_hat={b_hat}: logits {diff}"
+    return f"logits max|d|={diff:.3e} of {scale:.3e} (plain attention)"
+
+
+def adaptive_path(cfg, model, params, sysp, dev):
+    """Phase 13; returns {kernel: launches} over the three policies'
+    serving windows (eager launches plus graph replays)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.env import presets
+    from repro_torch.runtime import (AdaptiveCoInferenceEngine,
+                                     BatchedCoInferenceEngine,
+                                     CoInferenceEngine, QosClass)
+
+    classes = [QosClass(n, t0, e0) for n, t0, e0 in ADAPTIVE_CLASSES]
+    rng = np.random.default_rng(6)
+    lens = rng.integers(COMPILED_SEQ[0], COMPILED_SEQ[1] + 1,
+                        size=COMPILED_REQUESTS)
+    reqs = [(rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32),
+             classes[i % 2].name) for i, n in enumerate(lens)]
+    plain_model = plain_lm(cfg)
+    eager = CoInferenceEngine(model, params, sysp, path="kernel",
+                              cache_weights=True, device=dev)
+    launches = dict.fromkeys(("group_quantize", "qmm", "qmm_int4",
+                              "flash_attention_fwd"), 0)
+    held = set()
+    reports = {}
+    for policy in ("static", "adaptive", "oracle"):
+        env = presets.edge_day(seed=0)
+        span = env.horizon_s * 0.9
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng = AdaptiveCoInferenceEngine(
+            model, params, sysp, classes=classes, environment=env,
+            policy=policy, max_batch=4, path="kernel", compiled=True,
+            device=dev)
+        n_warm = eng.warmup(COMPILED_SEQ[1])
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        cc = eng.engine.compile_cache
+        sent = {eng.submit(t, q, arrival_s=i * span / len(reqs)): t
+                for i, (t, q) in enumerate(reqs)}
+        t0 = time.perf_counter()
+        served = []
+        while eng.pending():
+            served.append((eng.step(), eng.batch_history[-1]))
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
+        counts = tk.launch_counts()
+        for k, n in cc.kernel_launches().items():
+            if k in counts:
+                counts[k] += n
+        rep = eng.adaptive_report()
+        reports[policy] = rep
+        captures = cc.misses - n_warm
+        for k in launches:
+            launches[k] += counts[k]
+        bits = [b.b_hat for _, b in served]
+        assert min(bits) >= 2, f"{policy}: a batch at 1 bit ({bits})"
+        for rs, b in served:
+            for r in rs:
+                assert torch.isfinite(r.logits).all(), \
+                    f"{policy}: non-finite logits at b_hat={b.b_hat}"
+        print(f"  adaptive {policy:8s} (edge-day seed 0): {rep}")
+        print(f"    {n_warm} graphs at warmup({COMPILED_SEQ[1]}) in "
+              f"{t_warm:.1f}s, {captures} captured while serving; "
+              f"{rep.requests_served} requests in {len(served)} batches in "
+              f"{t_serve:.2f}s; b_hat per batch "
+              f"{[(b.qos, b.b_hat, b.agent_path) for _, b in served]}; "
+              f"launches group_quantize {counts['group_quantize']}, qmm "
+              f"{counts['qmm']}, qmm_int4 {counts['qmm_int4']}, flash "
+              f"{counts['flash_attention_fwd']}")
+        for e in eng.replan_events:
+            print(f"    t={e.t_s:6.2f}s [{e.qos}] {e.reason}: "
+                  f"b {e.b_before:.0f} -> {e.b_after:.0f}"
+                  + (" (degraded)" if e.degraded else ""))
+        # one response per plan against the plain path (counted nowhere)
+        for rs, b in served:
+            if (b.b_hat, b.agent_path) in held:
+                continue
+            held.add((b.b_hat, b.agent_path))
+            line = hold_plan(eager, plain_model, b.b_hat, b.f, b.f_server,
+                             rs[0].logits, sent[rs[0].request_id], dev)
+            print(f"    plan b_hat={b.b_hat} ({b.agent_path}) vs plain: "
+                  f"{line}")
+    assert reports["static"].replans == 0, "static replanned"
+    assert reports["adaptive"].replans >= 1, "adaptive never replanned"
+
+    # a constant trace: the adaptive engine replays the batched engine's
+    # graphs (one compile cache) and returns its responses bitwise
+    out = {}
+    cache = None
+    for name in ("batched", "adaptive"):
+        kw = dict(classes=classes, max_batch=4, path="kernel",
+                  compiled=True, device=dev, compile_cache=cache)
+        if name == "batched":
+            eng = BatchedCoInferenceEngine(model, params, sysp, **kw)
+            eng.warmup(COMPILED_SEQ[1])
+            cache = eng.engine.compile_cache
+        else:
+            eng = AdaptiveCoInferenceEngine(
+                model, params, sysp, environment=presets.constant(), **kw)
+        misses = cache.misses
+        for i, (t, q) in enumerate(reqs):
+            eng.submit(t, q, arrival_s=float(i))
+        out[name] = (sorted(eng.drain(), key=lambda r: r.request_id),
+                     eng.batch_history, cache.misses - misses)
+    (rb, hb, _), (ra, ha, miss_a) = out["batched"], out["adaptive"]
+    assert miss_a == 0 and ha == hb
+    for x, y in zip(ra, rb):
+        assert x.stats == y.stats and torch.equal(x.logits, y.logits), \
+            f"constant trace: request {x.request_id} adaptive != batched"
+    print(f"  adaptive on a constant trace == batched bitwise: all "
+          f"{len(ra)} responses, the same graphs replayed (0 captures); "
+          f"{card_line()}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2070,8 +2515,8 @@ def main() -> int:
 
     # 7. the decode path at full width, through CUDA graphs
     t0 = time.perf_counter()
-    decoded = decode_path(cfg, params, dev,
-                          summary["quantized_decode_attention"]["ms"])
+    decoded, step_wall, engine_wall = decode_path(
+        cfg, params, dev, summary["quantized_decode_attention"]["ms"])
     print(f"decode path: {time.perf_counter() - t0:.1f}s")
     for name in ("quantized_decode_attention", "row_gemm"):
         counts[name] = decoded[name]
@@ -2107,7 +2552,21 @@ def main() -> int:
         counts[name] += theory[name] + mixed_dec[name]
     print(f"theory and mixed precision: {time.perf_counter() - t0:.1f}s")
 
-    # 12. summary
+    # 12. speculative decode from CUDA graphs at full width
+    t0 = time.perf_counter()
+    spec = speculative_path(cfg, params, dev, step_wall, engine_wall)
+    for name, n in spec.items():
+        counts[name] += n
+    print(f"speculative decode: {time.perf_counter() - t0:.1f}s")
+
+    # 13. adaptive serving from CUDA graphs at full width
+    t0 = time.perf_counter()
+    adapt = adaptive_path(cfg, model, params, sysp, dev)
+    for name, n in adapt.items():
+        counts[name] += n
+    print(f"adaptive serving: {time.perf_counter() - t0:.1f}s")
+
+    # 14. summary
     names = {"group_quantize": ("csrc/group_quantize.cu",
                                 "src/repro/kernels/quantize.py:35"),
              "qmm": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:67"),

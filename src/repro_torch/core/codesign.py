@@ -15,12 +15,13 @@ Port of the uniform (P1) solvers of ``repro/core/codesign.py``:
 * :func:`solve_decode` — (P1) extended with the stored KV-cache
   bit-width b_kv, enumerated over the container ladder.
 
-* :func:`acceptance_rate` and :func:`expected_tokens_per_round` — the
-  speculative draft model the layer-wise allocator of
-  ``core.mixed_precision`` prices rounds with.
+* :func:`solve_speculative` — the decode solve extended with the draft
+  bit-width and lookahead (b̂, f, f̃, b_kv, b_draft, k), priced with the
+  draft model of :func:`acceptance_rate` and
+  :func:`expected_tokens_per_round` (which the layer-wise allocator of
+  ``core.mixed_precision`` uses too).
 
-All math is float64 on the host.  ``solve_speculative`` waits for the
-speculative slice.
+All math is float64 on the host.
 """
 
 from __future__ import annotations
@@ -29,8 +30,11 @@ import dataclasses
 import math
 from typing import Optional
 
-from .cost_model import (SystemParams, kv_delay, kv_energy, total_delay,
-                         total_energy, transport_delay, transport_energy)
+from .cost_model import (SystemParams, draft_delay, draft_energy, kv_delay,
+                         kv_energy, rollback_delay, rollback_energy,
+                         speculative_round_delay, speculative_round_energy,
+                         total_delay, total_energy, transport_delay,
+                         transport_energy)
 
 _EPS = 1e-12
 
@@ -392,3 +396,116 @@ def expected_tokens_per_round(alpha: float, k: int) -> float:
     if a >= 1.0:
         return float(k + 1)
     return (1.0 - a ** (k + 1)) / (1.0 - a)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeculativeSolution:
+    """(P1) extended with the draft bit-width and lookahead.
+
+    ``inner`` is the decode-style (b̂, f, f̃, b_kv) solution against the
+    budgets left after the per-round draft, uplink, cache and rollback
+    overheads take their per-delivered-token share, with the batched
+    verify forward's 1/τ workload folded into the FLOP counts;
+    ``objective`` is the joint distortion gap per expected delivered
+    token.
+    """
+
+    b_draft: int                # draft bit-width (agent partition)
+    k: int                      # lookahead: drafted tokens per round
+    alpha: float                # modeled per-token acceptance
+    tokens_per_round: float     # tau = E[delivered per round] in [1, k+1]
+    inner: DecodeSolution       # (b̂, f, f̃, b_kv) under the net budgets
+    objective: float            # joint gap / tau
+    delay: float                # expected per-delivered-token delay
+    energy: float               # expected per-delivered-token energy
+
+    @property
+    def b_hat(self) -> int:
+        return self.inner.b_hat
+
+    @property
+    def b_kv(self) -> int:
+        return self.inner.b_kv
+
+    @property
+    def f(self) -> float:
+        return self.inner.f
+
+    @property
+    def f_server(self) -> float:
+        return self.inner.f_server
+
+    @property
+    def kv_gap(self) -> float:
+        return self.inner.kv_gap
+
+    @property
+    def feasible(self) -> bool:
+        return self.inner.feasible
+
+
+def solve_speculative(lam: float, lam_kv: float, p: SystemParams,
+                      t0: float, e0: float, b_max: int = 16,
+                      b_emb: Optional[float] = None,
+                      kv_ladder: "tuple[int, ...]" = (4, 8, 16),
+                      kv_weight: float = 1.0,
+                      draft_ladder: "tuple[int, ...]" = (2, 4, 8),
+                      lookahead: "tuple[int, ...]" = (2, 4, 8),
+                      gamma: float = SPEC_GAMMA
+                      ) -> Optional[SpeculativeSolution]:
+    """Joint (b̂, f, f̃, b_kv, b_draft, k) solve for speculative decode.
+
+    For each (b_kv, b_draft, k): the modeled acceptance α(b_draft) gives
+    the expected delivered tokens per round τ = Σ αⁱ; the per-round
+    overheads (``k`` drafts at ``f_max``, one uplink, ``k + 1`` cache
+    reads, the expected rollback) come off (T0, E0) at their
+    per-delivered-token share, and Algorithm 1 runs on the rest with the
+    verify forward's workload scaled by 1/τ (one weight pass a round).
+    The score is the joint distortion gap per expected delivered token;
+    the least wins.  (T0, E0) are per-delivered-token budgets.  Returns
+    None when every point is infeasible.
+    """
+    best: Optional[SpeculativeSolution] = None
+    for b_kv in kv_ladder:
+        for b_draft in draft_ladder:
+            alpha = acceptance_rate(b_draft, lam, gamma)
+            for k in lookahead:
+                tau = expected_tokens_per_round(alpha, k)
+                t_oh = (draft_delay(b_draft, k, p)
+                        + (k + 1) * kv_delay(b_kv, p)
+                        + rollback_delay(b_kv, max(k + 1 - tau, 0.0), p))
+                e_oh = (draft_energy(b_draft, k, p)
+                        + (k + 1) * kv_energy(b_kv, p)
+                        + rollback_energy(b_kv, max(k + 1 - tau, 0.0), p))
+                if b_emb is not None:
+                    t_oh += float(transport_delay(b_emb, p))
+                    e_oh += float(transport_energy(b_emb, p))
+                t_net = t0 - t_oh / tau
+                e_net = e0 - e_oh / tau
+                if t_net <= 0.0 or e_net <= 0.0:
+                    continue
+                scale = 1.0 / tau
+                p_v = dataclasses.replace(
+                    p, n_flop_agent=p.n_flop_agent * scale,
+                    n_flop_server=p.n_flop_server * scale)
+                inner = solve_sca(lam, p_v, t_net, e_net, b_max)
+                if inner is None:
+                    continue
+                kv_gap = distortion_gap(b_kv, lam_kv)
+                joint = inner.objective + kv_weight * kv_gap
+                delay = speculative_round_delay(
+                    inner.b_hat, inner.f, inner.f_server, b_draft, k,
+                    tau, p, b_emb=b_emb, b_kv=b_kv) / tau
+                energy = speculative_round_energy(
+                    inner.b_hat, inner.f, inner.f_server, b_draft, k,
+                    tau, p, b_emb=b_emb, b_kv=b_kv) / tau
+                dec = DecodeSolution(
+                    b_kv=int(b_kv), inner=inner, objective=joint,
+                    kv_gap=kv_gap, delay=delay, energy=energy)
+                cand = SpeculativeSolution(
+                    b_draft=int(b_draft), k=int(k), alpha=alpha,
+                    tokens_per_round=tau, inner=dec,
+                    objective=joint / tau, delay=delay, energy=energy)
+                if best is None or cand.objective < best.objective:
+                    best = cand
+    return best

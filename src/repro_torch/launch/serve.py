@@ -1,8 +1,8 @@
 """Co-inference serving from the command line:
 ``python -m repro_torch.launch.serve --path kernel [--compiled]``,
-``--engine sequential`` or ``--decode``.
+``--engine sequential``, ``--decode [--speculative]`` or ``--env-trace``.
 
-Three modes of ``repro/launch/serve.py``, each on a model built from a
+The modes of ``repro/launch/serve.py``, each on a model built from a
 seeded ``torch.Generator``:
 
 * batched (the default): three QoS classes, each with its (P1) solution
@@ -17,20 +17,30 @@ seeded ``torch.Generator``:
 * ``--decode``: continuous-batching greedy decode over a quantized KV
   cache (``DecodeEngine``) for two QoS classes, each with its codesign
   (b̂, b_kv); ``--parity-check`` replays every response through
-  ``greedy_decode_reference`` and requires equal tokens.
+  ``greedy_decode_reference`` and requires equal tokens;
+* ``--speculative`` (implies ``--decode``): the agent drafts
+  ``--lookahead`` tokens a round at ``--draft-bits``, the server verifies
+  them (``SpeculativeDecodeEngine``), and the report adds the rounds and
+  the acceptance;
+* ``--env-trace NAME``: the batched engine's traffic spread over a canned
+  dynamic environment (``env.presets``: Markov Wi-Fi, Rayleigh fading,
+  profile replay, battery drain, ``edge-day``, ``constant``, seeded by
+  ``--env-seed``) through ``AdaptiveCoInferenceEngine`` under
+  ``--adaptive-policy`` (static, adaptive or oracle).
 
 ``--mixed-precision`` replaces the uniform b̂ by the layer-wise bit
-allocation of ``core.mixed_precision`` in all three modes, printing the
+allocation of ``core.mixed_precision`` in every mode, printing the
 reference's lines (the allocation, its bound beside the best uniform
 b̂'s, and the per-layer bits of every batch).
 
 Every mode takes ``--trace-out TRACE.json`` (a Chrome trace-event JSON of
 the run) and ``--metrics-out METRICS.json`` (a metrics snapshot), written at
 the end of the run even when it fails, as the reference's are.  Runs on the
-CUDA card unless ``--device cpu``.  The reference's other modes
-(speculative, adaptive, fleet, chaos) are not yet ported: each exits 2
-with a one-line error, as does an arch with no servable config
-(``fcdnn-16``).
+CUDA card unless ``--device cpu``.  The reference's fleet and chaos modes
+are not yet ported: each exits 2 with a one-line error, as does an arch
+with no servable config (``fcdnn-16``), an off-ladder ``--draft-bits``, a
+``--lookahead`` below 1, and ``--speculative`` or ``--decode`` on a model
+without the decode protocol.
 """
 
 from __future__ import annotations
@@ -49,14 +59,29 @@ from ..core import codesign as cd
 from ..core.cost_model import SystemParams
 from ..data import MarkovLMConfig, MarkovLMDataset
 from ..device import resolve_device
+from ..env import presets as env_presets
 from ..models.lm import DecoderLM
 from ..obs import NULL_METRICS, NULL_TRACER, MetricsRegistry, Tracer
-from ..runtime import (BatchedCoInferenceEngine, CodesignCache,
-                       CoInferenceEngine, DecodeEngine, QosClass,
+from ..runtime import (AdaptiveCoInferenceEngine, BatchedCoInferenceEngine,
+                       CodesignCache, CoInferenceEngine, DecodeEngine,
+                       QosClass, SpeculativeDecodeEngine,
                        greedy_decode_reference)
+from ..runtime.decode_engine import decode_protocol_gap
 
 # flags of the reference's serve CLI whose modes are not ported yet
-_NOT_PORTED = ("speculative", "env_trace", "fleet", "chaos_trace")
+_NOT_PORTED = ("fleet", "chaos_trace")
+
+# the realizable draft-container rungs --speculative may pin
+SPEC_DRAFT_CHOICES = (2, 4, 8)
+
+ENV_TRACES = {
+    "wifi-markov": env_presets.wifi_markov,
+    "rayleigh": env_presets.rayleigh_fading,
+    "profiles": env_presets.profile_replay,
+    "battery": env_presets.battery_drain,
+    "edge-day": env_presets.edge_day,
+    "constant": env_presets.constant,
+}
 
 
 def main(argv=None) -> int:
@@ -96,8 +121,23 @@ def main(argv=None) -> int:
                     help="per-layer bit allocation (core.mixed_precision) "
                          "instead of one uniform b_hat per QoS class")
     ap.add_argument("--speculative", action="store_true",
-                    help="not yet ported (exits 2)")
-    for flag in ("env-trace", "fleet", "chaos-trace"):
+                    help="speculative decode: the agent drafts "
+                         "--lookahead tokens a round at --draft-bits, the "
+                         "server verifies them with longest-accepted-"
+                         "prefix rollback; implies --decode")
+    ap.add_argument("--draft-bits", type=int, default=4,
+                    help="draft bit-width b_draft for --speculative "
+                         f"(one of {SPEC_DRAFT_CHOICES})")
+    ap.add_argument("--lookahead", type=int, default=4,
+                    help="draft tokens per speculative round (k >= 1)")
+    ap.add_argument("--env-trace", default=None, choices=sorted(ENV_TRACES),
+                    help="serve under a canned dynamic environment through "
+                         "the adaptive engine")
+    ap.add_argument("--env-seed", type=int, default=0)
+    ap.add_argument("--adaptive-policy", default="adaptive",
+                    choices=["static", "adaptive", "oracle"],
+                    help="controller for --env-trace serving")
+    for flag in ("fleet", "chaos-trace"):
         ap.add_argument(f"--{flag}", default=None,
                         help="not yet ported (exits 2)")
     ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
@@ -114,6 +154,19 @@ def main(argv=None) -> int:
               "(the reference serves it: python -m repro.launch.serve)",
               file=sys.stderr)
         return 2
+    if args.speculative:
+        if args.lookahead < 1:
+            print(f"error: --lookahead {args.lookahead} is not a valid "
+                  "draft length; speculative decode drafts k >= 1 tokens "
+                  "per round", file=sys.stderr)
+            return 2
+        if args.draft_bits not in SPEC_DRAFT_CHOICES:
+            print(f"error: --draft-bits {args.draft_bits} is off the "
+                  f"realizable draft ladder {SPEC_DRAFT_CHOICES}; the "
+                  "draft weights live in the same quantized containers "
+                  "as every other plan", file=sys.stderr)
+            return 2
+        args.decode = True      # speculative serving is a decode mode
     try:
         cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
         device = resolve_device(args.device)
@@ -128,6 +181,11 @@ def main(argv=None) -> int:
               "(e.g. qwen2-0.5b)", file=sys.stderr)
         return 2
     model = DecoderLM(cfg)
+    err = unsupported_model_reason(model, args.arch, decode=args.decode,
+                                   speculative=args.speculative)
+    if err is not None:
+        print(f"error: {err}", file=sys.stderr)
+        return 2
     params = model.init(torch.Generator(device=device).manual_seed(0))
     tokens = args.batch * args.seq
     per_layer = cfg.active_param_count() / max(cfg.n_layers, 1)
@@ -139,8 +197,13 @@ def main(argv=None) -> int:
     # no-op singletons and pay nothing
     tracer = Tracer() if args.trace_out else NULL_TRACER
     metrics = MetricsRegistry() if args.metrics_out else NULL_METRICS
-    mode = serve_decode if args.decode else (
-        serve_batched if args.engine == "batched" else serve_sequential)
+    if args.decode:
+        mode = serve_decode
+    elif args.env_trace is not None:
+        mode = serve_adaptive
+    else:
+        mode = serve_batched if args.engine == "batched" \
+            else serve_sequential
     try:
         return mode(cfg, model, params, sysp, device, args, tracer, metrics)
     finally:
@@ -156,6 +219,21 @@ def _write_obs(args, tracer, metrics) -> None:
     if args.metrics_out and metrics.enabled:
         metrics.write(args.metrics_out)
         print(f"metrics -> {args.metrics_out}")
+
+
+def unsupported_model_reason(model, arch: str, decode: bool = False,
+                             speculative: bool = False):
+    """One line saying why ``model`` cannot serve the invocation, or None:
+    ``--decode`` and ``--speculative`` need the decode protocol (the
+    complaint names the flag given)."""
+    if decode or speculative:
+        gap = decode_protocol_gap(model)
+        if gap is not None:
+            flag = "--speculative" if speculative else "--decode"
+            return (f"{flag} does not support arch {arch}: {gap}. "
+                    f"Drop {flag} or pick a dense DecoderLM-family arch "
+                    "(e.g. qwen2-0.5b).")
+    return None
 
 
 def serve_sequential(cfg, model, params, sysp, device, args, tracer,
@@ -289,16 +367,78 @@ def serve_batched(cfg, model, params, sysp, device, args, tracer,
     return 0
 
 
+def serve_adaptive(cfg, model, params, sysp, device, args, tracer,
+                   metrics) -> int:
+    """The batched engine's traffic spread across a dynamic-environment
+    trace through ``AdaptiveCoInferenceEngine``, printing what the
+    reference's adaptive mode prints."""
+    del sysp
+    env = ENV_TRACES[args.env_trace](seed=args.env_seed)
+    # (P1) decisions at the reference's calibrated workload, so the
+    # (T0, E0) region, and with it the environment, is active whatever the
+    # model's own FLOPs
+    sysp = SystemParams(n_flop_agent=6.4e10, n_flop_server=1.92e11,
+                        emb_bytes_full=4.0e5, tx_power_w=0.25)
+    classes = decode_classes(args.t0, args.e0)
+    eng = AdaptiveCoInferenceEngine(
+        model, params, sysp, classes=classes, max_batch=args.max_batch,
+        path=args.path, environment=env, policy=args.adaptive_policy,
+        mixed_precision=args.mixed_precision, compiled=args.compiled,
+        tracer=tracer, metrics=metrics, device=device)
+    print(f"arch={cfg.name} env={args.env_trace} (seed {args.env_seed}, "
+          f"{env.n_steps} x {env.dt_s}s) policy={args.adaptive_policy} "
+          f"engine=adaptive")
+    for c in classes:
+        s = eng.solution_for(c.name)
+        print(f"  class {c.name:12s} (T0={c.t0:.2f}s, E0={c.e0:.2f}J): "
+              f"b_hat={s.b_hat} f={s.f / 1e9:.2f}GHz "
+              f"f~={s.f_server / 1e9:.2f}GHz")
+
+    # arrivals spread across the trace, so the stream lives through it
+    rng = np.random.default_rng(1)
+    span = env.horizon_s * 0.9
+    for i in range(args.requests):
+        toks = rng.integers(0, cfg.vocab_size,
+                            size=int(rng.integers(args.seq // 2,
+                                                  args.seq + 1)))
+        eng.submit(toks, classes[i % len(classes)].name,
+                   arrival_s=i * span / max(args.requests, 1))
+    responses = eng.drain()
+
+    print(f"served {len(responses)} requests in "
+          f"{len(eng.batch_history)} batches:")
+    for b in eng.batch_history:
+        print(f"  [{b.qos:12s}] n={b.batch_size} b_hat={b.b_hat:2d} "
+              f"f={b.f / 1e9:.2f}GHz T={b.batch_delay_s * 1e3:8.2f}ms "
+              f"E={b.energy_j:.3f}J")
+    rep = eng.adaptive_report()
+    print(f"adaptive report: replans={rep.replans} "
+          f"(switches={rep.plan_switches}, degraded="
+          f"{rep.degraded_batches}) deadline violations="
+          f"{rep.deadline_violations}/{rep.requests_served} "
+          f"weight variants={rep.weight_variants} "
+          f"env keys={rep.env_keys_seen}")
+    for e in eng.replan_events:
+        print(f"  t={e.t_s:7.2f}s [{e.qos:12s}] {e.reason}: "
+              f"b {e.b_before:.0f} -> {e.b_after:.0f}"
+              + (" (degraded)" if e.degraded else ""))
+    return 0
+
+
 def decode_system_params(cfg, sysp, max_batch: int, seq: int,
-                         max_new: int) -> SystemParams:
+                         max_new: int,
+                         speculative: bool = False) -> SystemParams:
     """``sysp`` with a KV-cost term sized to this model's cache, so the
     b_kv rung is a real decision: a full-precision cache read costs
-    0.5 s / 1.0 J per step, which forces a tight class down the ladder."""
+    0.5 s / 1.0 J per step, which forces a tight class down the ladder.
+    A speculative round reads the cache k + 1 times, so there the
+    bandwidth is doubled to keep every (b_draft, k) point in play."""
     kv_full = (2.0 * cfg.n_layers * max_batch * (seq + max_new)
                * cfg.n_kv_heads * max(cfg.head_dim, 1)
                * np.dtype(cfg.dtype).itemsize)
+    kv_bw = kv_full * (2.0 if speculative else 1.0)
     return dataclasses.replace(sysp, kv_bytes_full=kv_full,
-                               kv_bw_bps=kv_full, kv_power_w=2.0)
+                               kv_bw_bps=kv_bw, kv_power_w=2.0)
 
 
 def decode_classes(t0: float, e0: float) -> list:
@@ -311,23 +451,33 @@ def decode_classes(t0: float, e0: float) -> list:
 def serve_decode(cfg, model, params, sysp, device, args, tracer,
                  metrics) -> int:
     """Continuous-batching greedy decode over a quantized KV cache through
-    ``DecodeEngine``, printing what the reference's decode mode prints."""
+    ``DecodeEngine`` (``SpeculativeDecodeEngine`` with ``--speculative``),
+    printing what the reference's decode mode prints."""
     sysp = decode_system_params(cfg, sysp, args.max_batch, args.seq,
-                                args.max_new)
+                                args.max_new, speculative=args.speculative)
     classes = decode_classes(args.t0, args.e0)
+    common = dict(classes=classes, max_batch=args.max_batch,
+                  max_new_tokens=args.max_new,
+                  mixed_precision=args.mixed_precision,
+                  codesign_cache=CodesignCache(), tracer=tracer,
+                  metrics=metrics, device=device)
     try:
-        eng = DecodeEngine(model, params, sysp, classes=classes,
-                           max_batch=args.max_batch,
-                           max_new_tokens=args.max_new,
-                           mixed_precision=args.mixed_precision,
-                           codesign_cache=CodesignCache(), tracer=tracer,
-                           metrics=metrics, device=device)
+        if args.speculative:
+            # the draft menus pinned to the requested point: the codesign
+            # still solves (b̂, f, f̃, b_kv) jointly around it
+            eng = SpeculativeDecodeEngine(
+                model, params, sysp, draft_bits=args.draft_bits,
+                lookahead=args.lookahead, draft_ladder=(args.draft_bits,),
+                lookahead_menu=(args.lookahead,), **common)
+        else:
+            eng = DecodeEngine(model, params, sysp, **common)
     except ValueError as e:
         print(e)
         return 1
+    mode = "speculative" if args.speculative else "decode"
     print(f"arch={cfg.name} split={cfg.split_layer}/{cfg.n_layers} "
           f"lambda_hat={eng.lam:.2f} lambda_kv={eng.lam_kv:.2f} "
-          f"engine=decode max_batch={args.max_batch} "
+          f"engine={mode} max_batch={args.max_batch} "
           f"max_new={args.max_new} admission={eng.admission}")
     # capture every (class, bucket) prefill and token step up front, so
     # serving below never stalls on a capture
@@ -339,9 +489,14 @@ def serve_decode(cfg, model, params, sysp, device, args, tracer,
         s = eng.solution_for(c.name)
         bdesc = "/".join(map(str, s.bits)) if args.mixed_precision \
             else str(s.b_hat)
+        spec_desc = ""
+        if args.speculative:
+            b_d, k = eng.draft_schedule(c.name)
+            spec_desc = f" b_draft={b_d} k={k}"
         print(f"  class {c.name:12s} (T0={c.t0:.2f}s, E0={c.e0:.2f}J): "
               f"b_hat={bdesc} b_kv={s.b_kv} f={s.f / 1e9:.2f}GHz "
-              f"f~={s.f_server / 1e9:.2f}GHz bound={s.objective:.3e}")
+              f"f~={s.f_server / 1e9:.2f}GHz bound={s.objective:.3e}"
+              f"{spec_desc}")
 
     rng = np.random.default_rng(0)
     prompts = {}
@@ -371,6 +526,12 @@ def serve_decode(cfg, model, params, sysp, device, args, tracer,
           f"energy={rep.total_energy_j:.3f}J")
     print(f"compile cache: {rep.compiled_variants} variants, "
           f"{rep.compile_hits} hits / {rep.compile_misses} misses")
+    if args.speculative:
+        st = eng.spec_stats()
+        print(f"speculative: {st.rounds} rounds, "
+              f"acceptance={st.acceptance_rate:.2f}, "
+              f"accepted/round={st.accepted_per_round:.2f}, "
+              f"tokens/round={st.tokens_per_round:.2f}")
 
     if args.parity_check:
         for r in responses:

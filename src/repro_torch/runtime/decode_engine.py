@@ -101,6 +101,11 @@ __all__ = [
 # decode_step_q call)
 _CHUNK = 64
 
+# the speculative round's fixed draft-column width (``runtime/
+# speculative.py``): the lookahead k is a runtime value up to this many
+# columns, never a capture key
+_SPEC_MAX_K = 16
+
 # the KV-cache layout this engine manages slots in
 _DECODE_CACHE_AXES = {
     "k": ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
@@ -292,18 +297,70 @@ class _SlotBuffers:
         self.tok = torch.zeros((batch,), dtype=torch.int32, device=device)
         self.step_io = _StepIO(batch, eos, device)
         self._prefill_io: Dict[int, _PrefillIO] = {}
+        self._spec_io: Optional[_SpecIO] = None
 
     def prefill_io(self, s_bucket: int) -> _PrefillIO:
         if s_bucket not in self._prefill_io:
             self._prefill_io[s_bucket] = _PrefillIO(s_bucket, self.device)
         return self._prefill_io[s_bucket]
 
+    def spec_io(self) -> "_SpecIO":
+        """The block's speculative-round state, made on first use."""
+        if self._spec_io is None:
+            self._spec_io = _SpecIO(self)
+        return self._spec_io
+
+    def canonical(self) -> List[torch.Tensor]:
+        """The decode state: codes, scales, positions and last tokens."""
+        return [self.k_codes, self.v_codes, self.k_scales, self.v_scales,
+                self.pos, self.tok]
+
     def written(self) -> List[torch.Tensor]:
         """Every tensor the block's graphs write."""
         io = self.step_io
-        return [self.k_codes, self.v_codes, self.k_scales, self.v_scales,
-                self.pos, self.tok, io.out, io.step, io.eos_hit] \
-            + [p.tok0 for p in self._prefill_io.values()]
+        return self.canonical() + [io.out, io.step, io.eos_hit] \
+            + [p.tok0 for p in self._prefill_io.values()] \
+            + (self._spec_io.written() if self._spec_io is not None else [])
+
+
+class _SpecIO:
+    """A slot block's speculative-round state.
+
+    The draft chain runs on ``scratch``, a copy of the block's canonical
+    state made once a round (commit-on-verify: a draft never writes the
+    canonical buffers), writing its greedy tokens into column ``di`` of
+    ``drafts [B, _SPEC_MAX_K]``.  The verify chain writes the canonical
+    buffers in place and keeps the reference's loop state on the device:
+    the delivered block ``out [B, _SPEC_MAX_K + 1]``, its column counter
+    ``i``, per-row emitted and accepted counts, the active flags and their
+    any-reduction (the one flag the host reads back per verify step), the
+    remaining budgets and the round's draft count.
+    """
+
+    def __init__(self, buf: _SlotBuffers):
+        dev = buf.device
+        b = buf.pos.shape[0]
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.scratch = [torch.zeros_like(t) for t in buf.canonical()]
+        self.drafts = zeros((b, _SPEC_MAX_K), torch.int32)
+        self.di = zeros((1,), torch.int64)
+        self.out = zeros((b, _SPEC_MAX_K + 1), torch.int32)
+        self.i = zeros((1,), torch.int64)
+        self.act = zeros((b,), torch.bool)
+        self.any_act = zeros((1,), torch.bool)
+        self.cnt = zeros((b,), torch.int32)
+        self.acc = zeros((b,), torch.int32)
+        self.rem = zeros((b,), torch.int32)
+        self.n_draft = zeros((1,), torch.int64)
+        self.eos = buf.step_io.eos
+
+    def written(self) -> List[torch.Tensor]:
+        return self.scratch + [self.drafts, self.di, self.out, self.i,
+                               self.act, self.any_act, self.cnt, self.acc,
+                               self.rem, self.n_draft]
 
 
 @torch.no_grad()
@@ -375,6 +432,116 @@ def _decode_chunk(step: Callable[[], Any], io: _StepIO, live: np.ndarray,
     return io.out, steps
 
 
+@torch.no_grad()
+def _spec_draft_step(model, b_kv: int, weights, io: _SpecIO) -> None:
+    """One greedy draft step under the draft weights over the scratch copy
+    of the block: its tokens go to column ``io.di`` of ``io.drafts``.  The
+    scratch's positions run past a row's budget (and, clamped to T - 1 by
+    ``decode_step_q``, past the cache); those drafts are never compared."""
+    kc, vc, ks, vs, pos, tok = io.scratch
+    logits, qc = model.decode_step_q(
+        weights, {"k_codes": kc, "v_codes": vc, "k_scales": ks,
+                  "v_scales": vs, "len": pos},
+        {"token": tok[:, None], "pos": pos}, b_kv=b_kv)
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    io.drafts.index_copy_(1, io.di, nxt[:, None])
+    tok.copy_(nxt)
+    pos.copy_(qc["len"])
+    io.di.add_(1)
+
+
+@torch.no_grad()
+def _spec_verify_step(model, b_kv: int, weights, buf: _SlotBuffers,
+                      io: _SpecIO) -> None:
+    """One iteration of the reference's verify loop under the target
+    weights, in place on the canonical block.
+
+    Every row steps ``decode_step_q`` from its current token (exactly the
+    batch-1 reference's next step); an inactive row's written entries (at
+    its write position, clamped to T - 1) are restored from the copy taken
+    before the step and its position and token held, so the buffers equal
+    the reference's functional ``where(act, new, old)`` at every position.
+    Then the reference's bookkeeping: emission column ``i`` for every row,
+    counts, the accepted prefix, and a row goes inactive at a rejected
+    draft, the bonus token (``i == n_draft``), eos or its budget.
+    """
+    rows = torch.arange(buf.pos.shape[0], device=buf.pos.device)
+    at = torch.clamp(buf.pos, max=buf.t_bucket - 1)
+    state = [buf.k_codes, buf.v_codes, buf.k_scales, buf.v_scales]
+    saved = [t[:, rows, at] for t in state]
+    logits, qc = model.decode_step_q(
+        weights, {"k_codes": buf.k_codes, "v_codes": buf.v_codes,
+                  "k_scales": buf.k_scales, "v_scales": buf.v_scales,
+                  "len": buf.pos},
+        {"token": buf.tok[:, None], "pos": buf.pos}, b_kv=b_kv)
+    g = torch.argmax(logits, dim=-1).to(torch.int32)
+    act = io.act
+    for t, old in zip(state, saved):
+        keep = act.reshape((1, -1) + (1,) * (old.dim() - 2))
+        t[:, rows, at] = torch.where(keep, t[:, rows, at], old)
+    buf.pos.copy_(torch.where(act, qc["len"], buf.pos))
+    buf.tok.copy_(torch.where(act, g, buf.tok))
+    io.out.index_copy_(1, io.i, g[:, None])
+    io.cnt.add_(act.to(torch.int32))
+    draft_i = io.drafts.index_select(
+        1, torch.clamp(io.i, max=_SPEC_MAX_K - 1))[:, 0]
+    match = (io.i < io.n_draft) & (g == draft_i)
+    io.acc.add_((act & match).to(torch.int32))
+    io.act.copy_(act & match & (g != io.eos) & (io.cnt < io.rem))
+    io.any_act.copy_(torch.any(io.act).reshape(1))
+    io.i.add_(1)
+
+
+def _spec_draft_chain(draft: Optional[Callable[[], Any]],
+                      buf: _SlotBuffers, io: _SpecIO, n_draft: int) -> None:
+    """Copy the block into the scratch and run ``draft`` (a graph's replay
+    or the eager closure) ``n_draft`` times; nothing is read back."""
+    io.drafts.zero_()
+    io.di.zero_()
+    if n_draft:
+        for dst, src in zip(io.scratch, buf.canonical()):
+            dst.copy_(src)
+        for _ in range(n_draft):
+            draft()
+
+
+def _spec_verify_chain(verify: Callable[[], Any], io: _SpecIO,
+                       live: np.ndarray, rem: np.ndarray, n_draft: int,
+                       read_flags: bool = True) -> int:
+    """The reference's verify loop over ``io.drafts``: ``verify`` runs
+    while its counter is at most ``n_draft`` and any row is active (one
+    flag read back per step), or, with ``read_flags=False``, a fixed
+    ``n_draft + 1`` times (the extra steps find no row active and change
+    no bit).  Returns the steps run; the delivered block, counts and
+    accepted prefixes stay in ``io``."""
+    io.out.zero_()
+    io.cnt.zero_()
+    io.acc.zero_()
+    io.i.zero_()
+    io.act.copy_(torch.from_numpy(np.asarray(live) > 0))
+    io.rem.copy_(torch.from_numpy(np.asarray(rem, np.int32)))
+    io.n_draft.fill_(int(n_draft))
+    steps = 0
+    while steps <= n_draft:
+        verify()
+        steps += 1
+        if read_flags and not bool(io.any_act):
+            break
+    return steps
+
+
+def _spec_round(draft, verify, buf: _SlotBuffers, live: np.ndarray,
+                rem: np.ndarray, n_draft: int, read_flags: bool = True):
+    """One speculative round: the draft chain, then the verify chain.
+    Returns (delivered block [B, _SPEC_MAX_K + 1], emitted [B], accepted
+    [B]) as host arrays, and the verify steps run."""
+    io = buf.spec_io()
+    _spec_draft_chain(draft, buf, io, n_draft)
+    steps = _spec_verify_chain(verify, io, live, rem, n_draft, read_flags)
+    return (io.out.cpu().numpy(), io.cnt.cpu().numpy(),
+            io.acc.cpu().numpy(), steps)
+
+
 def _tree_key(tree) -> tuple:
     """The addresses of a weight tree's tensors: what a graph bakes in."""
     return tuple(t.data_ptr() for t in tree_leaves(tree))
@@ -406,6 +573,30 @@ def _step_call(cache, model, b_kv: int, weights,
     return _capture(cache, lambda: _decode_step(model, b_kv, weights, buf,
                                                 buf.step_io),
                     buf, keep=(model, weights, buf))
+
+
+def _spec_draft_call(cache, model, b_kv: int, weights,
+                     buf: _SlotBuffers) -> CapturedCall:
+    io = buf.spec_io()
+    return _capture(cache, lambda: _spec_draft_step(model, b_kv, weights,
+                                                    io),
+                    buf, keep=(model, weights, buf))
+
+
+def _spec_verify_call(cache, model, b_kv: int, weights,
+                      buf: _SlotBuffers) -> CapturedCall:
+    io = buf.spec_io()
+    return _capture(cache, lambda: _spec_verify_step(model, b_kv, weights,
+                                                     buf, io),
+                    buf, keep=(model, weights, buf))
+
+
+def _spec_key(kind: str, model, weights, buf: _SlotBuffers,
+              b_kv: int) -> tuple:
+    """A draft (``"spec-draft"``, keyed on the draft tree) or verify
+    (``"spec-verify"``) step's key, extended as :func:`_step_key` is."""
+    return (kind, model.cfg, buf.pos.shape[0], buf.t_bucket, b_kv,
+            id(model), _tree_key(weights), id(buf))
 
 
 def _prefill_key(model, weights, buf: _SlotBuffers, s_bucket: int,

@@ -265,6 +265,50 @@ class CodesignCache:
             stats, lam_kv, sysp, qos.t0, qos.e0, b_max=b_max, b_emb=b_emb,
             kv_ladder=kv_ladder, kv_weight=kv_weight))
 
+    def solve_speculative(self, lam: float, lam_kv: float,
+                          sysp: SystemParams, qos: QosClass, b_max: int,
+                          b_emb: Optional[int] = None,
+                          kv_ladder: "tuple[int, ...]" = (4, 8, 16),
+                          kv_weight: float = 1.0,
+                          draft_ladder: "tuple[int, ...]" = (2, 4, 8),
+                          lookahead: "tuple[int, ...]" = (2, 4, 8),
+                          env_key: Optional[tuple] = None
+                          ) -> Optional[cd.SpeculativeSolution]:
+        """Memoized joint (b̂, f, f̃, b_kv, b_draft, k) speculative solve,
+        in a "spec"-tagged keyspace carrying the draft ladder and the
+        lookahead menu beside :meth:`solve_decode`'s inputs."""
+        k = ("spec", round(float(lam), 12), round(float(lam_kv), 12), sysp,
+             float(qos.t0), float(qos.e0), int(b_max), b_emb,
+             tuple(int(b) for b in kv_ladder), float(kv_weight),
+             tuple(int(b) for b in draft_ladder),
+             tuple(int(b) for b in lookahead), env_key)
+        return self._get(k, lambda: cd.solve_speculative(
+            lam, lam_kv, sysp, qos.t0, qos.e0, b_max=b_max, b_emb=b_emb,
+            kv_ladder=kv_ladder, kv_weight=kv_weight,
+            draft_ladder=draft_ladder, lookahead=lookahead))
+
+    def solve_speculative_mixed(self, stats: mp.LayerStats, lam_kv: float,
+                                sysp: SystemParams, qos: QosClass,
+                                b_max: int, b_emb: Optional[int] = None,
+                                kv_ladder: "tuple[int, ...]" = (4, 8, 16),
+                                kv_weight: float = 1.0,
+                                draft_ladder: "tuple[int, ...]" = (2, 4, 8),
+                                lookahead: "tuple[int, ...]" = (2, 4, 8),
+                                env_key: Optional[tuple] = None
+                                ) -> Optional[mp.MixedSpeculativeSolution]:
+        """Memoized per-layer allocation and (b_kv, b_draft, k), the
+        speculative counterpart of :meth:`solve_decode_mixed`, in a
+        "spec-mixed"-tagged keyspace."""
+        k = ("spec-mixed", stats.key(), round(float(lam_kv), 12), sysp,
+             float(qos.t0), float(qos.e0), int(b_max), b_emb,
+             tuple(int(b) for b in kv_ladder), float(kv_weight),
+             tuple(int(b) for b in draft_ladder),
+             tuple(int(b) for b in lookahead), env_key)
+        return self._get(k, lambda: mp.allocate_bits_speculative(
+            stats, lam_kv, sysp, qos.t0, qos.e0, b_max=b_max, b_emb=b_emb,
+            kv_ladder=kv_ladder, kv_weight=kv_weight,
+            draft_ladder=draft_ladder, lookahead=lookahead))
+
     def __len__(self) -> int:
         return len(self._store)
 
@@ -808,7 +852,7 @@ class BatchedCoInferenceEngine:
         self._solutions: Dict[str, Any] = {}
         self._plans: Dict[str, QuantPlan] = {}
         for c in classes:
-            sol = self._counted_solution(c)
+            sol = self._resolve_class(c)
             if sol is None:
                 raise ValueError(
                     f"QoS class {c.name!r} is infeasible under "
@@ -820,20 +864,21 @@ class BatchedCoInferenceEngine:
     # ------------------------------------------------------------------
     # per-class operating points
     # ------------------------------------------------------------------
-    def _counted_solution(self, c: QosClass):
-        """One memoized (P1) solve, or layer-wise allocation in
-        mixed-precision mode, for class ``c``, with this engine's own
-        hit/miss attribution (the cache may be shared across engines)."""
+    def _resolve_class(self, c: QosClass):
+        """The class's operating point; None = infeasible (the constructor
+        raises).  ``AdaptiveCoInferenceEngine`` overrides this to solve
+        under the environment's state and to degrade instead of returning
+        None."""
+        return self._counted_solution(c)
+
+    def _counted_solution(self, c: QosClass,
+                          sysp: Optional[SystemParams] = None,
+                          env_key: Optional[tuple] = None):
+        """:meth:`_class_solution` with this engine's own hit/miss
+        attribution (the cache may be shared across engines)."""
         cache = self.codesign_cache
         h0, m0 = cache.hits, cache.misses
-        if self.mixed_precision:
-            sol = cache.solve_mixed(self.engine.layer_stats(), self.sysp, c,
-                                    b_max=int(self.sysp.b_full),
-                                    b_emb=self.engine.b_emb)
-        else:
-            sol = cache.solve(self.engine.lam, self.sysp, c,
-                              b_max=int(self.sysp.b_full),
-                              b_emb=self.engine.b_emb)
+        sol = self._class_solution(c, sysp=sysp, env_key=env_key)
         dh, dm = cache.hits - h0, cache.misses - m0
         self._own_hits += dh
         self._own_misses += dm
@@ -846,6 +891,22 @@ class BatchedCoInferenceEngine:
                                  engine=type(self).__name__,
                                  qos=c.name).inc(dm)
         return sol
+
+    def _class_solution(self, c: QosClass,
+                        sysp: Optional[SystemParams] = None,
+                        env_key: Optional[tuple] = None):
+        """One memoized (P1) solve, or layer-wise allocation in
+        mixed-precision mode, for class ``c`` under ``sysp`` (default: the
+        engine's static params), tagged with ``env_key``."""
+        p = self.sysp if sysp is None else sysp
+        b_max = int(p.b_full)
+        if self.mixed_precision:
+            return self.codesign_cache.solve_mixed(
+                self.engine.layer_stats(), p, c, b_max=b_max,
+                b_emb=self.engine.b_emb, env_key=env_key)
+        return self.codesign_cache.solve(self.engine.lam, p, c, b_max=b_max,
+                                         b_emb=self.engine.b_emb,
+                                         env_key=env_key)
 
     def solution_for(self, qos_name: str):
         """The class's operating point: a ``CodesignSolution`` (uniform

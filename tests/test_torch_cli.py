@@ -1,10 +1,11 @@
 """``python -m repro_torch.launch.serve`` on the CPU: the sequential kernel
 path runs, prints the b̂ that the reference's SCA gives for the same
 problem, the batched engine (the default, eager and ``--compiled``) prints
-the reference's lines, the decode mode prints the reference's lines
-(a non-zero warm-up) and passes its own parity check, every mode writes a
-loadable ``--trace-out`` and ``--metrics-out``, and every mode not ported
-yet exits 2 with one line."""
+the reference's lines, the decode and speculative modes print the
+reference's lines (a non-zero warm-up) and pass their own parity check,
+the adaptive mode runs under each policy, every mode writes a loadable
+``--trace-out`` and ``--metrics-out``, and every mode not ported yet, and
+each of the reference's exit-2 contracts, exits 2 with one line."""
 
 import json
 import os
@@ -92,14 +93,98 @@ def test_decode_mode_runs_with_parity_check():
 
 
 @pytest.mark.parametrize("args", [
-    ("--engine", "sequential", "--env-trace", "wifi-markov"),
-    ("--decode", "--speculative"),
     ("--engine", "sequential", "--fleet", "spec.json"),
 ])
 def test_unported_modes_exit_2(capsys, args):
     assert main(["--smoke", "--device", "cpu", *args]) == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err
+    assert len(err.strip().splitlines()) == 1
+
+
+def test_speculative_mode_runs_with_parity_check(capsys):
+    """``--decode --speculative``: the reference's lines (the class's draft
+    schedule, the ``speculative:`` report), a warm-up of one draft and one
+    verify step per cache bucket and the prefill pairs per class, no
+    capture while serving, and its own parity check."""
+    rc = main(["--smoke", "--decode", "--speculative", "--device", "cpu",
+               "--max-new", "4", "--requests", "4", "--parity-check"])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    lines = out.out.splitlines()
+    assert "engine=speculative max_batch=4 max_new=4 admission=continuous" \
+        in lines[0]
+    # per class at --seq 64 --max-new 4: 2 x 4 cache buckets + 9 pairs
+    m = re.match(r"warmup: (\d+) decode variants compiled in ", lines[1])
+    assert m and int(m.group(1)) == 2 * (2 * 4 + 9)
+    for line, name in zip(lines[2:4], ("realtime", "interactive")):
+        assert re.match(rf"  class {name} +\(T0=\d+\.\d\ds, "
+                        r"E0=\d+\.\d\dJ\): b_hat=\d+ b_kv=(4|8|16) f=.* "
+                        r"b_draft=4 k=4$", line), line
+    assert "served 4 requests, 16 tokens in " in out.out
+    m = re.search(r"compile cache: (\d+) variants, (\d+) hits / (\d+) "
+                  r"misses", out.out)
+    assert m and int(m.group(1)) == int(m.group(3)) == 34
+    assert re.search(r"^speculative: \d+ rounds, acceptance=\d\.\d\d, "
+                     r"accepted/round=\d+\.\d\d, tokens/round=\d+\.\d\d$",
+                     out.out, re.MULTILINE)
+    assert lines[-1] == ("parity: all 4 requests bitwise-match the "
+                         "sequential reference")
+
+
+@pytest.mark.parametrize("policy", ["static", "adaptive", "oracle"])
+def test_env_trace_mode_runs_under_each_policy(capsys, policy):
+    """``--env-trace wifi-markov``: the reference's lines; the static
+    controller never replans, the others log each replan."""
+    rc = main(["--smoke", "--device", "cpu", "--env-trace", "wifi-markov",
+               "--adaptive-policy", policy])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    lines = out.out.splitlines()
+    assert lines[0] == ("arch=qwen2-0.5b-smoke env=wifi-markov (seed 0, "
+                        f"120 x 0.5s) policy={policy} engine=adaptive")
+    assert re.match(r"  class realtime +\(T0=1\.17s, E0=1\.00J\): "
+                    r"b_hat=\d+ f=", lines[1])
+    assert lines[3] == "served 12 requests in 12 batches:"
+    m = re.search(r"^adaptive report: replans=(\d+) \(switches=\d+, "
+                  r"degraded=\d+\) deadline violations=\d+/12 "
+                  r"weight variants=\d+ env keys=(\d+)$", out.out,
+                  re.MULTILINE)
+    assert m
+    events = [x for x in lines if re.match(r"  t= *\d+\.\d\ds \[", x)]
+    assert len(events) == int(m.group(1))
+    if policy == "static":
+        assert m.group(1) == "0" and m.group(2) == "1"
+    else:
+        assert int(m.group(1)) >= 1
+
+
+@pytest.mark.parametrize("args,needle", [
+    (("--draft-bits", "3"), "draft ladder"),
+    (("--lookahead", "0"), "--lookahead"),
+])
+def test_speculative_bad_schedule_exits_2(capsys, args, needle):
+    assert main(["--smoke", "--device", "cpu", "--speculative", *args]) == 2
+    err = capsys.readouterr().err
+    assert err.startswith("error:") and needle in err
+    assert len(err.strip().splitlines()) == 1
+
+
+def test_speculative_without_decode_protocol_exits_2(capsys, monkeypatch):
+    """A model whose decode state is not the [L, B, T, KV, dh] cache:
+    ``--speculative`` names itself and the arch in one line."""
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import DecoderLM
+
+    class NoKVCache(DecoderLM):
+        def cache_axes(self):
+            return {"state": ("layers", "batch", "d_model")}
+
+    monkeypatch.setattr(serve, "DecoderLM", NoKVCache)
+    assert main(["--smoke", "--device", "cpu", "--speculative"]) == 2
+    err = capsys.readouterr().err
+    assert err.startswith("error: --speculative does not support arch "
+                          "qwen2-0.5b: decode state is not the ")
     assert len(err.strip().splitlines()) == 1
 
 
@@ -230,6 +315,9 @@ def test_batched_mode_prints_reference_lines(capsys, compiled):
     (("--decode", "--max-new", "3", "--requests", "3", "--seq", "16"),
      {"decode.admit", "decode.prefill", "decode.chunk", "decode.retire",
       "forward.capture"}),
+    (("--speculative", "--max-new", "3", "--requests", "3", "--seq", "16"),
+     {"decode.admit", "decode.prefill", "decode.spec_round",
+      "decode.retire", "forward.capture"}),
 ])
 def test_trace_and_metrics_out(capsys, tmp_path, mode, spans):
     """Every ported mode writes a schema-valid Chrome trace and a metrics
@@ -247,7 +335,7 @@ def test_trace_and_metrics_out(capsys, tmp_path, mode, spans):
     n = len(obj["traceEvents"])
     assert f"trace: {n} events -> {trace}" in out.out
     assert out.out.splitlines()[-1] == f"metrics -> {snap}"
-    if "--decode" in mode:
+    if "--decode" in mode or "--speculative" in mode:
         assert re.search(r"warmup: [1-9]\d* decode variants", out.out)
         assert sum(r["value"] for r in metrics["decode.tokens"]["series"]) \
             == 9

@@ -32,7 +32,11 @@ launches per replay, serves the batched engine without a miss after
 warm-up, and a forward that cannot be captured raises.  A mixed-bits
 table (1-8 bits, packed where <= 4) is one group_quantize launch, and a
 mixed plan's forward runs qmm and qmm_int4 together, against the same
-engine on the CPU.
+engine on the CPU.  A decode step at pos = T writes at T - 1 with no
+device assert, rows as they are alone; one speculative round from the
+captured draft and verify steps equals the closures run eagerly (and a
+fixed n_draft + 1 verify steps), and the speculative engine from graphs
+equals the batch-1 oracle with no capture after warm-up.
 """
 
 import importlib
@@ -859,3 +863,120 @@ def test_captured_decode_engine_equals_reference(dev, smoke_lm, warm, b_kv):
             model, eng.class_params("interactive"), toks, m, b_kv=b_kv,
             compile_cache=eng.compile_cache, device=dev)
         np.testing.assert_array_equal(r.tokens, want)
+
+
+def _spec_engine(model, params, dev, **kw):
+    from repro_torch.runtime import SpeculativeDecodeEngine
+    eng = SpeculativeDecodeEngine(
+        model, params, SMOKE_SYSP,
+        classes=[QosClass("interactive", t0=3.5, e0=2.0)], auto=False,
+        max_batch=3, max_new_tokens=6, device=dev, **kw)
+    eng.set_operating_point("interactive", 8, 8, b_draft=4, k=4)
+    return eng
+
+
+def test_decode_step_clamps_at_the_cache_end(dev, smoke_lm):
+    """A row at pos = T writes its entry at T - 1 (the reference's
+    dynamic_update_slice clamp) with no device assert: every other
+    position of the row is untouched, and each row of the batched step is
+    bitwise the row stepped alone."""
+    from repro_torch.models.lm import tree_map
+    from repro_torch.runtime import decode_engine as de
+    from repro_torch.runtime import greedy_decode_reference as gref
+    model, params = smoke_lm
+    cfg = model.cfg
+    w = tree_map(lambda a: a.to(dev), params)
+    rng = np.random.default_rng(4)
+    states = [gref(model, params, rng.integers(0, cfg.vocab_size, p), 1,
+                   b_kv=8, reserve_tokens=16 - p, return_state=True,
+                   device="cpu")[1] for p in (10, 14)]
+    states[1]["pos"] = np.int32(16)
+
+    def stepped(rows):
+        buf = de._SlotBuffers(cfg, 16, len(rows), 8, dev)
+        for name in ("k_codes", "v_codes", "k_scales", "v_scales"):
+            getattr(buf, name).copy_(torch.from_numpy(np.concatenate(
+                [states[r][name] for r in rows], axis=1)))
+        buf.pos.copy_(torch.tensor([int(states[r]["pos"]) for r in rows]))
+        buf.tok.copy_(torch.tensor([int(states[r]["last_token"])
+                                    for r in rows]))
+        de._decode_step(model, 8, w, buf, buf.step_io)
+        torch.cuda.synchronize()
+        return [t.cpu() for t in buf.canonical()]
+
+    both, alone = stepped([0, 1]), [stepped([0]), stepped([1])]
+    assert int(both[4][1]) == 17
+    for i, t in enumerate(both):
+        for r in (0, 1):
+            row = t[:, r] if t.dim() > 1 else t[r:r + 1]
+            one = alone[r][i][:, 0] if t.dim() > 1 else alone[r][i]
+            assert torch.equal(row, one)
+    for i, name in enumerate(("k_codes", "v_codes", "k_scales",
+                              "v_scales")):
+        before = torch.from_numpy(states[1][name])[:, 0]
+        assert torch.equal(both[i][:, 1, :15], before[:, :15])
+    assert not torch.equal(both[0][:, 1, 15],
+                           torch.from_numpy(states[1]["k_codes"])[:, 0, 15])
+
+
+def test_captured_spec_round_equals_eager(dev, smoke_lm):
+    """One speculative round from the captured draft and verify steps
+    equals the same closures run eagerly on a copy of the same slot block,
+    bitwise (delivered block, counts, codes, scales, positions); the fixed
+    n_draft + 1 verify replays deliver the same; the engine from graphs
+    equals the batch-1 oracle with no capture after warm-up."""
+    from repro_torch.runtime import decode_engine as de
+    model, params = smoke_lm
+    eng = _spec_engine(model, params, dev)
+    w = eng.class_params("interactive")
+    wd = eng.spec_params("interactive")
+    cache = eng.compile_cache
+    cfg = model.cfg
+    bufs = [de._SlotBuffers(cfg, 32, 3, 8, dev) for _ in range(3)]
+    rng = np.random.default_rng(0)
+    prefill = de._prefill_call(cache, model, 8, w, bufs[0], 16)
+    for slot, p_len in ((0, 9), (1, 14), (2, 5)):
+        padded = np.zeros((1, 16), np.int32)
+        padded[0, :p_len] = rng.integers(0, cfg.vocab_size, p_len)
+        de._run_prefill(prefill, bufs[0].prefill_io(16), padded, p_len, slot)
+    for b in bufs[1:]:
+        for t, s in zip(b.canonical(), bufs[0].canonical()):
+            t.copy_(s)
+    draft = de._spec_draft_call(cache, model, 8, wd, bufs[0])
+    verify = de._spec_verify_call(cache, model, 8, w, bufs[0])
+    assert draft.graph is not None and verify.graph is not None
+    assert verify.launches["quantized_decode_attention"] == cfg.n_layers
+    live = np.asarray([1, 1, 0], np.int32)
+    rem = np.asarray([5, 2, 0], np.int32)
+    got = de._spec_round(draft, verify, bufs[0], live, rem, 4)
+    eager = de._spec_round(
+        lambda: de._spec_draft_step(model, 8, wd, bufs[1].spec_io()),
+        lambda: de._spec_verify_step(model, 8, w, bufs[1],
+                                     bufs[1].spec_io()),
+        bufs[1], live, rem, 4)
+    fixed = de._spec_round(
+        lambda: de._spec_draft_step(model, 8, wd, bufs[2].spec_io()),
+        lambda: de._spec_verify_step(model, 8, w, bufs[2],
+                                     bufs[2].spec_io()),
+        bufs[2], live, rem, 4, read_flags=False)
+    torch.cuda.synchronize()
+    assert fixed[3] == 5 >= eager[3] == got[3]
+    for a, b, c in zip(got[:3], eager[:3], fixed[:3]):
+        assert np.array_equal(a, b)
+    assert np.array_equal(got[1], fixed[1]) and np.array_equal(got[2],
+                                                               fixed[2])
+    for ta, tb, tc in zip(bufs[0].canonical(), bufs[1].canonical(),
+                          bufs[2].canonical()):
+        assert torch.equal(ta, tb) and torch.equal(ta, tc)
+    eng2 = _spec_engine(model, params, dev)
+    n = eng2.warmup(20)
+    traffic = _decode_traffic(model.cfg.vocab_size)
+    rids = {eng2.submit(t, "interactive", max_new_tokens=m, arrival_s=a): i
+            for i, (t, m, a) in enumerate(traffic)}
+    out = {rids[r.request_id]: r for r in eng2.drain()}
+    assert eng2.report().compile_misses == n > 0
+    for i, r in out.items():
+        toks, m, _ = traffic[i]
+        np.testing.assert_array_equal(r.tokens, greedy_decode_reference(
+            model, eng2.class_params("interactive"), toks, m, b_kv=8,
+            compile_cache=eng2.compile_cache, device=dev))

@@ -29,7 +29,11 @@ def test_importing_every_module_pulls_in_no_jax():
               "repro_torch.core.rate_distortion",
               "repro_torch.core.mixed_precision", "repro_torch.models.fcdnn",
               "repro_torch.configs.fcdnn16", "repro_torch.configs.blip2_proxy",
-              "repro_torch.configs.git_proxy"):
+              "repro_torch.configs.git_proxy", "repro_torch.env",
+              "repro_torch.env.environment", "repro_torch.env.processes",
+              "repro_torch.env.faults", "repro_torch.env.presets",
+              "repro_torch.runtime.speculative",
+              "repro_torch.runtime.adaptive"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
