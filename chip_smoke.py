@@ -193,7 +193,49 @@ nothing of JAX or of the JAX package ``repro``.
    the plain path on the card (phase 4's tolerances).  Then on the
    ``constant`` trace the adaptive engine replays the batched engine's
    graphs and returns its responses bitwise.
-14. Summary: one ``{"kernels": [...]}`` line, the card line, and last
+14. A fleet at full width (``FleetCoInferenceEngine``, kernel path, mixed
+   precision, CUDA graphs, ``max_batch`` 4, one shared codesign and one
+   shared compile cache): FLEET_AGENTS, two qwen2-0.5b ``FULL`` agents over
+   one params object (phase 4's; the kiosk adaptive under ``wifi-markov``)
+   and one stablelm-3b ``FULL`` agent with its own seeded weights, six
+   requests of 16-64 tokens each, through the joint allocator and then the
+   equal split.  Every graph of the shared cache records 7 x split
+   ``qmm``/``qmm_int4`` launches on the tensor-core route and one flash
+   launch a layer, the eager launches are the captures' warm-up runs, one
+   ``group_quantize`` launch per materialized weight set; every plan
+   between 2 and 8 bits; the shares sum to at most 1 and the joint bound
+   is at most the equal split's; one graph per (config, plan, bucket), the
+   qwen agents sharing theirs; every member's responses equal a directly
+   built engine's at its slice, with its own caches, bitwise; a one-agent
+   fleet equals its direct engine bitwise; stablelm-3b's forward at its
+   plan against the plain versions (phase 4's tolerances).  Prints each
+   agent's share, plan, captures, and the 4 x 64 forward's device ms (CUDA
+   events around one replay) and wall.  Phase 3 also holds
+   ``qmm``/``qmm_int4`` at stablelm-3b's seven agent matmul shapes, and
+   phase 8 flash at its heads (H = KV = 32, dh = 80).
+15. Resilience at full width (qwen2-0.5b): the batched engine (phase 10's
+   classes and requests, graphs) bare, supervised on a clean trace
+   (bitwise the bare engine), then supervised and bare under
+   ``examples/chaos_spec.json``, under the same spec with every time
+   constant CHAOS_DILATION times longer (a full-width batch bills seconds,
+   the spec spans 5 s), and under an uplink outage window longer than the
+   retry budget (OUTAGE_WINDOW): delivered + failed + shed = submitted,
+   nothing duplicated, no batch below 2 bits, at least one device-only
+   failover (its operating point quantized and captured mid-traffic,
+   counted); ``DecodeEngine`` and ``SpeculativeDecodeEngine``
+   at (4, 4) on phase 7's prompts from graphs, with the server preempted in
+   three windows (RESILIENT_CRASHES): every supervised stream equals its
+   uninterrupted batch-1 reference bitwise, no token lost, at least one
+   recovery (snapshot, wait, resume through the batch-1 graphs, timed),
+   and the bare runs lose tokens; phase 14's joint fleet under agent
+   dropout (RESILIENT_DROPOUT): one reallocation per membership edge,
+   nothing lost; ``Trainer.fit`` (8 x 128, QAT 8, int8-EF) for 10 steps
+   checkpointing every 5 (keep 1), then 5 steps and a fresh trainer that
+   restores step 5 and runs to 10: the restored state bitwise the saved
+   one, the losses against the uninterrupted run's (bitwise or within
+   1e-4 relative, printed which), the checkpoint's bytes and its save and
+   restore walls.
+16. Summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``; the per-shape numbers are printed
    in phases 3, 5, 6 and 8.
 """
@@ -264,6 +306,49 @@ SPEC_BUDGETS = ((6.0, 2.0), (12.0, 4.0), (24.0, 8.0))
 # controller's decisions are host math: checked on the CPU with the
 # full-width FLOP counts and λ from 40 to 50)
 ADAPTIVE_CLASSES = (("edge-a", 1.3, 1.2), ("edge-b", 1.5, 1.5))
+# phase 14's fleet (name, arch, T0, E0, weight), mixed precision: each
+# agent's constants carry its model's full-width FLOPs at the B x S
+# workload, and under both allocators every member's mean-bit budget
+# (max_mean_bits at its share; the kiosk's at each wifi-markov rate) lies
+# in 4.2-5.7 bits, so its plans hold int4- and int8-container layers and
+# none below 2 bits or above 8 (ROADMAP C.5(c); host math, checked on the
+# CPU with these FLOP counts and the random weights' lambda, 45.0 and
+# 69.5).  The drone's and the kiosk's good-link plans are the same, so
+# they share graphs.
+FLEET_AGENTS = (("drone", "qwen2-0.5b", 1.3, 0.775, 2.0),
+                ("monitor", "stablelm-3b", 8.0, 3.0, 1.0),
+                ("kiosk", "qwen2-0.5b", 1.3, 0.775, 1.0))
+# the kiosk's uplink: 2 % of the 4 x 64 boundary's 16-bit bytes (a
+# full-size boundary leaves no budget in wifi-markov's bad state), the
+# good rate, a 0.25 W radio
+FLEET_KIOSK_LINK = dict(emb_bytes_full=0.02 * B * S * 896 * 2.0,
+                        link_bps=2.5e6, tx_power_w=0.25)
+FLEET_REQUESTS, FLEET_SEQ, FLEET_GAP = 6, (16, 64), 8.0
+SL_HEADS = dict(h=32, kv=32, dh=80)         # stablelm-3b's attention
+# phase 15's batched runs also take examples/chaos_spec.json with every
+# time constant (step, horizon, preemption's MTBF and MTTR) this many times
+# longer, so that its faults land on seconds-long full-width batches
+CHAOS_DILATION = 10
+# phase 15's uplink outage window (virtual seconds) for the failover runs,
+# and their class: its device-only failover and its split-served batches
+# both land at b̂ = 4 (host math over the full-width FLOP counts: the
+# deadline sets the first, the energy budget the second), so the failover
+# batches serve through qmm_int4 (phase 10's classes fail over at 5 and 6,
+# which the engine serves by the fake path)
+OUTAGE_WINDOW = (0.5, 40.0)
+OUTAGE_CLASS = ("failover", 1.21, 0.79)
+# phase 15's dropout windows (virtual seconds) over the fleet's traffic
+RESILIENT_DROPOUT = {"kiosk": (12.0, 24.0), "monitor": (30.0, 40.0)}
+# phase 15's server preemption windows, as fractions of the uninterrupted
+# decode run's virtual span: early, mid-stream and near retirement, as in
+# the reference's parity matrix, but short enough (5 %) that no queued
+# request waits past its shedding deadline (8 x T0) on top of its queueing
+RESILIENT_CRASHES = ((0.10, 0.15), (0.40, 0.45), (0.75, 0.80))
+# the recovery bills each resumed stream's remaining tokens one stream after
+# another (the batch-1 reference), so a queued request waits for several
+# streams; its shedding deadline is arrival + this x T0 (the supervisor's
+# default 8 would shed a feasible request here)
+RESILIENT_DEADLINE_FACTOR = 64.0
 
 
 def card_line() -> str:
@@ -894,6 +979,10 @@ def check_flash_kernel(dev, flush):
               dict(b=4, s=512, causal=False, kv_len=[512, 300, 77, 1]),
               dict(b=4, s=512, dtype=torch.bfloat16),
               dict(b=2, s=384, dh=128)]
+    # stablelm-3b's heads: H = KV = 32 (no GQA sharing), dh = 80 on the
+    # DH = 128 tile with zero-padded columns
+    cases += [dict(b=4, s=64, **SL_HEADS), dict(b=1, s=100, **SL_HEADS),
+              dict(b=2, s=512, **SL_HEADS)]
     err = 0.0
     for c in cases:
         b, s = c["b"], c["s"]
@@ -901,7 +990,8 @@ def check_flash_kernel(dev, flush):
         lens = c.get("kv_len")
         lens = None if lens is None else torch.tensor(lens, device=dev)
         q, k, v = flash_case(dev, b, s, seed=b * s, dh=c.get("dh", 64),
-                             dtype=c.get("dtype"))
+                             dtype=c.get("dtype"), h=c.get("h", 14),
+                             kv=c.get("kv", 2))
         out = fwd(q, k, v, causal=causal, window=window, kv_len=lens)
         want = ref.flash_attention_ref(q, k, v, causal=causal,
                                        window=window, kv_len=lens)
@@ -923,9 +1013,11 @@ def check_flash_kernel(dev, flush):
                             kv_len=None if lens is None else lens[i:i + 1])
                 assert torch.equal(alone[0], out[i]), f"{what}: row {i}"
     # right-padding inside the bucket: bitwise on the real positions
-    for s, padded, causal in ((100, 128, True), (600, 1024, True),
-                              (300, 512, False)):
-        q, k, v = flash_case(dev, 2, padded, seed=s)
+    for s, padded, causal, heads in ((100, 128, True, {}),
+                                     (600, 1024, True, {}),
+                                     (300, 512, False, {}),
+                                     (40, 64, True, SL_HEADS)):
+        q, k, v = flash_case(dev, 2, padded, seed=s, **heads)
         short = fwd(q[:, :, :s], k[:, :, :s], v[:, :, :s], causal=causal)
         long = fwd(q, k, v, causal=causal, kv_len=None if causal else s)
         assert torch.equal(long[:, :, :s], short), \
@@ -934,8 +1026,9 @@ def check_flash_kernel(dev, flush):
           f"max|d|={err:.3e} (f32); rows alone and bucket padding bitwise")
 
     rows = {}
-    for b, s in ((4, 64), (8, 128), (1, 1024)):
-        q, k, v = flash_case(dev, b, s, seed=s)
+    for b, s, heads in ((4, 64, {}), (8, 128, {}), (1, 1024, {}),
+                        (4, 64, SL_HEADS)):
+        q, k, v = flash_case(dev, b, s, seed=s, **heads)
 
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -944,18 +1037,20 @@ def check_flash_kernel(dev, flush):
         lib_d = float((library() - fwd(q, k, v)).abs().max())
         b_ms, by = flash_bound(q, k)
         simt_ms, simt_by = flash_bound(q, k, passes=None)
-        rows[(b, s)] = r = dict(
+        rows[(b, s, bool(heads))] = r = dict(
             ms=time_ms(lambda: fwd(q, k, v), flush),
             plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v),
                              flush),
             library_ms=time_ms(library, flush), bound_ms=b_ms, bound_by=by,
             max_abs_err=err)
-        print(f"  flash_attention_fwd B={b} S=T={s} H=14 KV=2 dh=64 f32 "
+        hd = heads or dict(h=14, kv=2, dh=64)
+        print(f"  flash_attention_fwd B={b} S=T={s} H={hd['h']} "
+              f"KV={hd['kv']} dh={hd['dh']} f32 "
               f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
               f"sdpa={r['library_ms']:.4f} (max|d| vs kernel {lib_d:.2e}) "
               f"bound={b_ms:.6f} ({by}, {FLASH_PASSES} tf32 passes) "
               f"f32-simt-bound={simt_ms:.6f} ({simt_by})")
-    return rows[(B, S)]
+    return rows[(B, S, False)], rows[(B, S, True)]
 
 
 def decode_path(cfg, params, dev, kernel_ms: float):
@@ -1246,7 +1341,7 @@ def decode_path(cfg, params, dev, kernel_ms: float):
             rids[eng.submit(p, qos, arrival_s=DECODE_ARRIVE[i] * t_round)] \
                 = i
         cc = eng.compile_cache
-        before = set(cc._exe)
+        before = {k for k, _ in cc.items()}
         tk.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1261,7 +1356,7 @@ def decode_path(cfg, params, dev, kernel_ms: float):
                 f"{name}: {rep.compile_misses - n_warm} captures after warmup"
         # outside the graphs only the eager warm-up runs of the graphs
         # captured while serving launched (each once its record)
-        new = [cc._exe[k] for k in cc._exe if k not in before]
+        new = [e for k, e in cc.items() if k not in before]
         assert eager == {k: sum(e.launches.get(k, 0) for e in new)
                          for k in eager}, f"{name}: eager launches {eager}"
         # every prefill replays one full-sequence pass (one flash launch a
@@ -2141,7 +2236,7 @@ def speculative_path(cfg, params, dev, step_wall, engine_wall):
                            arrival_s=DECODE_ARRIVE[i] * t_round): i
                 for i, p in enumerate(prompts)}
         cc = eng.compile_cache
-        before = set(cc._exe)
+        before = {k for k, _ in cc.items()}
         assert cc.replays() == 0      # each engine's graphs replay here only
         tk.reset_launch_counts()
         torch.cuda.synchronize()
@@ -2152,12 +2247,12 @@ def speculative_path(cfg, params, dev, step_wall, engine_wall):
         eager = tk.launch_counts()
         replayed = cc.kernel_launches()
         rep, st = eng.report(), eng.spec_stats()
-        steps = sum(e.replays for k, e in cc._exe.items()
+        steps = sum(e.replays for k, e in cc.items()
                     if k[0].startswith("spec-"))
         if warm:
             assert rep.compile_misses == n_warm, \
                 f"{name}: {rep.compile_misses - n_warm} captures after warmup"
-        new = [cc._exe[k] for k in cc._exe if k not in before]
+        new = [e for k, e in cc.items() if k not in before]
         assert eager == {k: sum(e.launches.get(k, 0) for e in new)
                          for k in eager}, f"{name}: eager launches {eager}"
         # every draft and verify step replays 24 decode attentions and 169
@@ -2347,6 +2442,780 @@ def adaptive_path(cfg, model, params, sysp, dev):
     return launches
 
 
+def fleet_members(cfg, params, dev):
+    """Phase 14's agents (FLEET_AGENTS) as ``FleetAgentSpec``s: the qwen2-0.5b
+    agents share ``params`` (phase 4's, seed 0), stablelm-3b ``FULL`` gets
+    its own seeded weights; each agent's constants carry its model's
+    full-width FLOPs at the B x S workload, the kiosk's also its uplink
+    (FLEET_KIOSK_LINK) under ``wifi-markov`` (seed 0)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.stablelm_3b import FULL as SL
+    from repro_torch.core.cost_model import SystemParams
+    from repro_torch.env import presets
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.runtime import FleetAgentSpec, QosClass
+
+    sl_model = DecoderLM(SL)
+    sl_params = sl_model.init(torch.Generator(device=dev).manual_seed(2))
+    models = {"qwen2-0.5b": (DecoderLM(cfg), params),
+              "stablelm-3b": (sl_model, sl_params)}
+
+    def sysp_of(c):
+        per_layer = c.active_param_count() / c.n_layers
+        return SystemParams(
+            n_flop_agent=2.0 * per_layer * c.split_layer * B * S,
+            n_flop_server=2.0 * per_layer * (c.n_layers - c.split_layer)
+            * B * S)
+
+    specs = []
+    for name, arch, t0, e0, weight in FLEET_AGENTS:
+        model, p = models[arch]
+        sysp = sysp_of(model.cfg)
+        env = None
+        if name == "kiosk":
+            sysp = dataclasses.replace(sysp, **FLEET_KIOSK_LINK)
+            env = presets.wifi_markov(seed=0)
+        specs.append(FleetAgentSpec(
+            name=name, model=model, params=p, sysp=sysp,
+            qos=QosClass(name, t0, e0), weight=weight, environment=env))
+    return specs
+
+
+def fleet_traffic(specs):
+    """FLEET_REQUESTS requests of FLEET_SEQ tokens per agent, the agent's
+    j-th arriving at j x FLEET_GAP s (the kiosk's cross wifi states)."""
+    import numpy as np
+    rng = np.random.default_rng(14)
+    out = []
+    for s in specs:
+        for j in range(FLEET_REQUESTS):
+            n = int(rng.integers(FLEET_SEQ[0], FLEET_SEQ[1] + 1))
+            out.append((s.name, rng.integers(
+                0, s.model.cfg.vocab_size, size=n).astype(np.int32),
+                j * FLEET_GAP))
+    return out
+
+
+def release_memory() -> str:
+    """Collect garbage and free the allocator's cached blocks; the line
+    to print: the card's memory in use and free."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return (f"cuda memory: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+            f"GiB allocated, {torch.cuda.memory_reserved() / 2 ** 30:.2f} "
+            f"GiB reserved, {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} "
+            f"GiB free")
+
+
+def open_window(cc=None):
+    """Start a launch-count window: zero the wrappers' eager counts and
+    return what the graphs of ``cc`` (a cache that may outlive the window)
+    launched in their replays so far, for :func:`window_counts`."""
+    from repro_torch import kernels as tk
+    tk.reset_launch_counts()
+    return {} if cc is None else cc.kernel_launches()
+
+
+def window_counts(cc, before):
+    """The window's launches, once the device has finished: (eager plus
+    replayed, replayed), where a graph of ``cc`` replayed its record once
+    a replay since :func:`open_window` returned ``before``."""
+    import torch
+    from repro_torch import kernels as tk
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    replayed = {k: n - before.get(k, 0)
+                for k, n in cc.kernel_launches().items()}
+    for k, n in replayed.items():
+        if k in counts:
+            counts[k] += n
+    return counts, replayed
+
+
+def hold_fleet_launches(fleet, counts):
+    """Every graph of the fleet's cache: 7 x split ``qmm``/``qmm_int4``
+    launches a forward, all on the tensor-core route, and one flash launch
+    a layer; eager launches only the captures' warm-up runs; one
+    ``group_quantize`` launch per materialized weight set."""
+    from repro_torch import kernels as tk
+    cc = fleet.compile_cache
+    eager_qmm = 0
+    for key, cf in cc.items():
+        assert cf.graph is not None, f"{key[0].name}: a forward uncaptured"
+        c = key[0]
+        rec = cf.launches
+        assert rec.get("qmm", 0) + rec.get("qmm_int4", 0) \
+            == 7 * c.split_layer, (c.name, rec)
+        assert rec.get("qmm.simt", 0) == rec.get("qmm_int4.simt", 0) == 0
+        assert rec.get("flash_attention_fwd", 0) == c.n_layers, rec
+        eager_qmm += 7 * c.split_layer
+    eager = tk.launch_counts()
+    assert eager["qmm"] + eager["qmm_int4"] == eager_qmm, (eager, eager_qmm)
+    for name in ("qmm", "qmm_int4"):
+        assert getattr(tk, name).route_launches["simt"] == 0, name
+    sets = [k for k in cc.buffer_keys() if k[0] == "agent-weights"]
+    assert eager["group_quantize"] == len(sets), (eager, len(sets))
+    assert counts["qmm"] > 0 and counts["qmm_int4"] > 0, counts
+    assert counts["flash_attention_fwd"] > 0, counts
+
+
+def run_fleet(specs, allocator, dev, traffic):
+    """One fleet run (mixed precision, kernel path, CUDA graphs, max_batch
+    4): warmup, then the traffic.  Returns (fleet, responses per agent,
+    launches, warmup graphs, wall s)."""
+    import torch
+    from repro_torch.runtime import FleetCoInferenceEngine
+    before = open_window()      # the fleet's cache is made in the window
+    t0 = time.perf_counter()
+    fleet = FleetCoInferenceEngine(specs, allocator=allocator, max_batch=4,
+                                   path="kernel", mixed_precision=True,
+                                   compiled=True, device=dev)
+    n_warm = fleet.warmup(FLEET_SEQ[1])
+    for name, toks, t in traffic:
+        if name in fleet.engines:
+            fleet.submit(name, toks, arrival_s=t)
+    out = fleet.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, _ = window_counts(fleet.compile_cache, before)
+    hold_fleet_launches(fleet, counts)
+    for name, rs in out.items():
+        eng = fleet.engines[name]
+        for b in eng.batch_history:
+            # a plan whose layers are all 4 or all 8 bits serves as b̂
+            bits = b.plan_bits or (b.b_hat,)
+            assert 2 <= min(bits) and max(bits) <= 8, (name, bits)
+        for r in rs:
+            assert torch.isfinite(r.logits).all(), (name, r.request_id)
+    return fleet, out, counts, n_warm, wall
+
+
+def fleet_path(cfg, params, dev):
+    """Phase 14; returns the launches of the joint and equal-split fleet
+    windows and the agents' specs (for phase 15)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fleet as fl
+    from repro_torch.core.quantization import QuantPlan
+    from repro_torch.env import presets
+    from repro_torch.runtime import (AdaptiveCoInferenceEngine,
+                                     BatchedCoInferenceEngine,
+                                     CoInferenceEngine,
+                                     FleetCoInferenceEngine)
+
+    specs = fleet_members(cfg, params, dev)
+    traffic = fleet_traffic(specs)
+    launches = dict.fromkeys(("group_quantize", "qmm", "qmm_int4",
+                              "flash_attention_fwd"), 0)
+    bounds = {}
+    for allocator in ("joint", "equal"):
+        fleet, out, counts, n_warm, wall = run_fleet(specs, allocator, dev,
+                                                     traffic)
+        for k in launches:
+            launches[k] += counts[k]
+        rep = fleet.report()
+        bounds[allocator] = rep.aggregate_bound
+        assert sum(rep.shares) <= 1.0 + 1e-9, rep.shares
+        assert rep.requests_served == len(traffic)
+        cc = fleet.compile_cache
+        print(f"  fleet {allocator}: {len(specs)} agents, {n_warm} graphs at "
+              f"warmup({FLEET_SEQ[1]}), {cc.misses - n_warm} captured while "
+              f"serving; {rep.requests_served} requests in "
+              f"{rep.batches_served} batches in {wall:.2f}s; shares "
+              f"{[round(s, 4) for s in rep.shares]} (sum "
+              f"{sum(rep.shares):.6f}); aggregate bound "
+              f"{rep.aggregate_bound:.4e}; launches {counts}")
+        for a in rep.per_agent:
+            er = fleet.engines[a.name].report()
+            print(f"    agent {a.name:8s} share={a.share:.4f} plan bits "
+                  f"{list(a.plan_bits)} (b_hat {a.b_hat}) "
+                  f"captures={er.compile_misses} hits={er.compile_hits} "
+                  f"batches={a.batches_served} clock={a.clock_s:.3f}s "
+                  f"violations={a.deadline_violations}")
+        if allocator != "joint":
+            continue
+        # the compile-cache rule: one graph per (config, plan, bucket) --
+        # the qwen agents over one params object share theirs, and
+        # stablelm-3b's are its own
+        keys = [k for k, _ in cc.items()]
+        for c in {k[0] for k in keys}:
+            mine = [k for k in keys if k[0] == c]
+            assert len(mine) == len({(k[1], k[3]) for k in mine}), c.name
+        q_caps = sum(fleet.engines[s.name].report().compile_misses
+                     for s in specs if s.model.cfg == cfg)
+        q_keys = sum(1 for k in keys if k[0] == cfg)
+        assert q_caps == q_keys, (q_caps, q_keys)
+        shared = sum(fleet.engines[s.name].report().compile_hits
+                     for s in specs if s.model.cfg == cfg)
+        print(f"    compile cache: {len(keys)} graphs, {q_keys} for the two "
+              f"qwen2-0.5b agents (one per plan and bucket; the second "
+              f"agent reused the first's graphs {shared} times), "
+              f"{len(keys) - q_keys} for stablelm-3b")
+
+        # each member against a directly built engine at its slice, with
+        # its own caches: bitwise
+        for s, share in zip(specs, fleet.allocation.shares):
+            p = fl.shared_params(s.sysp, share)
+            kw = dict(classes=[s.qos], max_batch=4, path="kernel",
+                      mixed_precision=True, compiled=True, device=dev)
+            if s.environment is not None:
+                direct = AdaptiveCoInferenceEngine(
+                    s.model, s.params, p, environment=presets.wifi_markov(
+                        seed=0), policy=s.policy, **kw)
+            else:
+                direct = BatchedCoInferenceEngine(s.model, s.params, p, **kw)
+            direct.warmup(FLEET_SEQ[1])
+            for name, toks, t in traffic:
+                if name == s.name:
+                    direct.submit(toks, s.qos.name, arrival_s=t)
+            got = {r.request_id: r for r in out[s.name]}
+            for r in direct.drain():
+                g = got.pop(r.request_id)
+                assert torch.equal(g.logits, r.logits), \
+                    f"{s.name} request {r.request_id}: fleet != direct"
+                assert g.stats == r.stats, s.name
+            assert not got
+            del direct
+        print(f"    every member's {FLEET_REQUESTS} responses == a directly "
+              f"built engine at its slice with its own caches: bitwise")
+
+        # per agent: device ms of one 4 x 64 replay (CUDA events, hot) and
+        # the wall of serve_batch (after the counts were read)
+        for s in specs:
+            eng = fleet.engines[s.name]
+            eng._configure_class(s.qos.name)
+            toks = np.random.default_rng(1).integers(
+                0, s.model.cfg.vocab_size, size=(B, S))
+            exe = eng.engine._compiled_executable(B, S)
+            dev_ms, walls = [], []
+            for _ in range(7):
+                torch.cuda.synchronize()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                exe()
+                b.record()
+                b.synchronize()
+                dev_ms.append(a.elapsed_time(b))
+                t0 = time.perf_counter()
+                eng.engine.serve_batch({"tokens": toks})
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            print(f"    agent {s.name:8s} ({s.model.cfg.name}, "
+                  f"{eng.engine.agent_path}) forward {B}x{S}: "
+                  f"{statistics.median(dev_ms):.3f} device ms (CUDA events "
+                  f"around one replay, median of 7), "
+                  f"{statistics.median(walls):.3f} ms wall serve_batch")
+
+        # stablelm-3b's forward at its plan against the plain versions
+        mon = specs[[s.name for s in specs].index("monitor")]
+        plan = fleet.engines["monitor"].plan_for("monitor")
+        eng = CoInferenceEngine(mon.model, mon.params, mon.sysp,
+                                path="kernel", device=dev)
+        eng.configure(plan)
+        toks = np.random.default_rng(3).integers(
+            0, mon.model.cfg.vocab_size, size=(B, S))
+        logits, _ = eng.serve_batch({"tokens": toks})
+        line, _ = hold_against_plain(
+            eng, plain_lm(mon.model.cfg), plan, eng.agent_path, logits, toks,
+            torch.as_tensor(toks, dtype=torch.long, device=dev))
+        print(f"    stablelm-3b {eng.agent_path} vs plain: {line}")
+        del eng, fleet
+    assert bounds["joint"] <= bounds["equal"] * (1.0 + 1e-12), bounds
+
+    # a one-agent fleet == its directly built engine, bitwise
+    drone = specs[0]
+    solo = FleetCoInferenceEngine([drone], max_batch=4, path="kernel",
+                                  mixed_precision=True, compiled=True,
+                                  device=dev)
+    direct = BatchedCoInferenceEngine(
+        drone.model, drone.params, drone.sysp, classes=[drone.qos],
+        max_batch=4, path="kernel", mixed_precision=True, compiled=True,
+        device=dev)
+    assert solo.allocation.shares == (1.0,)
+    for name, toks, t in traffic:
+        if name == drone.name:
+            solo.submit(name, toks, arrival_s=t)
+            direct.submit(toks, drone.qos.name, arrival_s=t)
+    for x, y in zip(solo.drain()[drone.name], direct.drain()):
+        assert torch.equal(x.logits, y.logits) and x.stats == y.stats
+    print(f"    one-agent fleet == its direct engine: bitwise "
+          f"({FLEET_REQUESTS} responses); joint bound "
+          f"{bounds['joint']:.4e} <= equal {bounds['equal']:.4e}")
+    del solo, direct
+    torch.cuda.empty_cache()
+    return launches, specs
+
+
+def resilient_batched(cfg, model, params, sysp, dev):
+    """Phase 15, batched: COMPILED_CLASSES and phase 10's requests, bare,
+    supervised on a clean trace, then supervised and bare under
+    examples/chaos_spec.json, the spec CHAOS_DILATION times slower, and
+    (the same requests in OUTAGE_CLASS) an outage window whose batches fail
+    over to device-only serving.  Returns the windows' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.env import (ChaosTrace, LinkOutage, chaos_from_spec,
+                                 presets)
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime import (BatchedCoInferenceEngine,
+                                     CompiledForwardCache, QosClass,
+                                     ServingSupervisor)
+
+    classes = [QosClass(n, t0, e0) for n, t0, e0 in COMPILED_CLASSES]
+    outage = [QosClass(*OUTAGE_CLASS)]
+    rng = np.random.default_rng(6)
+    lens = rng.integers(COMPILED_SEQ[0], COMPILED_SEQ[1] + 1,
+                        size=COMPILED_REQUESTS)
+    reqs = [(rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32),
+             classes[i % 2].name) for i, n in enumerate(lens)]
+    spec = json.loads((ROOT / "examples" / "chaos_spec.json").read_text())
+    # the spec's fault pattern on this workload's time scale: a full-width
+    # batch bills seconds (C.9), the spec's horizon is 5 s of 1 ms steps
+    k = CHAOS_DILATION
+    slow = dict(spec, dt_s=spec["dt_s"] * k, horizon_s=spec["horizon_s"] * k,
+                preemption={n: v * k for n, v in spec["preemption"].items()})
+    # an uplink outage longer than the retry budget (the reference's sticky
+    # outage, tests/test_chaos.py, made one window): batches fail over
+    sticky = ChaosTrace(dt_s=0.1, horizon_s=60.0, seed=1,
+                        link_outage=LinkOutage(p_fail=0.3, p_recover=0.05))
+    sticky.link_up[:] = True
+    sticky.link_up[sticky.index_at(OUTAGE_WINDOW[0]):
+                   sticky.index_at(OUTAGE_WINDOW[1])] = False
+    cache = CompiledForwardCache()
+    launches = dict.fromkeys(("group_quantize", "qmm", "qmm_int4",
+                              "flash_attention_fwd"), 0)
+    per_forward = 7 * cfg.split_layer
+    runs = {}
+    failovers = 0
+    for name, chaos, supervised, cls in (
+            ("bare engine", None, None, classes),
+            ("clean trace", presets.chaos_clean(), True, classes),
+            ("chaos_spec supervised", chaos_from_spec(spec), True, classes),
+            ("chaos_spec bare", chaos_from_spec(spec), False, classes),
+            (f"chaos_spec x{k} supervised", chaos_from_spec(slow), True,
+             classes),
+            (f"chaos_spec x{k} bare", chaos_from_spec(slow), False, classes),
+            ("outage window supervised", sticky, True, outage),
+            ("outage window bare", sticky, False, outage)):
+        before = open_window(cache)
+        eng = BatchedCoInferenceEngine(model, params, sysp, classes=cls,
+                                       max_batch=4, path="kernel",
+                                       compiled=True, compile_cache=cache,
+                                       device=dev)
+        eng.warmup(COMPILED_SEQ[1])
+        m0 = cache.misses
+        tracer = Tracer()
+        front = eng if chaos is None else ServingSupervisor(
+            eng, chaos=chaos, supervised=supervised, seed=chaos.seed,
+            tracer=tracer)
+        ids = [front.submit(t, q if cls is classes else cls[0].name)
+               for t, q in reqs]
+        t0 = time.perf_counter()
+        out = front.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, replayed = window_counts(cache, before)
+        for k_ in launches:
+            launches[k_] += counts[k_]
+        got = [r.request_id for r in out]
+        assert len(got) == len(set(got)) and set(got) <= set(ids), \
+            f"{name}: duplicated or unknown responses"
+        for r in out:
+            assert torch.isfinite(r.logits).all(), name
+        hist = eng.batch_history
+        assert min(b.b_hat for b in hist) >= 2, \
+            f"{name}: a batch below 2 bits ({[b.b_hat for b in hist]})"
+        # one forward replayed per batch: 7 x split products on its
+        # agent path's kernel (none on the fake path), a flash launch a
+        # layer
+        paths = [b.agent_path for b in hist]
+        want = {"qmm": per_forward * paths.count("kernel-int8"),
+                "qmm_int4": per_forward * paths.count("kernel-int4"),
+                "flash_attention_fwd": cfg.n_layers * len(hist)}
+        assert {k_: replayed.get(k_, 0) for k_ in want} == want, \
+            f"{name}: replayed {replayed} != {want} for batches {paths}"
+        runs[name] = {r.request_id: r for r in out}
+        line = f"{len(out)} delivered"
+        if chaos is not None:
+            rep = front.report()
+            assert rep.delivered + rep.failed + rep.shed == len(reqs), rep
+            assert rep.tokens_duplicated == 0
+            line = (f"delivered {rep.delivered}/{rep.requests_total} (failed "
+                    f"{rep.failed}, shed {rep.shed}) retries={rep.retries} "
+                    f"retransmits={rep.retransmits} "
+                    f"failovers={rep.failovers} faults={rep.faults_seen} "
+                    f"clock={rep.clock_s:.3f}s")
+            spans = [e["args"] for e in tracer.events
+                     if e["name"] == "failover.local" and e["ph"] == "B"]
+            assert len(spans) == rep.failovers, (spans, rep.failovers)
+            if rep.failovers:
+                # the failover batches serve at b̂ 4: every batch at 4 bits
+                # ran kernel-int4, so each launched per_forward qmm_int4
+                assert {s["b_hat"] for s in spans} == {4}, spans
+                assert all(p == "kernel-int4" for b, p in zip(hist, paths)
+                           if b.b_hat == 4), paths
+                line += (f"; failover batches at b_hat "
+                         f"{[s['b_hat'] for s in spans]} on kernel-int4, "
+                         f"{per_forward} qmm_int4 launches each")
+            if supervised:
+                assert rep.failed == 0, rep
+                failovers += rep.failovers
+        print(f"  resilience batched {name:26s}: {line}; b_hat per batch "
+              f"{[(b.b_hat, b.agent_path) for b in hist]}; "
+              f"{cache.misses - m0} graphs captured while serving; "
+              f"{wall:.2f}s wall; launches {counts}")
+    for rid, r in runs["bare engine"].items():
+        c = runs["clean trace"][rid]
+        assert torch.equal(r.logits, c.logits) and r.stats == c.stats
+    assert failovers >= 1, "no batch failed over to device-only serving"
+    print(f"    clean trace == bare engine: bitwise ({len(reqs)} responses); "
+          f"{failovers} device-only failovers, through qmm_int4")
+    return launches
+
+
+def resilient_decode(cfg, params, dev, speculative):
+    """Phase 15, decode: phase 7's prompts at (8, 8) (speculative: draft
+    (4, 4)) from CUDA graphs, uninterrupted, then with the server preempted
+    for the middle of the run, supervised and bare.  Returns the windows'
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cost_model import SystemParams
+    from repro_torch.env import ChaosTrace, ServerPreemption
+    from repro_torch.launch.serve import decode_system_params
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime import (CompiledForwardCache, DecodeEngine,
+                                     QosClass, ServingSupervisor,
+                                     SpeculativeDecodeEngine,
+                                     greedy_decode_reference)
+
+    model = DecoderLM(cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in DECODE_PROMPTS]
+    per_layer = cfg.active_param_count() / cfg.n_layers
+    sysp = decode_system_params(cfg, SystemParams(
+        n_flop_agent=2.0 * per_layer * cfg.split_layer * B * S,
+        n_flop_server=2.0 * per_layer * (cfg.n_layers - cfg.split_layer)
+        * B * S), 4, S, DECODE_NEW, speculative=speculative)
+    pin = QosClass("interactive", *DECODE_BUDGET)
+    cache = CompiledForwardCache()
+    kind = "speculative" if speculative else "decode"
+
+    def engine():
+        kw = dict(classes=[pin], auto=False, max_batch=4,
+                  max_new_tokens=DECODE_NEW, compile_cache=cache, device=dev)
+        if speculative:
+            e = SpeculativeDecodeEngine(model, params, sysp, **kw)
+            e.set_operating_point(pin.name, 8, 8, b_draft=4, k=4)
+        else:
+            e = DecodeEngine(model, params, sysp, **kw)
+            e.set_operating_point(pin.name, 8, 8)
+        return e
+
+    launches = dict.fromkeys(("quantized_decode_attention",
+                              "flash_attention_fwd", "row_gemm"), 0)
+    eng0 = engine()
+    eng0.warmup(max(DECODE_PROMPTS), DECODE_NEW)
+    t_round = eng0.decode_round_cost(pin.name, 512)[0]
+    arrivals = [a * t_round for a in DECODE_ARRIVE]
+    refs = [greedy_decode_reference(model, eng0.class_params(pin.name), p,
+                                    DECODE_NEW, b_kv=8, compile_cache=cache,
+                                    device=dev) for p in prompts]
+    for p, t in zip(prompts, arrivals):
+        eng0.submit(p, pin.name, arrival_s=t)
+    t0 = time.perf_counter()
+    for r in eng0.drain():
+        assert np.array_equal(r.tokens, refs[r.request_id])
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter() - t0
+    span = eng0.clock_s
+    for supervised in (True, False):
+        total = dict(recoveries=0, lost=0, delivered=0, crashes=0,
+                     restored_crashes=0, wall=0.0, recover=0.0, d2h=0)
+        for lo, hi in RESILIENT_CRASHES:
+            chaos = ChaosTrace(dt_s=t_round, horizon_s=4.0 * span, seed=0,
+                               preemption=ServerPreemption(mtbf_s=1e9,
+                                                           mttr_s=1e9))
+            i0 = chaos.index_at(lo * span)
+            i1 = max(i0 + 1, chaos.index_at(hi * span))
+            chaos.server_up[:] = True
+            chaos.server_up[i0:i1] = False
+            eng = engine()
+            tracer = Tracer()
+            sup = ServingSupervisor(
+                eng, chaos=chaos, supervised=supervised, seed=3,
+                deadline_factor=RESILIENT_DEADLINE_FACTOR, tracer=tracer)
+            rids = {sup.submit(p, pin.name, arrival_s=t): i
+                    for i, (p, t) in enumerate(zip(prompts, arrivals))}
+            before = open_window(cache)
+            d2h0 = eng.report().d2h_bytes
+            t0 = time.perf_counter()
+            out = sup.drain()
+            torch.cuda.synchronize()
+            total["wall"] += time.perf_counter() - t0
+            counts, _ = window_counts(cache, before)
+            for k in launches:
+                launches[k] += counts[k]
+            rep = sup.report()
+            total["d2h"] += eng.report().d2h_bytes - d2h0
+            total["recoveries"] += rep.recoveries
+            total["lost"] += rep.tokens_lost
+            total["delivered"] += rep.tokens_delivered
+            # a crash's recovery on the tracer's clock: from its
+            # preemption edge to the last stream it restored
+            last = {}
+            for e in tracer.events:
+                if e["name"] == "fault.inject" and \
+                        e["args"]["kind"] == "preemption":
+                    edge = e["ts"]
+                    last[edge] = None
+                elif e["name"] == "recover.restore":
+                    last[edge] = e["ts"]
+            spans = [t - e for e, t in last.items() if t is not None]
+            total["crashes"] += len(last)
+            total["restored_crashes"] += len(spans)
+            total["recover"] += sum(spans) * 1e-6
+            assert rep.tokens_duplicated == 0, rep
+            if supervised:
+                assert rep.delivered == len(prompts) and rep.failed == 0, \
+                    rep
+                assert rep.tokens_lost == 0, rep
+                for r in out:
+                    assert np.array_equal(r.tokens,
+                                          refs[rids[r.request_id]]), \
+                        f"{kind}: resumed request {rids[r.request_id]} " \
+                        "differs"
+        if supervised:
+            assert total["recoveries"] >= 1, total
+        else:
+            assert total["lost"] > 0, total
+        print(f"  resilience {kind} {'supervised' if supervised else 'bare'}"
+              f" over {len(RESILIENT_CRASHES)} crash windows "
+              f"{RESILIENT_CRASHES} of the run: recoveries="
+              f"{total['recoveries']}, tokens delivered/lost="
+              f"{total['delivered']}/{total['lost']}, 0 duplicated; "
+              f"{total['wall']:.2f}s wall (uninterrupted {wall0:.2f}s a "
+              f"run); {total['crashes']} crash events, the "
+              f"{total['restored_crashes']} that restored streams recovered "
+              f"in {total['recover'] * 1e3:.1f} ms wall (preemption edge to "
+              f"the last stream restored: snapshot, resume through the "
+              f"batch-1 graphs), {total['d2h']} device-to-host bytes")
+    print(f"    every supervised {kind} stream == its uninterrupted "
+          f"batch-1 reference: bitwise ({len(prompts)} x {DECODE_NEW} "
+          f"tokens)")
+    return launches
+
+
+def resilient_fleet(specs, dev):
+    """Phase 15, fleet: phase 14's joint fleet under agent dropout
+    (RESILIENT_DROPOUT): one reallocation per membership edge of the trace
+    over the run, no request lost.  Returns the window's launches."""
+    import torch
+    from repro_torch.env import AgentDropout, ChaosTrace
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime import FleetCoInferenceEngine, ServingSupervisor
+
+    traffic = fleet_traffic(specs)
+    fleet = FleetCoInferenceEngine(specs, allocator="joint", max_batch=4,
+                                   path="kernel", mixed_precision=True,
+                                   compiled=True, device=dev)
+    n_warm = fleet.warmup(FLEET_SEQ[1])
+    chaos = ChaosTrace(dt_s=0.5, horizon_s=60.0, seed=9,
+                       n_agents=len(specs),
+                       dropout=AgentDropout(p_drop=0.05, p_rejoin=0.3))
+    # deterministic windows over the seeded trace: an agent away for a
+    # stretch longer than any batch the frontier jumps by
+    chaos.agents_up[:] = True
+    names = [s.name for s in specs]
+    for name, (lo, hi) in RESILIENT_DROPOUT.items():
+        chaos.agents_up[names.index(name),
+                        chaos.index_at(lo):chaos.index_at(hi)] = False
+    tracer = Tracer()
+    sup = ServingSupervisor(fleet, chaos=chaos, seed=3, tracer=tracer)
+    for name, toks, t in traffic:
+        sup.submit(name, toks, arrival_s=t)
+    before = open_window(fleet.compile_cache)
+    t0 = time.perf_counter()
+    out = sup.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, _ = window_counts(fleet.compile_cache, before)
+    rep = sup.report()
+    # the membership edges of the trace up to the fleet's last clock
+    end = chaos.index_at(max(e.clock_s for e in fleet.engines.values()))
+    sets = [frozenset(n for i, n in enumerate(names) if chaos.agents_up[i, j])
+            for j in range(end + 1)]
+    edges = sum(a != b for a, b in zip(sets, sets[1:]))
+    drops = sum(1 for e in tracer.events if e["name"] == "fault.inject"
+                and e["args"]["kind"] == "dropout")
+    assert rep.delivered == len(traffic) and rep.failed == 0, rep
+    assert rep.reallocations == edges >= 1, (rep.reallocations, edges)
+    assert drops == len(RESILIENT_DROPOUT), drops
+    for r in out:
+        assert torch.isfinite(r.logits).all()
+    bits = [(n, b.plan_bits or (b.b_hat,)) for n, e in fleet.engines.items()
+            for b in e.batch_history]
+    assert all(min(pb) >= 2 for _, pb in bits), bits
+    print(f"  resilience fleet under dropout {RESILIENT_DROPOUT}: "
+          f"delivered {rep.delivered}/"
+          f"{rep.requests_total}, failed {rep.failed}, reallocations "
+          f"{rep.reallocations} == the trace's membership edges {edges} "
+          f"({drops} dropouts seen), faults {rep.faults_seen}; "
+          f"{fleet.compile_cache.misses - n_warm} graphs captured while "
+          f"serving; {wall:.2f}s wall; launches {counts}")
+    del fleet, sup
+    torch.cuda.empty_cache()
+    return counts
+
+
+def resilient_training(cfg, dev):
+    """Phase 15, training: ``Trainer.fit`` (B x S = TRAIN_BATCH x TRAIN_SEQ,
+    QAT 8, int8-EF) for TRAIN_STEPS steps checkpointing every 5 (keep 1);
+    then a run cut after step 7, whose step-5 checkpoint was written while
+    steps 6 and 7 changed the state in place, and a fresh trainer that
+    restores that asynchronous checkpoint and runs to TRAIN_STEPS: the
+    restored state bitwise the state handed to ``save_async``, the losses
+    against the uninterrupted run's, and a synchronous save of the same
+    state timed in a directory of its own.  Checkpoints go to build/ckpt
+    under the checkout and are deleted.  Returns the flash launches."""
+    import math
+    import shutil
+
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import (MarkovLMConfig, MarkovLMDataset,
+                                  ShardedLoader)
+    from repro_torch.models.lm import DecoderLM, tree_leaves
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    def leaves(state):
+        p, o, e = state
+        return list(tree_leaves(p)) + [o.step] + list(tree_leaves(o.m)) \
+            + list(tree_leaves(o.v)) + list(tree_leaves(e))
+
+    class Keeping(CheckpointManager):
+        """Keeps a device copy of each tree handed to ``save_async``,
+        taken on the caller's thread before the manager's host snapshot:
+        what the checkpoint must hold, whatever later steps do in place."""
+
+        def save_async(self, step, tree, metadata=None):
+            self.kept = (step, [t.clone() for t in leaves(
+                (tree["params"], tree["opt"], tree["err"]))])
+            super().save_async(step, tree, metadata)
+
+    root = ROOT / "build" / "ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    tc = TrainConfig(qat_bits=8, grad_compression="int8_ef", log_every=1)
+    data = MarkovLMDataset(MarkovLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH))
+
+    def trainer(d, manager=CheckpointManager):
+        return Trainer(DecoderLM(cfg),
+                       AdamW(learning_rate=cosine_schedule(3e-4, 20,
+                                                           TRAIN_STEPS)),
+                       dev, tc, ckpt=manager(str(d), keep=1,
+                                             save_interval=5))
+
+    flash = 0
+    try:
+        tk.reset_launch_counts()
+        full = trainer(root / "full")
+        t0 = time.perf_counter()
+        _, hist = full.fit(ShardedLoader(data, device=dev), TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall_full = time.perf_counter() - t0
+        flash += tk.launch_counts()["flash_attention_fwd"]
+        losses = [h["loss"] for h in hist]
+        assert all(math.isfinite(x) for x in losses)
+        del full, _
+        shutil.rmtree(root / "full")
+        torch.cuda.empty_cache()
+
+        # the interrupted run: cut after step 7, its step-5 checkpoint
+        # written asynchronously while steps 6 and 7 ran
+        tk.reset_launch_counts()
+        first = trainer(root / "cut", Keeping)
+        _, hist_a = first.fit(ShardedLoader(data, device=dev), 7)
+        torch.cuda.synchronize()
+        step, kept = first.ckpt.kept
+        assert step == 5, step
+        del first, _
+        torch.cuda.empty_cache()
+        manifest = json.loads((root / "cut" / "step_5" /
+                               "manifest.json").read_text())
+        nbytes = manifest["bytes_raw"]
+        second = trainer(root / "cut")
+        like = second.init_state(0)
+        t0 = time.perf_counter()
+        restored = second.maybe_restore(*like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del like
+        assert restored[3] == 5
+        for a, b in zip(leaves(restored[:3]), kept):
+            assert a.device == b.device and torch.equal(a, b), \
+                "restored state != the state handed to save_async"
+        del kept
+        torch.cuda.empty_cache()
+        # a synchronous save of the same state, timed alone in its own
+        # directory
+        sync = CheckpointManager(str(root / "sync"), keep=1)
+        tree = {"params": restored[0], "opt": restored[1],
+                "err": restored[2]}
+        t0 = time.perf_counter()
+        sync.save(5, tree, metadata={"data_step": 5})
+        save_s = time.perf_counter() - t0
+        shutil.rmtree(root / "sync")
+        del tree
+        loader = ShardedLoader(data, device=dev)
+        loader.seek(restored[3])
+        final, hist_b = second.fit(loader, TRAIN_STEPS - 5,
+                                   state=restored[:3])
+        torch.cuda.synchronize()
+        del restored
+        flash += tk.launch_counts()["flash_attention_fwd"]
+        got = [h["loss"] for h in hist_a[:5] + hist_b]
+        assert [h["step"] for h in hist_a[:5] + hist_b] == \
+            list(range(1, TRAIN_STEPS + 1))
+        assert [h["step"] for h in hist_a] == list(range(1, 8))
+        cut = [h["loss"] for h in hist_a]
+        bitwise = got == losses and cut == losses[:7]
+        worst = max(abs(a - b) / abs(b)
+                    for a, b in zip(got + cut, losses + losses[:7]))
+        assert worst <= 1e-4, f"resumed losses {got} ({cut}) vs {losses}"
+        print(f"  resilience training {cfg.name} B={TRAIN_BATCH} "
+              f"S={TRAIN_SEQ} qat 8 int8_ef: uninterrupted {TRAIN_STEPS} "
+              f"steps in {wall_full:.2f}s (async checkpoints at 5 and 10, "
+              f"keep 1); checkpoint {nbytes} bytes; the cut run's async "
+              f"step-5 checkpoint (written while steps 6-7 ran) restored "
+              f"in {restore_s:.2f}s ({nbytes / restore_s / 1e9:.3f} GB/s: "
+              f"read, sha256, host-to-device) == the state handed to "
+              f"save_async: bitwise; a synchronous save of it "
+              f"{save_s:.2f}s ({nbytes / save_s / 1e9:.3f} GB/s: "
+              f"device-to-host copy, sha256, write); cut and resumed "
+              f"losses == uninterrupted: "
+              + ("bitwise" if bitwise else f"within {worst:.2e} relative "
+                 f"(limit 1e-4), not bitwise")
+              + f"; losses {[round(x, 6) for x in got]}")
+        del final, second
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return flash
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2406,6 +3275,28 @@ def main() -> int:
               + (f"f32-simt-bound={d['bound_f32_ms']:.4f} "
                  if "bound_f32_ms" in d else "")
               + f"err={d['max_abs_err']:.2e}")
+
+    # stablelm-3b's seven agent matmul shapes (K, N in 2560 / 6912), the
+    # same checks: the tensor-core route, KERNEL_TOL, rows bitwise alone
+    from repro_torch.configs.stablelm_3b import FULL as SL_FULL
+    t0 = time.perf_counter()
+    sl_detail = []
+    sl_qmm = check_kernels(SL_FULL, dev, flush, sl_detail)
+    print(f"stablelm-3b agent matmuls vs plain: ok in "
+          f"{time.perf_counter() - t0:.1f}s")
+    for name in ("qmm", "qmm_int4"):
+        s_ = sl_qmm[name]
+        print(f"  {name} per stablelm-3b forward (M={B * S}, "
+              f"{7 * SL_FULL.split_layer} launches): ms={s_['ms']:.4f} "
+              f"torch.matmul={s_['library_ms']:.4f} "
+              f"plain={s_['plain_ms']:.4f} bound={s_['bound_ms']:.4f} "
+              f"({s_['bound_by']}) f32-simt-bound={s_['bound_f32_ms']:.4f}")
+    for d in sl_detail:
+        if d.get("m") == B * S:
+            print(f"  {d['kernel']:15s} stablelm k={d['k']} n={d['n']} "
+                  f"ms={d['ms']:.4f} plain={d['plain_ms']:.4f} "
+                  f"lib={d['library_ms']:.4f} bound={d['bound_ms']:.4f} "
+                  f"err={d['max_abs_err']:.2e}")
 
     # 4. the main path at full width
     t0 = time.perf_counter()
@@ -2523,7 +3414,7 @@ def main() -> int:
 
     # 8. flash attention against its plain version
     t0 = time.perf_counter()
-    summary["flash_attention_fwd"] = check_flash_kernel(dev, flush)
+    summary["flash_attention_fwd"], _ = check_flash_kernel(dev, flush)
     print(f"flash kernel phase: {time.perf_counter() - t0:.1f}s")
 
     # 9. training at full width
@@ -2566,7 +3457,36 @@ def main() -> int:
         counts[name] += n
     print(f"adaptive serving: {time.perf_counter() - t0:.1f}s")
 
-    # 14. summary
+    # 14. a fleet of three full-width agents of two families
+    t0 = time.perf_counter()
+    print(f"  {release_memory()}")
+    fleet, fleet_specs = fleet_path(cfg, params, dev)
+    for name, n in fleet.items():
+        counts[name] += n
+    print(f"fleet serving: {time.perf_counter() - t0:.1f}s")
+
+    # 15. resilience: supervised serving, crash-recoverable decode,
+    # checkpoint/restart training; each part starts from the memory the
+    # earlier phases released (a capture that has to free cached memory
+    # for its pool is invalidated)
+    t0 = time.perf_counter()
+    print(f"  {release_memory()}")
+    for name, n in resilient_fleet(fleet_specs, dev).items():
+        counts[name] += n
+    del fleet_specs
+    for part in (lambda: resilient_batched(cfg, model, params, sysp, dev),
+                 lambda: resilient_decode(cfg, params, dev, False),
+                 lambda: resilient_decode(cfg, params, dev, True)):
+        print(f"  {release_memory()}")
+        for name, n in part().items():
+            if name in counts:
+                counts[name] += n
+    print(f"  {release_memory()}")
+    counts["flash_attention_fwd"] += resilient_training(cfg, dev)
+    print(f"resilience: {time.perf_counter() - t0:.1f}s")
+
+
+    # 16. summary
     names = {"group_quantize": ("csrc/group_quantize.cu",
                                 "src/repro/kernels/quantize.py:35"),
              "qmm": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:67"),

@@ -9,13 +9,14 @@ paper's FC benchmark model of ``models/fcdnn.py``.
 
 from __future__ import annotations
 
-from . import blip2_proxy, fcdnn16, git_proxy, qwen2_0_5b
+from . import blip2_proxy, fcdnn16, git_proxy, qwen2_0_5b, stablelm_3b
 from .base import ModelConfig  # noqa: F401
 
 #: the paper's own evaluation models (§VI)
 PAPER_IDS = ("fcdnn-16", "blip2-proxy", "git-proxy")
 
-_PORTED = {"qwen2-0.5b": qwen2_0_5b, "fcdnn-16": fcdnn16,
+_PORTED = {"qwen2-0.5b": qwen2_0_5b, "stablelm-3b": stablelm_3b,
+           "fcdnn-16": fcdnn16,
            "blip2-proxy": blip2_proxy, "git-proxy": git_proxy}
 
 

@@ -11,6 +11,8 @@ Port of the uniform (P1) solvers of ``repro/core/codesign.py``:
   (`_solve_p4k`), rounding.
 * :func:`solve_oracle` — exhaustive search over the discrete bit-width with
   the closed-form min-energy frequency split per bit-width.
+* :func:`solve_device_only` — (P1) with the whole model on the agent
+  (:func:`device_only_params`), the serving supervisor's failover point.
 
 * :func:`solve_decode` — (P1) extended with the stored KV-cache
   bit-width b_kv, enumerated over the container ladder.
@@ -189,6 +191,46 @@ def solve_oracle(lam: float, p: SystemParams, t0: float, e0: float,
         if ok:
             return _pack(b_hat, f, fs, lam, p, b_emb=b_emb)
     return None
+
+
+# ---------------------------------------------------------------------------
+# Degraded device-only fallback (the serving supervisor's failover)
+# ---------------------------------------------------------------------------
+
+def device_only_params(p: SystemParams) -> SystemParams:
+    """The system with the split pinned fully on-agent: every server
+    FLOP moves to the device, and the uplink disappears (no boundary
+    embedding is ever transmitted, so transport delay/energy and the
+    link rate are all zeroed).  This is (P1) restricted to the corner
+    the paper's split makes first-class: when the server is
+    unreachable the agent still holds the full model at some b̂."""
+    return dataclasses.replace(
+        p, n_flop_agent=p.n_flop_agent + p.n_flop_server,
+        n_flop_server=0.0, link_bps=0.0, emb_bytes_full=0.0,
+        tx_power_w=0.0)
+
+
+def solve_device_only(lam: float, p: SystemParams, t0: float, e0: float,
+                      b_max: int = 16) -> CodesignSolution:
+    """(P1) over :func:`device_only_params`: the largest bit-width the
+    agent can run the *whole* model at within (T0, E0), with the
+    min-energy frequency assignment — the supervisor's degraded
+    operating point when the server is unreachable.
+
+    Never returns ``None``: if no bit-width meets both budgets the
+    energy budget is relaxed (deadline kept), and failing that the
+    solve pins b̂=1 at full frequency with ``feasible=False`` — a
+    degraded agent keeps acting, it does not halt."""
+    pl = device_only_params(p)
+    for b_hat in range(b_max, 0, -1):
+        ok, f, fs, _ = feasible_bitwidth(b_hat, pl, t0, e0)
+        if ok:
+            return _pack(b_hat, f, fs, lam, pl)
+    for b_hat in range(b_max, 0, -1):
+        ok, f, fs, _ = feasible_bitwidth(b_hat, pl, t0, math.inf)
+        if ok:
+            return _pack(b_hat, f, fs, lam, pl, feasible=False)
+    return _pack(1, pl.f_max, pl.f_server_max, lam, pl, feasible=False)
 
 
 # ---------------------------------------------------------------------------

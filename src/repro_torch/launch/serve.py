@@ -28,25 +28,46 @@ seeded ``torch.Generator``:
   ``--env-seed``) through ``AdaptiveCoInferenceEngine`` under
   ``--adaptive-policy`` (static, adaptive or oracle).
 
+* ``--fleet SPEC.json``: a multi-agent fleet from one shared edge server
+  (``FleetCoInferenceEngine``): the spec lists heterogeneous agents (arch,
+  QoS budgets, weights, optional per-agent environment traces), the fleet
+  allocator (``--allocator``: water-filling ``joint`` or the ``equal``
+  split) divides the server frequency, and every agent serves through its
+  own member engine over shared codesign and compile caches (see
+  ``examples/fleet_spec.json``).
+
 ``--mixed-precision`` replaces the uniform b̂ by the layer-wise bit
 allocation of ``core.mixed_precision`` in every mode, printing the
 reference's lines (the allocation, its bound beside the best uniform
 b̂'s, and the per-layer bits of every batch).
 
+``--chaos-trace SPEC.json`` injects a seeded fault trace (link outages,
+uplink corruption, server preemption, fleet agent dropout; see
+``examples/chaos_spec.json``, ``--chaos-seed`` overrides its seed) and
+serves the batched, adaptive, decode or fleet mode through the
+``ServingSupervisor``, which retries with backoff, retransmits corrupted
+uplinks, fails over to device-only serving and crash-recovers in-flight
+decode state; ``--chaos-bare`` drops the defenses for the unsupervised
+baseline.  ``--engine sequential`` has no queue to supervise and rejects
+the flag.
+
 Every mode takes ``--trace-out TRACE.json`` (a Chrome trace-event JSON of
 the run) and ``--metrics-out METRICS.json`` (a metrics snapshot), written at
 the end of the run even when it fails, as the reference's are.  Runs on the
-CUDA card unless ``--device cpu``.  The reference's fleet and chaos modes
-are not yet ported: each exits 2 with a one-line error, as does an arch
-with no servable config (``fcdnn-16``), an off-ladder ``--draft-bits``, a
-``--lookahead`` below 1, and ``--speculative`` or ``--decode`` on a model
-without the decode protocol.
+CUDA card unless ``--device cpu``.  Exits 2 with a one-line error, as the
+reference does, on an arch with no servable config (``fcdnn-16``) or one
+the port does not register (also as a fleet agent's), an unreadable fleet
+or chaos spec, ``--chaos-trace`` with ``--engine sequential``, an
+off-ladder ``--draft-bits``, a ``--lookahead`` below 1, and
+``--speculative`` or ``--decode`` on a model without the decode protocol.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import pathlib
 import sys
 import time
 
@@ -60,16 +81,15 @@ from ..core.cost_model import SystemParams
 from ..data import MarkovLMConfig, MarkovLMDataset
 from ..device import resolve_device
 from ..env import presets as env_presets
+from ..env.faults import chaos_from_spec
 from ..models.lm import DecoderLM
 from ..obs import NULL_METRICS, NULL_TRACER, MetricsRegistry, Tracer
 from ..runtime import (AdaptiveCoInferenceEngine, BatchedCoInferenceEngine,
                        CodesignCache, CoInferenceEngine, DecodeEngine,
-                       QosClass, SpeculativeDecodeEngine,
+                       FleetAgentSpec, FleetCoInferenceEngine, QosClass,
+                       ServingSupervisor, SpeculativeDecodeEngine,
                        greedy_decode_reference)
 from ..runtime.decode_engine import decode_protocol_gap
-
-# flags of the reference's serve CLI whose modes are not ported yet
-_NOT_PORTED = ("fleet", "chaos_trace")
 
 # the realizable draft-container rungs --speculative may pin
 SPEC_DRAFT_CHOICES = (2, 4, 8)
@@ -137,9 +157,24 @@ def main(argv=None) -> int:
     ap.add_argument("--adaptive-policy", default="adaptive",
                     choices=["static", "adaptive", "oracle"],
                     help="controller for --env-trace serving")
-    for flag in ("fleet", "chaos-trace"):
-        ap.add_argument(f"--{flag}", default=None,
-                        help="not yet ported (exits 2)")
+    ap.add_argument("--fleet", default=None, metavar="SPEC.json",
+                    help="serve a multi-agent fleet from one shared edge "
+                         "server; the JSON spec lists the agents (see "
+                         "examples/fleet_spec.json)")
+    ap.add_argument("--allocator", default=None,
+                    choices=["joint", "equal"],
+                    help="fleet share allocator: water-filling joint "
+                         "codesign or the equal-split baseline "
+                         "(default: the spec's choice, else joint)")
+    ap.add_argument("--chaos-trace", default=None, metavar="SPEC.json",
+                    help="inject a seeded fault trace and serve through "
+                         "the ServingSupervisor (see "
+                         "examples/chaos_spec.json)")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="override the chaos spec's seed")
+    ap.add_argument("--chaos-bare", action="store_true",
+                    help="unsupervised baseline: the same injected faults, "
+                         "no retry/failover/recovery (faults lose work)")
     ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
                     help="write a Chrome trace-event JSON of the run")
     ap.add_argument("--metrics-out", default=None, metavar="METRICS.json",
@@ -147,13 +182,9 @@ def main(argv=None) -> int:
                          "histograms) at the end of the run")
     args = ap.parse_args(argv)
 
-    used = [f"--{n.replace('_', '-')}" for n in _NOT_PORTED
-            if getattr(args, n)]
-    if used:
-        print(f"error: {' '.join(used)} is not yet ported to repro_torch "
-              "(the reference serves it: python -m repro.launch.serve)",
-              file=sys.stderr)
-        return 2
+    chaos, rc = _load_chaos(args)
+    if rc is not None:
+        return rc
     if args.speculative:
         if args.lookahead < 1:
             print(f"error: --lookahead {args.lookahead} is not a valid "
@@ -167,10 +198,71 @@ def main(argv=None) -> int:
                   "as every other plan", file=sys.stderr)
             return 2
         args.decode = True      # speculative serving is a decode mode
+    # observability is opt-in: without the flags the engines get the
+    # no-op singletons and pay nothing
+    tracer = Tracer() if args.trace_out else NULL_TRACER
+    metrics = MetricsRegistry() if args.metrics_out else NULL_METRICS
+    try:
+        return _dispatch(args, chaos, tracer, metrics)
+    finally:
+        _write_obs(args, tracer, metrics)
+
+
+def _load_chaos(args):
+    """Parse --chaos-trace into a ChaosTrace: (trace or None, None), or
+    (None, 2) after a one-line error."""
+    if args.chaos_trace is None:
+        return None, None
+    if args.engine == "sequential" and args.fleet is None \
+            and not args.decode and not args.speculative \
+            and args.env_trace is None:
+        print("error: --chaos-trace needs a queued engine to supervise; "
+              "--engine sequential serves one call at a time. Use the "
+              "batched/adaptive/decode/fleet modes.", file=sys.stderr)
+        return None, 2
+    spec_path = pathlib.Path(args.chaos_trace)
+    try:
+        spec = json.loads(spec_path.read_text(encoding="utf-8"))
+        chaos = chaos_from_spec(spec, seed=args.chaos_seed)
+    except (OSError, ValueError) as e:
+        print(f"error: cannot load chaos trace {spec_path}: {e}",
+              file=sys.stderr)
+        return None, 2
+    return chaos, None
+
+
+def _supervise(eng, chaos, args, tracer, metrics):
+    """Wrap an engine for --chaos-trace serving (None without a trace)."""
+    if chaos is None:
+        return None
+    return ServingSupervisor(eng, chaos=chaos,
+                             supervised=not args.chaos_bare,
+                             seed=chaos.seed, tracer=tracer,
+                             metrics=metrics)
+
+
+def _print_resilience(sup) -> None:
+    r = sup.report()
+    print(f"resilience [{r.mode}]: delivered {r.delivered}/"
+          f"{r.requests_total} (failed {r.failed}, shed {r.shed}) "
+          f"retries={r.retries} retransmits={r.retransmits} "
+          f"failovers={r.failovers} recoveries={r.recoveries} "
+          f"reallocations={r.reallocations} faults={r.faults_seen} "
+          f"tokens lost/dup={r.tokens_lost}/{r.tokens_duplicated} "
+          f"goodput={r.goodput:.1f} {r.goodput_unit}")
+
+
+def _dispatch(args, chaos, tracer, metrics) -> int:
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e.args[0]}", file=sys.stderr)
+        return 2
+    if args.fleet is not None:
+        return serve_fleet(args, device, tracer, metrics, chaos)
     try:
         cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-        device = resolve_device(args.device)
-    except (KeyError, RuntimeError) as e:
+    except KeyError as e:
         print(f"error: {e.args[0]}", file=sys.stderr)
         return 2
     if cfg is None:
@@ -193,21 +285,17 @@ def main(argv=None) -> int:
         n_flop_agent=2.0 * per_layer * cfg.split_layer * tokens,
         n_flop_server=2.0 * per_layer
         * (cfg.n_layers - cfg.split_layer) * tokens)
-    # observability is opt-in: without the flags the engines get the
-    # no-op singletons and pay nothing
-    tracer = Tracer() if args.trace_out else NULL_TRACER
-    metrics = MetricsRegistry() if args.metrics_out else NULL_METRICS
     if args.decode:
-        mode = serve_decode
-    elif args.env_trace is not None:
-        mode = serve_adaptive
-    else:
-        mode = serve_batched if args.engine == "batched" \
-            else serve_sequential
-    try:
-        return mode(cfg, model, params, sysp, device, args, tracer, metrics)
-    finally:
-        _write_obs(args, tracer, metrics)
+        return serve_decode(cfg, model, params, sysp, device, args, tracer,
+                            metrics, chaos)
+    if args.env_trace is not None:
+        return serve_adaptive(cfg, model, params, sysp, device, args,
+                              tracer, metrics, chaos)
+    if args.engine == "batched":
+        return serve_batched(cfg, model, params, sysp, device, args, tracer,
+                             metrics, chaos)
+    return serve_sequential(cfg, model, params, sysp, device, args, tracer,
+                            metrics)
 
 
 def _write_obs(args, tracer, metrics) -> None:
@@ -290,7 +378,7 @@ def serve_sequential(cfg, model, params, sysp, device, args, tracer,
 
 
 def serve_batched(cfg, model, params, sysp, device, args, tracer,
-                  metrics) -> int:
+                  metrics, chaos=None) -> int:
     """The batched engine over three QoS classes, printing what the
     reference's batched mode prints."""
     classes = [
@@ -335,13 +423,15 @@ def serve_batched(cfg, model, params, sysp, device, args, tracer,
                   f"b_hat={s.b_hat} f={s.f / 1e9:.2f}GHz "
                   f"f~={s.f_server / 1e9:.2f}GHz gap={s.objective:.3e}")
 
+    sup = _supervise(eng, chaos, args, tracer, metrics)
+    front = sup if sup is not None else eng
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         toks = rng.integers(0, cfg.vocab_size,
                             size=int(rng.integers(args.seq // 2,
                                                   args.seq + 1)))
-        eng.submit(toks, classes[i % len(classes)].name)
-    responses = eng.drain()
+        front.submit(toks, classes[i % len(classes)].name)
+    responses = front.drain()
 
     print(f"served {len(responses)} requests in "
           f"{len(eng.batch_history)} batches:")
@@ -364,11 +454,13 @@ def serve_batched(cfg, model, params, sysp, device, args, tracer,
         print(f"compile cache: {rep.compiled_variants} variants, "
               f"{rep.compile_hits} hits / {rep.compile_misses} misses "
               f"(every batch after warmup is a hit)")
+    if sup is not None:
+        _print_resilience(sup)
     return 0
 
 
 def serve_adaptive(cfg, model, params, sysp, device, args, tracer,
-                   metrics) -> int:
+                   metrics, chaos=None) -> int:
     """The batched engine's traffic spread across a dynamic-environment
     trace through ``AdaptiveCoInferenceEngine``, printing what the
     reference's adaptive mode prints."""
@@ -394,6 +486,8 @@ def serve_adaptive(cfg, model, params, sysp, device, args, tracer,
               f"b_hat={s.b_hat} f={s.f / 1e9:.2f}GHz "
               f"f~={s.f_server / 1e9:.2f}GHz")
 
+    sup = _supervise(eng, chaos, args, tracer, metrics)
+    front = sup if sup is not None else eng
     # arrivals spread across the trace, so the stream lives through it
     rng = np.random.default_rng(1)
     span = env.horizon_s * 0.9
@@ -401,9 +495,9 @@ def serve_adaptive(cfg, model, params, sysp, device, args, tracer,
         toks = rng.integers(0, cfg.vocab_size,
                             size=int(rng.integers(args.seq // 2,
                                                   args.seq + 1)))
-        eng.submit(toks, classes[i % len(classes)].name,
-                   arrival_s=i * span / max(args.requests, 1))
-    responses = eng.drain()
+        front.submit(toks, classes[i % len(classes)].name,
+                     arrival_s=i * span / max(args.requests, 1))
+    responses = front.drain()
 
     print(f"served {len(responses)} requests in "
           f"{len(eng.batch_history)} batches:")
@@ -422,6 +516,8 @@ def serve_adaptive(cfg, model, params, sysp, device, args, tracer,
         print(f"  t={e.t_s:7.2f}s [{e.qos:12s}] {e.reason}: "
               f"b {e.b_before:.0f} -> {e.b_after:.0f}"
               + (" (degraded)" if e.degraded else ""))
+    if sup is not None:
+        _print_resilience(sup)
     return 0
 
 
@@ -449,7 +545,7 @@ def decode_classes(t0: float, e0: float) -> list:
 
 
 def serve_decode(cfg, model, params, sysp, device, args, tracer,
-                 metrics) -> int:
+                 metrics, chaos=None) -> int:
     """Continuous-batching greedy decode over a quantized KV cache through
     ``DecodeEngine`` (``SpeculativeDecodeEngine`` with ``--speculative``),
     printing what the reference's decode mode prints."""
@@ -498,16 +594,18 @@ def serve_decode(cfg, model, params, sysp, device, args, tracer,
               f"f~={s.f_server / 1e9:.2f}GHz bound={s.objective:.3e}"
               f"{spec_desc}")
 
+    sup = _supervise(eng, chaos, args, tracer, metrics)
+    front = sup if sup is not None else eng
     rng = np.random.default_rng(0)
     prompts = {}
     for i in range(args.requests):
         toks = rng.integers(0, cfg.vocab_size,
                             size=int(rng.integers(max(args.seq // 2, 1),
                                                   args.seq + 1)))
-        rid = eng.submit(toks, classes[i % len(classes)].name,
-                         arrival_s=0.01 * i)
+        rid = front.submit(toks, classes[i % len(classes)].name,
+                           arrival_s=0.01 * i)
         prompts[rid] = (np.asarray(toks), classes[i % len(classes)].name)
-    responses = eng.drain()
+    responses = front.drain()
 
     rep = eng.report()
     print(f"served {rep.requests_served} requests, "
@@ -532,6 +630,8 @@ def serve_decode(cfg, model, params, sysp, device, args, tracer,
               f"acceptance={st.acceptance_rate:.2f}, "
               f"accepted/round={st.accepted_per_round:.2f}, "
               f"tokens/round={st.tokens_per_round:.2f}")
+    if sup is not None:
+        _print_resilience(sup)
 
     if args.parity_check:
         for r in responses:
@@ -545,6 +645,148 @@ def serve_decode(cfg, model, params, sysp, device, args, tracer,
                 return 1
         print(f"parity: all {len(responses)} requests bitwise-match the "
               "sequential reference")
+    return 0
+
+
+def serve_fleet(args, device, tracer, metrics, chaos=None) -> int:
+    """A multi-agent fleet from a JSON spec, printing what the reference's
+    fleet mode prints.
+
+    The spec's ``agents`` list gives one entry per fleet member: ``name``
+    and ``arch`` (required), ``t0``/``e0`` budgets, optional ``weight``,
+    ``b_emb``, ``sysp`` field overrides (any ``SystemParams`` field),
+    ``env_trace``/``env_seed``/``policy`` for a per-agent dynamic
+    environment, and ``requests``/``seq`` per-agent traffic overrides.
+    Top-level keys ``allocator``, ``max_batch``, ``path``, ``compiled``,
+    ``mixed_precision``, ``requests_per_agent`` and ``seq`` set fleet-wide
+    defaults; ``--allocator`` wins over the spec's when passed.  Agents of
+    one arch share one params object, seeded by the arch's order of first
+    appearance, as in the reference.
+    """
+    spec_path = pathlib.Path(args.fleet)
+    try:
+        spec = json.loads(spec_path.read_text(encoding="utf-8"))
+    except (OSError, ValueError) as e:
+        print(f"error: cannot read fleet spec {spec_path}: {e}",
+              file=sys.stderr)
+        return 2
+    if not isinstance(spec, dict) or not spec.get("agents"):
+        print(f"error: fleet spec {spec_path} must be a JSON object with "
+              "a non-empty 'agents' list", file=sys.stderr)
+        return 2
+
+    allocator = args.allocator if args.allocator is not None \
+        else spec.get("allocator", "joint")
+    max_batch = int(spec.get("max_batch", args.max_batch))
+    path = spec.get("path", args.path)
+    compiled = bool(spec.get("compiled", args.compiled))
+    mixed = bool(spec.get("mixed_precision", args.mixed_precision))
+    n_default = int(spec.get("requests_per_agent", args.requests))
+    seq_default = int(spec.get("seq", args.seq))
+
+    models = {}
+    specs, traffic = [], {}
+    for a in spec["agents"]:
+        # every per-agent failure (a missing key, an unknown or unported
+        # arch or env trace, a bad sysp field, a non-numeric value) names
+        # the broken agent entry in one line
+        label = a.get("name", f"#{len(specs)}") \
+            if isinstance(a, dict) else f"#{len(specs)}"
+        try:
+            arch = a["arch"]
+            if arch not in models:
+                cfg = get_smoke(arch) if args.smoke else get_config(arch)
+                if cfg is None:
+                    raise ValueError(f"arch {arch} has no servable model "
+                                     "config")
+                model = DecoderLM(cfg)
+                models[arch] = (model, model.init(torch.Generator(
+                    device=device).manual_seed(len(models))))
+            model, params = models[arch]
+            sysp = SystemParams(n_flop_agent=6.4e10, n_flop_server=1.92e11)
+            if a.get("sysp"):
+                sysp = dataclasses.replace(sysp, **a["sysp"])
+            env = None
+            if a.get("env_trace"):
+                if a["env_trace"] not in ENV_TRACES:
+                    raise ValueError(
+                        f"unknown env_trace {a['env_trace']!r}; have "
+                        f"{sorted(ENV_TRACES)}")
+                env = ENV_TRACES[a["env_trace"]](
+                    seed=int(a.get("env_seed", args.env_seed)))
+            specs.append(FleetAgentSpec(
+                name=a["name"], model=model, params=params, sysp=sysp,
+                qos=QosClass(a["name"], t0=float(a.get("t0", args.t0)),
+                             e0=float(a.get("e0", args.e0))),
+                weight=float(a.get("weight", 1.0)),
+                b_emb=int(a.get("b_emb", 8)),
+                environment=env, policy=a.get("policy", "adaptive")))
+            traffic[a["name"]] = (int(a.get("requests", n_default)),
+                                  int(a.get("seq", seq_default)))
+        except (KeyError, TypeError, ValueError, AttributeError) as e:
+            print(f"error: fleet agent {label!r}: {e}", file=sys.stderr)
+            return 2
+
+    try:
+        fleet = FleetCoInferenceEngine(specs, allocator=allocator,
+                                       max_batch=max_batch, path=path,
+                                       compiled=compiled,
+                                       mixed_precision=mixed,
+                                       tracer=tracer, metrics=metrics,
+                                       device=device)
+    except (TypeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if compiled:
+        n = fleet.warmup(max(s for _, s in traffic.values()))
+        print(f"warmup: {n} compiled forward variants across the fleet")
+
+    print(f"fleet: {len(specs)} agents, allocator={allocator} "
+          f"max_batch={max_batch} path={path} device={device}")
+    for s, share in zip(specs, fleet.allocation.shares):
+        sol = fleet.solution_for(s.name)
+        bdesc = "/".join(map(str, sol.bits)) if mixed else str(sol.b_hat)
+        envd = f" env={type(s.environment).__name__}" \
+            if s.environment is not None else ""
+        print(f"  agent {s.name:12s} share={share:.3f} "
+              f"(T0={s.qos.t0:.2f}s, E0={s.qos.e0:.2f}J, "
+              f"w={s.weight:g}): b_hat={bdesc} f={sol.f / 1e9:.2f}GHz "
+              f"f~={sol.f_server / 1e9:.2f}GHz "
+              f"bound={sol.objective:.3e}{envd}")
+
+    sup = _supervise(fleet, chaos, args, tracer, metrics)
+    front = sup if sup is not None else fleet
+    rng = np.random.default_rng(0)
+    for s in specs:
+        n_req, seq = traffic[s.name]
+        cfg = s.model.cfg
+        for _ in range(n_req):
+            toks = rng.integers(0, cfg.vocab_size,
+                                size=int(rng.integers(max(seq // 2, 1),
+                                                      seq + 1)))
+            front.submit(s.name, toks)
+    front.drain()
+
+    rep = fleet.report()
+    print(f"\nserved {rep.requests_served} requests in "
+          f"{rep.batches_served} batches across the fleet:")
+    for pa in rep.per_agent:
+        print(f"  agent {pa.name:12s} n={pa.requests_served} "
+              f"batches={pa.batches_served} "
+              f"occupancy={pa.mean_occupancy:.2f} "
+              f"clock={pa.clock_s * 1e3:8.2f}ms E={pa.energy_j:.3f}J "
+              f"violations={pa.deadline_violations}")
+    print(f"fleet report: aggregate bound={rep.aggregate_bound:.4e} "
+          f"makespan={rep.makespan_s * 1e3:.2f}ms "
+          f"throughput={rep.throughput_rps:.0f} req/s (modeled) "
+          f"energy={rep.total_energy_j:.3f}J")
+    print(f"shared codesign cache: {rep.codesign_misses} solves, "
+          f"{rep.codesign_hits} hits across {rep.n_agents} agents")
+    if compiled:
+        print(f"shared compile cache: {rep.compiled_variants} variants, "
+              f"{rep.compile_hits} hits / {rep.compile_misses} misses")
+    if sup is not None:
+        _print_resilience(sup)
     return 0
 
 

@@ -5,11 +5,13 @@ The reference's training entry point (``repro/launch/train.py``) on one device:
 Markov-chain LM data, AdamW with the cosine schedule, optional QAT of the
 agent partition at ``--qat-bits`` and int8 error-feedback gradient
 compression.  It prints the reference's lines: the model and its size,
-one line every 10 steps, and whether the loss improved.
+one line every 10 steps, and whether the loss improved.  ``--ckpt-dir``
+checkpoints every ``--ckpt-every`` steps (written asynchronously) and
+resumes from the newest intact checkpoint there.
 
-Runs on the CUDA card unless ``--device cpu``.  Checkpointing
-(``--ckpt-dir``) and data parallelism over several chips (``--data`` > 1)
-are not yet ported: each exits 2 with a one-line error.
+Runs on the CUDA card unless ``--device cpu``.  Data parallelism over
+several chips (``--data`` > 1) is not yet ported: it exits 2 with a
+one-line error.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from ..checkpoint import CheckpointManager
 from ..configs import get_config, get_smoke
 from ..data import MarkovLMConfig, MarkovLMDataset, ShardedLoader
 from ..device import resolve_device
@@ -37,18 +40,14 @@ def main(argv=None) -> int:
     ap.add_argument("--qat-bits", type=int, default=0)
     ap.add_argument("--grad-compression", default="none",
                     choices=["none", "int8_ef"])
-    ap.add_argument("--ckpt-dir", default=None,
-                    help="not yet ported (exits 2)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--data", type=int, default=0,
                     help="data-parallel degree (0 or 1: one device; more "
                          "is not yet ported and exits 2)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir is not None:
-        print("error: --ckpt-dir is not yet ported to repro_torch "
-              "(checkpoint store, ROADMAP A.9)", file=sys.stderr)
-        return 2
     if args.data > 1:
         print(f"error: --data {args.data} is not yet ported to repro_torch "
               "(training over several chips); run --data 1", file=sys.stderr)
@@ -63,11 +62,14 @@ def main(argv=None) -> int:
     loader = ShardedLoader(MarkovLMDataset(MarkovLMConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
         batch_size=args.batch)), device=device)
+    ckpt = CheckpointManager(args.ckpt_dir, save_interval=args.ckpt_every) \
+        if args.ckpt_dir else None
     opt = AdamW(learning_rate=cosine_schedule(args.lr, 20, args.steps))
     tr = Trainer(DecoderLM(cfg), opt, device,
                  TrainConfig(qat_bits=args.qat_bits,
                              grad_compression=args.grad_compression,
-                             log_every=10))
+                             log_every=10),
+                 ckpt=ckpt)
     print(f"arch={cfg.name} params={cfg.param_count():.3g} "
           f"devices=1 qat_bits={args.qat_bits} device={device}")
     _, history = tr.fit(loader, args.steps,

@@ -56,8 +56,10 @@ for the reference's ``xla.compile``), instants and metrics.
 ``mixed_precision=True`` solves each class's per-layer allocation with
 ``core.mixed_precision.allocate_bits_decode`` and decodes with its plan's
 fake-quantized weight tree (one tree per ``plan.key()``; the captured
-prefill and token step key on that tree's tensors).  Not yet ported:
-``snapshot_request`` (the supervisor's), which raises.
+prefill and token step key on that tree's tensors).
+:meth:`DecodeEngine.snapshot_request` freezes one in-flight slot into the
+reference's host-side state, which ``greedy_decode_reference(state=)``
+resumes bitwise (the serving supervisor's crash recovery).
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ from ..kernels.bucketing import DEFAULT_SEQ_BASE, seq_bucket, seq_ladder
 from ..kernels.quantize import kv_cache_bytes, kv_quantize
 from ..models.lm import tree_leaves, tree_map
 from ..obs import NULL_METRICS, NULL_TRACER
-from .fastpath import CapturedCall, CompiledForwardCache
+from .fastpath import CapturedCall, CompiledForwardCache, tree_key
 from .qat import fake_quantize_agent
 from .serve_engine import CodesignCache, QosClass, fit_lambda
 
@@ -112,10 +114,6 @@ _DECODE_CACHE_AXES = {
     "v": ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
     "len": ("batch",),
 }
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to repro_torch")
 
 
 def decode_protocol_gap(model) -> Optional[str]:
@@ -542,11 +540,6 @@ def _spec_round(draft, verify, buf: _SlotBuffers, live: np.ndarray,
             io.acc.cpu().numpy(), steps)
 
 
-def _tree_key(tree) -> tuple:
-    """The addresses of a weight tree's tensors: what a graph bakes in."""
-    return tuple(t.data_ptr() for t in tree_leaves(tree))
-
-
 def _capture(cache: CompiledForwardCache, run, buf: _SlotBuffers, keep):
     """``run`` as a :class:`CapturedCall`.  On the card the capture's eager
     warm-up run is a real prefill or step, so the block's buffers are
@@ -596,18 +589,18 @@ def _spec_key(kind: str, model, weights, buf: _SlotBuffers,
     """A draft (``"spec-draft"``, keyed on the draft tree) or verify
     (``"spec-verify"``) step's key, extended as :func:`_step_key` is."""
     return (kind, model.cfg, buf.pos.shape[0], buf.t_bucket, b_kv,
-            id(model), _tree_key(weights), id(buf))
+            id(model), tree_key(weights), id(buf))
 
 
 def _prefill_key(model, weights, buf: _SlotBuffers, s_bucket: int,
                  b_kv: int) -> tuple:
     return ("decode-prefill", model.cfg, s_bucket, buf.t_bucket,
-            buf.pos.shape[0], b_kv, id(model), _tree_key(weights), id(buf))
+            buf.pos.shape[0], b_kv, id(model), tree_key(weights), id(buf))
 
 
 def _step_key(model, weights, buf: _SlotBuffers, b_kv: int) -> tuple:
     return ("decode-fused", model.cfg, buf.pos.shape[0], buf.t_bucket, b_kv,
-            id(model), _tree_key(weights), id(buf))
+            id(model), tree_key(weights), id(buf))
 
 
 # ---------------------------------------------------------------------------
@@ -1023,8 +1016,41 @@ class DecodeEngine:
         bucket ``t_bucket``."""
         return self._round_cost(self._classes[qos_name], int(t_bucket))
 
-    def snapshot_request(self, request_id: int):
-        raise _not_ported("snapshot_request (the supervisor's hook)")
+    def snapshot_request(self, request_id: int) -> Optional[dict]:
+        """Freeze one in-flight request into a host-side snapshot the
+        batch-1 reference resumes bitwise: the serving supervisor's
+        crash-recovery hook.
+
+        The slot's slice of its block (codes and scales [L, 1, T, KV, dh]
+        and [L, 1, T, KV], its position and last token) is the
+        reference's batch-width-1 state, since every step is
+        row-independent, so ``greedy_decode_reference(state=...)``
+        continues it token for token.  One device-to-host copy per tensor,
+        counted in the report's ``d2h_bytes``.  Returns None for unknown,
+        still-queued or already-retired ids: only in-flight requests have
+        cache state to save."""
+        for g in self._groups.values():
+            for slot, act in enumerate(g.slots):
+                if act is None or act.req.request_id != request_id:
+                    continue
+                c = self._classes[act.req.qos]
+                sl = slice(slot, slot + 1)
+                state = {
+                    "k_codes": g.k_codes[:, sl].cpu().numpy(),
+                    "v_codes": g.v_codes[:, sl].cpu().numpy(),
+                    "k_scales": g.k_scales[:, sl].cpu().numpy(),
+                    "v_scales": g.v_scales[:, sl].cpu().numpy(),
+                    "pos": np.int32(int(g.pos[slot])),
+                    "last_token": np.int32(int(g.tok[slot])),
+                    "t_bucket": np.int32(g.t_bucket),
+                }
+                self._d2h += sum(v.nbytes for v in state.values())
+                return {"request": act.req, "qos": act.req.qos,
+                        "b_kv": c.b_kv, "generated": list(act.generated),
+                        "ttft_s": act.ttft_s, "itls": list(act.itls),
+                        "last_emit_s": act.last_emit_s,
+                        "t_bucket": int(g.t_bucket), "state": state}
+        return None
 
     # ------------------------------------------------------------------
     # the decode loop

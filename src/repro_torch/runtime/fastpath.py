@@ -32,6 +32,7 @@ runs follows from the tensor's device.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -40,7 +41,7 @@ from ..core.quantization import QuantConfig, _uniform_qdq
 from ..kernels import build
 from ..kernels import ops as kops
 from ..models import layers as L
-from ..models.lm import tree_map
+from ..models.lm import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,6 +227,11 @@ def build_forward(model, split: int, b_emb: int, descs, path: str,
     return forward
 
 
+def tree_key(tree) -> tuple:
+    """The addresses of a weight tree's tensors: what a graph bakes in."""
+    return tuple(t.data_ptr() for t in tree_leaves(tree))
+
+
 class CapturedCall:
     """A closure over static buffers, captured as one CUDA graph on the card.
 
@@ -261,9 +267,19 @@ class CapturedCall:
             self._run()         # allocations, attributes, cuBLAS workspace
         torch.cuda.current_stream(device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), build.recording() as rec, \
-                torch.cuda.graph(graph, pool=pool, stream=stream):
-            self.out = self._run()
+        # no garbage collection inside the capture (``torch.cuda.graph``
+        # collects just before it): a finalizer that frees CUDA state there
+        # invalidates the capture (seen on an H100: a generation-0 pass in a
+        # stablelm-3b forward's capture)
+        collect = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.no_grad(), build.recording() as rec, \
+                    torch.cuda.graph(graph, pool=pool, stream=stream):
+                self.out = self._run()
+        finally:
+            if collect:
+                gc.enable()
         self.graph, self.launches = graph, dict(rec)
 
     def __call__(self):
@@ -309,9 +325,17 @@ class CompiledForwardCache:
     engines' forwards and the decode engine's prefill and token step.
 
     Forward keys are the reference's ``(config, weight key, container
-    signature, (B, S) bucket, split, b_emb)``: everything that changes the
-    captured graph.  With the engine's shape bucketing the reachable
-    keyspace is ``len(bucket ladder) x active plans`` per engine, so warm
+    signature, (B, S) bucket, split, b_emb)`` followed by the addresses of
+    the parameter and agent tensors the graph bakes in (:func:`tree_key`),
+    which the reference's executables take as arguments.  Engines over one
+    params object share the materialized agent weights through
+    :meth:`buffers` (whose entry keeps those tensors alive, so a freed
+    engine's addresses cannot come back under a live key), and so share
+    graphs where (plan, bucket) match, as in the reference; engines with
+    different weights capture their own.  The port's misses are therefore
+    the reference's plus one capture per (plan, bucket) for every further
+    weight set.  With the engine's shape bucketing the reachable keyspace
+    is ``len(bucket ladder) x active plans`` per weight set, so warm
     traffic never misses.
 
     Decode keys are the reference's, ``("decode-prefill", config, S bucket,
@@ -364,12 +388,21 @@ class CompiledForwardCache:
         return self._exe[key]
 
     def buffers(self, key: tuple, make: Callable[[], Any]):
-        """Static buffers that this cache's graphs read and write in place
-        (the decode oracle's batch-1 slot block), made once per ``key`` and
-        not counted among the variants."""
+        """Tensors that this cache's graphs read or write in place (the
+        decode oracle's batch-1 slot block, the serving engines' shared
+        agent weights), made once per ``key`` and not counted among the
+        variants."""
         if key not in self._buffers:
             self._buffers[key] = make()
         return self._buffers[key]
+
+    def items(self):
+        """(key, :class:`CapturedCall`) pairs, in capture order."""
+        return list(self._exe.items())
+
+    def buffer_keys(self) -> list:
+        """The keys of the tensors made through :meth:`buffers`."""
+        return list(self._buffers)
 
     def kernel_launches(self) -> Dict[str, int]:
         """Kernel launches the cache's graphs made in their replays:

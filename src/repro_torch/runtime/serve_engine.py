@@ -360,6 +360,8 @@ class CoInferenceEngine:
         self._own_compile_misses = 0
         # weight key -> (segment descs, stacked arrays) of the kernel path
         self._stacked: Dict[tuple, tuple] = {}
+        # weight key -> the compile cache's shared entry of that weight set
+        self._shared: Dict[tuple, dict] = {}
         self._axes = model.logical_axes()
         self.lam = float(lam) if lam is not None \
             else fit_lambda(self.params, self.split)
@@ -399,7 +401,9 @@ class CoInferenceEngine:
         uniform path when that path quantizes identically, exactly as in
         the reference, so ``agent_path`` strings match.  Materialized
         weights are memoized on the stable plan key when
-        ``cache_weights`` is on.
+        ``cache_weights`` is on, and, with a compile cache, shared through
+        it by every engine over the same params object (so their captured
+        graphs are shared too).
         """
         kernel_ok = self.path == "kernel" and not self.cfg.n_experts
         plan = None
@@ -431,26 +435,39 @@ class CoInferenceEngine:
         if self._weight_cache is not None and key in self._weight_cache:
             self._agent_params, self._qlinears = self._weight_cache[key]
             return
-        if plan is not None:
-            if kernel_ok and plan.scheme == "uniform":
-                self._qlinears = self._quantize_kernel_weights(plan)
-                self._agent_params = None
-            else:
-                self._agent_params = fake_quantize_agent(
-                    self.params, self._axes, self.cfg, plan, ste=False)
-                self._qlinears = None
-        elif kernel_ok and self.b_hat in (4, 8):
-            self._qlinears = self._quantize_kernel_weights(
-                QuantPlan.uniform(self.b_hat, scheme=self.scheme))
-            self._agent_params = None
+        if self.compile_cache is not None:
+            # engines over one params object and one compile cache share
+            # the materialized weights, and with them the captured graphs
+            # that bake those tensors in; the entry keeps ``params`` alive,
+            # so its addresses cannot be reused under a live key
+            entry = self.compile_cache.buffers(
+                ("agent-weights", fp.tree_key(self.params), key,
+                 self.scheme, self.path),
+                lambda: {"weights": self._materialize(plan),
+                         "params": self.params, "stacked": None})
+            self._agent_params, self._qlinears = entry["weights"]
+            self._shared[key] = entry
         else:
-            qcfg = QuantConfig(bits=self.b_hat, scheme=self.scheme,
-                               granularity="per-channel")
-            self._agent_params = fake_quantize_agent(
-                self.params, self._axes, self.cfg, qcfg, ste=False)
-            self._qlinears = None
+            self._agent_params, self._qlinears = self._materialize(plan)
         if self._weight_cache is not None:
             self._weight_cache[key] = (self._agent_params, self._qlinears)
+
+    def _materialize(self, plan: Optional[QuantPlan]):
+        """(fake-quantized agent params, kernel weight records) at the
+        current operating point: one of the two is None."""
+        kernel_ok = self.path == "kernel" and not self.cfg.n_experts
+        if plan is not None:
+            if kernel_ok and plan.scheme == "uniform":
+                return None, self._quantize_kernel_weights(plan)
+            return fake_quantize_agent(self.params, self._axes, self.cfg,
+                                       plan, ste=False), None
+        if kernel_ok and self.b_hat in (4, 8):
+            return None, self._quantize_kernel_weights(
+                QuantPlan.uniform(self.b_hat, scheme=self.scheme))
+        qcfg = QuantConfig(bits=self.b_hat, scheme=self.scheme,
+                           granularity="per-channel")
+        return fake_quantize_agent(self.params, self._axes, self.cfg, qcfg,
+                                   ste=False), None
 
     @property
     def agent_path(self) -> str:
@@ -554,10 +571,16 @@ class CoInferenceEngine:
     def _stacked_segments(self):
         """Layer-stacked segments of the current kernel weights, memoized
         on the weight key."""
-        if self._weight_key not in self._stacked:
-            self._stacked[self._weight_key] = \
-                fp.restack_segments(self._qlinears)
-        return self._stacked[self._weight_key]
+        key = self._weight_key
+        if key not in self._stacked:
+            entry = self._shared.get(key)
+            if entry is None:
+                self._stacked[key] = fp.restack_segments(self._qlinears)
+            else:
+                if entry["stacked"] is None:
+                    entry["stacked"] = fp.restack_segments(self._qlinears)
+                self._stacked[key] = entry["stacked"]
+        return self._stacked[key]
 
     def _agent_forward_kernel(self, x, positions):
         """Agent layers over the quantized weights, one loop per segment.
@@ -601,12 +624,16 @@ class CoInferenceEngine:
         """The compiled forward for the current plan at bucket (bp, sp),
         through the compile cache (one capture per miss on the card).
 
-        The key holds the (hashable) ``ModelConfig``: the closure bakes in
-        config constants (rope theta, window, activation, ...), so a cache
-        shared by engines over different models never collides."""
+        The key is the reference's ``(config, weight key, container
+        signature, bucket, split, b_emb)`` and, last, the addresses of the
+        parameter and agent tensors the graph bakes in: the closure bakes in
+        config constants (rope theta, window, activation, ...) and, on the
+        card, the weights themselves, so a cache shared by engines over
+        different models or different weights never serves one engine's
+        graph to another."""
         sig, agent, descs = self._agent_repr()
         key = (self.cfg, self._weight_key, sig, (bp, sp), self.split,
-               self.b_emb)
+               self.b_emb, (fp.tree_key(self.params), fp.tree_key(agent)))
 
         def build():
             fwd = fp.build_forward(self.model, self.split, self.b_emb, descs,

@@ -9,10 +9,15 @@ Composition (bottom to top), one device:
                                 straight-through gradients (optional)
   autograd + AdamW            — ``optim.AdamW``
   grad_compress (int8 + EF)   — ``optim.compress_tree`` (optional)
+  CheckpointManager           — restore on start, async save (optional)
 
-This is the reference's ``_plain_step``.  Its pod-wise step (an explicit
-int8 all-gather over a mesh of several chips) and its checkpoint manager
-are not ported yet: a ``mesh`` of several devices or a ``ckpt`` raises.
+This is the reference's ``_plain_step``.  With ``ckpt`` the trainer
+restores the newest intact checkpoint on start (params, AdamW state, the
+int8-EF residual, the step, and the loader's position), saves the same
+tree asynchronously at every ``ckpt.should_save(step)``, and waits for the
+last write at the end, as the reference does.  Its pod-wise step (an
+explicit int8 all-gather over a mesh of several chips) is not ported yet:
+a ``mesh`` of several devices raises.
 """
 
 from __future__ import annotations
@@ -46,9 +51,6 @@ class Trainer:
     def __init__(self, model, optimizer: AdamW, device=None,
                  train_cfg: Optional[TrainConfig] = None, *, ckpt=None,
                  mesh=None):
-        if ckpt is not None:
-            raise NotImplementedError(
-                "not yet ported (checkpoint store, ROADMAP A.9)")
         if mesh is not None:
             devices = list(mesh)
             if len(devices) != 1:
@@ -60,6 +62,7 @@ class Trainer:
         self.model = model
         self.cfg = model.cfg
         self.opt = optimizer
+        self.ckpt = ckpt
         self.device = resolve_device(device)
         set_float32_numerics()
         self.tc = train_cfg or TrainConfig()
@@ -117,6 +120,21 @@ class Trainer:
                else torch.zeros((), dtype=torch.float32, device=self.device))
         return params, opt_state, err
 
+    def maybe_restore(self, params, opt_state, err):
+        """Resume from the newest intact checkpoint if there is one:
+        (params, opt_state, err, start step), each tensor on the device of
+        the one it replaces."""
+        if self.ckpt is None:
+            return params, opt_state, err, 0
+        out = self.ckpt.restore_latest(
+            {"params": params, "opt": opt_state, "err": err})
+        if out is None:
+            return params, opt_state, err, 0
+        tree, manifest = out
+        self.step = int(manifest["metadata"].get("data_step",
+                                                 manifest["step"]))
+        return tree["params"], tree["opt"], tree["err"], self.step
+
     # ------------------------------------------------------------------
     # the loop
     # ------------------------------------------------------------------
@@ -131,7 +149,8 @@ class Trainer:
         """
         if state is None:
             params, opt_state, err = self.init_state(seed)
-            start = 0
+            params, opt_state, err, start = self.maybe_restore(
+                params, opt_state, err)
             loader.seek(start)
         else:
             params, opt_state, err = state
@@ -155,4 +174,11 @@ class Trainer:
                 history.append(m)
                 if on_metrics:
                     on_metrics(m)
+            if self.ckpt is not None and self.ckpt.should_save(step + 1):
+                self.ckpt.save_async(
+                    step + 1,
+                    {"params": params, "opt": opt_state, "err": err},
+                    metadata={"data_step": step + 1})
+        if self.ckpt is not None:
+            self.ckpt.wait()
         return (params, opt_state, err), history

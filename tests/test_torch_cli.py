@@ -3,9 +3,11 @@ path runs, prints the b̂ that the reference's SCA gives for the same
 problem, the batched engine (the default, eager and ``--compiled``) prints
 the reference's lines, the decode and speculative modes print the
 reference's lines (a non-zero warm-up) and pass their own parity check,
-the adaptive mode runs under each policy, every mode writes a loadable
-``--trace-out`` and ``--metrics-out``, and every mode not ported yet, and
-each of the reference's exit-2 contracts, exits 2 with one line."""
+the adaptive mode runs under each policy, the fleet mode serves
+``examples/fleet_spec.json``, ``--chaos-trace`` runs the batched, decode
+and fleet modes under the serving supervisor (and bare), every mode writes
+a loadable ``--trace-out`` and ``--metrics-out``, and each of the
+reference's exit-2 contracts exits 2 with one line."""
 
 import json
 import os
@@ -92,13 +94,27 @@ def test_decode_mode_runs_with_parity_check():
                          "sequential reference")
 
 
-@pytest.mark.parametrize("args", [
-    ("--engine", "sequential", "--fleet", "spec.json"),
-])
-def test_unported_modes_exit_2(capsys, args):
+@pytest.mark.parametrize("case", ["fleet-unported-arch",
+                                  "chaos-sequential"])
+def test_unported_modes_exit_2(capsys, tmp_path, case):
+    """The fleet and chaos modes are ported; what still exits 2 with one
+    line: a fleet agent of an arch the port does not register, and
+    ``--chaos-trace`` with ``--engine sequential`` (no queue to
+    supervise), as in the reference."""
+    if case == "fleet-unported-arch":
+        spec = tmp_path / "fleet.json"
+        spec.write_text(json.dumps({"agents": [
+            {"name": "drone", "arch": "qwen2-0.5b"},
+            {"name": "big", "arch": "granite-34b"}]}))
+        args, needle = ("--fleet", str(spec)), \
+            "fleet agent 'big': \"arch 'granite-34b' is not yet ported"
+    else:
+        args, needle = ("--engine", "sequential", "--chaos-trace",
+                        str(ROOT / "examples" / "chaos_spec.json")), \
+            "--chaos-trace needs a queued engine"
     assert main(["--smoke", "--device", "cpu", *args]) == 2
     err = capsys.readouterr().err
-    assert "not yet ported" in err
+    assert needle in err, err
     assert len(err.strip().splitlines()) == 1
 
 
@@ -274,9 +290,69 @@ def test_fcdnn_arch_exits_2(capsys):
 
 
 def test_unported_arch_exits_2(capsys):
-    assert main(["--arch", "stablelm-3b", "--engine", "sequential",
+    assert main(["--arch", "granite-34b", "--engine", "sequential",
                  "--device", "cpu", "--smoke"]) == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_stablelm_serves(capsys):
+    """stablelm-3b is registered: its smoke config serves on the kernel
+    path (LayerNorm, 4 heads of 16 over 4 KV heads)."""
+    assert main(["--arch", "stablelm-3b", "--engine", "sequential",
+                 "--path", "kernel", "--device", "cpu", "--smoke",
+                 "--batch", "2", "--seq", "16"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("arch=stablelm-3b-smoke split=1/4 ")
+
+
+FLEET_SPEC = str(ROOT / "examples" / "fleet_spec.json")
+CHAOS_SPEC = str(ROOT / "examples" / "chaos_spec.json")
+
+
+@pytest.mark.parametrize("allocator", [None, "equal"])
+def test_fleet_mode_prints_reference_lines(capsys, allocator):
+    """``--fleet examples/fleet_spec.json``: the reference's lines, one per
+    agent (share, b̂, the environment of the adaptive member), every
+    agent's six requests served, shares summing to one."""
+    extra = ["--allocator", allocator] if allocator else []
+    assert main(["--fleet", FLEET_SPEC, "--smoke", "--device", "cpu",
+                 *extra]) == 0
+    out = capsys.readouterr().out
+    want = allocator or "joint"
+    assert f"fleet: 3 agents, allocator={want} max_batch=4 path=fake" in out
+    shares = [float(x) for x in re.findall(r"share=([0-9.]+) ", out)]
+    assert len(shares) == 3 and abs(sum(shares) - 1.0) < 2e-3
+    assert re.search(r"  agent kiosk .* env=Environment", out)
+    for name in ("drone", "monitor", "kiosk"):
+        assert re.search(rf"  agent {name}\s+n=6 batches=\d+ ", out), name
+    assert "served 18 requests in " in out
+    assert "shared codesign cache: " in out
+
+
+@pytest.mark.parametrize("mode", ["batched", "decode", "fleet"])
+@pytest.mark.parametrize("bare", [False, True])
+def test_chaos_trace_modes(capsys, mode, bare):
+    """``--chaos-trace examples/chaos_spec.json``: the mode's own lines,
+    then the reference's resilience line; supervised runs deliver or shed
+    every request and lose no decode token; ``--chaos-bare`` reports the
+    bare baseline."""
+    args = {"batched": ["--path", "kernel"],
+            "decode": ["--decode", "--max-new", "4", "--requests", "4",
+                       "--seq", "16"],
+            "fleet": ["--fleet", FLEET_SPEC]}[mode]
+    assert main(["--smoke", "--device", "cpu", "--chaos-trace", CHAOS_SPEC,
+                 *args] + (["--chaos-bare"] if bare else [])) == 0
+    out = capsys.readouterr().out
+    m = re.search(r"resilience \[(\w+)\]: delivered (\d+)/(\d+) \(failed "
+                  r"(\d+), shed (\d+)\) .* tokens lost/dup=(\d+)/(\d+) "
+                  r"goodput=", out)
+    assert m, out
+    kind, got, total, failed, shed, lost, dup = m.groups()
+    assert kind == ("bare" if bare else "supervised")
+    assert int(got) + int(failed) + int(shed) == int(total) > 0
+    assert int(dup) == 0
+    if not bare:
+        assert int(failed) == 0 and int(lost) == 0
 
 
 @pytest.mark.parametrize("compiled", [False, True])

@@ -36,7 +36,11 @@ engine on the CPU.  A decode step at pos = T writes at T - 1 with no
 device assert, rows as they are alone; one speculative round from the
 captured draft and verify steps equals the closures run eagerly (and a
 fixed n_draft + 1 verify steps), and the speculative engine from graphs
-equals the batch-1 oracle with no capture after warm-up.
+equals the batch-1 oracle with no capture after warm-up.  Two engines with
+different weights over one compile cache each replay their own graphs; a
+one-agent fleet from graphs equals its batched engine bitwise; a decode
+slot's snapshot resumes bitwise through the batch-1 graphs; a checkpoint
+of card tensors round-trips onto the card.
 """
 
 import importlib
@@ -980,3 +984,121 @@ def test_captured_spec_round_equals_eager(dev, smoke_lm):
         np.testing.assert_array_equal(r.tokens, greedy_decode_reference(
             model, eng2.class_params("interactive"), toks, m, b_kv=8,
             compile_cache=eng2.compile_cache, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# fleet, supervisor and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b_hat", [8, 4])
+def test_shared_graph_cache_keys_on_the_baked_in_weights(dev, b_hat):
+    """Two engines with one config and b̂ but different weights, over one
+    compile cache: each replays a graph of its own weights and returns its
+    own uncached engine's logits, bitwise."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.cost_model import SystemParams
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.runtime import CoInferenceEngine, CompiledForwardCache
+
+    cfg = get_smoke("qwen2-0.5b")
+    model = DecoderLM(cfg)
+    sysp = SystemParams(n_flop_agent=6.4e10, n_flop_server=1.92e11)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 12))
+    cache = CompiledForwardCache()
+    got, want = [], []
+    for seed in (0, 1):
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
+        shared = CoInferenceEngine(model, params, sysp, path="kernel",
+                                   compiled=True, compile_cache=cache,
+                                   device=dev)
+        own = CoInferenceEngine(model, params, sysp, path="kernel",
+                                compiled=True, device=dev)
+        for eng in (shared, own):
+            eng.configure(b_hat)
+        got.append(shared.serve_batch({"tokens": toks})[0])
+        want.append(own.serve_batch({"tokens": toks})[0])
+    assert cache.misses == 2 and cache.hits == 0
+    assert all(cf.graph is not None for cf in cache._exe.values())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(got[0], got[1])
+
+
+def test_one_agent_fleet_from_graphs_equals_batched(dev, smoke_lm):
+    from repro_torch.core.cost_model import SystemParams
+    from repro_torch.runtime import (BatchedCoInferenceEngine,
+                                     FleetAgentSpec, FleetCoInferenceEngine,
+                                     QosClass)
+
+    model, params = smoke_lm
+    sysp = SystemParams(n_flop_agent=6.4e10, n_flop_server=1.92e11)
+    qos = QosClass("solo", t0=1.3, e0=1.5)
+    kw = dict(max_batch=4, path="kernel", compiled=True, device=dev)
+    fleet = FleetCoInferenceEngine(
+        [FleetAgentSpec(name="solo", model=model, params=params, sysp=sysp,
+                        qos=qos)], **kw)
+    solo = BatchedCoInferenceEngine(model, params, sysp, classes=[qos], **kw)
+    rng = np.random.default_rng(2)
+    for _ in range(5):
+        toks = rng.integers(0, model.cfg.vocab_size,
+                            size=int(rng.integers(6, 17)))
+        fleet.submit("solo", toks)
+        solo.submit(toks, "solo")
+    for x, y in zip(fleet.drain()["solo"], solo.drain()):
+        assert x.stats == y.stats and torch.equal(x.logits, y.logits)
+
+
+def test_snapshot_on_the_card_resumes_bitwise(dev, smoke_lm):
+    """A slot snapshot taken between graph steps is the batch-1 state, and
+    resuming it through the batch-1 graphs finishes the stream."""
+    from repro_torch.core.cost_model import SystemParams
+    from repro_torch.runtime import (DecodeEngine, QosClass,
+                                     greedy_decode_reference)
+
+    model, params = smoke_lm
+    qos = QosClass("c", t0=3.0, e0=2.0)
+    eng = DecodeEngine(model, params,
+                       SystemParams(n_flop_agent=6.4e10,
+                                    n_flop_server=1.92e11),
+                       classes=[qos], auto=False, max_batch=2,
+                       max_new_tokens=8, device=dev)
+    eng.set_operating_point("c", 8, 8)
+    p = np.random.default_rng(4).integers(0, model.cfg.vocab_size, 14)
+    rid = eng.submit(p, "c")
+    for _ in range(3):
+        eng.step(max_decode_steps=1)
+    snap = eng.snapshot_request(rid)
+    w = eng.class_params("c")
+    done = len(snap["generated"])
+    rest = greedy_decode_reference(model, w, p, 8 - done, b_kv=8,
+                                   state=snap["state"],
+                                   compile_cache=eng.compile_cache,
+                                   device=dev)
+    full = greedy_decode_reference(model, w, p, 8, b_kv=8,
+                                   compile_cache=eng.compile_cache,
+                                   device=dev)
+    np.testing.assert_array_equal(
+        np.concatenate([np.asarray(snap["generated"]), rest]), full)
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import AdamW
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = {"w": torch.randn((64, 32), generator=g, device=dev),
+              "b": torch.randn((32,), generator=g, device=dev)}
+    tree = {"params": params, "opt": AdamW().init(params),
+            "err": torch.zeros((), device=dev)}
+    mgr = CheckpointManager(str(tmp_path), keep=1)
+    w0 = params["w"].clone()
+    mgr.save_async(3, tree, metadata={"data_step": 3})
+    params["w"].add_(1.0)       # after the call: not in the checkpoint
+    like = {"params": {k: torch.zeros_like(v) for k, v in params.items()},
+            "opt": AdamW().init(params), "err": torch.ones((), device=dev)}
+    restored, manifest = mgr.restore_latest(like)
+    assert manifest["step"] == 3
+    assert restored["params"]["w"].device.type == "cuda"
+    assert torch.equal(restored["params"]["w"], w0)
+    assert torch.equal(restored["params"]["b"], params["b"])
+    assert torch.equal(restored["err"], torch.zeros((), device=dev))

@@ -284,10 +284,13 @@ def test_rejects_bad_args(qwen):
 
 
 def test_unported_options_raise(qwen):
+    """``snapshot_request`` is ported: an id with no in-flight slot (never
+    submitted, or still queued) has no cache state and returns None."""
     model, params = qwen
     eng = _engine(model, params)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        eng.snapshot_request(0)
+    assert eng.snapshot_request(0) is None
+    eng.submit(np.arange(1, 9, dtype=np.int32), QOS.name)
+    assert eng.snapshot_request(0) is None
 
 
 def test_entry_points_need_a_device(qwen, monkeypatch):

@@ -39,7 +39,7 @@ from repro_torch.kernels.bucketing import (next_geometric, seq_bucket,
 from repro_torch.models.lm import DecoderLM
 from repro_torch.runtime import (BatchedCoInferenceEngine, CoInferenceEngine,
                                  CompiledForwardCache, QosClass)
-from repro_torch.runtime.fastpath import transport_quantize
+from repro_torch.runtime.fastpath import CapturedCall, transport_quantize
 
 SYSP = SystemParams(n_flop_agent=6.4e10, n_flop_server=1.92e11)
 CLASSES = [
@@ -237,6 +237,30 @@ def test_shared_compile_cache_across_engines(qwen):
     assert b.report().compile_hits == n_a
 
 
+def test_cache_views_list_calls_and_weight_sets(qwen):
+    """``items()`` lists each captured call under its key, in capture
+    order; ``buffer_keys()`` the agent-weight sets the engines share, to
+    which a second engine over the same params adds none."""
+    _, model, params = qwen
+    cache = CompiledForwardCache()
+    a = _batched(model, params, classes=CLASSES, max_batch=4, path="kernel",
+                 compiled=True, compile_cache=cache)
+    n = a.warmup(32)
+    items = cache.items()
+    assert len(items) == n == len(cache)
+    for key, call in items:
+        assert isinstance(call, CapturedCall)
+        assert cache.get(key, lambda: pytest.fail("a listed key missed")) \
+            is call
+    sets = [k for k in cache.buffer_keys() if k[0] == "agent-weights"]
+    assert sets
+    _batched(model, params, classes=CLASSES, max_batch=4, path="kernel",
+             compiled=True, compile_cache=cache).warmup(32)
+    assert [k for k, _ in cache.items()] == [k for k, _ in items]
+    assert [k for k in cache.buffer_keys() if k[0] == "agent-weights"] \
+        == sets
+
+
 def test_cpu_forward_is_not_captured(qwen):
     """On a CPU engine the compiled forward runs its closure as it
     stands: no graph, no recorded launches."""
@@ -351,7 +375,9 @@ def test_compiled_batched_matches_reference(bridged):
               "codesign_misses", "compile_hits", "compile_misses",
               "compiled_variants"):
         assert getattr(tr_, f) == getattr(jr_, f), f
-    tkeys = sorted(k[1:] for k in teng.engine.compile_cache._exe)
+    # the port's keys end with the baked-in tensors' addresses (the
+    # reference's executables take them as arguments)
+    tkeys = sorted(k[1:6] for k in teng.engine.compile_cache._exe)
     jkeys = sorted(k[1:] for k in jeng.engine.compile_cache._exe)
     assert tkeys == jkeys
     for b, s in ((1, 5), (3, 17), (4, 64)):
@@ -390,7 +416,7 @@ def test_compiled_kernel_path_matches_reference(bridged, target):
                                rtol=1e-12)
 
     def plain(key):
-        _, wkey, sig, bucket, split, b_emb = key
+        _, wkey, sig, bucket, split, b_emb = key[:6]
         return (wkey, tuple(d if isinstance(d, str)
                             else (d.kind, d.start, d.length) for d in sig),
                 bucket, split, b_emb)

@@ -33,7 +33,12 @@ def test_importing_every_module_pulls_in_no_jax():
               "repro_torch.env.environment", "repro_torch.env.processes",
               "repro_torch.env.faults", "repro_torch.env.presets",
               "repro_torch.runtime.speculative",
-              "repro_torch.runtime.adaptive"):
+              "repro_torch.runtime.adaptive", "repro_torch.core.fleet",
+              "repro_torch.runtime.fleet_engine",
+              "repro_torch.runtime.supervisor",
+              "repro_torch.runtime.fault_tolerance",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+              "repro_torch.configs.stablelm_3b"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

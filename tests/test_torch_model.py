@@ -90,3 +90,49 @@ def test_init_matches_reference_structure():
             return {k: shapes(v) for k, v in t.items()}
         return tuple(t.shape)
     assert shapes(params) == jshapes
+
+
+def test_stablelm_config_is_the_references():
+    """stablelm-3b is registered with the published dims: 32 layers,
+    d_model 2560, 32/32 heads (head_dim 80), d_ff 6912, vocab 50304,
+    LayerNorm, SiLU, split 8; its smoke config is the reference's."""
+    from repro.configs import get_config as jget_config
+    from repro_torch.configs import get_config
+    full = get_config("stablelm-3b")
+    assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
+            full.head_dim, full.d_ff, full.vocab_size, full.norm, full.act,
+            full.split_layer) == (32, 2560, 32, 32, 80, 6912, 50304,
+                                  "layernorm", "silu", 8)
+    for ours, ref in ((full, jget_config("stablelm-3b")),
+                      (get_smoke("stablelm-3b"), jget_smoke("stablelm-3b"))):
+        assert ours.name == ref.name
+        for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+                  "d_ff", "vocab_size", "norm", "act", "rope_theta",
+                  "split_layer", "qkv_bias", "tie_embeddings"):
+            assert getattr(ours, f) == getattr(ref, f), f
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_stablelm_logits_match_reference(seed):
+    """The smoke config's forward (LayerNorm, no QKV bias, untied head)
+    through bridged weights, at the serve tolerance."""
+    jcfg = jget_smoke("stablelm-3b")
+    jmodel = build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(seed))
+    tokens = np.random.default_rng(seed).integers(0, jcfg.vocab_size,
+                                                  (2, 24))
+    want, _ = jmodel.forward(jparams, {"tokens": jnp.asarray(tokens)})
+    model = DecoderLM(get_smoke("stablelm-3b"))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                             device="cpu")
+    got, _ = model.forward(params, {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    jshapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), jparams)
+    ours = model.init(torch.Generator().manual_seed(0))
+
+    def shapes(t):
+        if isinstance(t, dict):
+            return {k: shapes(v) for k, v in t.items()}
+        return tuple(t.shape)
+    assert shapes(ours) == jshapes
