@@ -51,20 +51,30 @@ nothing of JAX or of the JAX package ``repro``.
    of 100 and 1000; within DECODE_TOL x max|out|, every row of a batch
    bitwise equal to the row alone, T grown to 2T with the lengths fixed
    bitwise equal, and a second launch on the same inputs bitwise equal
-   to the first (the arrival counters reset).  Times the kernel, its
+   to the first (the arrival counters reset).  Past the shared-memory cap
+   the combine once had: granite-34b's heads (48 over 1, dh = 128) at
+   T = 32,768 (B = 2, rows alone bitwise) and qwen2-0.5b's at T = 524,288
+   (B = 1, the reference's LONG_500K) against the plain version on
+   4096-position tiles, within DECODE_TOL, each timed.  Times the kernel, its
    plain version and one library call (``scaled_dot_product_attention``
    on the already-dequantized f32 cache, ``enable_gqa=True``, a length
    mask: its time leaves the dequant out) at the decode path's widest
    shape, L2 flushed, and prints the kernel's ratio to it.
 6. The row-independent GEMM (``row_gemm``, the decode step's projections
    and tied head) against its plain version (one product per row) at
-   the step's five shapes, wq/wo 896 -> 896, wk/wv 896 -> 128, gate/up
-   896 -> 4864, down 4864 -> 896 (w row-major) and the head 896 ->
-   151936 (the embedding's transposed view), at M in {1, 3, 4, 16}:
-   within ROW_GEMM_TOL x max|y|, every row bitwise the row alone.  Times
-   the kernel, the plain version and ``torch.matmul`` at M = 4, L2
-   flushed, against the byte bound, per shape and summed over one token
-   step's 169 products.
+   qwen2-0.5b's decode shapes, wq/wo 896 -> 896, wk/wv 896 -> 128,
+   gate/up 896 -> 4864, down 4864 -> 896 (w row-major), the head 896 ->
+   151936 (the embedding's transposed view) and the grouped launches
+   q | k | v (with its biases) and gate | up, then at stablelm-3b's (K,
+   N in 2560 / 6912, vocab 50304), at M in ROW_GEMM_M (1 to 128): within
+   ROW_GEMM_TOL x max|y|, every row bitwise the row alone, each grouped
+   output bitwise its own launch plus the bias.  Times the kernel, the
+   parent commit's kernel (when its source is unpacked under
+   build/parent; a group as the sum of its separate launches), the plain
+   version and one library call (``torch.matmul``; a group on the
+   concatenated weight, ``torch.addmm`` with the concatenated bias) at
+   M = 4, L2 flushed, against the byte bound, per shape and summed over
+   one token step's launches (97 at qwen2-0.5b; the parent's 169).
 7. The decode path at full width, through CUDA graphs.  First one step
    from one state (B = 4, T = 1024, b_kv = 8): batched against alone and
    plain attention against the kernels, the logit differences the token
@@ -74,7 +84,8 @@ nothing of JAX or of the JAX package ``repro``.
    per token step inside a 16-step chunk (graph and eager), tokens/s,
    the graph's device time and busy share under ``torch.profiler``, the
    prefill wall per request and the decode kernel's device ms per step
-   (CUDA events around each of one step's 24 launches).  Then ``DecodeEngine``
+   (CUDA events around each of one step's 24 launches), beside the
+   ungrouped design's graph step (UNGROUPED_STEP).  Then ``DecodeEngine``
    (max_batch 4) serves six prompts of 100-500 tokens, 32 new tokens each,
    arriving so that admission is continuous and the cache buckets span
    256-1024; pinned at (b̂, b_kv) = (8, 8) after ``warmup(500, 32)`` (no
@@ -82,7 +93,7 @@ nothing of JAX or of the JAX package ``repro``.
    ``auto=True`` under the CLI's two QoS classes, capturing lazily while
    serving.  Launch counts, zeroed just before each run and read just
    after: the graphs' replays (each graph's record times its replays)
-   must be 24 decode attentions and 169 ``row_gemm`` per token step and
+   must be 24 decode attentions and 97 ``row_gemm`` per token step and
    24 flash launches per prefill, and the only launches outside a graph
    the eager warm-up runs of graphs captured while serving.  Every
    response is held against ``greedy_decode_reference`` at batch 1 (its
@@ -171,7 +182,7 @@ nothing of JAX or of the JAX package ``repro``.
    where both are feasible, each capturing lazily.  Every response equals
    ``greedy_decode_reference`` at batch 1 bitwise; ``spec_stats()``, the
    wall per delivered token and tokens/s beside phase 7's pinned run, and
-   the launches in each window (24 decode attentions and 169 ``row_gemm``
+   the launches in each window (24 decode attentions and 97 ``row_gemm``
    per draft or verify step, 24 flash launches per prefill, the eager
    launches only the warm-up runs of graphs captured while serving).
    Before the engines, one round on a B = 4, T = 1024 block from the
@@ -235,7 +246,20 @@ nothing of JAX or of the JAX package ``repro``.
    one, the losses against the uninterrupted run's (bitwise or within
    1e-4 relative, printed which), the checkpoint's bytes and its save and
    restore walls.
-16. Summary: one ``{"kernels": [...]}`` line, the card line, and last
+16. Decode at the reference's widths (qwen2-0.5b): ``DecodeEngine``
+   at ``max_batch`` 32 serving 40 prompts from graphs, every response
+   bitwise its batch-1 reference; then one token step at 32 slots of
+   1,024 positions, one at the reference's ``DECODE_32K`` shape (B = 128,
+   T = 32,768, ~27 GB of int8 cache) and one at ``LONG_500K`` (B = 1,
+   T = 524,288), each from a seeded synthetic cache with ragged
+   lengths: a few rows' logits alone bitwise the batched rows', the
+   kernels against plain attention (logits within E2E_TOL, tokens equal
+   wherever the plain run's top-2 margin exceeds twice the difference),
+   the captured step against its closure run eagerly (tokens and written
+   entries bitwise); device ms, wall, tokens/s and the memory the graph
+   keeps (one attention workspace live at a time), its replays' and its
+   capture's peaks printed.
+17. Summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``; the per-shape numbers are printed
    in phases 3, 5, 6 and 8.
 """
@@ -270,8 +294,29 @@ DECODE_ARRIVE = (0, 0, 8, 8, 16, 4)               # 512 1024; x one step
 DECODE_NEW = 32
 DECODE_BUDGET = (6.0, 2.0)  # (T0, E0) of the auto run: both CLI classes
                             # feasible at full width
+# (what, B, T, H, KV, dh, lengths) of phase 5's caches past the old cap
+LONG_DECODE_CASES = (("granite-34b heads", 2, 32768, 48, 1, 128,
+                      [32768, 20001]),
+                     ("qwen2-0.5b LONG_500K", 1, 524288, 14, 2, 64,
+                      [524288 - 77]))
 ROW_GEMM_TOL = 1e-5         # row_gemm vs plain, x max|y|: f32 sums over
-ROW_GEMM_M = (1, 3, 4, 16)  # K <= 4864 in another order
+                            # K <= 6912 in another order
+ROW_GEMM_M = (1, 3, 4, 16, 17, 32, 128)
+# the parent commit's row_gemm.cu, when unpacked there (git archive of the
+# parent into build/parent): phase 6 times it beside the kernel
+PARENT_ROW_GEMM = ROOT / "build" / "parent" / "src" / "repro_torch" / \
+    "kernels" / "csrc" / "row_gemm.cu"
+# phase 16: DecodeEngine at 32 slots over 40 prompts of 16-96 tokens, 8 new
+# each; one captured token step at 32 slots of 1,024 positions and at the
+# reference's DECODE_32K (128 slots of 32,768 positions) and LONG_500K (1
+# of 524,288) shapes (src/repro/configs/base.py), int8 cache (b_kv = 8)
+WIDE_SLOTS, WIDE_PROMPTS, WIDE_PROMPT_LEN, WIDE_NEW = 32, 40, (16, 97), 8
+WIDE_STEPS = (("32 slots", 32, 1024), ("DECODE_32K", 128, 32768),
+              ("LONG_500K", 1, 524288))
+# the graph token step (B = 4, T = 1024, b_kv = 8) as first captured, one
+# row_gemm launch per product and the first row_gemm design (PERF.md
+# section 5, H100 80GB HBM3, 700.00 W)
+UNGROUPED_STEP = dict(wall_ms=5.568, tokens_s=718.4, device_ms=4.94)
 FLASH_TOL = 2e-5            # flash vs plain, f32: tests/test_flash.py's
 FLASH_PASSES = 3            # tf32 products per f32 product in the kernel
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 10
@@ -782,6 +827,7 @@ def check_decode_kernel(dev, flush):
     from repro_torch import kernels as tk
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attn import CHUNK as c
+    from repro_torch.kernels.decode_attn import smem_bytes
     from repro_torch.kernels.quantize import kv_dequantize
 
     err = 0.0
@@ -830,6 +876,35 @@ def check_decode_kernel(dev, flush):
           f"edges, windows 100 and 1000 at T=4096), max|d|={err:.3e}; rows "
           f"alone, T -> 2T and a second launch bitwise")
 
+    # past the shared-memory cap the combine once had (T 21,632 at G = 48,
+    # dh = 128; ~224K at qwen2's heads): the plain version on 4096-position
+    # tiles (its tile changes its order of sums, not what it computes)
+    for what, b, t, h, kv, dh, lens in LONG_DECODE_CASES:
+        args = decode_case(dev, b, t, 8, seed=t, lens=lens, h=h, kv=kv,
+                           dh=dh)
+        out = tk.quantized_decode_attention(*args)
+        want = ref.quantized_decode_attention_ref(*args, block_t=4096)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        diff = float((out - want).abs().max())
+        assert diff <= DECODE_TOL * scale, \
+            f"decode attention {what}: {diff} of {scale}"
+        err = max(err, diff)
+        for i in range(b if b > 1 else 0):
+            alone = tk.quantized_decode_attention(*(a[i:i + 1]
+                                                    for a in args))
+            assert torch.equal(alone[0], out[i]), \
+                f"decode attention {what}: row {i} alone != in batch"
+        ms = time_ms(lambda: tk.quantized_decode_attention(*args), flush,
+                     reps=5)
+        print(f"  quantized_decode_attention {what} (B={b}, T={t}, H={h} "
+              f"over KV={kv}, dh={dh}, b_kv=8, lengths {lens}, "
+              f"{-(-max(lens) // c)} chunks for one combine): vs plain "
+              f"max|d|={diff:.3e} of {scale:.3e}; ms={ms:.4f} "
+              f"bound={decode_bound(args)[0]:.6f}; smem "
+              f"{smem_bytes(h // kv, dh, t)} bytes a block")
+        del args, out, want
+
     # times at the decode path's widest shape: B = 4 slots of a 1024
     # bucket, int8 codes, lengths as the path gives them
     rows = {}
@@ -867,73 +942,149 @@ def check_decode_kernel(dev, flush):
     return rows[8]
 
 
-def row_gemm_shapes(cfg):
-    """(name, K, N, products per token step, w layout) of the decode step's
-    products: the seven of every layer and the tied head (``tok.T``)."""
-    d, f, layers = cfg.d_model, cfg.d_ff, cfg.n_layers
-    return [("wq/wo", d, cfg.q_dim, 2 * layers, "kn"),
-            ("wk/wv", d, cfg.kv_dim, 2 * layers, "kn"),
-            ("gate/up", d, f, 2 * layers, "kn"),
-            ("down", f, d, layers, "kn"),
-            ("head", d, cfg.vocab_size, 1, "nk")]
+def row_gemm_launches(cfg):
+    """(name, K, [N...], bias, kernel launches a token step, products the
+    parent kernel launched a step, w layout) of the decode step's
+    products: the kernel launches q | k | v and gate | up grouped, wo,
+    down and the head, on the layout the model passes it (the tied
+    ``tok.T``, "nk", or the untied ``unembed`` [D, V], "kn"); the single
+    products' shapes are timed too (the parent launched each, 169 a
+    qwen2-0.5b step)."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    head = "nk" if cfg.tie_embeddings else "kn"
+    return [("wq/wo", d, [cfg.q_dim], False, L, 2 * L, "kn"),
+            ("wk/wv", d, [cfg.kv_dim], False, 0, 2 * L, "kn"),
+            ("gate/up", d, [f], False, 0, 2 * L, "kn"),
+            ("down", f, [d], False, L, L, "kn"),
+            ("head", d, [cfg.vocab_size], False, 1, 1, head),
+            ("q|k|v", d, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], cfg.qkv_bias,
+             L, 0, "kn"),
+            ("gate|up", d, [f, f], False, L, 0, "kn")]
 
 
-def check_row_gemm(cfg, dev, flush):
-    """Phase 6; returns the kernel's numbers summed over one B = 4 token
-    step's products (169 launches)."""
+def row_gemm_per_step(cfg) -> int:
+    """``row_gemm`` launches of one decode token step: 4 a layer and the
+    head."""
+    return sum(e[4] for e in row_gemm_launches(cfg))
+
+
+def parent_row_gemm():
+    """The parent commit's kernel, built, as (launch closure factory), or
+    None when its source is not unpacked under build/parent."""
+    if not PARENT_ROW_GEMM.is_file():
+        return None
+    import importlib.util
+    from repro_torch.kernels import build
+    spec = importlib.util.spec_from_file_location(
+        "row_gemm_tune", ROOT / "tools" / "row_gemm_tune.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    fn = tool.parent_library(build, PARENT_ROW_GEMM)
+    return lambda x, w: tool.parent_call(fn, x, w, build)
+
+
+def check_row_gemm(cfg, dev, flush, parent=None, seed=4):
+    """Phase 6 at one config; returns the kernel's numbers summed over one
+    B = 4 token step's launches (97 at qwen2-0.5b)."""
     import torch
     from repro_torch import kernels as tk
     from repro_torch.kernels import ref
+    from repro_torch.kernels.row_gemm import row_gemm_group
 
-    gen = torch.Generator(device=dev).manual_seed(4)
-    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                 n_bytes=0.0, n_ops=0.0, max_abs_err=0.0, launches=0)
-    for name, k, n, per_step, layout in row_gemm_shapes(cfg):
-        w = torch.randn((k, n) if layout == "kn" else (n, k), generator=gen,
-                        device=dev) * k ** -0.5
-        w = w if layout == "kn" else w.T          # the transposed view
-        x_all = torch.randn((16, k), generator=gen, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, parent_ms=0.0,
+                 matmul_parent_ms=0.0, n_bytes=0.0, n_ops=0.0,
+                 max_abs_err=0.0, launches=0, parent_launches=0)
+    for name, k, ns, bias, per, per_parent, layout in \
+            row_gemm_launches(cfg):
+        ws = [(torch.randn((k, n), generator=gen, device=dev) if layout ==
+               "kn" else torch.randn((n, k), generator=gen, device=dev).T)
+              * k ** -0.5 for n in ns]
+        bs = [torch.randn((n,), generator=gen, device=dev) * 0.1
+              for n in ns] if bias else None
+        x_all = torch.randn((max(ROW_GEMM_M), k), generator=gen, device=dev)
+
+        def kern(x):
+            if len(ws) == 1:
+                return [tk.row_gemm(x, ws[0])]
+            return row_gemm_group(x, ws, bs)
+
+        def plain(x):
+            return ref.row_gemm_group_ref(x, ws, bs or [None] * len(ws))
+
         err = 0.0
         for m in ROW_GEMM_M:
             x = x_all[:m]
             before = tk.row_gemm.launches
-            got, want = tk.row_gemm(x, w), ref.row_gemm_ref(x, w)
+            got, want = kern(x), plain(x)
             torch.cuda.synchronize()
             assert tk.row_gemm.launches == before + 1, name
-            d = float((got - want).abs().max())
-            scale = float(want.abs().max())
-            assert d <= ROW_GEMM_TOL * scale, \
-                f"row_gemm {name} M={m}: {d} of {scale}"
-            err = max(err, d)
-            for i in range(m):
-                assert torch.equal(tk.row_gemm(x[i:i + 1], w)[0], got[i]), \
-                    f"row_gemm {name} M={m}: row {i} alone != in batch"
+            for i, (g, wnt) in enumerate(zip(got, want)):
+                d = float((g - wnt).abs().max())
+                scale = float(wnt.abs().max())
+                assert d <= ROW_GEMM_TOL * scale, \
+                    f"row_gemm {name} M={m}: {d} of {scale}"
+                err = max(err, d)
+                if len(ws) > 1:           # grouped == its own launch
+                    alone = tk.row_gemm(x, ws[i])
+                    assert torch.equal(g, alone + bs[i] if bias
+                                       else alone), \
+                        f"row_gemm {name} M={m}: product {i} grouped != " \
+                        "alone"
+            for r in range(m):
+                row = kern(x[r:r + 1])
+                assert all(torch.equal(a[0], g[r])
+                           for a, g in zip(row, got)), \
+                    f"row_gemm {name} M={m}: row {r} alone != in batch"
         x = x_all[:B]
-        n_bytes = 4.0 * (B * k + k * n + B * n)
-        n_ops = 2.0 * B * n * k
+        wcat = torch.cat(ws, dim=1) if len(ws) > 1 else ws[0]
+        if bias:
+            bcat = torch.cat(bs)
+            library = lambda: torch.addmm(bcat, x, wcat)     # noqa: E731
+        else:
+            library = lambda: torch.matmul(x, wcat)          # noqa: E731
+        n_tot = sum(ns)
+        n_bytes = 4.0 * (B * k + k * n_tot + B * n_tot)
+        n_ops = 2.0 * B * n_tot * k
         b_ms, by = bound_ms(n_bytes, n_ops)
-        r = dict(ms=time_ms(lambda: tk.row_gemm(x, w), flush),
-                 plain_ms=time_ms(lambda: ref.row_gemm_ref(x, w), flush),
-                 library_ms=time_ms(lambda: torch.matmul(x, w), flush))
-        print(f"  row_gemm {name:8s} M={B} K={k} N={n} ({layout}) "
-              f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
-              f"torch.matmul={r['library_ms']:.4f} bound={b_ms:.6f} ({by}) "
-              f"x{per_step} per step; max|d| {err:.2e} over M in "
+        r = dict(ms=time_ms(lambda: kern(x), flush),
+                 plain_ms=time_ms(lambda: plain(x), flush, reps=5),
+                 library_ms=time_ms(library, flush))
+        if parent is not None:
+            calls = [parent(x, w)[0] for w in ws]
+            r["parent_ms"] = sum(time_ms(c, flush) for c in calls)
+        print(f"  row_gemm {cfg.name} {name:8s} M={B} K={k} N={ns} "
+              f"({layout}) ms={r['ms']:.4f} parent="
+              + (f"{r['parent_ms']:.4f}" if parent is not None
+                 else "not measured")
+              + f" plain={r['plain_ms']:.4f} library={r['library_ms']:.4f} "
+              f"bound={b_ms:.6f} ({by}); x{per} a step (the parent "
+              f"x{per_parent * len(ws)}); max|d| {err:.2e} over M in "
               f"{ROW_GEMM_M}")
         for f in ("ms", "plain_ms", "library_ms"):
-            total[f] += per_step * r[f]
-        total["n_bytes"] += per_step * n_bytes
-        total["n_ops"] += per_step * n_ops
+            total[f] += per * r[f]
+        if parent is not None:
+            total["parent_ms"] += per_parent * r["parent_ms"]
+        total["matmul_parent_ms"] += per_parent * r["library_ms"]
+        total["parent_launches"] += per_parent * len(ws)
+        total["n_bytes"] += per * n_bytes
+        total["n_ops"] += per * n_ops
         total["max_abs_err"] = max(total["max_abs_err"], err)
-        total["launches"] += per_step
+        total["launches"] += per
     total["bound_ms"], total["bound_by"] = bound_ms(total["n_bytes"],
                                                     total["n_ops"])
-    print(f"row_gemm vs plain: ok, within {ROW_GEMM_TOL} x max|y| at M in "
-          f"{ROW_GEMM_M}, rows alone bitwise; one B={B} token step "
-          f"({total['launches']} launches, {total['n_bytes'] / 1e9:.3f} GB):"
-          f" ms={total['ms']:.4f} plain={total['plain_ms']:.4f} "
-          f"torch.matmul={total['library_ms']:.4f} "
-          f"bound={total['bound_ms']:.4f} ({total['bound_by']}); "
+    print(f"row_gemm vs plain ({cfg.name}): ok, within {ROW_GEMM_TOL} x "
+          f"max|y| at M in {ROW_GEMM_M}, rows alone and grouped == alone "
+          f"bitwise; one B={B} token step ({total['launches']} launches, "
+          f"{total['n_bytes'] / 1e9:.3f} GB): ms={total['ms']:.4f} "
+          f"(parent " + (f"{total['parent_ms']:.4f}" if parent is not None
+                         else "not measured")
+          + f") plain={total['plain_ms']:.4f} "
+          f"library={total['library_ms']:.4f} (the parent's "
+          f"{total['parent_launches']} products through torch.matmul "
+          f"{total['matmul_parent_ms']:.4f}) "
+          f"bound={total['bound_ms']:.4f} ({total['bound_by']}), "
+          f"{total['bound_ms'] / total['ms']:.1%} of the bound; "
           f"{card_line()}")
     return total
 
@@ -1223,7 +1374,7 @@ def decode_path(cfg, params, dev, kernel_ms: float):
     assert torch.equal(blocks[0], blocks[1]), "captured step != eager"
     for a, b in zip(graph_buf.written(), eager_buf.written()):
         assert torch.equal(a, b), "captured decode buffers != eager"
-    assert graph_step.launches["row_gemm"] == 7 * cfg.n_layers + 1
+    assert graph_step.launches["row_gemm"] == row_gemm_per_step(cfg)
     print(f"captured == eager (B=4, T=1024, b_kv=8): the first token of a "
           f"{prompts[5].size}-token prefill into slot 1 and 8 token steps, "
           f"tokens and every buffer bitwise; step and prefill captured in "
@@ -1260,6 +1411,13 @@ def decode_path(cfg, params, dev, kernel_ms: float):
                           f"the untraced wall, {launched / 16:.0f} launches "
                           "per step")
         walls[name] = statistics.median(ms)
+        if name == "graph":
+            busy += (f"; the ungrouped design's graph step "
+                     f"{UNGROUPED_STEP['wall_ms']} ms, "
+                     f"{UNGROUPED_STEP['tokens_s']} tokens/s, "
+                     f"{UNGROUPED_STEP['device_ms']} device ms, "
+                     f"{7 * cfg.n_layers + 1} row_gemm launches (now "
+                     f"{row_gemm_per_step(cfg)})")
         print(f"decode token step {name} (B=4, T=1024, b_kv=8): "
               f"{walls[name]:.3f} ms wall per step in a 16-step chunk "
               f"(median of {reps}), {4e3 / walls[name]:.1f} tokens/s{busy}; "
@@ -1366,7 +1524,7 @@ def decode_path(cfg, params, dev, kernel_ms: float):
                 0 if plain_run else cfg.n_layers * rep.decode_rounds,
                 "flash_attention_fwd":
                 0 if plain_run else cfg.n_layers * rep.prefills,
-                "row_gemm": (7 * cfg.n_layers + 1) * rep.decode_rounds}
+                "row_gemm": row_gemm_per_step(cfg) * rep.decode_rounds}
         assert {k: replayed.get(k, 0) for k in eager} == \
             {k: want.get(k, 0) for k in eager}, \
             f"{name}: replayed launches {replayed} != {want}, " \
@@ -1899,7 +2057,7 @@ def mixed_decode(cfg, model, params, dev):
         f"launches outside the graphs: {counts}"
     want = {"quantized_decode_attention": cfg.n_layers * rep.decode_rounds,
             "flash_attention_fwd": cfg.n_layers * rep.prefills,
-            "row_gemm": (7 * cfg.n_layers + 1) * rep.decode_rounds}
+            "row_gemm": row_gemm_per_step(cfg) * rep.decode_rounds}
     for k in counts:
         counts[k] += replayed.get(k, 0)
         assert counts[k] == want.get(k, 0), (k, counts[k], want)
@@ -2092,7 +2250,7 @@ def spec_rounds(cfg, model, w, wd, prompts, dev, ref_cache, step_wall):
     torch.cuda.synchronize()
     t_capture = time.perf_counter() - t0
     assert draft.launches["row_gemm"] == verify.launches["row_gemm"] \
-        == 7 * cfg.n_layers + 1
+        == row_gemm_per_step(cfg)
     assert draft.launches["quantized_decode_attention"] == cfg.n_layers
     live = np.ones(4, np.int32)
     rem = np.full(4, DECODE_NEW - 1, np.int32)
@@ -2259,7 +2417,7 @@ def speculative_path(cfg, params, dev, step_wall, engine_wall):
         # products, every prefill 24 flash launches
         want = {"quantized_decode_attention": cfg.n_layers * steps,
                 "flash_attention_fwd": cfg.n_layers * rep.prefills,
-                "row_gemm": (7 * cfg.n_layers + 1) * steps}
+                "row_gemm": row_gemm_per_step(cfg) * steps}
         assert {k: replayed.get(k, 0) for k in launches} == want, \
             f"{name}: replayed launches {replayed} != {want}"
         counts = {k: eager[k] + want[k] for k in launches}
@@ -3216,6 +3374,238 @@ def resilient_training(cfg, dev):
     return flash
 
 
+def wide_state(cfg, buf, lens, seed):
+    """Fill a slot block with a seeded synthetic int8 cache (codes in
+    [-127, 127], scales in [0.01, 0.03]) and ragged lengths."""
+    import torch
+    gen = torch.Generator(device=buf.device).manual_seed(seed)
+    for i in range(cfg.n_layers):
+        for t in (buf.k_codes[i], buf.v_codes[i]):
+            t.random_(-127, 128, generator=gen)
+    for t in (buf.k_scales, buf.v_scales):
+        t.uniform_(0.01, 0.03, generator=gen)
+    buf.pos.copy_(torch.as_tensor(lens, dtype=torch.int32))
+    buf.tok.random_(0, cfg.vocab_size, generator=gen)
+
+
+def wide_step(cfg, model, w8, what, b, t, lens, dev):
+    """One token step at B slots over a T-position cache: batched vs rows
+    alone (logits bitwise), kernels vs plain attention (the token rule),
+    the captured step vs its closure run eagerly (tokens and written
+    entries bitwise); prints tokens/s, device ms and peak memory.  Returns
+    {kernel: launches} of the captured step's part, counted: its capture's
+    eager warm-up, the eager step it is held against and its 12 replays
+    (the logits compared before it are not counted)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.kernels import ref
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.runtime import CompiledForwardCache
+    from repro_torch.runtime import decode_engine as de
+
+    class PlainLM(DecoderLM):
+        def decode_attend(self, q, kc, vc, ks, vs, lens):
+            return ref.quantized_decode_attention_ref(
+                q, kc, vc, ks, vs, lens, window=self.cfg.sliding_window,
+                block_t=4096)
+
+    torch.cuda.reset_peak_memory_stats()
+    buf = de._SlotBuffers(cfg, t, b, 8, dev)
+    wide_state(cfg, buf, lens, seed=t + b)
+    rows = torch.arange(b, device=dev)
+    at = buf.pos.clamp(max=t - 1).long()
+
+    def snapshot():
+        return [x[:, rows, at].clone() for x in (
+            buf.k_codes, buf.v_codes, buf.k_scales, buf.v_scales)] \
+            + [buf.pos.clone(), buf.tok.clone()]
+
+    def restore(snap):
+        for x, v in zip((buf.k_codes, buf.v_codes, buf.k_scales,
+                         buf.v_scales), snap):
+            x[:, rows, at] = v
+        buf.pos.copy_(snap[4])
+        buf.tok.copy_(snap[5])
+
+    def logits_of(lm, sl):
+        pos, tok = buf.pos[sl], buf.tok[sl]
+        return lm.decode_step_q(
+            w8, {"k_codes": buf.k_codes[:, sl], "v_codes": buf.v_codes[:, sl],
+                 "k_scales": buf.k_scales[:, sl],
+                 "v_scales": buf.v_scales[:, sl], "len": pos},
+            {"token": tok[:, None], "pos": pos}, b_kv=8)[0]
+
+    snap = snapshot()
+    with torch.no_grad():
+        full = logits_of(model, slice(None))
+        sample = sorted({0, b // 2, b - 1})
+        for i in sample:
+            assert torch.equal(logits_of(model, slice(i, i + 1))[0],
+                               full[i]), f"{what}: row {i} alone != batched"
+        plain = logits_of(PlainLM(cfg), slice(None))
+        torch.cuda.synchronize()
+    assert bool(torch.isfinite(full).all()), f"{what}: logits not finite"
+    d_plain = float((full - plain).abs().max())
+    scale = float(plain.abs().max())
+    assert d_plain <= E2E_TOL * scale, f"{what}: {d_plain} of {scale}"
+    top2 = plain.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2.0 * d_plain
+    same = full.argmax(-1) == plain.argmax(-1)
+    assert bool(same[clear].all()), f"{what}: a token flipped where the " \
+        "plain run's margin exceeds twice the logit difference"
+    restore(snap)
+
+    # the captured step's own peak: from here to the last replay
+    tk.reset_launch_counts()
+    torch.cuda.synchronize()
+    phase_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cache = CompiledForwardCache()
+    t0 = time.perf_counter()
+    graph = de._step_call(cache, model, 8, w8, buf)
+    torch.cuda.synchronize()
+    t_cap = time.perf_counter() - t0
+    # the capture's transient peak holds its copy of the block (restored
+    # after the warm-up step); what the graph keeps is what stays after it
+    capture_peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    graph_held = (torch.cuda.memory_allocated() - held) / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    live = np.ones(b, np.int32)
+    blk_g = de._decode_chunk(graph, buf.step_io, live, 1)[0].clone()
+    after_g = snapshot()
+    restore(snap)
+    blk_e = de._decode_chunk(
+        lambda: de._decode_step(model, 8, w8, buf, buf.step_io),
+        buf.step_io, live, 1)[0].clone()
+    after_e = snapshot()
+    torch.cuda.synchronize()
+    assert torch.equal(blk_g, blk_e), f"{what}: captured step != eager"
+    assert all(torch.equal(x, y) for x, y in zip(after_g, after_e)), \
+        f"{what}: captured step's written entries != eager"
+    assert torch.equal(blk_g[:, 0].long(), full.argmax(-1)), \
+        f"{what}: the step's tokens != the batched logits' argmax"
+    restore(snap)
+    dev_ms = []
+    for _ in range(3):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        graph()
+        ev[1].record()
+        ev[1].synchronize()
+        dev_ms.append(ev[0].elapsed_time(ev[1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    de._decode_chunk(graph, buf.step_io, live, 8)[0].cpu()
+    wall = (time.perf_counter() - t0) * 1e3 / 8
+    replay_peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    eager = tk.launch_counts()
+    replayed = {k: n * graph.replays for k, n in graph.launches.items()}
+    assert replayed.get("row_gemm", 0) == 12 * row_gemm_per_step(cfg) and \
+        replayed.get("quantized_decode_attention", 0) == 12 * cfg.n_layers, \
+        f"{what}: replays launched {replayed}"
+    counted = {k: n + replayed.get(k, 0) for k, n in eager.items()}
+    kv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    ws_gb = b * kv * -(-t // 64) * g * (cfg.head_dim + 2) * 4 / 2 ** 30
+    cache_gb = sum(x.numel() * x.element_size() for x in buf.canonical()) \
+        / 2 ** 30
+    print(f"  {what} (B={b}, T={t}, b_kv=8, lengths {min(lens)}-"
+          f"{max(lens)}, mean {sum(lens) / len(lens):.0f}; {cache_gb:.2f} "
+          f"GiB of cache): rows {sample} alone bitwise; plain attention "
+          f"max|d logits|={d_plain:.3e} of {scale:.2f}, "
+          f"{int(same.sum())}/{b} tokens equal ({int(clear.sum())} "
+          f"held); captured == eager bitwise (captured in {t_cap:.2f}s); "
+          f"{statistics.median(dev_ms):.3f} device ms a step (CUDA events, "
+          f"median of 3), {wall:.3f} ms wall a step in an 8-step chunk, "
+          f"{b * 1e3 / wall:.1f} tokens/s; memory: the graph keeps "
+          f"{graph_held:.3f} GiB (a decode-attention workspace "
+          f"{ws_gb:.3f} GiB, 24 a step: one live at a time), its replays "
+          f"{replay_peak:.3f} GiB more at peak, the capture "
+          f"{capture_peak:.3f} GiB above what it found (its copy of the "
+          f"block), the phase {phase_peak / 2 ** 30:.2f} GiB at peak with "
+          f"the plain run; launches (the warm-up, the eager step, 12 "
+          f"replays) {counted['row_gemm']} row_gemm, "
+          f"{counted['quantized_decode_attention']} decode attention; "
+          f"{card_line()}")
+    del buf, graph, cache
+    return counted
+
+
+def wide_decode(cfg, params, dev):
+    """Phase 16; returns {kernel: launches} of its engine run (eager plus
+    the graphs' replays) and of the steps' replays."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core.cost_model import SystemParams
+    from repro_torch.launch.serve import decode_system_params
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.runtime import (CompiledForwardCache, DecodeEngine,
+                                     QosClass, greedy_decode_reference)
+
+    model = DecoderLM(cfg)
+    per_layer = cfg.active_param_count() / cfg.n_layers
+    sysp = decode_system_params(cfg, SystemParams(
+        n_flop_agent=2.0 * per_layer * cfg.split_layer * B * S,
+        n_flop_server=2.0 * per_layer * (cfg.n_layers - cfg.split_layer)
+        * B * S), WIDE_SLOTS, S, WIDE_NEW)
+    pin = QosClass("interactive", *DECODE_BUDGET)
+    eng = DecodeEngine(model, params, sysp, classes=[pin], auto=False,
+                       max_batch=WIDE_SLOTS, max_new_tokens=WIDE_NEW,
+                       device=dev)
+    eng.set_operating_point(pin.name, 8, 8)
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(*WIDE_PROMPT_LEN, WIDE_PROMPTS)]
+    rids = {eng.submit(p, pin.name, arrival_s=0.0): i
+            for i, p in enumerate(prompts)}
+    cc = eng.compile_cache
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    responses = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eager = tk.launch_counts()
+    replayed = cc.kernel_launches()
+    rep = eng.report()
+    assert rep.requests_served == WIDE_PROMPTS
+    assert replayed.get("row_gemm", 0) == \
+        row_gemm_per_step(cfg) * rep.decode_rounds, replayed
+    assert eager == {k: sum(e.launches.get(k, 0) for _, e in cc.items())
+                     for k in eager}, f"eager launches {eager}"
+    counts = {k: eager[k] + replayed.get(k, 0) for k in eager}
+    w8 = eng.class_params(pin.name)
+    ref_cache = CompiledForwardCache()
+    for r in responses:
+        i = rids[r.request_id]
+        want = greedy_decode_reference(model, w8, prompts[i], WIDE_NEW,
+                                       b_kv=8, compile_cache=ref_cache,
+                                       device=dev)
+        assert np.array_equal(r.tokens, want), \
+            f"wide decode request {i}: {r.tokens} != {want}"
+    print(f"  DecodeEngine max_batch={WIDE_SLOTS}: {WIDE_PROMPTS} prompts "
+          f"of {WIDE_PROMPT_LEN[0]}-{WIDE_PROMPT_LEN[1] - 1} tokens, "
+          f"{WIDE_NEW} new each, {rep.prefills} prefills, "
+          f"{rep.decode_rounds} token steps, {rep.compile_misses} graphs "
+          f"captured, {wall:.2f}s wall; every response == its batch-1 "
+          f"reference bitwise; launches {counts['row_gemm']} row_gemm, "
+          f"{counts['quantized_decode_attention']} decode attention")
+    del eng, responses, ref_cache, cc
+    print(f"  {release_memory()}")
+    rng = np.random.default_rng(32)
+    for what, b, t in WIDE_STEPS:
+        lens = [t - 16] if b == 1 else \
+            [t - 16, 5] + rng.integers(t // 16, t - 16, b - 2).tolist()
+        for k, n in wide_step(cfg, model, w8, what, b, t, lens,
+                              dev).items():
+            counts[k] += n
+        print(f"  {release_memory()}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3399,9 +3789,12 @@ def main() -> int:
     summary["quantized_decode_attention"] = check_decode_kernel(dev, flush)
     print(f"decode kernel phase: {time.perf_counter() - t0:.1f}s")
 
-    # 6. the row-independent GEMM against its plain version
+    # 6. the row-independent GEMM against its plain version, at qwen2-0.5b's
+    # and stablelm-3b's decode shapes, beside the parent's kernel
     t0 = time.perf_counter()
-    summary["row_gemm"] = check_row_gemm(cfg, dev, flush)
+    parent = parent_row_gemm()
+    summary["row_gemm"] = check_row_gemm(cfg, dev, flush, parent)
+    check_row_gemm(SL_FULL, dev, flush, parent, seed=5)
     print(f"row_gemm phase: {time.perf_counter() - t0:.1f}s")
 
     # 7. the decode path at full width, through CUDA graphs
@@ -3485,8 +3878,14 @@ def main() -> int:
     counts["flash_attention_fwd"] += resilient_training(cfg, dev)
     print(f"resilience: {time.perf_counter() - t0:.1f}s")
 
+    # 16. decode at the reference's widths: 32 slots, DECODE_32K, LONG_500K
+    t0 = time.perf_counter()
+    print(f"  {release_memory()}")
+    for name, n in wide_decode(cfg, params, dev).items():
+        counts[name] += n
+    print(f"wide decode: {time.perf_counter() - t0:.1f}s")
 
-    # 16. summary
+    # 17. summary
     names = {"group_quantize": ("csrc/group_quantize.cu",
                                 "src/repro/kernels/quantize.py:35"),
              "qmm": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:67"),

@@ -42,9 +42,12 @@
 //   m* = max m_c,  w_c = exp(m_c - m*),  l = sum w_c l_c,  acc = sum w_c
 //   acc_c (each an `fmaf` chain),  out = acc / max(l, 1e-30),
 // its loads of the chunks' states issued together (a warp per query for
-// m*, w and l; eight chunks' acc at a time), not one round trip a chunk;
-// and resets the counter to 0 for the next launch (the qmm split-K
-// pattern: no atomic add of floats).  A (row, kv head) with no live
+// m* and w; eight chunks' acc, w and l at a time), not one round trip a
+// chunk; w_c is written over m_c in the workspace, so the block's shared
+// memory does not depend on T and any cache length runs (8,192 chunks at
+// T = 524,288 are one combining block's serial walk); and resets the
+// counter to 0 for the next launch (the qmm split-K pattern: no atomic
+// add of floats).  A (row, kv head) with no live
 // position gets out = 0 from its chunk-0 block.  One launch per call; the
 // kernel neither allocates nor synchronises the host, so a decode step can
 // be captured in a CUDA graph.  `expf`, no fast math in the build.
@@ -88,7 +91,6 @@ decode_attn_kernel(const float* __restrict__ q, const CodeT* __restrict__ kc,
   float* kt = qs + g * dh;           // [64][dh + 1]     dequantized K
   float* vt = kt + kChunk * (dh + 1);  // [64][dh]       dequantized V
   float* ps = vt + kChunk * dh;      // [g][64]          scores, then p
-                                     // then 2 x [g][n_chunks] (combine)
   __shared__ int last_block;
 
   const int chunk = blockIdx.x;
@@ -236,11 +238,11 @@ decode_attn_kernel(const float* __restrict__ q, const CodeT* __restrict__ kc,
   __threadfence();
   const int n_live = c_end - c_first;
   const long long stride = gd + 2 * g;
-  const float* base =
+  float* base =
       ws + (static_cast<long long>(rh) * gridDim.x + c_first) * stride;
-  float* wbuf = ps + g * kChunk;           // [g][n_live] exp(m_c - m*)
-  float* lbuf = wbuf + g * gridDim.x;      // [g][n_live] l_c
-  // m* and the weights, one warp a query, the chunks' loads in parallel
+  // m* and the weights, one warp a query, the chunks' loads in parallel;
+  // w_c = exp(m_c - m*) replaces m_c in the workspace (the block's only
+  // storage that grows with T, so any cache length fits)
   for (int gg = warp; gg < g; gg += kWarps) {
     float m = kNegInf;
     for (int c = lane; c < n_live; c += 32)
@@ -249,28 +251,33 @@ decode_attn_kernel(const float* __restrict__ q, const CodeT* __restrict__ kc,
     for (int o = 16; o > 0; o >>= 1)
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
     for (int c = lane; c < n_live; c += 32) {
-      wbuf[gg * n_live + c] = expf(__ldcg(base + c * stride + gd + gg) - m);
-      lbuf[gg * n_live + c] = __ldcg(base + c * stride + gd + g + gg);
+      float* mc = base + c * stride + gd + gg;
+      __stcg(mc, expf(__ldcg(mc) - m));
     }
   }
   __syncthreads();
-  // l and acc summed in ascending chunk order, acc's loads 8 chunks at a
+  // l and acc summed in ascending chunk order, the loads 8 chunks at a
   // time
   for (int o = tid; o < gd; o += kThreads) {
     const int gg = o / dh;
-    const float* w = wbuf + gg * n_live;
-    const float* lc = lbuf + gg * n_live;
+    const float* w = base + gd + gg;       // w_c at w[c * stride]
+    const float* lc = base + gd + g + gg;  // l_c at lc[c * stride]
     float l = 0.0f, acc = 0.0f;
     for (int c0 = 0; c0 < n_live; c0 += 8) {
-      float a[8];
+      float a[8], wc[8], lv[8];
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
-        a[u] = c0 + u < n_live ? __ldcg(base + (c0 + u) * stride + o) : 0.0f;
+      for (int u = 0; u < 8; ++u) {
+        const bool in = c0 + u < n_live;
+        const long long at = (c0 + u) * stride;
+        a[u] = in ? __ldcg(base + at + o) : 0.0f;
+        wc[u] = in ? __ldcg(w + at) : 0.0f;
+        lv[u] = in ? __ldcg(lc + at) : 0.0f;
+      }
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         if (c0 + u < n_live) {
-          l = fmaf(lc[c0 + u], w[c0 + u], l);
-          acc = fmaf(a[u], w[c0 + u], acc);
+          l = fmaf(lv[u], wc[u], l);
+          acc = fmaf(a[u], wc[u], acc);
         }
       }
     }

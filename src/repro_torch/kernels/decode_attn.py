@@ -61,10 +61,11 @@ def _entry(symbol: str):
 def smem_bytes(g: int, dh: int, t: int) -> int:
     """Shared memory of one block: q [G, dh], the dequantized K chunk
     [CHUNK, dh + 1] (padded against bank conflicts) and V chunk
-    [CHUNK, dh], the scores, then probabilities, [G, CHUNK], and the
-    combine's weights and sums, 2 x [G, ceil(T / CHUNK)]."""
-    return 4 * (g * dh + CHUNK * (dh + 1) + CHUNK * dh + g * CHUNK
-                + 2 * g * -(-t // CHUNK))
+    [CHUNK, dh], and the scores, then probabilities, [G, CHUNK].  The
+    combine keeps its weights in the global workspace, so no term grows
+    with the cache length ``t``."""
+    del t
+    return 4 * (g * dh + CHUNK * (dh + 1) + CHUNK * dh + g * CHUNK)
 
 
 def quantized_decode_attention(q, k_codes, v_codes, k_scales, v_scales,
@@ -117,7 +118,7 @@ def quantized_decode_attention(q, k_codes, v_codes, k_scales, v_scales,
     g = h // kv
     smem = smem_bytes(g, dh, t)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"G={g}, dh={dh}, T={t} needs {smem} bytes of "
+        raise ValueError(f"G={g}, dh={dh} needs {smem} bytes of "
                          f"shared memory per block; the card has "
                          f"{MAX_SMEM_BYTES}")
     if b * kv > 65535:

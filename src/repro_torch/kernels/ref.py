@@ -54,6 +54,13 @@ def row_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[i:i + 1] @ w for i in range(x.shape[0])])
 
 
+def row_gemm_group_ref(x: torch.Tensor, ws, biases) -> list:
+    """``[x @ w_i (+ b_i)]``: :func:`row_gemm_ref` per product, then one
+    add of its bias (None for none), as ``layers.qkv_project`` adds it."""
+    outs = [row_gemm_ref(x, w) for w in ws]
+    return [y if b is None else y + b for y, b in zip(outs, biases)]
+
+
 def group_quantize_ref(w: torch.Tensor, group_size: int, bits: int = 8):
     """w [K, N] float -> (codes int8 [K, N], scales f32 [K//G, N]).
 

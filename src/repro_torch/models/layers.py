@@ -28,7 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.bucketing import seq_bucket
 from ..kernels.flash import flash_attention
-from ..kernels.row_gemm import row_gemm
+from ..kernels.row_gemm import row_gemm, row_gemm_group
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -64,19 +64,23 @@ def embed_init(generator, vocab: int, d: int, dtype, *, device=None):
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x, scale, eps: float = 1e-6):
-    xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * scale.to(torch.float32)).to(x.dtype)
+    """RMSNorm in float32 through ``F.rms_norm``, which reduces each row on
+    its own in an order set by the row's length alone (one block a row on
+    the card), so a row's bits do not depend on how many rows share the
+    call: the decode step's batched rows equal their rows alone.
+    ``torch.mean`` over the last axis would not: on the card its reduction
+    splits a row over fewer threads once more than 4 rows share it."""
+    y = F.rms_norm(x.to(torch.float32), (x.shape[-1],),
+                   scale.to(torch.float32), eps)
+    return y.to(x.dtype)
 
 
 def layernorm(x, scale, bias, eps: float = 1e-5):
-    xf = x.to(torch.float32)
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * scale.to(torch.float32) + bias.to(torch.float32)
-            ).to(x.dtype)
+    """LayerNorm in float32 through ``F.layer_norm``: each row reduced on
+    its own, as in :func:`rmsnorm`."""
+    y = F.layer_norm(x.to(torch.float32), (x.shape[-1],),
+                     scale.to(torch.float32), bias.to(torch.float32), eps)
+    return y.to(x.dtype)
 
 
 def apply_norm(cfg, x, p):
@@ -144,15 +148,26 @@ def init_attention(cfg, generator, *, layers: Optional[int] = None,
     return p, ax
 
 
-def qkv_project(cfg, p, x, positions, matmul=torch.matmul):
-    """x [B,S,D] -> q [B,S,H,dh], k/v [B,S,KV,dh] with RoPE applied."""
-    q = matmul(x, p["wq"].to(x.dtype))
-    k = matmul(x, p["wk"].to(x.dtype))
-    v = matmul(x, p["wv"].to(x.dtype))
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+def matmul_group(x, ws, biases=None):
+    """``[x @ w_i (+ b_i)]`` through ``torch.matmul``, one product each, then
+    one add of its bias: the forward's and training's products."""
+    ys = [torch.matmul(x, w) for w in ws]
+    return ys if biases is None else [y + b for y, b in zip(ys, biases)]
+
+
+def qkv_project(cfg, p, x, positions, products=matmul_group):
+    """x [B,S,D] -> q [B,S,H,dh], k/v [B,S,KV,dh] with RoPE applied.
+    ``products(x, ws, biases)`` computes q, k and v (and adds their
+    biases): :func:`matmul_group`, or the decode step's
+    :func:`row_matmul_group`, one launch for the three."""
+    biases = ([p[b].to(x.dtype) for b in ("bq", "bk", "bv")]
+              if cfg.qkv_bias else None)
+    q, k, v = products(x, [p[n].to(x.dtype) for n in ("wq", "wk", "wv")],
+                       biases)
+    return _heads_rope(cfg, q, k, v, positions)
+
+
+def _heads_rope(cfg, q, k, v, positions):
     q = q.reshape(q.shape[:-1] + (cfg.n_heads, cfg.head_dim))
     k = k.reshape(k.shape[:-1] + (cfg.n_kv_heads, cfg.head_dim))
     v = v.reshape(v.shape[:-1] + (cfg.n_kv_heads, cfg.head_dim))
@@ -306,14 +321,16 @@ def activation(cfg, h):
     return F.gelu(h, approximate="tanh")
 
 
-def apply_mlp(cfg, p, x, matmul=torch.matmul):
+def apply_mlp(cfg, p, x, products=matmul_group):
+    """The MLP; ``products`` as in :func:`qkv_project` (gate and up share
+    one call)."""
     if cfg.act == "silu":
-        g = matmul(x, p["wi_gate"].to(x.dtype))
-        u = matmul(x, p["wi_up"].to(x.dtype))
+        g, u = products(x, [p["wi_gate"].to(x.dtype),
+                            p["wi_up"].to(x.dtype)])
         h = F.silu(g) * u
     else:
-        h = activation(cfg, matmul(x, p["wi"].to(x.dtype)))
-    return matmul(h, p["wo"].to(x.dtype))
+        h = activation(cfg, products(x, [p["wi"].to(x.dtype)])[0])
+    return products(h, [p["wo"].to(x.dtype)])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -401,8 +418,17 @@ def row_matmul(x, w):
     projections and head through this, so a row's bits do not depend on
     how many rows share the step: the engine's batched decode equals the
     batch-1 reference bit for bit.  On the card that is one launch of the
-    row-independent GEMM kernel per product (float32, at most 16 rows); on
-    the CPU one BLAS product per row.
+    row-independent GEMM kernel per product (float32, any number of rows);
+    on the CPU one BLAS product per row.
     """
     y = row_gemm(x.reshape(-1, x.shape[-1]), w)
     return y.reshape(x.shape[:-1] + (w.shape[-1],))
+
+
+def row_matmul_group(x, ws, biases=None):
+    """``[x [..., K] @ w_i (+ b_i)]`` for products of one x, each row its
+    own: :func:`kernels.row_gemm.row_gemm_group`, one launch on the card,
+    each output bitwise :func:`row_matmul`'s followed by the bias add."""
+    ys = row_gemm_group(x.reshape(-1, x.shape[-1]), ws, biases)
+    return [y.reshape(x.shape[:-1] + (w.shape[-1],))
+            for y, w in zip(ys, ws)]

@@ -257,7 +257,9 @@ class DecoderLM:
         positions.  ``write(i, k, v, at)`` stores layer i's fresh entry at
         cache position ``at`` and
         ``attend(i, q)`` attends layer i's cache; the projections go
-        through :func:`layers.row_matmul` (row-independent bits)."""
+        through :func:`layers.row_matmul` (row-independent bits), q | k | v
+        and gate | up as one grouped launch each
+        (:func:`layers.row_matmul_group`)."""
         cfg = self.cfg
         mm = L.row_matmul
         b = x.shape[0]
@@ -271,13 +273,14 @@ class DecoderLM:
             p_i = tree_map(lambda a: a[i], lp)
             h = L.apply_norm(cfg, x, p_i["ln1"])
             q, k, v = L.qkv_project(cfg, p_i["attn"], h, positions,
-                                    matmul=mm)
+                                    products=L.row_matmul_group)
             write(i, k, v, at)
             attn = attend(i, q)
             x = x + mm(attn.reshape(b, 1, cfg.q_dim),
                        p_i["attn"]["wo"].to(x.dtype))
             h2 = L.apply_norm(cfg, x, p_i["ln2"])
-            x = x + L.apply_mlp(cfg, p_i["ffn"], h2, matmul=mm)
+            x = x + L.apply_mlp(cfg, p_i["ffn"], h2,
+                                products=L.row_matmul_group)
         x = L.apply_norm(cfg, x, params["final_norm"])
         return L.unembed(cfg, params["embed"], x, matmul=mm)[:, 0]
 

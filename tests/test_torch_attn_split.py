@@ -74,6 +74,21 @@ def test_chunks_fill_the_card_at_the_timed_shape():
     assert 2 * live == 86
 
 
+@pytest.mark.parametrize("g,dh,t", [(7, 64, 524288), (48, 128, 32768),
+                                    (1, 80, 1024), (4, 128, 131072)])
+def test_smem_bytes_does_not_grow_with_the_cache(g, dh, t):
+    """The combine keeps its weights in the global workspace, so a block's
+    shared memory is the same at every T: qwen2-0.5b's heads (7, 64) at
+    the reference's LONG_500K (524,288) and granite-34b's (48, 128) at
+    DECODE_32K (32,768) fit the card; a head size whose chunk cannot fit
+    still does not."""
+    want = tda.smem_bytes(g, dh, C)
+    for tt in (1, C, 1024, t, 4 * t):
+        assert tda.smem_bytes(g, dh, tt) == want
+    assert want <= tda.MAX_SMEM_BYTES
+    assert tda.smem_bytes(2, 1024, t) > tda.MAX_SMEM_BYTES
+
+
 # ---------------------------------------------------------------------------
 # (b) the decode combine against the reference
 # ---------------------------------------------------------------------------

@@ -19,8 +19,12 @@ at M = 64 and at M = 256.  Decode
 attention agrees with its plain version within 1e-5 x max|out| (f32 sums
 in another order: the kernel's chunks combine in another order than the
 plain version's sequential walk), at lengths on and beside its chunk
-boundaries and under windows at T = 4096, and is bitwise
-row-independent, padding-invisible and the same on a second launch.
+boundaries, under windows at T = 4096 and at cache lengths past the
+shared-memory cap it once had (granite's heads at T = 32,768, qwen2's at
+524,288), and is bitwise row-independent, padding-invisible and the same
+on a second launch.  The row-independent GEMM takes any M (17, 32 and
+128 rows each bitwise alone) and its grouped launch equals the separate
+launches plus the bias add, bitwise.
 Flash attention (tensor-core products) agrees at rtol = atol = 2e-5
 (tests/test_flash.py's tolerance) in f32 and within one bf16 ulp in
 bf16, at lengths around its 16-row MMA tile and 64-row block, bitwise
@@ -36,7 +40,8 @@ engine on the CPU.  A decode step at pos = T writes at T - 1 with no
 device assert, rows as they are alone; one speculative round from the
 captured draft and verify steps equals the closures run eagerly (and a
 fixed n_draft + 1 verify steps), and the speculative engine from graphs
-equals the batch-1 oracle with no capture after warm-up.  Two engines with
+equals the batch-1 oracle with no capture after warm-up; the decode
+engine at 32 slots equals the batch-1 oracle.  Two engines with
 different weights over one compile cache each replay their own graphs; a
 one-agent fleet from graphs equals its batched engine bitwise; a decode
 slot's snapshot resumes bitwise through the batch-1 graphs; a checkpoint
@@ -364,6 +369,40 @@ def test_decode_attention_twice_is_bitwise(dev):
     torch.cuda.synchronize()
     assert tk.quantized_decode_attention.launches == before + 2
     assert torch.equal(first, second)
+
+
+def _decode_long(dev, b, t, h, kv, dh, lens, seed):
+    """A long int8 cache made on the card (seeded), at b_kv = 8."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, 1, h, dh), generator=gen, device=dev)
+    k = torch.randn((b, t, kv, dh), generator=gen, device=dev)
+    (kc, ks) = kv_quantize(k, 8)
+    del k
+    v = torch.randn((b, t, kv, dh), generator=gen, device=dev)
+    (vc, vs) = kv_quantize(v, 8)
+    del v
+    return q, kc, vc, ks, vs, torch.tensor(lens, dtype=torch.int32,
+                                           device=dev)
+
+
+@pytest.mark.parametrize("b,t,h,kv,dh,lens", [
+    (2, 32768, 48, 1, 128, [32768, 20001]),    # granite-34b's heads
+    (1, 524288, 14, 2, 64, [524288 - 77])])    # qwen2-0.5b at LONG_500K
+def test_decode_attention_past_the_old_cap(dev, b, t, h, kv, dh, lens):
+    """Cache lengths the shared-memory combine could not take (T above
+    21,632 at G = 48, dh = 128; above ~224K at qwen2's heads) run within
+    1e-5 x max|out| of the plain version, rows alone bitwise."""
+    assert tdecode.smem_bytes(h // kv, dh, t) <= tdecode.MAX_SMEM_BYTES
+    args = _decode_long(dev, b, t, h, kv, dh, lens, seed=t)
+    out = tk.quantized_decode_attention(*args)
+    want = ref.quantized_decode_attention_ref(*args, block_t=4096)
+    torch.cuda.synchronize()
+    _decode_close(out, want)
+    if b > 1:
+        for i in range(b):
+            alone = tk.quantized_decode_attention(*(a[i:i + 1]
+                                                    for a in args))
+            assert torch.equal(alone[0], out[i]), f"row {i}"
 
 
 def test_decode_attention_raises_where_the_kernel_cannot_run(dev):
@@ -769,11 +808,77 @@ def test_row_gemm_in_a_graph(dev):
         assert torch.equal(g, tk.row_gemm(xi, w))
 
 
+@pytest.mark.parametrize("k,n,layout", ROW_GEMM_SHAPES)
+def test_row_gemm_any_m(dev, k, n, layout):
+    """M past one 16-row slice (17, 32, 128; once the M = 17 case that
+    raised): one launch, within 1e-5 x max|y| of the plain version, every
+    row bitwise the row computed alone."""
+    w = _row_gemm_w(k, n, layout, dev)
+    x = _normal(2, (128, k), dev)
+    for m in (17, 32, 128):
+        before = tk.row_gemm.launches
+        y = tk.row_gemm(x[:m], w)
+        torch.cuda.synchronize()
+        assert tk.row_gemm.launches == before + 1
+        want = ref.row_gemm_ref(x[:m], w)
+        assert float((y - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+        for i in range(m):
+            assert torch.equal(y[i], tk.row_gemm(x[i:i + 1], w)[0]), \
+                f"M={m} row {i}"
+
+
+@pytest.mark.parametrize("k,ns,bias", [
+    (896, (896, 128, 128), True), (896, (4864, 4864), False),
+    (2560, (2560, 2560, 2560), False), (2560, (6912, 6912), False),
+    (64, (32, 8, 8), True)])
+def test_row_gemm_grouped_equals_separate(dev, k, ns, bias):
+    """q | k | v (with their biases) and gate | up in one launch: each
+    output bitwise its own launch followed by the bias add, at M = 1, 4,
+    17; within 1e-5 x max|y| of the plain version."""
+    ws = [_normal(30 + i, (k, n), dev) for i, n in enumerate(ns)]
+    bs = [_normal(40 + i, (n,), dev) for i, n in enumerate(ns)] \
+        if bias else None
+    x = _normal(3, (17, k), dev)
+    for m in (1, 4, 17):
+        before = tk.row_gemm.launches
+        got = trg.row_gemm_group(x[:m], ws, bs)
+        torch.cuda.synchronize()
+        assert tk.row_gemm.launches == before + 1
+        want = ref.row_gemm_group_ref(x[:m], ws, bs or [None] * len(ws))
+        for i, (g, w, wnt) in enumerate(zip(got, ws, want)):
+            alone = tk.row_gemm(x[:m], w)
+            assert torch.equal(g, alone + bs[i] if bias else alone)
+            assert float((g - wnt).abs().max()) <= \
+                1e-5 * float(wnt.abs().max())
+
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
+def test_decode_norms_rows_bitwise_past_4_rows(dev, norm):
+    """The norms at 128 rows, as the decode step runs them: every row
+    bitwise the row alone (``torch.mean``'s reduction changes its split of
+    a row with the row count on the card; ``F.rms_norm`` and
+    ``F.layer_norm`` do not), within 1e-5 of the CPU's."""
+    from types import SimpleNamespace
+    cfg = SimpleNamespace(norm=norm)
+    x = _normal(5, (128, 1, 896), dev)
+    p = {"scale": _normal(6, (896,), dev), "bias": _normal(7, (896,), dev)}
+    got = tL.apply_norm(cfg, x, p)
+    torch.testing.assert_close(
+        got.cpu(), tL.apply_norm(cfg, x.cpu(),
+                                 {n: a.cpu() for n, a in p.items()}),
+        rtol=1e-5, atol=1e-5)
+    for i in range(128):
+        assert torch.equal(tL.apply_norm(cfg, x[i:i + 1], p)[0],
+                           got[i]), f"row {i}"
+
+
 def test_row_gemm_raises_where_the_kernel_cannot_run(dev):
     x = _normal(0, (17, 64), dev)
     w = _normal(1, (64, 32), dev)
     before = tk.row_gemm.launches
-    for bad in (lambda: tk.row_gemm(x, w),                    # M > 16
+    for bad in (lambda: trg.row_gemm_group(x, [w.T.contiguous().T] * 2),
+                lambda: trg.row_gemm_group(x, [w, w.T.contiguous().T]),
                 lambda: tk.row_gemm(x[:4].bfloat16(), w.bfloat16()),
                 lambda: tk.row_gemm(x[:4], w[:, :30]),        # N % 4
                 lambda: tk.row_gemm(x[:4, :63],
@@ -828,7 +933,8 @@ def test_captured_decode_equals_eager(dev, smoke_lm):
     step = de._step_call(cache, model, 8, w, bufs[0])
     for t, b in zip(bufs[0].written(), before):
         assert torch.equal(t, b)
-    assert step.launches["row_gemm"] == 7 * cfg.n_layers + 1
+    # q | k | v, wo, gate | up and down a layer, and the head
+    assert step.launches["row_gemm"] == 4 * cfg.n_layers + 1
     assert step.launches["quantized_decode_attention"] == cfg.n_layers
     live = np.asarray([1, 0, 1], np.int32)
     blk_a, n_a = de._decode_chunk(step, bufs[0].step_io, live, 5)
@@ -865,6 +971,29 @@ def test_captured_decode_engine_equals_reference(dev, smoke_lm, warm, b_kv):
         toks, m, _ = traffic[i]
         want = greedy_decode_reference(
             model, eng.class_params("interactive"), toks, m, b_kv=b_kv,
+            compile_cache=eng.compile_cache, device=dev)
+        np.testing.assert_array_equal(r.tokens, want)
+
+
+def test_captured_decode_engine_past_16_slots(dev, smoke_lm):
+    """max_batch 32 (once a fault: row_gemm raised past 16 rows) serving
+    40 prompts from graphs: every response bitwise its batch-1 oracle."""
+    from repro_torch.runtime import DecodeEngine
+    model, params = smoke_lm
+    eng = DecodeEngine(model, params, SMOKE_SYSP,
+                       classes=[QosClass("interactive", t0=3.5, e0=2.0)],
+                       auto=False, max_batch=32, max_new_tokens=6,
+                       device=dev)
+    eng.set_operating_point("interactive", 8, 8)
+    traffic = _decode_traffic(model.cfg.vocab_size, n=40, seed=5)
+    rids = {eng.submit(t, "interactive", max_new_tokens=m, arrival_s=0.0):
+            i for i, (t, m, _) in enumerate(traffic)}
+    got = {rids[r.request_id]: r for r in eng.drain()}
+    assert len(got) == 40
+    for i, r in got.items():
+        toks, m, _ = traffic[i]
+        want = greedy_decode_reference(
+            model, eng.class_params("interactive"), toks, m, b_kv=8,
             compile_cache=eng.compile_cache, device=dev)
         np.testing.assert_array_equal(r.tokens, want)
 
@@ -928,7 +1057,8 @@ def test_captured_spec_round_equals_eager(dev, smoke_lm):
     equals the same closures run eagerly on a copy of the same slot block,
     bitwise (delivered block, counts, codes, scales, positions); the fixed
     n_draft + 1 verify replays deliver the same; the engine from graphs
-    equals the batch-1 oracle with no capture after warm-up."""
+    equals the batch-1 oracle with no capture after warm-up; the decode
+engine at 32 slots equals the batch-1 oracle."""
     from repro_torch.runtime import decode_engine as de
     model, params = smoke_lm
     eng = _spec_engine(model, params, dev)

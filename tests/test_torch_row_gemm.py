@@ -12,9 +12,14 @@ reference.
   scale.
 * ``row_matmul`` on a [B, 1, K] activation is bitwise the per-leading-row
   loop the decode step used before.
-* ``schedule`` (the kernel's split of K) covers K exactly, gives every
-  warp whole 4-aligned slices, fills about two blocks per SM at the
-  decode shapes, and is a function of (K, N) alone.
+* ``schedule`` (the kernel's split of K over a thread-block cluster and
+  its ring of stages) covers K exactly in 4-aligned chunks, keeps every
+  decode shape's chunk resident in shared memory, and is a function of K
+  alone; what the wrapper hands the kernel is the same at every M
+  (1 to 128), the row count aside.
+* The grouped call (q | k | v, gate | up in one launch) is bitwise the
+  separate products plus the bias add, and so are the decode layer's
+  helpers built on it.
 """
 
 import importlib
@@ -42,6 +47,9 @@ TOL4 = dict(rtol=1e-4, atol=1e-4)
 # (K, N) of the decode step's products at qwen2-0.5b's full width
 DECODE_SHAPES = [(896, 896), (896, 128), (896, 4864), (4864, 896),
                  (896, 151936)]
+# the same at stablelm-3b's (d_model 2560, kv 2560, d_ff 6912, vocab 50304)
+SL_SHAPES = [(2560, 2560), (2560, 2560), (2560, 6912), (6912, 2560),
+             (2560, 50304)]
 
 
 @pytest.fixture(scope="module")
@@ -115,21 +123,97 @@ def test_row_matmul_equals_the_per_row_loop():
                        torch.zeros((0, w.shape[1])))
 
 
-@pytest.mark.parametrize("k,n", DECODE_SHAPES + [(7, 8), (64, 4), (100, 12),
-                                                 (20000, 128)])
+@pytest.mark.parametrize("k,n", DECODE_SHAPES + SL_SHAPES + [
+    (7, 8), (64, 4), (100, 12), (20000, 128)])
 def test_schedule_covers_k_from_k_and_n_alone(k, n):
     assert list(inspect.signature(rg_mod.schedule).parameters) == ["k", "n"]
-    chunk, splits = rg_mod.schedule(k, n)
-    assert chunk % rg_mod.WARPS == 0 and chunk > 0
-    assert (splits - 1) * chunk < k <= splits * chunk
-    tiles = -(-n // rg_mod.TILE_N)
-    if k >= rg_mod.WARPS * rg_mod.MIN_PER_WARP * 2:
-        assert chunk // rg_mod.WARPS >= rg_mod.MIN_PER_WARP
-    if (k, n) in DECODE_SHAPES[:4]:
-        # the decode projections: about two blocks per SM, or every chunk
-        # at its smallest
-        assert tiles * splits >= rg_mod.TARGET_BLOCKS \
-            or chunk == rg_mod.WARPS * rg_mod.MIN_PER_WARP
+    s = rg_mod.schedule(k, n)
+    assert s.chunk % 4 == 0 and s.chunk > 0
+    assert (s.cluster - 1) * s.chunk < k <= s.cluster * s.chunk
+    assert 1 <= s.cluster <= rg_mod.MAX_CLUSTER
+    assert (s.pieces - 1) * rg_mod.PIECE < s.chunk <= s.pieces * rg_mod.PIECE
+    assert s.stages == min(s.pieces, rg_mod.MAX_STAGES)
+    assert s.stages * rg_mod.PIECE * rg_mod.TILE_N * 4 <= rg_mod.RING_BYTES
+    if k >= rg_mod.MAX_CLUSTER * rg_mod.MIN_ROWS:
+        assert s.cluster == rg_mod.MAX_CLUSTER
+    elif k > rg_mod.MIN_ROWS:
+        assert s.chunk >= rg_mod.MIN_ROWS - 4
+    # the same for every N of one K: one cluster shape serves a group
+    assert rg_mod.schedule(k, 4 * n + 64) == s
+    if (k, n) in DECODE_SHAPES[:4] + SL_SHAPES[:4]:
+        # the decode products: a block fits the card, and the chunks of
+        # d_model rows stay resident in the ring (each row slice reads the
+        # staged tile; the down projection's longer chunk streams through
+        # the ring again for each slice past the first)
+        assert rg_mod.smem_bytes(16, k, n, False) <= rg_mod.MAX_SMEM_BYTES
+        assert (s.pieces <= s.stages) == (k in (896,))
+    if k % 4 == 0:
+        cols = rg_mod.head_columns(k)
+        assert rg_mod.NK_THREADS % cols == 0
+        assert rg_mod.head_ld(k) % 32 == 4 and rg_mod.head_ld(k) >= k
+        assert rg_mod.smem_bytes(16, k, n, True) <= rg_mod.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("k,n", DECODE_SHAPES + SL_SHAPES)
+def test_launch_is_the_same_at_every_m(k, n, transposed):
+    """What the wrapper hands the kernel besides the row count, the
+    schedule and the head's columns, is the same at every M: only the
+    registers held for rows (and with them the scratch of a block) follow
+    M, and those change which rows are computed, not how."""
+    plans = {m: (rg_mod.schedule(k, n), rg_mod.head_columns(k),
+                 rg_mod.head_ld(k)) for m in (1, 4, 16, 17, 32, 128)}
+    assert len(set(plans.values())) == 1
+    for m in (17, 32, 128):
+        assert rg_mod.row_block(m) == rg_mod.SLICE
+        assert rg_mod.smem_bytes(m, k, n, transposed) == \
+            rg_mod.smem_bytes(16, k, n, transposed)
+    assert [rg_mod.row_block(m) for m in (1, 2, 3, 4, 5, 9, 16)] == \
+        [1, 2, 4, 4, 8, 16, 16]
+
+
+@pytest.mark.parametrize("m", [1, 4, 17, 32])
+@pytest.mark.parametrize("bias", [False, True])
+def test_grouped_plain_equals_separate_plus_bias(m, bias):
+    """The grouped call's plain version is bitwise the separate products,
+    each followed by its bias add: q | k | v and gate | up shapes."""
+    x = _normal(m, (m, 64))
+    ws = [_normal(10 + i, (64, n)) for i, n in enumerate((64, 16, 16))]
+    bs = [_normal(20 + i, (w.shape[1],)) for i, w in enumerate(ws)]
+    got = rg_mod.row_gemm_group(x, ws, bs if bias else None)
+    for y, w, b in zip(got, ws, bs):
+        want = row_gemm(x, w)
+        assert torch.equal(y, want + b if bias else want)
+    with pytest.raises(ValueError):
+        rg_mod.row_gemm_group(x, ws * 2)              # > MAX_PRODUCTS
+    with pytest.raises(ValueError):
+        rg_mod.row_gemm_group(x, ws, bs[:2])
+
+
+def test_decode_layer_helpers_equal_the_separate_products(qwen):
+    """``qkv_project`` and ``apply_mlp`` with the decode step's
+    ``products=row_matmul_group`` (q | k | v and gate | up grouped) are
+    bitwise the same functions with every product its own ``row_matmul``
+    followed by its bias add (qwen2 has biases)."""
+    _, _, tmodel, tparams = qwen
+    cfg = tmodel.cfg
+    assert cfg.qkv_bias and cfg.act == "silu"
+
+    def separate(x, ws, biases=None):
+        ys = [L.row_matmul(x, w) for w in ws]
+        return ys if biases is None else [y + b for y, b in zip(ys, biases)]
+
+    p0 = {n: {k: a[0] for k, a in blk.items()}
+          for n, blk in tparams["layers"].items() if isinstance(blk, dict)}
+    p0["attn"]["bq"] = _normal(3, p0["attn"]["bq"].shape)
+    h = _normal(1, (20, 1, cfg.d_model))
+    pos = torch.arange(20, dtype=torch.int32)[:, None]
+    got = L.qkv_project(cfg, p0["attn"], h, pos, products=L.row_matmul_group)
+    want = L.qkv_project(cfg, p0["attn"], h, pos, products=separate)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(
+        L.apply_mlp(cfg, p0["ffn"], h, products=L.row_matmul_group),
+        L.apply_mlp(cfg, p0["ffn"], h, products=separate))
 
 
 def test_bad_shapes_raise():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device time of the port's two attention kernels at their timed shapes.
 
-    python3 tools/attn_time.py [--src DIR] [--reps 25]
+    python3 tools/attn_time.py [--src DIR] [--reps 25] [--outputs FILE]
+        [--long]
     python3 tools/attn_time.py --clock
 
 Times ``quantized_decode_attention`` at B = 4 over a T = 1024 cache
@@ -19,6 +20,15 @@ card line.
 ``--src`` imports ``repro_torch`` from another tree's ``src`` (its kernels
 build into that tree's ``build/kernels``), so two versions of the kernels
 can be timed in one call on one card: run it on each, in turns.
+``--outputs FILE`` also runs decode attention at B = 4 over T = 1024,
+4096 and 16384 (lengths [T, 0.8 T, 0.52 T, 300], b_kv 8, 4 and 16) and
+times it; the first run (say on the parent's tree) saves the outputs to
+FILE, a later run (on the change) holds its outputs bitwise equal to
+them, so a change that must keep the kernel's bits shows that it does.
+``--long`` times decode attention past the shared-memory cap the combine
+once had: qwen2-0.5b's heads at T = 524,288 (B = 1, the reference's
+``LONG_500K``) and granite-34b's (48 over 1, dh = 128) at T = 32,768, the
+longest combine walking 8,192 chunks.
 
 ``--clock`` builds ``csrc/flash_attn.cu`` once more with
 ``-DFLASH_STAGE_CLOCK`` (into ``build/kernels/``, apart from the port's
@@ -95,6 +105,8 @@ def main(argv=None) -> int:
                     help="import repro_torch from this directory")
     ap.add_argument("--reps", type=int, default=25)
     ap.add_argument("--clock", action="store_true")
+    ap.add_argument("--outputs", default=None)
+    ap.add_argument("--long", action="store_true")
     args = ap.parse_args(argv)
     import chip_smoke as cs               # puts this tree's src on the path
     if args.clock:
@@ -142,6 +154,44 @@ def main(argv=None) -> int:
             q, k, v, is_causal=True, enable_gqa=True))
         print(json.dumps(dict(kernel="flash_attention_fwd", b=b, s=s, ms=ms,
                               sdpa_ms=lib, src=str(where))))
+    if args.outputs is not None:
+        outs = {}
+        for t_len in (1024, 4096, 16384):
+            for b_kv in (8, 4, 16):
+                lens = [t_len, int(0.8 * t_len), int(0.52 * t_len), 300]
+                d = cs.decode_case(dev, 4, t_len, b_kv, seed=t_len + b_kv,
+                                   lens=lens)
+                outs[f"{t_len}/{b_kv}"] = \
+                    tk.quantized_decode_attention(*d).cpu()
+                print(json.dumps(dict(
+                    kernel="quantized_decode_attention", b=4, t=t_len,
+                    b_kv=b_kv, lens=lens,
+                    ms=t(lambda: tk.quantized_decode_attention(*d)),
+                    bound_ms=cs.decode_bound(d)[0], src=str(where))))
+        saved = pathlib.Path(args.outputs)
+        if saved.is_file():
+            want = torch.load(saved)
+            same = [k for k in outs if torch.equal(outs[k], want[k])]
+            print(f"decode attention outputs bitwise equal to {saved}: "
+                  f"{len(same)} of {len(outs)} (T/b_kv: "
+                  f"{', '.join(same)})")
+            if len(same) != len(outs):
+                return 1
+        else:
+            torch.save(outs, saved)
+            print(f"decode attention outputs saved to {saved}")
+    if args.long:
+        for b, t_len, h, kv, dh, lens in (
+                (1, 524288, 14, 2, 64, [524288 - 77]),
+                (2, 32768, 48, 1, 128, [32768, 20001])):
+            d = cs.decode_case(dev, b, t_len, 8, seed=t_len, lens=lens,
+                               h=h, kv=kv, dh=dh)
+            print(json.dumps(dict(
+                kernel="quantized_decode_attention", b=b, t=t_len, h=h,
+                kv=kv, dh=dh, b_kv=8, lens=lens,
+                ms=t(lambda: tk.quantized_decode_attention(*d)),
+                bound_ms=cs.decode_bound(d)[0], src=str(where))))
+            del d
     one = torch.zeros(1, device=dev)
     d = cs.decode_case(dev, 1, 1024, 8, seed=1, lens=[64])
     q, k, v = cs.flash_case(dev, 1, 1, seed=1, h=1, kv=1)

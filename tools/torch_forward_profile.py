@@ -3,7 +3,7 @@
 step goes on the CUDA card.
 
     python3 tools/torch_forward_profile.py [--seq 64] [--batch 4] [--compiled]
-    python3 tools/torch_forward_profile.py --decode [--eager] [--batch 4] [--cache 1024]
+    python3 tools/torch_forward_profile.py --decode [--eager] [--batch 4] [--cache 1024] [--synthetic]
     python3 tools/torch_forward_profile.py --train [--seq 128] [--batch 8]
 
 Serves qwen2-0.5b at full width (24 layers, seeded random weights).
@@ -29,7 +29,9 @@ With ``--decode``: ``--batch`` prompts are prefilled through
 as the engine runs it: replayed from its captured CUDA graph, or with
 ``--eager`` its closure run eagerly; the wall per step inside a chunk of 16
 steps that ends by reading the token block back (median of 5), and a
-trace of 2 chunks.
+trace of 2 chunks.  With ``--synthetic`` the slot block is filled instead
+with a seeded synthetic int8 cache and ragged lengths, at any width: the
+reference's ``DECODE_32K`` step is ``--batch 128 --cache 32768``.
 
 With ``--train``: one training step of ``Trainer`` (QAT at 8 bits, int8
 error-feedback gradients, per-layer recompute) at ``--batch`` x ``--seq``:
@@ -90,7 +92,8 @@ PORT_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
                 "qmm_": "qmm / qmm_int4",  # qmm_wgmma_kernel, qmm_kernel
                 "decode_attn_kernel": "quantized_decode_attention",
                 "group_quantize": "group_quantize",
-                "row_gemm_": "row_gemm"}      # row_gemm_kn, row_gemm_nk
+                "row_gemm_kn": "row_gemm, row-major route (kn)",
+                "row_gemm_nk": "row_gemm, transposed head route (nk)"}
 
 
 def main(argv=None) -> int:
@@ -112,6 +115,9 @@ def main(argv=None) -> int:
     ap.add_argument("--eager", action="store_true",
                     help="with --decode: run the token step eagerly, not "
                          "from its CUDA graph")
+    ap.add_argument("--synthetic", action="store_true",
+                    help="with --decode: a seeded synthetic cache with "
+                         "ragged lengths instead of prefilled prompts")
     args = ap.parse_args(argv)
     if args.seq is None:
         args.seq = 128 if args.train else 64
@@ -257,20 +263,25 @@ def _profile_decode(cfg, model, params, args) -> None:
                      classes=[pin], auto=False).class_params(pin.name)
     rng = np.random.default_rng(0)
     cache = CompiledForwardCache()
-    states = []
-    for _ in range(args.batch):
-        p = rng.integers(0, cfg.vocab_size,
-                         size=int(rng.integers(args.cache // 4,
-                                               args.cache // 2)))
-        states.append(greedy_decode_reference(
-            model, w, p, 2, b_kv=8, reserve_tokens=args.cache - p.size,
-            return_state=True, compile_cache=cache)[1])
     buf = de._SlotBuffers(cfg, args.cache, args.batch, 8, "cuda")
-    for k in ("k_codes", "v_codes", "k_scales", "v_scales"):
-        getattr(buf, k).copy_(torch.from_numpy(np.concatenate(
-            [st[k] for st in states], axis=1)))
-    buf.pos.copy_(torch.tensor([int(st["pos"]) for st in states]))
-    buf.tok.copy_(torch.tensor([int(st["last_token"]) for st in states]))
+    if args.synthetic:
+        _synthetic_state(cfg, buf, rng)
+    else:
+        states = []
+        for _ in range(args.batch):
+            p = rng.integers(0, cfg.vocab_size,
+                             size=int(rng.integers(args.cache // 4,
+                                                   args.cache // 2)))
+            states.append(greedy_decode_reference(
+                model, w, p, 2, b_kv=8, reserve_tokens=args.cache - p.size,
+                return_state=True, compile_cache=cache)[1])
+        for k in ("k_codes", "v_codes", "k_scales", "v_scales"):
+            getattr(buf, k).copy_(torch.from_numpy(np.concatenate(
+                [st[k] for st in states], axis=1)))
+        buf.pos.copy_(torch.tensor([int(st["pos"]) for st in states]))
+        buf.tok.copy_(torch.tensor([int(st["last_token"])
+                                    for st in states]))
+    lens = buf.pos.tolist()
     if args.eager:
         how = "eager"
 
@@ -292,7 +303,10 @@ def _profile_decode(cfg, model, params, args) -> None:
         chunk()
         t_step = _wall_ms(chunk) / 16
         print(f"\ndecode step [B={args.batch}, T={args.cache}, b_hat=8, "
-              f"b_kv=8] {how}: {t_step:.3f} ms wall per step in a chunk of "
+              f"b_kv=8, {'synthetic ' if args.synthetic else ''}lengths "
+              f"{min(lens)}-{max(lens)}, mean {sum(lens) / len(lens):.0f} "
+              f"at the first step] {how}: {t_step:.3f} ms wall per step "
+              f"in a chunk of "
               f"16 (median of 5), {args.batch * 1e3 / t_step:.1f} tokens/s")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -303,6 +317,25 @@ def _profile_decode(cfg, model, params, args) -> None:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     _print_trace(prof, wall_us, 32, "step")
+
+
+def _synthetic_state(cfg, buf, rng) -> None:
+    """Fill a slot block with a seeded int8 cache (codes in [-127, 127],
+    scales in [0.01, 0.03]), random last tokens and ragged lengths from
+    T / 16 to T - 160 (the first row the longest), leaving room for the
+    profile's 128 steps."""
+    import torch
+    t = buf.k_codes.shape[2]
+    gen = torch.Generator(device=buf.k_codes.device).manual_seed(0)
+    for i in range(cfg.n_layers):
+        for x in (buf.k_codes[i], buf.v_codes[i]):
+            x.random_(-127, 128, generator=gen)
+    for x in (buf.k_scales, buf.v_scales):
+        x.uniform_(0.01, 0.03, generator=gen)
+    lens = rng.integers(max(1, t // 16), t - 160, buf.pos.shape[0])
+    lens[0] = t - 160
+    buf.pos.copy_(torch.as_tensor(lens, dtype=torch.int32))
+    buf.tok.random_(0, cfg.vocab_size, generator=gen)
 
 
 def _profile_train(cfg, args) -> None:
