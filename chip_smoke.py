@@ -258,10 +258,31 @@ nothing of JAX or of the JAX package ``repro``.
    the captured step against its closure run eagerly (tokens and written
    entries bitwise); device ms, wall, tokens/s and the memory the graph
    keeps (one attention workspace live at a time), its replays' and its
-   capture's peaks printed.
-17. Summary: one ``{"kernels": [...]}`` line, the card line, and last
+   capture's peaks printed, the capture saving only the entries its
+   warm-up step writes (a copy of the whole block until ROADMAP C.10).
+17. The wide dense decoders and the MoE decoders at their published
+   widths (FAMILIES), one after another, each freed before the next:
+   llava-next-mistral-7b (all 32 layers), granite-34b and internlm2-20b
+   (16 layers), qwen3-moe-235b-a22b (2 layers, all 128 experts) and
+   kimi-k2-1t-a32b (2 layers, 64 of 384 experts), seeded random weights;
+   each cut printed as ``reduced: ...``.  For each: ``qmm``/``qmm_int4``
+   (dense), ``row_gemm`` (every decode product, granite's down
+   projection at K = 24,576 past 8 rows), decode attention and flash at
+   its heads against their plain versions, rows alone bitwise, with
+   kernel, plain, library and bound times; then the 4 x 64 forward (the
+   dense three through the kernel path at b̂ = 8 and 4, launches asserted
+   and held against the plain versions, llava with caption-proxy stub
+   embeds for 32 of the 64 positions; an MoE model's fake-path agent
+   against plain attention); then ``DecodeEngine`` from graphs over five
+   prompts, 16 new tokens each (granite at 16 slots), every dense stream
+   bitwise its batch-1 reference, and one token step on a seeded block
+   (``wide_step``): kernels against plain attention, captured == eager,
+   a dense model's rows alone bitwise (an MoE step past 8 experts shares
+   the experts' capacity across its rows, as the reference's does).
+   Prints each config's parameters, peak device memory and wall.
+18. Summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``; the per-shape numbers are printed
-   in phases 3, 5, 6 and 8.
+   in phases 3, 5, 6, 8 and 17.
 """
 
 from __future__ import annotations
@@ -285,6 +306,9 @@ QMM_PASSES = 3              # bf16 products per code on the wgmma route
 QMM_M = (1, 64, 256, 1024)  # 64: the sequential engine, 256: the batch
 KERNEL_TOL = 1e-4           # kernel vs plain: one matmul, the agent stage
 E2E_TOL = 1e-2              # logits vs plain, relative to their max|.|
+ROUTE_TIE = 1e-2            # an MoE token's expert choice may differ from
+                            # the plain run's only between experts whose
+                            # probabilities are this close, relative
 B, S = 4, 64
 SLEEP_CYCLES = 4_000_000    # ~2 ms of device time at H100 clocks
 DECODE_TOL = 1e-5           # decode attention vs plain, x max|out|: f32
@@ -370,6 +394,23 @@ FLEET_KIOSK_LINK = dict(emb_bytes_full=0.02 * B * S * 896 * 2.0,
                         link_bps=2.5e6, tx_power_w=0.25)
 FLEET_REQUESTS, FLEET_SEQ, FLEET_GAP = 6, (16, 64), 8.0
 SL_HEADS = dict(h=32, kv=32, dh=80)         # stablelm-3b's attention
+# phase 17: the wide dense decoders and the MoE decoders at their published
+# widths, one after another, (arch, layers kept (None: all), split, experts
+# kept (None: all), decode slots).  Each cut keeps the model and the decode
+# engine's fake-quantized copy of its layer stacks (and the serving
+# engine's, for MoE) on one 80 GB card, with the transients of making that
+# copy (a 3-layer qwen3-moe ran out of memory there on an H100 80GB);
+# kimi-k2's full layer (67.6 GB of experts) alone does not fit.  granite-34b
+# decodes at 16 slots, so its 24,576 -> 6144 product runs row_gemm at
+# M = 16.
+FAMILIES = (("llava-next-mistral-7b", None, 8, None, 4),
+            ("granite-34b", 16, 4, None, 16),
+            ("internlm2-20b", 16, 4, None, 4),
+            ("qwen3-moe-235b-a22b", 2, 1, None, 4),
+            ("kimi-k2-1t-a32b", 2, 1, 64, 4))
+FAMILY_PROMPTS = (40, 100, 70, 150, 25)    # decode prompts' lengths
+FAMILY_NEW = 16                            # new tokens each
+FAMILY_QMM_M = (1, 256)                    # qmm's M at the new shapes
 # phase 15's batched runs also take examples/chaos_spec.json with every
 # time constant (step, horizon, preemption's MTBF and MTTR) this many times
 # longer, so that its faults land on seconds-long full-width batches
@@ -432,15 +473,19 @@ def bound_ms(n_bytes: float, n_ops: float, flops: float = F32_FLOPS):
 
 
 def agent_weight_shapes(cfg):
-    """(name, K, N) of the seven matmuls of one agent layer."""
+    """(name, K, N) of the matmuls of one agent layer: seven with the
+    gated MLP, six with the non-gated one (granite-34b's wi)."""
     d, f = cfg.d_model, cfg.d_ff
+    mlp = [("wi_gate", d, f), ("wi_up", d, f)] if cfg.act == "silu" \
+        else [("wi", d, f)]
     return [("wq", d, cfg.q_dim), ("wk", d, cfg.kv_dim),
-            ("wv", d, cfg.kv_dim), ("wo", cfg.q_dim, d),
-            ("wi_gate", d, f), ("wi_up", d, f), ("ffn_wo", f, d)]
+            ("wv", d, cfg.kv_dim), ("wo", cfg.q_dim, d)] + mlp \
+        + [("ffn_wo", f, d)]
 
 
-def check_kernels(cfg, dev, flush, detail):
-    """Phase 3; returns {kernel: summary numbers per forward}."""
+def check_kernels(cfg, dev, flush, detail, ms=QMM_M):
+    """Phase 3 (and phase 17 at each dense config's widths, at the M in
+    ``ms``); returns {kernel: summary numbers per forward}."""
     import torch
     from repro_torch import kernels as tk
     from repro_torch.kernels import ref
@@ -457,7 +502,8 @@ def check_kernels(cfg, dev, flush, detail):
         if key not in seen:
             w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
             x_all = torch.randn((1024, k), generator=gen, device=dev)
-            seen[key] = per_shape(cfg, w, x_all, flush, tk, ref, detail)
+            seen[key] = per_shape(cfg, w, x_all[:max(ms)], flush, tk, ref,
+                                  detail, ms)
         # one forward = this matmul once in each of the split agent layers
         for kern, rec in seen[key].items():
             s = summary[kern]
@@ -476,7 +522,7 @@ def check_kernels(cfg, dev, flush, detail):
     return summary
 
 
-def per_shape(cfg, w, x_all, flush, tk, ref, detail):
+def per_shape(cfg, w, x_all, flush, tk, ref, detail, ms=QMM_M):
     import torch
     k, n = w.shape
     g = 128
@@ -491,7 +537,7 @@ def per_shape(cfg, w, x_all, flush, tk, ref, detail):
                                    if bits == 4 else codes, scales)
         assert qmm_module().route(k, n, g) == "wgmma"
         err = 0.0
-        for m in QMM_M:
+        for m in ms:
             x = x_all[:m]
             before = fn.route_launches["wgmma"]
             got, want = fn(x, codes, scales), plain(x, codes, scales)
@@ -504,7 +550,7 @@ def per_shape(cfg, w, x_all, flush, tk, ref, detail):
                 for i in range(m):
                     assert torch.equal(fn(x[i:i + 1], codes, scales)[0],
                                        got[i]), f"{kern} row {i} {k}x{n}"
-        for m in QMM_M:
+        for m in ms:
             x = x_all[:m]
             n_bytes = m * k * 4 + codes.numel() + scales.numel() * 4 \
                 + m * n * 4
@@ -700,9 +746,11 @@ def plain_lm(cfg):
     return PlainLM(cfg)
 
 
-def plain_agent_stage(eng, params, tokens, layer_bits):
-    """The agent stage with every kernel replaced by its plain version
-    (weights quantized by the plain quantizer, the plain attention)."""
+def plain_agent_stage(eng, params, batch, layer_bits):
+    """The agent stage of ``batch`` (a dict on the card: tokens, and a
+    vision model's stub embeds) with every kernel replaced by its plain
+    version (weights quantized by the plain quantizer, the plain
+    attention)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ops import group_layout
     from repro_torch.models.lm import tree_map
@@ -710,7 +758,7 @@ def plain_agent_stage(eng, params, tokens, layer_bits):
 
     cfg = eng.cfg
     lp = params["layers"]
-    x, pos = eng.model.embed(params, {"tokens": tokens})
+    x, pos = eng.model.embed(params, batch)
     side = fp.layer_side_tree(lp, cfg)
     for i, bits in enumerate(layer_bits):
         def quant(leaf):
@@ -733,23 +781,29 @@ def plain_agent_stage(eng, params, tokens, layer_bits):
 
 
 def hold_against_plain(eng, plain_model, point, path, logits, tokens,
-                       tok_dev):
-    """The served forward ``logits`` (of ``tokens`` at ``point``, the
-    engine configured there) against the plain-version forward on the
-    card: the boundary activation within KERNEL_TOL of its scale, the
-    logits within E2E_TOL of theirs, greedy tokens equal wherever the
-    plain logits' top-2 margin exceeds twice the error.  Returns the line
-    to print and the plain logits' scale."""
+                       tok_dev, embeds=None):
+    """The served forward ``logits`` (of ``tokens``, after a vision
+    model's stub ``embeds`` when given, at ``point``, the engine
+    configured there) against the plain-version forward on the card: the
+    boundary activation within KERNEL_TOL of its scale, the logits within
+    E2E_TOL of theirs, greedy tokens equal wherever the plain logits'
+    top-2 margin exceeds twice the error.  Returns the line to print and
+    the plain logits' scale."""
     import torch
     from repro_torch.core.quantization import QuantPlan
     cfg = eng.cfg
-    assert logits.shape == (tokens.shape[0], tokens.shape[1],
-                            cfg.vocab_size)
+    batch, batch_dev = {"tokens": tokens}, {"tokens": tok_dev}
+    if embeds is not None:
+        batch = {"embeds": embeds, "tokens": tokens}
+        batch_dev = {"embeds": torch.as_tensor(embeds, device=tok_dev.device),
+                     "tokens": tok_dev}
+    seq = tokens.shape[1] + (0 if embeds is None else embeds.shape[1])
+    assert logits.shape == (tokens.shape[0], seq, cfg.vocab_size)
     assert torch.isfinite(logits).all(), f"{path}: non-finite logits"
     bits = point.layer_bit_list(cfg.split_layer) \
         if isinstance(point, QuantPlan) else [point] * cfg.split_layer
-    emb, _ = eng.agent_stage({"tokens": tokens})
-    emb_p, pos = plain_agent_stage(eng, eng.params, tok_dev, bits)
+    emb, _ = eng.agent_stage(batch)
+    emb_p, pos = plain_agent_stage(eng, eng.params, batch_dev, bits)
     emb_scale = float(emb_p.abs().max())
     emb_diff = float((emb - emb_p).abs().max())
     assert emb_diff <= KERNEL_TOL * emb_scale, \
@@ -773,17 +827,25 @@ def hold_against_plain(eng, plain_model, point, path, logits, tokens,
             scale)
 
 
-def launches_per_forward(agent_path: str, split: int):
-    """(int8, int4) qmm launches one forward makes on this agent path."""
+def agent_products(cfg) -> int:
+    """Matmuls of one agent layer: wq, wk, wv, wo and the MLP's (gate, up
+    and down for the gated SiLU MLP; wi and wo for the non-gated one)."""
+    return 7 if cfg.act == "silu" else 6
+
+
+def launches_per_forward(agent_path: str, cfg):
+    """(int8, int4) qmm launches one forward of ``cfg`` makes on this
+    agent path: ``agent_products(cfg)`` a kernel layer."""
     if agent_path == "fake":
         return 0, 0
     if agent_path.startswith("kernel-mixed["):
         bits = [int(b) for b in agent_path[len("kernel-mixed["):-1]
                 .split("/")]
     else:
-        bits = [int(agent_path[len("kernel-int"):])] * split
-    return (7 * sum(4 < b <= 8 for b in bits),
-            7 * sum(b <= 4 for b in bits))
+        bits = [int(agent_path[len("kernel-int"):])] * cfg.split_layer
+    per = agent_products(cfg)
+    return (per * sum(4 < b <= 8 for b in bits),
+            per * sum(b <= 4 for b in bits))
 
 
 def decode_case(dev, b, t, b_kv, seed, lens, h=14, kv=2, dh=64):
@@ -952,19 +1014,32 @@ def row_gemm_launches(cfg):
     qwen2-0.5b step)."""
     d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     head = "nk" if cfg.tie_embeddings else "kn"
-    return [("wq/wo", d, [cfg.q_dim], False, L, 2 * L, "kn"),
-            ("wk/wv", d, [cfg.kv_dim], False, 0, 2 * L, "kn"),
-            ("gate/up", d, [f], False, 0, 2 * L, "kn"),
-            ("down", f, [d], False, L, L, "kn"),
-            ("head", d, [cfg.vocab_size], False, 1, 1, head),
+    if cfg.q_dim == d:
+        out = [("wq/wo", d, [d], False, L, 2 * L, "kn")]
+    else:                       # qwen3-moe: 64 heads of 128 over d 4096
+        out = [("wq", d, [cfg.q_dim], False, 0, L, "kn"),
+               ("wo", cfg.q_dim, [d], False, L, L, "kn")]
+    out.append(("wk/wv", d, [cfg.kv_dim], False, 0, 2 * L, "kn"))
+    if cfg.n_experts:           # the experts run as torch products
+        out.append(("router", d, [cfg.n_experts], False, L, L, "kn"))
+    elif cfg.act == "silu":
+        out += [("gate/up", d, [f], False, 0, 2 * L, "kn"),
+                ("down", f, [d], False, L, L, "kn")]
+    else:                       # granite-34b's non-gated MLP
+        out += [("wi", d, [f], False, L, L, "kn"),
+                ("down", f, [d], False, L, L, "kn")]
+    out += [("head", d, [cfg.vocab_size], False, 1, 1, head),
             ("q|k|v", d, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], cfg.qkv_bias,
-             L, 0, "kn"),
-            ("gate|up", d, [f, f], False, L, 0, "kn")]
+             L, 0, "kn")]
+    if cfg.act == "silu" and not cfg.n_experts:
+        out.append(("gate|up", d, [f, f], False, L, 0, "kn"))
+    return out
 
 
 def row_gemm_per_step(cfg) -> int:
-    """``row_gemm`` launches of one decode token step: 4 a layer and the
-    head."""
+    """``row_gemm`` launches of one decode token step: 4 a dense layer
+    (q | k | v, wo, gate | up or wi, down), 3 an MoE layer (q | k | v, wo,
+    the router), and the head."""
     return sum(e[4] for e in row_gemm_launches(cfg))
 
 
@@ -1923,7 +1998,7 @@ def mixed_serving(cfg, model, params, sysp, dev, tokens, int8_graph):
         check_bits(c.name, sol.bits)
         want["group_quantize"] += 1
         logits, _ = eng.serve_batch({"tokens": tokens})
-        n8, n4 = launches_per_forward(eng.agent_path, split)
+        n8, n4 = launches_per_forward(eng.agent_path, cfg)
         want["qmm"] += n8
         want["qmm_int4"] += n4
         want["flash_attention_fwd"] += cfg.n_layers
@@ -1938,7 +2013,7 @@ def mixed_serving(cfg, model, params, sysp, dev, tokens, int8_graph):
         eng.configure(plan, sol.f, sol.f_server)
         held, _ = hold_against_plain(eng, plain_model, plan, path, logits,
                                      tokens, tok_dev)
-        n8, n4 = launches_per_forward(path, split)
+        n8, n4 = launches_per_forward(path, cfg)
         print(f"  mixed class {c.name} (T0={c.t0}s, E0={c.e0}J): bits="
               f"{list(sol.bits)} (mean {sol.mean_bits:.2f}, uniform best "
               f"b_hat={sol.uniform_b}) bound={sol.objective:.3e} (uniform "
@@ -3388,14 +3463,18 @@ def wide_state(cfg, buf, lens, seed):
     buf.tok.random_(0, cfg.vocab_size, generator=gen)
 
 
-def wide_step(cfg, model, w8, what, b, t, lens, dev):
+def wide_step(cfg, model, w8, what, b, t, lens, dev, rows_alone=True,
+              peaks=None):
     """One token step at B slots over a T-position cache: batched vs rows
-    alone (logits bitwise), kernels vs plain attention (the token rule),
-    the captured step vs its closure run eagerly (tokens and written
-    entries bitwise); prints tokens/s, device ms and peak memory.  Returns
-    {kernel: launches} of the captured step's part, counted: its capture's
-    eager warm-up, the eager step it is held against and its 12 replays
-    (the logits compared before it are not counted)."""
+    alone (logits bitwise; skipped with ``rows_alone=False``, an MoE step
+    past 8 experts, whose rows share the experts' capacity as in the
+    reference), kernels vs plain attention (the token rule), the captured
+    step vs its closure run eagerly (tokens and written entries bitwise);
+    prints tokens/s, device ms and peak memory.  Returns {kernel:
+    launches} of the captured step's part, counted: its capture's eager
+    warm-up, the eager step it is held against and its 12 replays (the
+    logits compared before it are not counted).  ``peaks``, a list, gets
+    the step's peak device bytes."""
     import numpy as np
     import torch
     from repro_torch import kernels as tk
@@ -3439,7 +3518,7 @@ def wide_step(cfg, model, w8, what, b, t, lens, dev):
     snap = snapshot()
     with torch.no_grad():
         full = logits_of(model, slice(None))
-        sample = sorted({0, b // 2, b - 1})
+        sample = sorted({0, b // 2, b - 1}) if rows_alone else []
         for i in sample:
             assert torch.equal(logits_of(model, slice(i, i + 1))[0],
                                full[i]), f"{what}: row {i} alone != batched"
@@ -3467,9 +3546,14 @@ def wide_step(cfg, model, w8, what, b, t, lens, dev):
     graph = de._step_call(cache, model, 8, w8, buf)
     torch.cuda.synchronize()
     t_cap = time.perf_counter() - t0
-    # the capture's transient peak holds its copy of the block (restored
-    # after the warm-up step); what the graph keeps is what stays after it
+    # the capture's transient peak: the entries its warm-up step writes,
+    # saved and put back (ROADMAP C.10: a copy of the whole block until
+    # then), and the graph's own buffers; what the graph keeps is what
+    # stays after it
     capture_peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    capture_top = torch.cuda.max_memory_allocated()
+    saved_kib = de._save_entries(buf, buf.canonical()[:4],
+                                 buf.pos).nbytes / 2 ** 10
     graph_held = (torch.cuda.memory_allocated() - held) / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -3502,6 +3586,9 @@ def wide_step(cfg, model, w8, what, b, t, lens, dev):
     de._decode_chunk(graph, buf.step_io, live, 8)[0].cpu()
     wall = (time.perf_counter() - t0) * 1e3 / 8
     replay_peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    if peaks is not None:
+        peaks.append(max(phase_peak, capture_top,
+                         torch.cuda.max_memory_allocated()))
     eager = tk.launch_counts()
     replayed = {k: n * graph.replays for k, n in graph.launches.items()}
     assert replayed.get("row_gemm", 0) == 12 * row_gemm_per_step(cfg) and \
@@ -3514,7 +3601,10 @@ def wide_step(cfg, model, w8, what, b, t, lens, dev):
         / 2 ** 30
     print(f"  {what} (B={b}, T={t}, b_kv=8, lengths {min(lens)}-"
           f"{max(lens)}, mean {sum(lens) / len(lens):.0f}; {cache_gb:.2f} "
-          f"GiB of cache): rows {sample} alone bitwise; plain attention "
+          f"GiB of cache): "
+          + (f"rows {sample} alone bitwise" if rows_alone else
+             "rows share the experts' capacity (not held alone)")
+          + "; plain attention "
           f"max|d logits|={d_plain:.3e} of {scale:.2f}, "
           f"{int(same.sum())}/{b} tokens equal ({int(clear.sum())} "
           f"held); captured == eager bitwise (captured in {t_cap:.2f}s); "
@@ -3522,10 +3612,13 @@ def wide_step(cfg, model, w8, what, b, t, lens, dev):
           f"median of 3), {wall:.3f} ms wall a step in an 8-step chunk, "
           f"{b * 1e3 / wall:.1f} tokens/s; memory: the graph keeps "
           f"{graph_held:.3f} GiB (a decode-attention workspace "
-          f"{ws_gb:.3f} GiB, 24 a step: one live at a time), its replays "
+          f"{ws_gb:.3f} GiB, {cfg.n_layers} a step: one live at a time), "
+          f"its replays "
           f"{replay_peak:.3f} GiB more at peak, the capture "
-          f"{capture_peak:.3f} GiB above what it found (its copy of the "
-          f"block), the phase {phase_peak / 2 ** 30:.2f} GiB at peak with "
+          f"{capture_peak:.3f} GiB above what it found (it saves "
+          f"{saved_kib:.1f} KiB of entries; a copy of the block, 25.73 GiB "
+          f"at DECODE_32K, before), the phase {phase_peak / 2 ** 30:.2f} "
+          f"GiB at peak with "
           f"the plain run; launches (the warm-up, the eager step, 12 "
           f"replays) {counted['row_gemm']} row_gemm, "
           f"{counted['quantized_decode_attention']} decode attention; "
@@ -3534,32 +3627,32 @@ def wide_step(cfg, model, w8, what, b, t, lens, dev):
     return counted
 
 
-def wide_decode(cfg, params, dev):
-    """Phase 16; returns {kernel: launches} of its engine run (eager plus
-    the graphs' replays) and of the steps' replays."""
+def pinned_decode_run(cfg, model, params, dev, slots, prompts, new,
+                      batch_one=True):
+    """``DecodeEngine`` at ``slots`` from graphs, pinned at (b̂, b_kv) = (8,
+    8), serving ``prompts`` with ``new`` tokens each in one counted
+    window: every token step's replay launches ``row_gemm_per_step(cfg)``
+    row_gemm and one decode attention a layer, the eager launches are the
+    captures' warm-up runs; with ``batch_one`` every response equals its
+    batch-1 reference bitwise.  Returns (launches, report, wall s, the
+    class's weights)."""
     import numpy as np
     import torch
     from repro_torch import kernels as tk
     from repro_torch.core.cost_model import SystemParams
     from repro_torch.launch.serve import decode_system_params
-    from repro_torch.models.lm import DecoderLM
     from repro_torch.runtime import (CompiledForwardCache, DecodeEngine,
                                      QosClass, greedy_decode_reference)
 
-    model = DecoderLM(cfg)
     per_layer = cfg.active_param_count() / cfg.n_layers
     sysp = decode_system_params(cfg, SystemParams(
         n_flop_agent=2.0 * per_layer * cfg.split_layer * B * S,
         n_flop_server=2.0 * per_layer * (cfg.n_layers - cfg.split_layer)
-        * B * S), WIDE_SLOTS, S, WIDE_NEW)
+        * B * S), slots, S, new)
     pin = QosClass("interactive", *DECODE_BUDGET)
     eng = DecodeEngine(model, params, sysp, classes=[pin], auto=False,
-                       max_batch=WIDE_SLOTS, max_new_tokens=WIDE_NEW,
-                       device=dev)
+                       max_batch=slots, max_new_tokens=new, device=dev)
     eng.set_operating_point(pin.name, 8, 8)
-    rng = np.random.default_rng(16)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
-               for n in rng.integers(*WIDE_PROMPT_LEN, WIDE_PROMPTS)]
     rids = {eng.submit(p, pin.name, arrival_s=0.0): i
             for i, p in enumerate(prompts)}
     cc = eng.compile_cache
@@ -3571,21 +3664,42 @@ def wide_decode(cfg, params, dev):
     eager = tk.launch_counts()
     replayed = cc.kernel_launches()
     rep = eng.report()
-    assert rep.requests_served == WIDE_PROMPTS
+    assert rep.requests_served == len(prompts)
     assert replayed.get("row_gemm", 0) == \
         row_gemm_per_step(cfg) * rep.decode_rounds, replayed
+    assert replayed.get("quantized_decode_attention", 0) == \
+        cfg.n_layers * rep.decode_rounds, replayed
     assert eager == {k: sum(e.launches.get(k, 0) for _, e in cc.items())
                      for k in eager}, f"eager launches {eager}"
     counts = {k: eager[k] + replayed.get(k, 0) for k in eager}
-    w8 = eng.class_params(pin.name)
-    ref_cache = CompiledForwardCache()
     for r in responses:
-        i = rids[r.request_id]
-        want = greedy_decode_reference(model, w8, prompts[i], WIDE_NEW,
-                                       b_kv=8, compile_cache=ref_cache,
-                                       device=dev)
-        assert np.array_equal(r.tokens, want), \
-            f"wide decode request {i}: {r.tokens} != {want}"
+        assert len(r.tokens) == new and \
+            all(0 <= int(t) < cfg.vocab_size for t in r.tokens)
+    w8 = eng.class_params(pin.name)
+    if batch_one:
+        ref_cache = CompiledForwardCache()
+        for r in responses:
+            i = rids[r.request_id]
+            want = greedy_decode_reference(model, w8, prompts[i], new,
+                                           b_kv=8, compile_cache=ref_cache,
+                                           device=dev)
+            assert np.array_equal(r.tokens, want), \
+                f"{cfg.name} request {i}: {r.tokens} != {want}"
+    return counts, rep, wall, w8
+
+
+def wide_decode(cfg, params, dev):
+    """Phase 16; returns {kernel: launches} of its engine run (eager plus
+    the graphs' replays) and of the steps' replays."""
+    import numpy as np
+    from repro_torch.models.lm import DecoderLM
+
+    model = DecoderLM(cfg)
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(*WIDE_PROMPT_LEN, WIDE_PROMPTS)]
+    counts, rep, wall, w8 = pinned_decode_run(cfg, model, params, dev,
+                                              WIDE_SLOTS, prompts, WIDE_NEW)
     print(f"  DecodeEngine max_batch={WIDE_SLOTS}: {WIDE_PROMPTS} prompts "
           f"of {WIDE_PROMPT_LEN[0]}-{WIDE_PROMPT_LEN[1] - 1} tokens, "
           f"{WIDE_NEW} new each, {rep.prefills} prefills, "
@@ -3593,7 +3707,6 @@ def wide_decode(cfg, params, dev):
           f"captured, {wall:.2f}s wall; every response == its batch-1 "
           f"reference bitwise; launches {counts['row_gemm']} row_gemm, "
           f"{counts['quantized_decode_attention']} decode attention")
-    del eng, responses, ref_cache, cc
     print(f"  {release_memory()}")
     rng = np.random.default_rng(32)
     for what, b, t in WIDE_STEPS:
@@ -3603,6 +3716,363 @@ def wide_decode(cfg, params, dev):
                               dev).items():
             counts[k] += n
         print(f"  {release_memory()}")
+    return counts
+
+
+def family_config(arch, layers, split, experts):
+    """The published config of ``arch`` cut in depth (and expert count)
+    only, and the ``reduced:`` line naming each cut."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    cut = {"split_layer": split}
+    notes = [f"split {split} (published {full.split_layer})"]
+    if layers is not None:
+        cut["n_layers"] = layers
+        notes.append(f"{layers} of {full.n_layers} layers")
+    if experts is not None:
+        cut["n_experts"] = experts
+        notes.append(f"{experts} of {full.n_experts} experts (top-"
+                     f"{full.experts_per_token} kept)")
+    return dataclasses.replace(full, **cut), "reduced: " + "; ".join(notes)
+
+
+def check_family_attention(cfg, dev, flush):
+    """Decode attention (B = 4, T = 1024, int8, ragged lengths) and flash
+    (B = 4, S = 64, causal) at ``cfg``'s heads against their plain
+    versions, every row bitwise alone; kernel, plain, library (SDPA) and
+    bound times, L2 flushed.  Returns {kernel: row of numbers}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as tk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quantize import kv_dequantize
+
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rows = {}
+    args = decode_case(dev, 4, 1024, 8, seed=h + dh,
+                       lens=[1024, 800, 532, 300], h=h, kv=kv, dh=dh)
+    out = tk.quantized_decode_attention(*args)
+    want = ref.quantized_decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    scale, diff = float(want.abs().max()), float((out - want).abs().max())
+    assert diff <= DECODE_TOL * scale, \
+        f"decode attention {cfg.name}: {diff} of {scale}"
+    for i in range(4):
+        alone = tk.quantized_decode_attention(*(a[i:i + 1] for a in args))
+        assert torch.equal(alone[0], out[i]), \
+            f"decode attention {cfg.name}: row {i} alone != in batch"
+    q, kc, vc, ks, vs, lens = args
+    qh = q.transpose(1, 2)
+    kd = kv_dequantize(kc, ks).transpose(1, 2).contiguous()
+    vd = kv_dequantize(vc, vs).transpose(1, 2).contiguous()
+    mask = (torch.arange(1024, device=dev)[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    b_ms, by = decode_bound(args)
+    rows["quantized_decode_attention"] = dict(
+        ms=time_ms(lambda: tk.quantized_decode_attention(*args), flush),
+        plain_ms=time_ms(lambda: ref.quantized_decode_attention_ref(*args),
+                         flush, reps=5),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kd, vd, attn_mask=mask, enable_gqa=True), flush),
+        bound_ms=b_ms, bound_by=by, max_abs_err=diff,
+        shape=f"B=4 T=1024 H={h} KV={kv} G={h // kv} dh={dh} b_kv=8")
+    del args, kd, vd
+    q, k, v = flash_case(dev, 4, 64, seed=dh, dh=dh, h=h, kv=kv)
+    out = tk.flash_attention_fwd(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, rtol=FLASH_TOL, atol=FLASH_TOL,
+                               msg=f"flash attention {cfg.name}")
+    for i in range(4):
+        alone = tk.flash_attention_fwd(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+        assert torch.equal(alone[0], out[i]), \
+            f"flash attention {cfg.name}: row {i} alone != in batch"
+    b_ms, by = flash_bound(q, k)
+    rows["flash_attention_fwd"] = dict(
+        ms=time_ms(lambda: tk.flash_attention_fwd(q, k, v), flush),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), flush,
+                         reps=5),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), flush),
+        bound_ms=b_ms, bound_by=by,
+        max_abs_err=float((out - want).abs().max()),
+        shape=f"B=4 S=T=64 H={h} KV={kv} G={h // kv} dh={dh} f32 causal")
+    for name, r in rows.items():
+        print(f"  {name:26s} {cfg.name} {r['shape']}: ms={r['ms']:.4f} "
+              f"plain={r['plain_ms']:.4f} sdpa={r['library_ms']:.4f} "
+              f"bound={r['bound_ms']:.6f} ({r['bound_by']}) "
+              f"max|d|={r['max_abs_err']:.2e}; rows alone bitwise")
+    return rows
+
+
+def family_batch(cfg):
+    """The 4 x 64 serving batch: Markov tokens, or for the vision stub
+    (llava) caption-proxy embeds for int(64 x vis_frac) // 16 x 16
+    positions and caption tokens for the rest (the reference's
+    ``input_specs`` split)."""
+    from repro_torch.data import (CaptionProxyConfig, CaptionProxyDataset,
+                                  MarkovLMConfig, MarkovLMDataset)
+    if cfg.frontend == "none":
+        return MarkovLMDataset(MarkovLMConfig(
+            vocab_size=cfg.vocab_size, seq_len=S, batch_size=B)).batch_at(
+                0)["tokens"], None
+    n_vis = int(S * cfg.vis_frac) // 16 * 16
+    batch = CaptionProxyDataset(CaptionProxyConfig(
+        vocab_size=cfg.vocab_size, seq_len=S - n_vis, d_model=cfg.d_model,
+        n_vis=n_vis, batch_size=B, n_images=16)).batch_at(0)
+    return batch["tokens"], batch["embeds"]
+
+
+def routed_lm(cfg, plain: bool, replay=None):
+    """``DecoderLM`` whose MoE layers log each call's expert choice
+    (``log``, in layer order) and, given ``replay`` (another run's log),
+    take that run's choice instead of their own, noting each call where
+    their own differed (``flips``: (probs, own, replayed)); ``plain``
+    attends through the flash kernel's plain version."""
+    import torch
+    from repro_torch.models import moe as M
+    from repro_torch.models.lm import DecoderLM
+
+    class RoutedLM(DecoderLM):
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.log, self.flips = [], []
+
+        def attend(self, q, k, v):
+            if plain:
+                return plain_attend(self.cfg)(q, k, v)
+            return super().attend(q, k, v)
+
+        def _ffn(self, p, h):
+            n = len(self.log)
+
+            def topk(probs, k):
+                v, i = M.top_k(probs, k)
+                if replay is not None:
+                    if not torch.equal(i, replay[n]):
+                        self.flips.append((probs, i, replay[n]))
+                    i = replay[n]
+                    v = torch.gather(probs, -1, i)
+                self.log.append(i)
+                return v, i
+            return M.apply_moe(self.cfg, p, h, router_topk=topk)
+    return RoutedLM(cfg)
+
+
+def hold_moe_against_plain(eng, cfg, batch, logits):
+    """An MoE forward's served ``logits`` against the same forward with
+    plain attention.  The router's top-k is discrete: where two experts'
+    probabilities nearly tie, the attention's f32 differences (or a
+    boundary element on an uplink rounding edge) can change a token's
+    experts, and through the experts' capacity other tokens' slots, and
+    the logits then differ by far more than the sums' rounding.  So the
+    plain run replays the kernel run's expert choices, every choice of its
+    own that differs is held to be a near tie (the two experts'
+    probabilities within ROUTE_TIE of each other, relative), and then the
+    logits are held as the dense models' (E2E_TOL, greedy tokens equal
+    where the margin is clear).  Returns the line to print."""
+    import torch
+    kernel_model = eng.model
+    rec = routed_lm(cfg, plain=False)
+    try:
+        eng.model = rec
+        again, _ = eng.serve_batch(batch)
+        ref = routed_lm(cfg, plain=True, replay=rec.log)
+        eng.model = ref
+        ref_logits, _ = eng.serve_batch(batch)
+    finally:
+        eng.model = kernel_model
+    assert torch.equal(again, logits), f"{cfg.name}: a second forward " \
+        "(expert choices logged) changed bits"
+    assert len(rec.log) == cfg.n_layers
+    flipped = 0
+    for probs, own, want in ref.flips:
+        p_own = torch.gather(probs, -1, own)
+        p_want = torch.gather(probs, -1, want)
+        rows = (own != want).any(-1)
+        gap = ((p_own - p_want).abs() / p_own)[rows]
+        assert float(gap.max()) <= ROUTE_TIE, \
+            f"{cfg.name}: an expert choice differs by {float(gap.max())}"
+        flipped += int(rows.sum())
+    scale = float(ref_logits.abs().max())
+    diff = float((logits - ref_logits).abs().max())
+    assert bool(torch.isfinite(logits).all())
+    assert diff <= E2E_TOL * scale, f"{cfg.name}: {diff} of {scale}"
+    top2 = ref_logits.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * diff
+    same = logits.argmax(-1) == ref_logits.argmax(-1)
+    assert bool(same[clear].all()), f"{cfg.name}: tokens differ"
+    return (f"logits max|d|={diff:.3e} of {scale:.3e} (plain attention, "
+            f"the kernel run's expert choices replayed; {flipped} token-"
+            f"layer choices of its own differed, each a near tie within "
+            f"{ROUTE_TIE}); greedy equal at {int(same.sum())}/"
+            f"{same.numel()} ({int(clear.sum())} clear)")
+
+
+def family_serving(cfg, model, params, sysp, dev):
+    """The 4 x 64 forward: a dense model through the kernel path at b̂ = 8
+    and 4 (qmm / qmm_int4 / group_quantize / flash launches asserted) held
+    against the plain versions; an MoE model's agent on the fake path (the
+    kernel path excludes MoE, as in the reference) held against the same
+    forward with plain attention.  Returns the window's launches."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.kernels.quantize import MAX_DESCS
+    from repro_torch.runtime import CoInferenceEngine
+
+    tokens, embeds = family_batch(cfg)
+    batch = {"tokens": tokens} if embeds is None else \
+        {"embeds": embeds, "tokens": tokens}
+    tok_dev = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    plain_model = plain_lm(cfg)
+    per_configure = -(-agent_products(cfg) * cfg.split_layer // MAX_DESCS)
+    want = dict.fromkeys(tk.KERNELS, 0)
+    tk.reset_launch_counts()
+    eng = CoInferenceEngine(model, params, sysp, path="kernel")
+    served = []
+    if not cfg.n_experts:
+        want["group_quantize"] += per_configure
+    for point in (8, 4) if not cfg.n_experts else (8,):
+        # an MoE agent's fake-quantized weights are a full copy of the
+        # layer stacks: serve the engine's own b̂ = 8 rather than make a
+        # second copy beside the first
+        if not cfg.n_experts:
+            eng.configure(point)
+        assert eng.b_hat == point
+        logits, stats = eng.serve_batch(batch)
+        n8, n4 = launches_per_forward(eng.agent_path, cfg)
+        if not cfg.n_experts:
+            want["group_quantize"] += per_configure
+        want["qmm"] += n8
+        want["qmm_int4"] += n4
+        want["flash_attention_fwd"] += cfg.n_layers
+        served.append((point, eng.agent_path, logits, stats))
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    assert counts == want, f"{cfg.name} launches {counts} != {want}"
+    for name in ("qmm", "qmm_int4"):
+        assert getattr(tk, name).route_launches["simt"] == 0, name
+    for point, path, logits, stats in served:
+        if not cfg.n_experts:
+            eng.configure(point)
+        if cfg.n_experts:
+            assert path == "fake", path
+            held = hold_moe_against_plain(eng, cfg, batch, logits)
+        else:
+            held, _ = hold_against_plain(eng, plain_model, point, path,
+                                         logits, tokens, tok_dev, embeds)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.serve_batch(batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"  {cfg.name} {path} b_hat={point} {tuple(logits.shape)}"
+              + ("" if embeds is None else f" ({embeds.shape[1]} stub embed "
+                 "rows)")
+              + f": {held}; serve_batch wall {statistics.median(walls):.2f}"
+              f" ms (median of 3); emb_bytes={stats.emb_bytes}")
+    del eng, served
+    return counts
+
+
+def family_decode(cfg, model, params, dev, slots, peaks):
+    """``pinned_decode_run`` at ``slots`` over FAMILY_PROMPTS, 16 new
+    tokens each (a dense model's every stream == its batch-1 reference),
+    then one token step on a seeded block at the same slots
+    (``wide_step``): kernels against plain attention, captured == eager, a
+    dense model's rows alone bitwise.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in FAMILY_PROMPTS]
+    rows_alone = cfg.n_experts <= 8
+    counts, rep, wall, w8 = pinned_decode_run(
+        cfg, model, params, dev, slots, prompts, FAMILY_NEW,
+        batch_one=rows_alone)
+    torch.cuda.synchronize()
+    peaks.append(torch.cuda.max_memory_allocated())
+    print(f"  {cfg.name} DecodeEngine max_batch={slots}: {len(prompts)} "
+          f"prompts of {min(FAMILY_PROMPTS)}-{max(FAMILY_PROMPTS)} tokens, "
+          f"{FAMILY_NEW} new each, {rep.decode_rounds} token steps, "
+          f"{rep.compile_misses} graphs captured, {wall:.2f}s wall; "
+          + ("every response == its batch-1 reference bitwise"
+             if rows_alone else "rows share the experts' capacity at "
+             f"{cfg.n_experts} experts (a reference property): the step is "
+             "held against plain attention below")
+          + f"; launches {counts['row_gemm']} row_gemm, "
+          f"{counts['quantized_decode_attention']} decode attention, "
+          f"{counts['flash_attention_fwd']} flash")
+    lens = [1000, 5] + rng.integers(64, 1000, slots - 2).tolist()
+    for k, n in wide_step(cfg, model, w8, f"{cfg.name} step", slots, 1024,
+                          lens, dev, rows_alone=rows_alone,
+                          peaks=peaks).items():
+        counts[k] += n
+    return counts
+
+
+def family_path(arch, layers, split, experts, slots, dev, flush):
+    """Phase 17 for one config: its kernels at its new shapes, then the
+    model (seeded random weights) served and decoded; prints its peak
+    device memory.  Returns {kernel: launches} of its counted windows."""
+    import torch
+    from repro_torch.core.cost_model import SystemParams
+    from repro_torch.models.lm import DecoderLM, tree_leaves
+
+    t_cfg = time.perf_counter()
+    cfg, reduced = family_config(arch, layers, split, experts)
+    print(f"  {arch}: {reduced}; published widths: d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+          + (f"{cfg.n_experts} experts of {cfg.moe_d_ff} (top "
+             f"{cfg.experts_per_token})" if cfg.n_experts else
+             f"d_ff {cfg.d_ff} ({cfg.act}"
+             + (", gated" if cfg.act == "silu" else ", not gated") + ")")
+          + f", vocab {cfg.vocab_size}")
+    torch.cuda.reset_peak_memory_stats()
+    peaks = []
+    if not cfg.n_experts:
+        detail = []
+        check_kernels(cfg, dev, flush, detail, ms=FAMILY_QMM_M)
+        for d in detail:
+            print(f"  {d['kernel']:15s} {cfg.name} m={d['m']} k={d['k']} "
+                  f"n={d['n']} ms={d['ms']:.4f} plain={d['plain_ms']:.4f} "
+                  f"lib={d['library_ms']:.4f} bound={d['bound_ms']:.4f} "
+                  f"({d['bound_by']}) err={d['max_abs_err']:.2e}")
+    check_row_gemm(cfg, dev, flush, seed=17)
+    check_family_attention(cfg, dev, flush)
+    print(f"  {cfg.name} kernels: {time.perf_counter() - t_cfg:.1f}s")
+    peaks.append(torch.cuda.max_memory_allocated())
+    print(f"  {release_memory()}")
+
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(17))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {n_params / 1e9:.3f} B parameters, "
+          f"{4 * n_params / 1e9:.2f} GB at f32 (reckoned "
+          f"{cfg.param_count() / 1e9:.3f} B), built in "
+          f"{time.perf_counter() - t0:.1f}s")
+    per_layer = cfg.active_param_count() / cfg.n_layers
+    sysp = SystemParams(
+        n_flop_agent=2.0 * per_layer * cfg.split_layer * B * S,
+        n_flop_server=2.0 * per_layer * (cfg.n_layers - cfg.split_layer)
+        * B * S)
+    counts = family_serving(cfg, model, params, sysp, dev)
+    torch.cuda.synchronize()
+    peaks.append(torch.cuda.max_memory_allocated())
+    print(f"  {release_memory()}")
+    for k, n in family_decode(cfg, model, params, dev, slots, peaks).items():
+        counts[k] += n
+    del model, params
+    print(f"  {cfg.name}: peak {max(peaks) / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated over its kernels, serving and "
+          f"decode); {time.perf_counter() - t_cfg:.1f}s wall; "
+          f"{release_memory()}")
     return counts
 
 
@@ -3721,7 +4191,7 @@ def main() -> int:
         logits, stats = eng.serve_batch({"tokens": tokens})
         alone = [eng.serve_batch({"tokens": tokens[i:i + 1]})[0]
                  for i in range(B)]
-        n8, n4 = launches_per_forward(path, cfg.split_layer)
+        n8, n4 = launches_per_forward(path, cfg)
         want["qmm"] += n8 * (1 + B)
         want["qmm_int4"] += n4 * (1 + B)
         want["flash_attention_fwd"] += cfg.n_layers * (1 + B)
@@ -3731,7 +4201,7 @@ def main() -> int:
     if eng.agent_path != "fake":
         want["group_quantize"] += 1
     auto_logits, _ = eng.serve_batch({"tokens": tokens})
-    n8, n4 = launches_per_forward(eng.agent_path, cfg.split_layer)
+    n8, n4 = launches_per_forward(eng.agent_path, cfg)
     want["qmm"] += n8
     want["qmm_int4"] += n4
     want["flash_attention_fwd"] += cfg.n_layers
@@ -3885,7 +4355,15 @@ def main() -> int:
         counts[name] += n
     print(f"wide decode: {time.perf_counter() - t0:.1f}s")
 
-    # 17. summary
+    # 17. the wide dense decoders and the MoE decoders, one at a time
+    t0 = time.perf_counter()
+    print(f"  {release_memory()}")
+    for fam in FAMILIES:
+        for name, n in family_path(*fam, dev, flush).items():
+            counts[name] += n
+    print(f"families: {time.perf_counter() - t0:.1f}s")
+
+    # 18. summary
     names = {"group_quantize": ("csrc/group_quantize.cu",
                                 "src/repro/kernels/quantize.py:35"),
              "qmm": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:67"),

@@ -9,13 +9,19 @@ paper's FC benchmark model of ``models/fcdnn.py``.
 
 from __future__ import annotations
 
-from . import blip2_proxy, fcdnn16, git_proxy, qwen2_0_5b, stablelm_3b
+from . import (blip2_proxy, fcdnn16, git_proxy, granite_34b, internlm2_20b,
+               kimi_k2_1t_a32b, llava_next_mistral_7b, qwen2_0_5b,
+               qwen3_moe_235b_a22b, stablelm_3b)
 from .base import ModelConfig  # noqa: F401
 
 #: the paper's own evaluation models (§VI)
 PAPER_IDS = ("fcdnn-16", "blip2-proxy", "git-proxy")
 
 _PORTED = {"qwen2-0.5b": qwen2_0_5b, "stablelm-3b": stablelm_3b,
+           "granite-34b": granite_34b, "internlm2-20b": internlm2_20b,
+           "llava-next-mistral-7b": llava_next_mistral_7b,
+           "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b,
+           "kimi-k2-1t-a32b": kimi_k2_1t_a32b,
            "fcdnn-16": fcdnn16,
            "blip2-proxy": blip2_proxy, "git-proxy": git_proxy}
 

@@ -1,5 +1,6 @@
-"""Data pipeline of the port: the synthetic Markov LM data and the loader
-that places its batches on the device."""
+"""Data pipeline of the port: the synthetic Markov LM and caption-proxy
+data and the loader that places batches on the device."""
 
 from .loader import ShardedLoader  # noqa: F401
-from .synthetic import MarkovLMConfig, MarkovLMDataset  # noqa: F401
+from .synthetic import (CaptionProxyConfig, CaptionProxyDataset,  # noqa: F401
+                        MarkovLMConfig, MarkovLMDataset)

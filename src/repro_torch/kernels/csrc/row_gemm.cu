@@ -61,7 +61,10 @@
 //   launch.  A chunk longer than the ring (the down projection's) streams
 //   through it again for each slice past the first, from L2 where it
 //   stayed.  A short ring (4 stages) leaves room for more blocks on an SM,
-//   which bought more than a deep one in tools/row_gemm_tune.py's sweep.
+//   which bought more than a deep one in tools/row_gemm_tune.py's sweep;
+//   where a long chunk's x slice leaves less than 4 stages' room in the
+//   block's shared memory (K = 24,576: 3,072 rows), the wrapper's schedule
+//   gives the ring fewer (3 there), so 16 rows still fit.
 //   MB (the registers held for rows, min(M, 16) rounded up to a power of
 //   two) changes which rows are computed, not how.
 //

@@ -67,7 +67,13 @@ def schedule(k: int, n: int) -> Schedule:
     MAX_CLUSTER chunks of at least MIN_ROWS rows.  A function of K alone
     (N is taken for the signature's sake): never of M, so a row's order of
     additions is the same at every M, and the products of one grouped
-    launch (which share K) share one cluster shape."""
+    launch (which share K) share one cluster shape.
+
+    The ring takes as many stages (up to MAX_STAGES) as leave a block at
+    a full SLICE of rows within MAX_SMEM_BYTES beside its x slice: every
+    stage up to K = 16,384, fewer for longer chunks (granite-34b's down
+    projection, K = 24,576, chunks of 3,072 rows: 3 stages).  The stages
+    move data only: a row's additions are the same at any ring depth."""
     del n
     cluster = min(MAX_CLUSTER, max(1, -(-k // MIN_ROWS)))
     chunk = -(-k // cluster)
@@ -75,7 +81,18 @@ def schedule(k: int, n: int) -> Schedule:
     cluster = -(-k // chunk)
     pieces = -(-chunk // PIECE)
     most = max(1, min(MAX_STAGES, RING_BYTES // (4 * PIECE * TILE_N)))
-    return Schedule(cluster, chunk, pieces, min(pieces, most))
+    stages = min(pieces, most)
+    while stages > 1 and _kn_smem(SLICE, chunk, stages) > MAX_SMEM_BYTES:
+        stages -= 1
+    return Schedule(cluster, chunk, pieces, stages)
+
+
+def _kn_smem(mb: int, chunk: int, stages: int) -> int:
+    """Dynamic shared memory of a row-major block: the ring, the slice's x
+    over the chunk (the parts' sums reuse it), the tile's total, one
+    mbarrier a stage."""
+    return 4 * (stages * PIECE * TILE_N + max(mb * chunk, PARTS * mb * TILE_N)
+                + mb * TILE_N) + 8 * stages
 
 
 def head_ld(k: int) -> int:
@@ -120,9 +137,7 @@ def smem_bytes(m: int, k: int, n: int, transposed: bool) -> int:
         return 4 * (st * head_columns(k) * head_ld(k) + NK_THREADS * mb) \
             + 8 * st
     s = schedule(k, n)
-    return 4 * (s.stages * PIECE * TILE_N
-                + max(mb * s.chunk, PARTS * mb * TILE_N) + mb * TILE_N) \
-        + 8 * s.stages
+    return _kn_smem(mb, s.chunk, s.stages)
 
 
 @functools.lru_cache(maxsize=None)

@@ -12,8 +12,16 @@ so ``bridge.params_from_jax`` carries the reference's pytree across leaf
 for leaf.  The layer stack runs as a plain Python loop (the reference's
 ``lax.scan`` / ``while_loop``).  ``loss`` serves ``runtime.train_loop``;
 the decode protocol (``prefill``, ``init_cache``, ``cache_axes``,
-``decode_step``, ``decode_step_q``) serves ``runtime.decode_engine``; MoE
-layers wait for a later slice.
+``decode_step``, ``decode_step_q``) serves ``runtime.decode_engine``.
+
+MoE configs (``n_experts`` > 0, every layer: ``moe_every`` = 1) replace
+the ``ffn`` subtree by ``{"router", "wi_gate", "wi_up", "wo"}``
+(:mod:`models.moe`); the forward and ``loss`` carry the router's
+load-balancing loss (``loss`` = CE + 0.01 * aux), the split-execution,
+prefill and decode paths drop it, as the reference's do.  The decode
+step runs the dense MoE path at <= 8 experts, else dispatch over the
+whole slot block as one group (its rows then share the experts'
+capacity, as in the reference).
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.decode_attn import quantized_decode_attention
 from ..kernels.quantize import kv_quantize
 from . import layers as L
+from . import moe as M
 
 
 def tree_map(fn, tree):
@@ -62,12 +71,13 @@ def tree_leaves(tree):
 
 
 class DecoderLM:
-    """Config-driven decoder-only LM (dense layers only in this port)."""
+    """Config-driven decoder-only LM (dense or MoE layers)."""
 
     def __init__(self, cfg):
-        if cfg.n_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not yet ported to repro_torch")
+        # the layer stack is homogeneous: all layers MoE or all dense
+        if cfg.n_experts and cfg.moe_every != 1:
+            raise ValueError("DecoderLM supports moe_every=1; interleaved "
+                             "MoE belongs to the hybrid model")
         self.cfg = cfg
         self._axes = None
 
@@ -81,7 +91,10 @@ class DecoderLM:
         emb_p, emb_ax = L.init_embeddings(cfg, generator, device=dev)
         attn_p, attn_ax = L.init_attention(cfg, generator, layers=n,
                                            device=dev)
-        ffn_p, ffn_ax = L.init_mlp(cfg, generator, layers=n, device=dev)
+        if cfg.n_experts:
+            ffn_p, ffn_ax = M.init_moe(cfg, generator, layers=n, device=dev)
+        else:
+            ffn_p, ffn_ax = L.init_mlp(cfg, generator, layers=n, device=dev)
         norms = [L.init_norm(cfg, cfg.d_model, device=dev) for _ in range(3)]
 
         def stack(p, ax):
@@ -114,6 +127,8 @@ class DecoderLM:
     # blocks
     # ------------------------------------------------------------------
     def _block(self, lp, x, positions):
+        """One layer; returns (x, aux): the MoE router's load-balancing
+        loss, or 0.0 for a dense layer."""
         cfg = self.cfg
         h = L.apply_norm(cfg, x, lp["ln1"])
         q, k, v = L.qkv_project(cfg, lp["attn"], h, positions)
@@ -121,7 +136,15 @@ class DecoderLM:
         x = x + attn.reshape(x.shape[:2] + (cfg.q_dim,)) \
             @ lp["attn"]["wo"].to(x.dtype)
         h2 = L.apply_norm(cfg, x, lp["ln2"])
-        return x + L.apply_mlp(cfg, lp["ffn"], h2)
+        y, aux = self._ffn(lp["ffn"], h2)
+        return x + y, aux
+
+    def _ffn(self, p, h):
+        """The layer's MLP, or its MoE (the reference's ``"auto"`` path);
+        returns (y, aux)."""
+        if self.cfg.n_experts:
+            return M.apply_moe(self.cfg, p, h)
+        return L.apply_mlp(self.cfg, p, h), 0.0
 
     def attend(self, q, k, v):
         """One layer's full-sequence causal attention, q [B, S, H, dh],
@@ -133,22 +156,26 @@ class DecoderLM:
                                      window=self.cfg.sliding_window)
 
     def _run_stack(self, params, x, positions, *, remat: bool = False):
-        """All layers for training; ``remat`` recomputes each layer in the
+        """All layers for training; returns (x, the layers' aux losses
+        summed in layer order).  ``remat`` recomputes each layer in the
         backward pass (``torch.utils.checkpoint``), keeping only the layer
         inputs alive, as the reference's per-layer ``jax.checkpoint``."""
+        aux = 0.0
         for lp_i in unstack_layers(params["layers"], self.cfg.n_layers):
             if remat:
-                x = checkpoint(self._block, lp_i, x, positions,
-                               use_reentrant=False)
+                x, a = checkpoint(self._block, lp_i, x, positions,
+                                  use_reentrant=False)
             else:
-                x = self._block(lp_i, x, positions)
-        return x
+                x, a = self._block(lp_i, x, positions)
+            aux = aux + a
+        return x, aux
 
     def run_layers_window(self, params, x, positions, lo: int, hi: int):
-        """Layers [lo, hi) applied in order; returns (x, aux=0.0)."""
+        """Layers [lo, hi) applied in order; returns (x, aux=0.0): the
+        split-execution path drops the MoE aux loss, as the reference's."""
         lp = params["layers"]
         for i in range(int(lo), int(hi)):
-            x = self._block(tree_map(lambda a: a[i], lp), x, positions)
+            x, _ = self._block(tree_map(lambda a: a[i], lp), x, positions)
         return x, 0.0
 
     def run_layers(self, params, x, positions, lo: int, hi: int):
@@ -177,9 +204,10 @@ class DecoderLM:
         return self._embed(params, batch)
 
     def forward(self, params, batch):
-        """Full forward: (logits [B, S, V], aux=0.0)."""
+        """Full forward: (logits [B, S, V], aux): the MoE layers'
+        load-balancing loss summed, 0.0 for a dense model."""
         x, positions = self._embed(params, batch)
-        x, aux = self.run_layers(params, x, positions, 0, self.cfg.n_layers)
+        x, aux = self._run_stack(params, x, positions)
         x = L.apply_norm(self.cfg, x, params["final_norm"])
         return L.unembed(self.cfg, params["embed"], x), aux
 
@@ -187,15 +215,17 @@ class DecoderLM:
         """Mean next-token CE of ``batch["labels"]`` (masked by
         ``batch["loss_mask"]`` when present) from the final hidden states,
         with the chunked unembedding: the full [B, S, V] logits never
-        materialize for long sequences."""
+        materialize for long sequences.  MoE configs add 0.01 x the
+        layers' load-balancing loss."""
         x, positions = self._embed(params, batch)
-        x = self._run_stack(params, x, positions, remat=remat)
+        x, aux = self._run_stack(params, x, positions, remat=remat)
         x = L.apply_norm(self.cfg, x, params["final_norm"])
         labels = batch["labels"]
         if x.shape[1] != labels.shape[1]:
             x = x[:, -labels.shape[1]:]
-        return L.chunked_cross_entropy(self.cfg, x, params["embed"], labels,
-                                       batch.get("loss_mask"))
+        ce = L.chunked_cross_entropy(self.cfg, x, params["embed"], labels,
+                                     batch.get("loss_mask"))
+        return ce + 0.01 * aux if self.cfg.n_experts else ce
 
     # ------------------------------------------------------------------
     # serving: the decode protocol
@@ -224,7 +254,7 @@ class DecoderLM:
             x = x + attn.reshape(b, s, cfg.q_dim) \
                 @ p_i["attn"]["wo"].to(x.dtype)
             h2 = L.apply_norm(cfg, x, p_i["ln2"])
-            x = x + L.apply_mlp(cfg, p_i["ffn"], h2)
+            x = x + self._ffn(p_i["ffn"], h2)[0]
             ks.append(k.to(dtype))
             vs.append(v.to(dtype))
         x = L.apply_norm(cfg, x, params["final_norm"])
@@ -259,7 +289,11 @@ class DecoderLM:
         ``attend(i, q)`` attends layer i's cache; the projections go
         through :func:`layers.row_matmul` (row-independent bits), q | k | v
         and gate | up as one grouped launch each
-        (:func:`layers.row_matmul_group`)."""
+        (:func:`layers.row_matmul_group`).  An MoE layer's router takes
+        :func:`layers.row_matmul` too; its experts run as the reference's
+        products over the expert stacks: dense at <= 8 experts (one token
+        at a time, so rows stay independent), else dispatch over the whole
+        block as one group of ``min(1024, B)``."""
         cfg = self.cfg
         mm = L.row_matmul
         b = x.shape[0]
@@ -279,8 +313,15 @@ class DecoderLM:
             x = x + mm(attn.reshape(b, 1, cfg.q_dim),
                        p_i["attn"]["wo"].to(x.dtype))
             h2 = L.apply_norm(cfg, x, p_i["ln2"])
-            x = x + L.apply_mlp(cfg, p_i["ffn"], h2,
-                                products=L.row_matmul_group)
+            if cfg.n_experts:
+                x = x + M.apply_moe(
+                    cfg, p_i["ffn"], h2,
+                    path="dense" if cfg.n_experts <= 8 else "dispatch",
+                    group_size=min(1024, b), router_matmul=mm,
+                    experts=M.expert_matmul_rows)[0]
+            else:
+                x = x + L.apply_mlp(cfg, p_i["ffn"], h2,
+                                    products=L.row_matmul_group)
         x = L.apply_norm(cfg, x, params["final_norm"])
         return L.unembed(cfg, params["embed"], x, matmul=mm)[:, 0]
 

@@ -540,16 +540,70 @@ def _spec_round(draft, verify, buf: _SlotBuffers, live: np.ndarray,
             io.acc.cpu().numpy(), steps)
 
 
-def _capture(cache: CompiledForwardCache, run, buf: _SlotBuffers, keep):
+def _small_written(buf: _SlotBuffers) -> List[torch.Tensor]:
+    """What the block's graphs write besides its caches (the canonical
+    block's and the speculative scratch's codes and scales): positions,
+    tokens and the graphs' I/O, bytes to kilobytes."""
+    caches = buf.canonical()[:4] + (buf._spec_io.scratch[:4]
+                                    if buf._spec_io is not None else [])
+    return [t for t in buf.written() if not any(t is c for c in caches)]
+
+
+def _save_entries(buf: _SlotBuffers, caches: List[torch.Tensor],
+                  pos: torch.Tensor) -> Callable[[], None]:
+    """Save what a token step writes: each row's cache entries at its
+    write position ``min(pos, T - 1)`` and the block's small tensors;
+    returns the closure that puts them back (its ``nbytes``: the bytes
+    saved)."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    at = torch.clamp(pos, max=buf.t_bucket - 1).long()
+    entries = [t[:, rows, at] for t in caches]
+    smalls = _small_written(buf)
+    small = [t.clone() for t in smalls]
+
+    def restore():
+        for t, v in zip(caches, entries):
+            t[:, rows, at] = v
+        for t, v in zip(smalls, small):
+            t.copy_(v)
+    restore.nbytes = sum(v.numel() * v.element_size()
+                         for v in entries + small)
+    return restore
+
+
+def _save_prefill(buf: _SlotBuffers, io: _PrefillIO) -> Callable[[], None]:
+    """Save what a prefill writes: the slot's cache rows up to its prompt
+    bucket and the block's small tensors; returns the closure that puts
+    them back (its ``nbytes``: the bytes saved)."""
+    s, slot = io.tokens.shape[1], io.slot.clone()
+    caches = buf.canonical()[:4]
+    entries = [t[:, :, :s].index_select(1, slot) for t in caches]
+    smalls = _small_written(buf)
+    small = [t.clone() for t in smalls]
+
+    def restore():
+        for t, v in zip(caches, entries):
+            t[:, :, :s].index_copy_(1, slot, v)
+        for t, v in zip(smalls, small):
+            t.copy_(v)
+    restore.nbytes = sum(v.numel() * v.element_size()
+                         for v in entries + small)
+    return restore
+
+
+def _capture(cache: CompiledForwardCache, run, buf: _SlotBuffers, keep,
+             save: Callable[[], Callable[[], None]]):
     """``run`` as a :class:`CapturedCall`.  On the card the capture's eager
-    warm-up run is a real prefill or step, so the block's buffers are
-    restored after it: a capture never changes the slots it ran on."""
+    warm-up run is a real prefill or step, so what it writes is saved
+    first (``save()``: the entries at the rows' write positions or the
+    prefilled slot's rows, and the small tensors, not a copy of the
+    block) and put back after it: a capture never changes the slots it
+    ran on."""
     if buf.device.type != "cuda":
         return CapturedCall(run, buf.device, keep=keep)
-    saved = [t.clone() for t in buf.written()]
+    restore = save()
     entry = CapturedCall(run, buf.device, cache.pool(), keep=keep)
-    for t, v in zip(buf.written(), saved):
-        t.copy_(v)
+    restore()
     return entry
 
 
@@ -558,14 +612,17 @@ def _prefill_call(cache, model, b_kv: int, weights, buf: _SlotBuffers,
     io = buf.prefill_io(s_bucket)
     return _capture(cache, lambda: _prefill_slot(model, b_kv, weights, buf,
                                                  io),
-                    buf, keep=(model, weights, buf))
+                    buf, keep=(model, weights, buf),
+                    save=lambda: _save_prefill(buf, io))
 
 
 def _step_call(cache, model, b_kv: int, weights,
                buf: _SlotBuffers) -> CapturedCall:
     return _capture(cache, lambda: _decode_step(model, b_kv, weights, buf,
                                                 buf.step_io),
-                    buf, keep=(model, weights, buf))
+                    buf, keep=(model, weights, buf),
+                    save=lambda: _save_entries(buf, buf.canonical()[:4],
+                                               buf.pos))
 
 
 def _spec_draft_call(cache, model, b_kv: int, weights,
@@ -573,7 +630,9 @@ def _spec_draft_call(cache, model, b_kv: int, weights,
     io = buf.spec_io()
     return _capture(cache, lambda: _spec_draft_step(model, b_kv, weights,
                                                     io),
-                    buf, keep=(model, weights, buf))
+                    buf, keep=(model, weights, buf),
+                    save=lambda: _save_entries(buf, io.scratch[:4],
+                                               io.scratch[4]))
 
 
 def _spec_verify_call(cache, model, b_kv: int, weights,
@@ -581,7 +640,9 @@ def _spec_verify_call(cache, model, b_kv: int, weights,
     io = buf.spec_io()
     return _capture(cache, lambda: _spec_verify_step(model, b_kv, weights,
                                                      buf, io),
-                    buf, keep=(model, weights, buf))
+                    buf, keep=(model, weights, buf),
+                    save=lambda: _save_entries(buf, buf.canonical()[:4],
+                                               buf.pos))
 
 
 def _spec_key(kind: str, model, weights, buf: _SlotBuffers,

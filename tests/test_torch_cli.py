@@ -105,9 +105,9 @@ def test_unported_modes_exit_2(capsys, tmp_path, case):
         spec = tmp_path / "fleet.json"
         spec.write_text(json.dumps({"agents": [
             {"name": "drone", "arch": "qwen2-0.5b"},
-            {"name": "big", "arch": "granite-34b"}]}))
+            {"name": "big", "arch": "xlstm-350m"}]}))
         args, needle = ("--fleet", str(spec)), \
-            "fleet agent 'big': \"arch 'granite-34b' is not yet ported"
+            "fleet agent 'big': \"arch 'xlstm-350m' is not yet ported"
     else:
         args, needle = ("--engine", "sequential", "--chaos-trace",
                         str(ROOT / "examples" / "chaos_spec.json")), \
@@ -290,7 +290,7 @@ def test_fcdnn_arch_exits_2(capsys):
 
 
 def test_unported_arch_exits_2(capsys):
-    assert main(["--arch", "granite-34b", "--engine", "sequential",
+    assert main(["--arch", "xlstm-350m", "--engine", "sequential",
                  "--device", "cpu", "--smoke"]) == 2
     assert "not yet ported" in capsys.readouterr().err
 

@@ -45,7 +45,11 @@ engine at 32 slots equals the batch-1 oracle.  Two engines with
 different weights over one compile cache each replay their own graphs; a
 one-agent fleet from graphs equals its batched engine bitwise; a decode
 slot's snapshot resumes bitwise through the batch-1 graphs; a checkpoint
-of card tensors round-trips onto the card.
+of card tensors round-trips onto the card.  ``row_gemm`` takes granite-
+34b's K = 24,576 past 8 rows; a prefill, step, draft or verify capture
+leaves its block bitwise as it was while saving only what its warm-up
+writes; an MoE decode step (dispatch at 16 experts) replays its eager
+bits from a graph.
 """
 
 import importlib
@@ -828,6 +832,26 @@ def test_row_gemm_any_m(dev, k, n, layout):
                 f"M={m} row {i}"
 
 
+def test_row_gemm_at_granites_down_projection(dev):
+    """K = 24,576 (granite-34b's non-gated MLP, 24576 -> 6144), whose
+    block did not fit the card's shared memory past 8 rows before its ring
+    was fitted to the chunk: at M = 9, 16 and 17 one launch, within 1e-5 x
+    max|y| of the plain version, sampled rows bitwise alone."""
+    w = _row_gemm_w(24576, 6144, "kn", dev) * 24576 ** -0.5
+    x = _normal(5, (17, 24576), dev)
+    for m in (9, 16, 17):
+        before = tk.row_gemm.launches
+        y = tk.row_gemm(x[:m], w)
+        torch.cuda.synchronize()
+        assert tk.row_gemm.launches == before + 1
+        want = ref.row_gemm_ref(x[:m], w)
+        assert float((y - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+        for i in (0, m // 2, m - 1):
+            assert torch.equal(y[i], tk.row_gemm(x[i:i + 1], w)[0]), \
+                f"M={m} row {i}"
+
+
 @pytest.mark.parametrize("k,ns,bias", [
     (896, (896, 128, 128), True), (896, (4864, 4864), False),
     (2560, (2560, 2560, 2560), False), (2560, (6912, 6912), False),
@@ -943,6 +967,73 @@ def test_captured_decode_equals_eager(dev, smoke_lm):
         bufs[1].step_io, live, 5)
     torch.cuda.synchronize()
     assert n_a == n_b == 5 and torch.equal(blk_a, blk_b)
+    for ta, tb in zip(bufs[0].written(), bufs[1].written()):
+        assert torch.equal(ta, tb)
+
+
+def test_capture_leaves_the_block_bitwise(dev, smoke_lm):
+    """A prefill, token-step, draft-step and verify-step capture on a
+    block with live rows (one at pos = T) leaves every buffer the block's
+    graphs write bitwise as it was, while saving only the entries its
+    warm-up run writes (ROADMAP C.10), not a copy of the block."""
+    from repro_torch.runtime import decode_engine as de
+    model, params = smoke_lm
+    eng = _decode_engine(model, params, dev)
+    w = eng.class_params("interactive")
+    cache = eng.compile_cache
+    buf = de._SlotBuffers(model.cfg, 32, 3, 8, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for c in (buf.k_codes, buf.v_codes):
+        c.random_(-127, 128, generator=g)
+    buf.pos.copy_(torch.tensor([5, 32, 17], dtype=torch.int32))
+    io = buf.spec_io()
+    io.act.copy_(torch.tensor([True, False, True]))
+    pio = buf.prefill_io(16)
+    pio.slot.fill_(1)
+    pio.last.fill_(9)
+    block = sum(t.numel() * t.element_size() for t in buf.canonical()[:4])
+    assert de._save_entries(buf, buf.canonical()[:4], buf.pos).nbytes \
+        < block / 8
+    before = [t.clone() for t in buf.written()]
+    for make in (lambda: de._prefill_call(cache, model, 8, w, buf, 16),
+                 lambda: de._step_call(cache, model, 8, w, buf),
+                 lambda: de._spec_draft_call(cache, model, 8, w, buf),
+                 lambda: de._spec_verify_call(cache, model, 8, w, buf)):
+        assert make().graph is not None
+        torch.cuda.synchronize()
+        for t, b in zip(buf.written(), before):
+            assert torch.equal(t, b)
+
+
+def test_moe_decode_step_captured_equals_eager(dev):
+    """An MoE decode step on the dispatch path (16 experts: the block's
+    rows one capacity group) captures as one CUDA graph and replays the
+    closure's eager bits (tokens and the written entries)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.runtime import CompiledForwardCache
+    from repro_torch.runtime import decode_engine as de
+    cfg = dataclasses.replace(get_smoke("qwen3-moe-235b-a22b"),
+                              n_experts=16)
+    model = DecoderLM(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(2))
+    bufs = [de._SlotBuffers(cfg, 32, 4, 8, dev) for _ in range(2)]
+    for b in bufs:
+        g = torch.Generator(device=dev).manual_seed(3)
+        for c in (b.k_codes, b.v_codes):
+            c.random_(-127, 128, generator=g)
+        b.pos.copy_(torch.tensor([3, 9, 20, 31], dtype=torch.int32))
+        b.tok.copy_(torch.tensor([1, 2, 3, 4], dtype=torch.int32))
+    step = de._step_call(CompiledForwardCache(), model, 8, params, bufs[0])
+    assert step.graph is not None
+    live = np.ones(4, np.int32)
+    blk_a, _ = de._decode_chunk(step, bufs[0].step_io, live, 3)
+    blk_b, _ = de._decode_chunk(
+        lambda: de._decode_step(model, 8, params, bufs[1], bufs[1].step_io),
+        bufs[1].step_io, live, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(blk_a, blk_b)
     for ta, tb in zip(bufs[0].written(), bufs[1].written()):
         assert torch.equal(ta, tb)
 

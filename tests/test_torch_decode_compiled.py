@@ -375,3 +375,75 @@ def test_traced_equals_untraced_with_the_reference_names(qwen):
     assert {"decode.admit", "decode.prefill", "decode.chunk",
             "decode.retire", "forward.capture"} <= names
     assert _series(m) == _series(jm)
+
+
+def _random_block(cfg, b, t, seed):
+    """A slot block with a seeded random int8 cache, ragged positions (one
+    row past the cache's end, where a step writes at T - 1) and tokens."""
+    buf = de._SlotBuffers(cfg, t, b, 8, "cpu")
+    g = torch.Generator().manual_seed(seed)
+    for c in (buf.k_codes, buf.v_codes):
+        c.random_(-127, 128, generator=g)
+    for c in (buf.k_scales, buf.v_scales):
+        c.uniform_(0.01, 0.03, generator=g)
+    buf.pos.copy_(torch.tensor([3, t - 1, t][:b] + [5] * (b - 3),
+                               dtype=torch.int32))
+    buf.tok.random_(0, cfg.vocab_size, generator=g)
+    return buf
+
+
+@pytest.mark.parametrize("kind", ["prefill", "step", "draft", "verify"])
+def test_capture_saves_what_its_warmup_writes(qwen, kind):
+    """What a capture saves before its eager warm-up run (ROADMAP C.10:
+    each row's entries at its write position, or the prefilled slot's
+    rows up to its prompt bucket, and the small tensors; no copy of the
+    block) covers everything the run writes: the closure run on the block
+    and then the restore give back every written buffer bitwise, while
+    the run alone changes the block.  The saved entries are a small part
+    of the block."""
+    _, _, model, params = qwen
+    cfg = model.cfg
+    b, t = 4, 32
+    buf = _random_block(cfg, b, t, seed=7)
+    io = buf.spec_io()
+    for x in io.scratch:
+        x.copy_(torch.randint(-5, 5, x.shape, generator=torch.Generator()
+                              .manual_seed(8)).to(x.dtype))
+    io.scratch[4].copy_(torch.tensor([t + 2, 4, 9, t - 1],
+                                     dtype=torch.int32))
+    io.scratch[5].copy_(buf.tok)
+    io.act.copy_(torch.tensor([True, False, True, True]))
+    if kind == "prefill":
+        pio = buf.prefill_io(16)
+        pio.tokens.copy_(torch.arange(16, dtype=torch.int32)[None] * 7)
+        pio.last.fill_(11)
+        pio.slot.fill_(2)
+        run = lambda: de._prefill_slot(model, 8, params, buf, pio)  # noqa
+        save = lambda: de._save_prefill(buf, pio)                     # noqa
+    elif kind == "step":
+        run = lambda: de._decode_step(model, 8, params, buf,          # noqa
+                                      buf.step_io)
+        save = lambda: de._save_entries(buf, buf.canonical()[:4],     # noqa
+                                        buf.pos)
+    elif kind == "draft":
+        run = lambda: de._spec_draft_step(model, 8, params, io)       # noqa
+        save = lambda: de._save_entries(buf, io.scratch[:4],          # noqa
+                                        io.scratch[4])
+    else:
+        run = lambda: de._spec_verify_step(model, 8, params, buf, io)  # noqa
+        save = lambda: de._save_entries(buf, buf.canonical()[:4],     # noqa
+                                        buf.pos)
+    before = [x.clone() for x in buf.written()]
+    caches = io.scratch[:4] if kind == "draft" else buf.canonical()[:4]
+    cache_before = [x.clone() for x in caches]
+    restore = save()
+    run()
+    assert all(not torch.equal(x, y) for x, y in zip(caches, cache_before))
+    restore()
+    for x, y in zip(buf.written(), before):
+        assert torch.equal(x, y)
+    block = sum(x.numel() * x.element_size() for x in buf.canonical()[:4])
+    if kind == "prefill":      # one slot of four, 16 of 32 positions
+        assert restore.nbytes < block / 8 + 4096
+    else:                      # one position of 32 a row
+        assert restore.nbytes < block / 32 + 4096

@@ -38,7 +38,13 @@ def test_importing_every_module_pulls_in_no_jax():
               "repro_torch.runtime.supervisor",
               "repro_torch.runtime.fault_tolerance",
               "repro_torch.checkpoint", "repro_torch.checkpoint.store",
-              "repro_torch.configs.stablelm_3b"):
+              "repro_torch.configs.stablelm_3b", "repro_torch.models.moe",
+              "repro_torch.configs.granite_34b",
+              "repro_torch.configs.internlm2_20b",
+              "repro_torch.configs.llava_next_mistral_7b",
+              "repro_torch.configs.qwen3_moe_235b_a22b",
+              "repro_torch.configs.kimi_k2_1t_a32b",
+              "repro_torch.data", "repro_torch.data.synthetic"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

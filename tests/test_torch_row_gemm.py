@@ -222,3 +222,60 @@ def test_bad_shapes_raise():
         row_gemm(x, _normal(1, (9, 4)))
     with pytest.raises(ValueError):
         row_gemm(x[0], _normal(1, (8, 4)))
+
+
+def _old_schedule(k):
+    """The schedule before the ring was fitted to long chunks: the ring's
+    stages were min(pieces, MAX_STAGES) at every K."""
+    cluster = min(8, max(1, -(-k // 128)))
+    chunk = -(-k // cluster)
+    chunk = -(-chunk // 4) * 4
+    cluster = -(-k // chunk)
+    pieces = -(-chunk // 32)
+    return (cluster, chunk, pieces, min(pieces, 4))
+
+
+def test_schedule_unchanged_up_to_k_16384():
+    """Every K <= 16,384 keeps the schedule it had (so qwen2-0.5b's,
+    stablelm-3b's, llava's and internlm2's decode products keep their
+    bits): only longer chunks get a shallower ring."""
+    for k in range(1, 16385):
+        assert tuple(rg_mod.schedule(k, 64)) == _old_schedule(k), k
+    s = rg_mod.schedule(24576, 6144)
+    assert (s.cluster, s.chunk, s.pieces) == _old_schedule(24576)[:3]
+    assert s.stages == 3 < _old_schedule(24576)[3]
+
+
+def _decode_products(cfg):
+    """(K, N, transposed) of every row_gemm product of a decode step of
+    ``cfg``: q | k | v and wo; gate | up (or the non-gated wi) and down,
+    or an MoE layer's router; the head (the tied embedding's transposed
+    view, or the untied [D, V])."""
+    d = cfg.d_model
+    out = [(d, cfg.q_dim, False), (d, cfg.kv_dim, False),
+           (cfg.q_dim, d, False)]
+    if cfg.n_experts:
+        out.append((d, cfg.n_experts, False))
+    else:
+        out += [(d, cfg.d_ff, False), (cfg.d_ff, d, False)]
+    out.append((d, cfg.vocab_size, bool(cfg.tie_embeddings)))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "stablelm-3b",
+                                  "granite-34b", "internlm2-20b",
+                                  "llava-next-mistral-7b",
+                                  "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b",
+                                  "blip2-proxy", "git-proxy"])
+def test_every_registered_decode_product_fits(arch):
+    """A block of every decode product of every registered config fits
+    the card's shared memory at any M (granite-34b's down projection,
+    K = 24,576, raised at M >= 9 before its ring was fitted), and the
+    products' layouts are ones the kernel takes."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    for k, n, tr in _decode_products(cfg):
+        assert n % 4 == 0 and (not tr or k % 4 == 0), (k, n)
+        for m in (1, 4, 8, 9, 16, 17, 128):
+            assert rg_mod.smem_bytes(m, k, n, tr) <= rg_mod.MAX_SMEM_BYTES, \
+                (arch, k, n, tr, m)

@@ -284,19 +284,26 @@ def _slot_block(cfg, states, b_kv):
 def _verify_both(jmodel, jparams, tmodel, tparams, buf, drafts, live, rem,
                  n_draft, b_kv):
     """The JAX verify and the port's verify chain (eager closures) from the
-    same state; returns the JAX outputs and the port's steps run."""
-    state = [jnp.asarray(t.numpy()) for t in buf.canonical()]
-    jout = _build_spec_verify(jmodel, b_kv)(
+    same state; returns the JAX outputs and the port's steps run.
+
+    JAX gets copies of the block: on the CPU ``jnp.asarray`` of a
+    tensor's ``.numpy()`` shares the tensor's memory, and JAX dispatches
+    asynchronously, so the port's in-place verify could otherwise change
+    the JAX verify's inputs before it read them (seen under the test
+    runner's parallel workers).  Its outputs are read back before the
+    port's chain runs."""
+    state = [jnp.asarray(t.numpy().copy()) for t in buf.canonical()]
+    jout = [np.asarray(a) for a in _build_spec_verify(jmodel, b_kv)(
         jparams, *state[:4], state[5], state[4],
         jnp.asarray(live, jnp.int32), jnp.asarray(drafts),
         jnp.asarray(n_draft, jnp.int32), jnp.asarray(rem, jnp.int32),
-        jnp.asarray(-1, jnp.int32))
+        jnp.asarray(-1, jnp.int32))]
     io = buf.spec_io()
     io.drafts.copy_(torch.from_numpy(drafts))
     steps = de._spec_verify_chain(
         lambda: de._spec_verify_step(tmodel, b_kv, tparams, buf, io), io,
         live, rem, n_draft)
-    return [np.asarray(a) for a in jout], steps
+    return jout, steps
 
 
 def _assert_cache_like_jax(jout, buf, written):

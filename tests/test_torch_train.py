@@ -378,7 +378,7 @@ def test_cli_smoke_improves():
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--arch", "granite-34b"], "granite-34b"),
+    (["--arch", "xlstm-350m"], "xlstm-350m"),
     (["--data", "2"], "--data 2")])
 def test_cli_exits_2_on_what_is_not_ported(capsys, argv, what):
     """``--ckpt-dir`` is ported (see below); an unregistered arch and data
@@ -405,9 +405,11 @@ def test_cli_ckpt_dir_resumes(capsys, tmp_path):
 
 def test_trainer_raises_on_what_is_not_ported():
     model, opt = DecoderLM(get_smoke(ARCH)), AdamW()
-    moe = dataclasses.replace(get_smoke(ARCH), n_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE layers"):
-        Trainer(DecoderLM(moe), opt, "cpu")
+    moe = dataclasses.replace(get_smoke(ARCH), n_experts=4,
+                              experts_per_token=2, moe_every=2)
+    with pytest.raises(ValueError, match="moe_every=1"):
+        DecoderLM(moe)
+    Trainer(DecoderLM(dataclasses.replace(moe, moe_every=1)), opt, "cpu")
     with pytest.raises(NotImplementedError, match="mesh of 2"):
         Trainer(model, opt, mesh=["cpu", "cpu"])
     assert Trainer(model, opt, mesh=["cpu"]).device.type == "cpu"
