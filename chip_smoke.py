@@ -280,9 +280,32 @@ nothing of JAX or of the JAX package ``repro``.
    a dense model's rows alone bitwise (an MoE step past 8 experts shares
    the experts' capacity across its rows, as the reference's does).
    Prints each config's parameters, peak device memory and wall.
-18. Summary: one ``{"kernels": [...]}`` line, the card line, and last
+   The dense three also time one configure's ``group_quantize`` (every
+   agent layer's matrices at b = 8) against the plain version and the
+   byte bound, codes and scales equal.
+18. The recurrent and encoder-decoder families, one at a time, seeded
+   random weights, each freed before the next.  Flash at their heads
+   against its plain version (FLASH_TOL, rows alone bitwise, beside SDPA
+   and the bound): jamba's 64 over 8 at dh 128 causal, seamless's 16 at
+   dh 64 bidirectional at S = T = 512 and as cross-attention at S = 256
+   over T = 512 and S = 512 over T = 256.  One layer each of mLSTM,
+   sLSTM (xlstm-350m's widths) and Mamba (jamba's) decoded token by token
+   == its chunked forward over 64 inputs within 2e-3.  xlstm-350m
+   ``FULL``: the 4 x 1024 forward, 64 tokens decoded from the zero state
+   against it, ``prefill`` and 16 greedy steps, ``Trainer.fit`` at 8 x
+   128 (QAT 8, int8 EF), every loss and grad norm finite.
+   jamba-1.5-large-398b cut to one super-block (8 of 72 layers) and 4 of
+   16 experts (2 if 4 do not fit): the 4 x 64 and 2 x 512 forwards, one
+   flash launch each (counted), against plain attention with the kernel
+   run's expert choices replayed; ``prefill`` and 16 greedy steps.
+   seamless-m4t-large-v2 ``FULL`` over seeded stub frames: the 4 x (512
+   frames, 256 tokens) forward, 72 flash launches (counted), against
+   plain attention; ``prefill`` and 16 greedy steps; ``Trainer.fit`` at
+   8 x (64, 64), 144 flash launches a step (counted).  Prints each
+   model's walls, a decode step's device ms and the peak memory.
+19. Summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``; the per-shape numbers are printed
-   in phases 3, 5, 6, 8 and 17.
+   in phases 3, 5, 6, 8, 17 and 18.
 """
 
 from __future__ import annotations
@@ -411,6 +434,23 @@ FAMILIES = (("llava-next-mistral-7b", None, 8, None, 4),
 FAMILY_PROMPTS = (40, 100, 70, 150, 25)    # decode prompts' lengths
 FAMILY_NEW = 16                            # new tokens each
 FAMILY_QMM_M = (1, 256)                    # qmm's M at the new shapes
+# phase 18: the recurrent and encoder-decoder families
+XLSTM_FWD = (4, 1024)          # four 256-position chunks cross
+XLSTM_TRAIN = (8, 128)
+REC_CELL_STEPS = 64            # decoded tokens held against the forward
+REC_TOL = 2e-3                 # the reference's decode == forward
+REC_NEW = 16                   # greedy decode steps after prefill
+JAMBA_EXPERTS = 4              # of 16, top-2 kept; 2 if 4 do not fit
+JAMBA_HEADROOM = 5e9           # bytes the forwards and decode need beside
+JAMBA_FWD = ((4, 64), (2, 512))    # 2 x 512: two Mamba chunks
+SEAMLESS_FWD = (4, 512, 256)   # B, frames, tokens
+SEAMLESS_TRAIN = (8, 64, 64)
+# (name, B, S, T, H, KV, dh, causal): flash at the new families' heads
+FLASH_RECURRENT = (
+    ("jamba heads", 2, 512, 512, 64, 8, 128, True),
+    ("seamless encoder", 4, 512, 512, 16, 16, 64, False),
+    ("seamless cross S<T", 4, 256, 512, 16, 16, 64, False),
+    ("seamless cross S>T", 4, 512, 256, 16, 16, 64, False))
 # phase 15's batched runs also take examples/chaos_spec.json with every
 # time constant (step, horizon, preemption's MTBF and MTTR) this many times
 # longer, so that its faults land on seconds-long full-width batches
@@ -3824,27 +3864,28 @@ def family_batch(cfg):
     return batch["tokens"], batch["embeds"]
 
 
-def routed_lm(cfg, plain: bool, replay=None):
-    """``DecoderLM`` whose MoE layers log each call's expert choice
-    (``log``, in layer order) and, given ``replay`` (another run's log),
-    take that run's choice instead of their own, noting each call where
-    their own differed (``flips``: (probs, own, replayed)); ``plain``
-    attends through the flash kernel's plain version."""
+def routed_model(base, hook: str, cfg, plain, replay=None):
+    """``base`` (``DecoderLM``, whose MoE layers run in ``_ffn``, or
+    ``HybridLM``, in ``moe``: the ``hook``) whose MoE layers log each
+    call's expert choice (``log``, in layer order) and, given ``replay``
+    (another run's log), take that run's choice instead of their own,
+    noting each call where their own differed (``flips``: (probs, own,
+    replayed)); ``plain`` (an ``attend(q, k, v)`` or None) replaces the
+    flash kernel."""
     import torch
     from repro_torch.models import moe as M
-    from repro_torch.models.lm import DecoderLM
 
-    class RoutedLM(DecoderLM):
+    class Routed(base):
         def __init__(self, cfg):
             super().__init__(cfg)
             self.log, self.flips = [], []
 
         def attend(self, q, k, v):
-            if plain:
-                return plain_attend(self.cfg)(q, k, v)
+            if plain is not None:
+                return plain(q, k, v)
             return super().attend(q, k, v)
 
-        def _ffn(self, p, h):
+        def routed_moe(self, p, h):
             n = len(self.log)
 
             def topk(probs, k):
@@ -3857,7 +3898,17 @@ def routed_lm(cfg, plain: bool, replay=None):
                 self.log.append(i)
                 return v, i
             return M.apply_moe(self.cfg, p, h, router_topk=topk)
-    return RoutedLM(cfg)
+
+    setattr(Routed, hook, Routed.routed_moe)
+    return Routed(cfg)
+
+
+def routed_lm(cfg, plain: bool, replay=None):
+    """:func:`routed_model` of ``DecoderLM``; ``plain`` attends through
+    the flash kernel's plain version."""
+    from repro_torch.models.lm import DecoderLM
+    return routed_model(DecoderLM, "_ffn", cfg,
+                        plain_attend(cfg) if plain else None, replay)
 
 
 def hold_moe_against_plain(eng, cfg, batch, logits):
@@ -3886,28 +3937,29 @@ def hold_moe_against_plain(eng, cfg, batch, logits):
     assert torch.equal(again, logits), f"{cfg.name}: a second forward " \
         "(expert choices logged) changed bits"
     assert len(rec.log) == cfg.n_layers
+    flipped = near_ties(ref.flips, cfg.name)
+    return (held_greedy(logits, ref_logits, cfg.name)
+            + f" (plain attention, the kernel run's expert choices "
+            f"replayed; {flipped} token-layer choices of its own differed, "
+            f"each a near tie within {ROUTE_TIE})")
+
+
+def near_ties(flips, what) -> int:
+    """Every (probs, own, replayed) expert choice of a replaying run
+    that differed from the replayed one must be a near tie: the two
+    experts' probabilities within ROUTE_TIE, relative.  Returns the count
+    of token-layer choices that differed."""
+    import torch
     flipped = 0
-    for probs, own, want in ref.flips:
+    for probs, own, want in flips:
         p_own = torch.gather(probs, -1, own)
         p_want = torch.gather(probs, -1, want)
         rows = (own != want).any(-1)
         gap = ((p_own - p_want).abs() / p_own)[rows]
         assert float(gap.max()) <= ROUTE_TIE, \
-            f"{cfg.name}: an expert choice differs by {float(gap.max())}"
+            f"{what}: an expert choice differs by {float(gap.max())}"
         flipped += int(rows.sum())
-    scale = float(ref_logits.abs().max())
-    diff = float((logits - ref_logits).abs().max())
-    assert bool(torch.isfinite(logits).all())
-    assert diff <= E2E_TOL * scale, f"{cfg.name}: {diff} of {scale}"
-    top2 = ref_logits.topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > 2 * diff
-    same = logits.argmax(-1) == ref_logits.argmax(-1)
-    assert bool(same[clear].all()), f"{cfg.name}: tokens differ"
-    return (f"logits max|d|={diff:.3e} of {scale:.3e} (plain attention, "
-            f"the kernel run's expert choices replayed; {flipped} token-"
-            f"layer choices of its own differed, each a near tie within "
-            f"{ROUTE_TIE}); greedy equal at {int(same.sum())}/"
-            f"{same.numel()} ({int(clear.sum())} clear)")
+    return flipped
 
 
 def family_serving(cfg, model, params, sysp, dev):
@@ -4035,6 +4087,7 @@ def family_path(arch, layers, split, experts, slots, dev, flush):
     torch.cuda.reset_peak_memory_stats()
     peaks = []
     if not cfg.n_experts:
+        family_configure_time(cfg, dev, flush)
         detail = []
         check_kernels(cfg, dev, flush, detail, ms=FAMILY_QMM_M)
         for d in detail:
@@ -4074,6 +4127,560 @@ def family_path(arch, layers, split, experts, slots, dev, flush):
           f"decode); {time.perf_counter() - t_cfg:.1f}s wall; "
           f"{release_memory()}")
     return counts
+
+
+def family_configure_time(cfg, dev, flush):
+    """Phase 17, a dense config: one configure's agent matrices (every
+    agent layer's, random weights at its widths, G = 128, b = 8)
+    quantized as the engine does, ``torch.equal`` the plain version, timed
+    against the plain version and the byte bound (PERF.md row 3b)."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.kernels import quantize as q
+    from repro_torch.kernels import ref
+
+    ws = configure_weights(cfg, dev, seed=5)
+    groups = [128] * len(ws)
+    before = tk.group_quantize.launches
+    got = q.group_quantize_many(ws, groups, [8] * len(ws))
+    torch.cuda.synchronize()
+    n_launch = tk.group_quantize.launches - before
+    for w, (codes, scales) in zip(ws, got):
+        want = ref.group_quantize_ref(w, 128, 8)
+        assert torch.equal(codes, want[0]) and torch.equal(scales, want[1]), \
+            f"group_quantize {cfg.name} {tuple(w.shape)}"
+    del got
+    n_el = sum(w.numel() for w in ws)
+    b_ms, by = bound_ms(4 * n_el + n_el + 4 * n_el // 128, 2.0 * n_el)
+    row = dict(
+        ms=time_ms(lambda: q.group_quantize_many(ws, groups, [8] * len(ws)),
+                   flush, reps=5),
+        plain_ms=time_ms(lambda: [ref.group_quantize_ref(w, 128, 8)
+                                  for w in ws], flush, reps=3),
+        bound_ms=b_ms, bound_by=by, library_ms=None, max_abs_err=0.0)
+    print(f"  group_quantize {cfg.name} one configure ({len(ws)} matrices, "
+          f"{n_el / 1e6:.1f} M weights, G=128, b=8, {n_launch} launch(es)): "
+          f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+          f"bound={b_ms:.4f} ({by}); {b_ms / row['ms']:.1%} of the bound; "
+          f"codes and scales equal the plain version")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the recurrent and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+def flash_pair(dev, b, s, t, h, kv, dh, seed):
+    """q [B, H, S, dh] and k, v [B, KV, T, dh] as strided views of the
+    models' [B, S, H, dh] layout."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, s, h, dh), generator=gen, device=dev)
+    k, v = (torch.randn((b, t, kv, dh), generator=gen, device=dev)
+            for _ in range(2))
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def check_flash_recurrent_shapes(dev, flush):
+    """Flash at phase 18's new shapes against its plain version at
+    FLASH_TOL, every row alone bitwise, timed beside SDPA and the bound
+    (L2 flushed): jamba's heads (64 over 8, dh 128, causal) and
+    seamless's (16 over 16, dh 64): bidirectional S = T = 512 and the
+    cross-attention at S = 256 over T = 512 and S = 512 over T = 256."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as tk
+    from repro_torch.kernels import ref
+
+    fwd = tk.flash_attention_fwd
+    rows = []
+    for name, b, s, t, h, kv, dh, causal in FLASH_RECURRENT:
+        q, k, v = flash_pair(dev, b, s, t, h, kv, dh, seed=s + t + dh)
+        out = fwd(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=FLASH_TOL, atol=FLASH_TOL,
+                                   msg=f"flash attention {name}")
+        for i in range(b):
+            alone = fwd(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal)
+            assert torch.equal(alone[0], out[i]), \
+                f"flash attention {name}: row {i} alone != in batch"
+        b_ms, by = flash_bound(q, k, causal=causal)
+        r = dict(
+            name=name, ms=time_ms(lambda: fwd(q, k, v, causal=causal), flush),
+            plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal=causal), flush, reps=5),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), flush),
+            bound_ms=b_ms, bound_by=by,
+            max_abs_err=float((out - want).abs().max()))
+        rows.append(r)
+        print(f"  flash_attention_fwd {name}: B={b} S={s} T={t} H={h} "
+              f"KV={kv} dh={dh} {'causal' if causal else 'bidirectional'} "
+              f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+              f"sdpa={r['library_ms']:.4f} bound={b_ms:.6f} ({by}) "
+              f"max|d|={r['max_abs_err']:.2e}; rows alone bitwise")
+    return rows
+
+
+def check_recurrent_cells(dev):
+    """One layer each of mLSTM and sLSTM (xlstm-350m's widths) and Mamba
+    (jamba's: d_model 8192, 128 heads of 128, state 16), seeded weights,
+    decoded token by token from the zero state against the chunked
+    forward (chunks of 16) over the same 64 inputs, within the
+    reference's own 2e-3 (rtol and atol, tests/test_models.py)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as S
+
+    xl, jb = get_config("xlstm-350m"), get_config("jamba-1.5-large-398b")
+    for name, cfg, init, fwd, init_state, step, chunked in (
+            ("mLSTM", xl, S.init_mlstm, S.mlstm_forward, S.mlstm_init_state,
+             S.mlstm_decode_step, True),
+            ("sLSTM", xl, S.init_slstm, S.slstm_forward, S.slstm_init_state,
+             S.slstm_decode_step, False),
+            ("Mamba", jb, S.init_mamba, S.mamba_forward, S.mamba_init_state,
+             S.mamba_decode_step, True)):
+        gen = torch.Generator(device=dev).manual_seed(23)
+        p, _ = init(cfg, gen)
+        x = torch.randn((2, REC_CELL_STEPS, cfg.d_model), generator=gen,
+                        device=dev)
+        kw = {"chunk": 16} if chunked else {}
+        t0 = time.perf_counter()
+        y_par = fwd(cfg, p, x, **kw)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        state = init_state(cfg, 2, device=dev)
+        ys = []
+        t0 = time.perf_counter()
+        for t in range(REC_CELL_STEPS):
+            y, state = step(cfg, p, x[:, t:t + 1], state)
+            ys.append(y)
+        y_seq = torch.cat(ys, 1)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        assert bool(torch.isfinite(y_par).all())
+        torch.testing.assert_close(y_seq, y_par, rtol=REC_TOL, atol=REC_TOL,
+                                   msg=f"{name}: decode != chunked forward")
+        print(f"  {name} cell at {cfg.name}'s widths: {REC_CELL_STEPS} "
+              f"tokens decoded == the chunked forward (chunks of 16), "
+              f"max|d|={float((y_seq - y_par).abs().max()):.2e} of "
+              f"{float(y_par.abs().max()):.2e} (tol {REC_TOL}); forward "
+              f"{t_fwd * 1e3:.1f} ms wall, decode {t_dec * 1e3:.1f} ms")
+        del p, x, y_par, y_seq, state
+
+
+def held_greedy(logits, ref_logits, what):
+    """Logits within E2E_TOL of the plain run's scale and greedy tokens
+    equal wherever its top-2 margin exceeds twice the difference; returns
+    the line to print."""
+    import torch
+    assert bool(torch.isfinite(logits).all()), f"{what}: non-finite"
+    scale = float(ref_logits.abs().max())
+    diff = float((logits - ref_logits).abs().max())
+    assert diff <= E2E_TOL * scale, f"{what}: {diff} of {scale}"
+    top2 = ref_logits.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * diff
+    same = logits.argmax(-1) == ref_logits.argmax(-1)
+    assert bool(same[clear].all()), f"{what}: tokens differ"
+    return (f"logits max|d|={diff:.3e} of {scale:.3e}; greedy equal at "
+            f"{int(same.sum())}/{same.numel()} ({int(clear.sum())} clear)")
+
+
+def greedy_decode(model, params, cache, logits, start, steps, extra=None):
+    """``steps`` greedy ``decode_step``s from ``logits`` at position
+    ``start``; returns (tokens [B, steps], the last step's logits, the
+    cache, the step call for timing)."""
+    import torch
+    toks = []
+    b = logits.shape[0]
+    for t in range(steps):
+        tok = logits.argmax(-1)[:, None]
+        toks.append(tok)
+        batch = {"token": tok, "pos": torch.full(
+            (b,), start + t, dtype=torch.int32, device=logits.device)}
+        logits, cache = model.decode_step(params, cache, batch)
+        assert bool(torch.isfinite(logits).all()), f"decode step {t}"
+    return torch.cat(toks, 1), logits, cache, batch
+
+
+def xlstm_path(dev):
+    """Phase 18, xlstm-350m ``FULL``, whole (24 layers): the 4 x 1024
+    forward; 64 tokens decoded from the zero state against the forward's
+    logits over them; ``Trainer.fit`` for TRAIN_STEPS at 8 x 128, QAT 8
+    and int8 error feedback; ``prefill`` then REC_NEW greedy steps."""
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import (MarkovLMConfig, MarkovLMDataset,
+                                  ShardedLoader)
+    from repro_torch.models.lm import tree_leaves, tree_map
+    from repro_torch.models.xlstm_model import XLSTMModel
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg = get_config("xlstm-350m")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = XLSTMModel(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(18))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    torch.cuda.synchronize()
+    print(f"  {cfg.name} FULL: {cfg.n_layers} layers ({model.n_blocks} "
+          f"super-blocks of {model.n_m} mLSTM + 1 sLSTM), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}: {n_params / 1e9:.3f} B parameters "
+          f"({4 * n_params / 1e9:.2f} GB f32; reckoned "
+          f"{cfg.param_count() / 1e9:.3f} B), built in "
+          f"{time.perf_counter() - t0:.1f}s")
+    b, s = XLSTM_FWD
+    tokens = torch.as_tensor(MarkovLMDataset(MarkovLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=s, batch_size=b)).batch_at(0)[
+            "tokens"], dtype=torch.long, device=dev)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    assert logits.shape == (b, s, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    # the recurrence token by token from the zero state against the
+    # chunked forward over the same 64 tokens.  At random weights the
+    # whole model amplifies float32 rounding with each position (the
+    # mLSTM divides by its normalizer): a one-ulp change of its own
+    # weights moves the forward's logits by ~1e-4 at the first position
+    # and by ~0.2 of ~5 at the 57th (on the CPU, measured).  So the first
+    # position, where no state has formed, is held at E2E_TOL; every
+    # position's difference is printed beside that spread; the cells
+    # above are held at 2e-3 position by position.
+    cache = model.init_cache(b, 0, device=dev)
+    dec = []
+    for t in range(REC_CELL_STEPS):
+        lg, cache = model.decode_step(params, cache,
+                                      {"token": tokens[:, t:t + 1]})
+        dec.append(lg)
+    dec = torch.stack(dec, 1)
+    fwd = logits[:, :REC_CELL_STEPS]
+    assert bool(torch.isfinite(dec).all())
+    held = held_greedy(dec[:, :1], fwd[:, :1],
+                       f"{cfg.name} first decoded token vs forward")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    nudged = tree_map(lambda w: w * (1 + 2.0 ** -23 * torch.randint(
+        -1, 2, w.shape, generator=gen, device=dev).float()), params)
+    moved = model.forward(nudged, {"tokens": tokens[:, :REC_CELL_STEPS]})[0]
+    del nudged
+
+    def envelope(d):
+        return "/".join(f"{float(d[:, t].abs().max()):.2g}"
+                        for t in range(0, REC_CELL_STEPS, 8))
+    print(f"  {cfg.name} forward {b}x{s} ({s // 256} chunks of 256): "
+          f"{statistics.median(walls):.1f} ms wall (median of 3); "
+          f"{REC_CELL_STEPS} tokens decoded from the zero state: first "
+          f"token vs the forward {held}; max|d| at positions 0, 8, ..., "
+          f"56: decode vs forward {envelope(dec - fwd)}, the forward under "
+          f"a one-ulp change of the weights {envelope(moved - fwd)} (of "
+          f"{float(fwd.abs().max()):.2f})")
+    del logits, dec, fwd, moved, cache
+
+    # prefill (the reference's fresh zero-state cache) then greedy steps
+    last, pcache = model.prefill(params, {"tokens": tokens[:, :64]})
+    assert int(pcache["len"][0]) == 64 and not bool(pcache["mC"].any())
+    toks, _, cache, step = greedy_decode(model, params, pcache, last, 64,
+                                         REC_NEW)
+    wall, dev_ms, launches = device_busy(
+        lambda: model.decode_step(params, cache, step))
+    print(f"  {cfg.name} prefill {b}x64 then {REC_NEW} greedy decode "
+          f"steps: finite; one step {wall:.2f} ms wall, device "
+          + (f"{dev_ms:.3f} ms" if dev_ms is not None else "not measured")
+          + f", {launches} launches (eager)")
+
+    # training
+    tc = TrainConfig(qat_bits=8, grad_compression="int8_ef", log_every=1)
+    opt = AdamW(learning_rate=cosine_schedule(3e-4, 20, TRAIN_STEPS))
+    tb, ts = XLSTM_TRAIN
+    data = MarkovLMDataset(MarkovLMConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=ts, batch_size=tb))
+    del params
+    print(f"  {release_memory()}")
+    tr = Trainer(model, opt, dev, tc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = tr.fit(ShardedLoader(data, device=dev), TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    assert [h["step"] for h in hist] == list(range(1, TRAIN_STEPS + 1))
+    for h in hist:
+        assert math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]), h
+    step_ms = [1e3 / h["steps_per_s"] for h in hist]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  {cfg.name} training B={tb} S={ts} qat_bits=8 int8_ef remat: "
+          f"{TRAIN_STEPS} steps in {wall_s:.2f}s, loss {hist[0]['loss']:.4f}"
+          f" -> {hist[-1]['loss']:.4f}, grad norm "
+          f"{hist[0]['grad_norm']:.3f} -> {hist[-1]['grad_norm']:.3f}, all "
+          f"finite; {step_ms[0]:.1f} ms first step, "
+          f"{statistics.median(step_ms[1:]):.1f} ms per step after "
+          f"(median); peak {peak:.2f} GiB (max_memory_allocated)")
+
+
+def plain_attend_sliced(q, k, v, causal=True):
+    """The flash kernel's plain version one (batch row, KV head) at a
+    time, q [B, S, H, dh], k/v [B, T, KV, dh]: in one call its [.., bq,
+    bk, dh] products at jamba's 64 heads of 128 over 512 positions take
+    17 GB.  A row's values do not depend on the other rows or heads (its
+    sums run over one axis), so the slices give the one call's values."""
+    import torch
+    from repro_torch.kernels import ref
+    kv = k.shape[2]
+    g = q.shape[2] // kv
+    rows = []
+    for i in range(q.shape[0]):
+        heads = [ref.flash_attention_ref(
+            q[i:i + 1, :, j * g:(j + 1) * g].transpose(1, 2),
+            k[i:i + 1, :, j:j + 1].transpose(1, 2),
+            v[i:i + 1, :, j:j + 1].transpose(1, 2),
+            causal=causal).transpose(1, 2) for j in range(kv)]
+        rows.append(torch.cat(heads, dim=2))
+    return torch.cat(rows, dim=0)
+
+
+def routed_hybrid(cfg, plain: bool, replay=None):
+    """:func:`routed_model` of ``HybridLM``; ``plain`` attends through
+    :func:`plain_attend_sliced`."""
+    from repro_torch.models.hybrid import HybridLM
+    return routed_model(HybridLM, "moe", cfg,
+                        plain_attend_sliced if plain else None, replay)
+
+
+def jamba_path(dev):
+    """Phase 18, jamba-1.5-large-398b at one super-block (8 of 72 layers:
+    7 Mamba, 1 attention, 4 MoE) and JAMBA_EXPERTS of 16 experts, top-2,
+    published widths: the forward at each JAMBA_FWD shape through the
+    flash kernel (one launch a forward, counted) against plain attention
+    with the kernel run's expert choices replayed; ``prefill`` at 4 x 64
+    then REC_NEW greedy steps.  Returns the counted flash launches."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.data import MarkovLMConfig, MarkovLMDataset
+    from repro_torch.models.hybrid import HybridLM
+    from repro_torch.models.lm import tree_leaves
+
+    arch = "jamba-1.5-large-398b"
+    experts = JAMBA_EXPERTS
+    cfg, reduced = family_config(arch, 8, 8, experts)
+    n_meta = sum(x.numel() for x in tree_leaves(
+        HybridLM(cfg)._build(None, device="meta")))
+    # what the allocator can hand out: the card's free memory and the
+    # blocks it has reserved but not allocated
+    free = torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved() \
+        - torch.cuda.memory_allocated()
+    if 4 * n_meta + JAMBA_HEADROOM > free:
+        experts = 2
+        cfg, reduced = family_config(arch, 8, 8, experts)
+        reduced += (f" (cut to 2 experts: {4 * n_meta / 1e9:.1f} GB of "
+                    f"weights at {JAMBA_EXPERTS} did not fit in "
+                    f"{free / 1e9:.1f} GB free)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = routed_hybrid(cfg, plain=False)
+    params = model.init(torch.Generator(device=dev).manual_seed(19))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    torch.cuda.synchronize()
+    print(f"  {arch}: {reduced}; published widths: d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, Mamba "
+          f"d_inner {cfg.d_model * cfg.mamba_expand} (heads of "
+          f"{cfg.mamba_headdim}, state {cfg.mamba_d_state}), d_ff "
+          f"{cfg.d_ff}, experts of {cfg.moe_d_ff}, vocab {cfg.vocab_size}: "
+          f"{n_params / 1e9:.3f} B parameters ({4 * n_params / 1e9:.2f} GB "
+          f"f32), built in {time.perf_counter() - t0:.1f}s")
+    flash = 0
+    for b, s in JAMBA_FWD:
+        tokens = torch.as_tensor(MarkovLMDataset(MarkovLMConfig(
+            vocab_size=cfg.vocab_size, seq_len=s, batch_size=b)).batch_at(
+                1)["tokens"], dtype=torch.long, device=dev)
+        model.log = []
+        tk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, aux = model.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = tk.launch_counts()
+        want = dict.fromkeys(tk.KERNELS, 0)
+        want["flash_attention_fwd"] = model.n_blocks
+        assert counts == want, f"{cfg.name} forward launches {counts}"
+        flash += counts["flash_attention_fwd"]
+        assert len(model.log) == len(model.moe_slots) * model.n_blocks
+        ref = routed_hybrid(cfg, plain=True, replay=model.log)
+        ref_logits, ref_aux = ref.forward(params, {"tokens": tokens})
+        what = f"{cfg.name} {b}x{s}"
+        held = held_greedy(logits, ref_logits, what) + \
+            f"; {near_ties(ref.flips, what)} token-layer expert choices " \
+            f"of the plain run's own differed, each a near tie"
+        assert bool(torch.isfinite(aux))
+        print(f"  {cfg.name} forward {b}x{s}: {wall:.1f} ms wall (first "
+              f"call), 1 flash launch (counted), aux {float(aux):.4f} "
+              f"(plain {float(ref_aux):.4f}); vs plain attention: {held}")
+        del logits, ref_logits, ref
+    tokens = tokens.new_tensor(MarkovLMDataset(MarkovLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, batch_size=4)).batch_at(2)[
+            "tokens"])
+    last, cache = model.prefill(params, {"tokens": tokens})
+    assert not bool(cache["ssm"].any()) and int(cache["len"][0]) == 64
+    grown = model.init_cache(4, 64 + REC_NEW, device=dev)
+    for k in ("k", "v"):
+        grown[k][:, :, :64] = cache[k]
+    toks, _, grown, step = greedy_decode(model, params, grown, last, 64,
+                                         REC_NEW)
+    wall, dev_ms, launches = device_busy(
+        lambda: model.decode_step(params, grown, step))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  {cfg.name} prefill 4x64 then {REC_NEW} greedy decode steps "
+          f"(cache grown to {64 + REC_NEW}): finite; one step {wall:.2f} ms "
+          f"wall, device "
+          + (f"{dev_ms:.3f} ms" if dev_ms is not None else "not measured")
+          + f", {launches} launches (eager); peak {peak:.2f} GiB "
+          f"(max_memory_allocated)")
+    del model, params, cache, grown
+    return flash
+
+
+class FramesDataset:
+    """Seeded stub frame embeddings [B, S_enc, D] (standard normals) and
+    Markov tokens and labels for the encoder-decoder, under the datasets'
+    ``batch_at`` protocol."""
+
+    def __init__(self, cfg, batch, frames, seq):
+        from repro_torch.data import MarkovLMConfig, MarkovLMDataset
+        self.d, self.b, self.frames = cfg.d_model, batch, frames
+        self.lm = MarkovLMDataset(MarkovLMConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch))
+
+    def batch_at(self, step):
+        import numpy as np
+        rng = np.random.default_rng(1000 + step)
+        out = dict(self.lm.batch_at(step))
+        out["embeds"] = rng.standard_normal(
+            (self.b, self.frames, self.d)).astype(np.float32)
+        return out
+
+
+def seamless_path(dev):
+    """Phase 18, seamless-m4t-large-v2 ``FULL``, whole (24 + 24 layers):
+    the forward at SEAMLESS_FWD through the flash kernel (72 launches,
+    counted) against plain attention; ``prefill`` then REC_NEW greedy
+    steps; ``Trainer.fit`` for TRAIN_STEPS at SEAMLESS_TRAIN (flash
+    launches counted).  Returns the counted flash launches."""
+    import math
+
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader
+    from repro_torch.models.encdec import EncDecModel
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    class PlainEncDec(EncDecModel):
+        def attend(self, q, k, v, causal):
+            return plain_attend_sliced(q, k, v, causal)
+
+    cfg = get_config("seamless-m4t-large-v2")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = EncDecModel(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(20))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    torch.cuda.synchronize()
+    print(f"  {cfg.name} FULL: {cfg.n_enc_layers} + {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff} ({cfg.act}), vocab {cfg.vocab_size}: "
+          f"{n_params / 1e9:.3f} B parameters ({4 * n_params / 1e9:.2f} GB "
+          f"f32; reckoned {cfg.param_count() / 1e9:.3f} B), built in "
+          f"{time.perf_counter() - t0:.1f}s")
+    b, frames, s = SEAMLESS_FWD
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in FramesDataset(
+        cfg, b, frames, s).batch_at(0).items() if k != "labels"}
+    per_forward = cfg.n_enc_layers + 2 * cfg.n_layers
+    tk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = tk.launch_counts()
+    want = dict.fromkeys(tk.KERNELS, 0)
+    want["flash_attention_fwd"] = per_forward
+    assert counts == want, f"{cfg.name} forward launches {counts}"
+    flash = counts["flash_attention_fwd"]
+    assert logits.shape == (b, s, cfg.vocab_size)
+    ref_logits, _ = PlainEncDec(cfg).forward(params, batch)
+    held = held_greedy(logits, ref_logits, f"{cfg.name} forward")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.forward(params, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"  {cfg.name} forward {b}x({frames} frames, {s} tokens): "
+          f"{statistics.median(walls):.1f} ms wall (median of 3; first "
+          f"{wall:.1f}), {per_forward} flash launches (counted: "
+          f"{cfg.n_enc_layers} encoder, {cfg.n_layers} causal self, "
+          f"{cfg.n_layers} cross at S={s} over T={frames}); vs plain "
+          f"attention: {held}")
+    del logits, ref_logits
+    n = min(64, s)
+    pb = {"embeds": batch["embeds"], "tokens": batch["tokens"][:, :n]}
+    last, cache = model.prefill(params, pb)
+    grown = model.init_cache(b, 2 * (n + REC_NEW), device=dev)
+    for k in ("k", "v"):
+        grown[k][:, :, :n] = cache[k]
+    grown.update(ek=cache["ek"], ev=cache["ev"], len=cache["len"])
+    toks, _, grown, step = greedy_decode(model, params, grown, last, n,
+                                         REC_NEW)
+    wall, dev_ms, launches = device_busy(
+        lambda: model.decode_step(params, grown, step))
+    print(f"  {cfg.name} prefill {b}x({frames} frames, {n} tokens) then "
+          f"{REC_NEW} greedy decode steps: finite; one step {wall:.2f} ms "
+          f"wall, device "
+          + (f"{dev_ms:.3f} ms" if dev_ms is not None else "not measured")
+          + f", {launches} launches (eager)")
+    del params, cache, grown, batch
+    print(f"  {release_memory()}")
+
+    tb, tf, ts = SEAMLESS_TRAIN
+    tc = TrainConfig(log_every=1)
+    opt = AdamW(learning_rate=cosine_schedule(3e-4, 20, TRAIN_STEPS))
+    tr = Trainer(model, opt, dev, tc)
+    tk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = tr.fit(ShardedLoader(FramesDataset(cfg, tb, tf, ts),
+                                   device=dev), TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    assert tc.remat
+    want["flash_attention_fwd"] = 2 * per_forward * TRAIN_STEPS
+    assert counts == want, f"{cfg.name} training launches {counts}"
+    flash += counts["flash_attention_fwd"]
+    for h in hist:
+        assert math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]), h
+    step_ms = [1e3 / h["steps_per_s"] for h in hist]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  {cfg.name} training B={tb} ({tf} frames, {ts} tokens) remat: "
+          f"{TRAIN_STEPS} steps in {wall_s:.2f}s, loss "
+          f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, grad norm "
+          f"{hist[0]['grad_norm']:.3f} -> {hist[-1]['grad_norm']:.3f}, all "
+          f"finite; {step_ms[0]:.1f} ms first step, "
+          f"{statistics.median(step_ms[1:]):.1f} ms per step after (median);"
+          f" {2 * per_forward} flash launches a step (counted); peak "
+          f"{peak:.2f} GiB (max_memory_allocated)")
+    return flash
 
 
 def main() -> int:
@@ -4363,7 +4970,22 @@ def main() -> int:
             counts[name] += n
     print(f"families: {time.perf_counter() - t0:.1f}s")
 
-    # 18. summary
+    # 18. the recurrent and encoder-decoder families, one at a time
+    t0 = time.perf_counter()
+    print(f"  {release_memory()}")
+    check_flash_recurrent_shapes(dev, flush)
+    check_recurrent_cells(dev)
+    print(f"  {release_memory()}")
+    xlstm_path(dev)
+    print(f"  {release_memory()}")
+    counts["flash_attention_fwd"] += jamba_path(dev)
+    print(f"  {release_memory()}")
+    counts["flash_attention_fwd"] += seamless_path(dev)
+    print(f"  {release_memory()}")
+    print(f"recurrent and encoder-decoder families: "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    # 19. summary
     names = {"group_quantize": ("csrc/group_quantize.cu",
                                 "src/repro/kernels/quantize.py:35"),
              "qmm": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:67"),

@@ -2,8 +2,9 @@
 ``python -m repro_torch.launch.serve --path kernel [--compiled]``,
 ``--engine sequential``, ``--decode [--speculative]`` or ``--env-trace``.
 
-The modes of ``repro/launch/serve.py``, each on a model built from a
-seeded ``torch.Generator``:
+The modes of ``repro/launch/serve.py``, each on a model that
+``models.registry.build_model`` builds for ``--arch`` from a seeded
+``torch.Generator``:
 
 * batched (the default): three QoS classes, each with its (P1) solution
   from the codesign cache, a queue of Markov-chain requests packed into
@@ -55,11 +56,13 @@ Every mode takes ``--trace-out TRACE.json`` (a Chrome trace-event JSON of
 the run) and ``--metrics-out METRICS.json`` (a metrics snapshot), written at
 the end of the run even when it fails, as the reference's are.  Runs on the
 CUDA card unless ``--device cpu``.  Exits 2 with a one-line error, as the
-reference does, on an arch with no servable config (``fcdnn-16``) or one
-the port does not register (also as a fleet agent's), an unreadable fleet
-or chaos spec, ``--chaos-trace`` with ``--engine sequential``, an
-off-ladder ``--draft-bits``, a ``--lookahead`` below 1, and
-``--speculative`` or ``--decode`` on a model without the decode protocol.
+reference does, on an arch with no servable config (``fcdnn-16``) or an
+unknown one, an unreadable fleet or chaos spec, ``--chaos-trace`` with
+``--engine sequential``, an off-ladder ``--draft-bits``, a ``--lookahead``
+below 1, and, with the reference's own lines, a model that lacks what the
+invocation needs (:func:`unsupported_model_reason`; also as a fleet
+agent's): the xLSTM, hybrid and encoder-decoder families serve in no mode,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -82,7 +85,7 @@ from ..data import MarkovLMConfig, MarkovLMDataset
 from ..device import resolve_device
 from ..env import presets as env_presets
 from ..env.faults import chaos_from_spec
-from ..models.lm import DecoderLM
+from ..models.registry import build_model
 from ..obs import NULL_METRICS, NULL_TRACER, MetricsRegistry, Tracer
 from ..runtime import (AdaptiveCoInferenceEngine, BatchedCoInferenceEngine,
                        CodesignCache, CoInferenceEngine, DecodeEngine,
@@ -272,8 +275,9 @@ def _dispatch(args, chaos, tracer, metrics) -> int:
               "transformer); pick a DecoderLM-family arch "
               "(e.g. qwen2-0.5b)", file=sys.stderr)
         return 2
-    model = DecoderLM(cfg)
-    err = unsupported_model_reason(model, args.arch, decode=args.decode,
+    model = build_model(cfg)
+    err = unsupported_model_reason(model, args.arch, args.compiled,
+                                   decode=args.decode,
                                    speculative=args.speculative)
     if err is not None:
         print(f"error: {err}", file=sys.stderr)
@@ -309,18 +313,36 @@ def _write_obs(args, tracer, metrics) -> None:
         print(f"metrics -> {args.metrics_out}")
 
 
-def unsupported_model_reason(model, arch: str, decode: bool = False,
+def unsupported_model_reason(model, arch: str, compiled: bool = False,
+                             decode: bool = False,
                              speculative: bool = False):
-    """One line saying why ``model`` cannot serve the invocation, or None:
-    ``--decode`` and ``--speculative`` need the decode protocol (the
-    complaint names the flag given)."""
+    """One line saying why ``model`` cannot serve the invocation, or None;
+    the reference's lines, checked in its order.  ``--speculative`` and
+    ``--decode`` need the decode protocol over the [L, B, T, KV, dh] cache
+    (the complaint names the flag given), ``--compiled`` the ``embed`` and
+    ``run_layers_window`` hooks of the compiled path, and co-inference at
+    all the ``run_layers`` split execution.  The xLSTM, hybrid and
+    encoder-decoder models have none of these (the reference's serving
+    engines are ``DecoderLM``-only too); both the flag path and the fleet
+    spec's agents ask here."""
     if decode or speculative:
         gap = decode_protocol_gap(model)
         if gap is not None:
             flag = "--speculative" if speculative else "--decode"
             return (f"{flag} does not support arch {arch}: {gap}. "
                     f"Drop {flag} or pick a dense DecoderLM-family arch "
-                    "(e.g. qwen2-0.5b).")
+                    "(e.g. qwen2-0.5b, stablelm-3b).")
+    if compiled and not (hasattr(model, "embed")
+                         and hasattr(model, "run_layers_window")):
+        return (f"--compiled does not support arch {arch}: "
+                f"{type(model).__name__} lacks the embed/"
+                "run_layers_window hooks the compiled fast path traces "
+                "(DESIGN.md §10). Drop --compiled or pick a dense "
+                "DecoderLM-family arch (e.g. qwen2-0.5b, stablelm-3b).")
+    if not hasattr(model, "run_layers"):
+        return (f"arch {arch} is not servable: {type(model).__name__} "
+                "lacks run_layers; co-inference split execution needs "
+                "the DecoderLM protocol")
     return None
 
 
@@ -699,7 +721,10 @@ def serve_fleet(args, device, tracer, metrics, chaos=None) -> int:
                 if cfg is None:
                     raise ValueError(f"arch {arch} has no servable model "
                                      "config")
-                model = DecoderLM(cfg)
+                model = build_model(cfg)
+                err = unsupported_model_reason(model, arch, compiled)
+                if err is not None:
+                    raise ValueError(err)
                 models[arch] = (model, model.init(torch.Generator(
                     device=device).manual_seed(len(models))))
             model, params = models[arch]

@@ -9,9 +9,14 @@ one line every 10 steps, and whether the loss improved.  ``--ckpt-dir``
 checkpoints every ``--ckpt-every`` steps (written asynchronously) and
 resumes from the newest intact checkpoint there.
 
-Runs on the CUDA card unless ``--device cpu``.  Data parallelism over
-several chips (``--data`` > 1) is not yet ported: it exits 2 with a
-one-line error.
+The model is ``models.registry.build_model``'s for ``--arch``: every
+family but the encoder-decoder trains on that data, as in the reference.
+The encoder-decoder (seamless-m4t-large-v2) needs frame embeddings that
+the Markov data does not give (the reference's CLI dies there with a
+``KeyError``): it exits 2 with a one-line error, and ``Trainer`` trains it
+from batches that hold ``embeds``.  Runs on the CUDA card unless
+``--device cpu``.  Data parallelism over several chips (``--data`` > 1) is
+not yet ported: it exits 2 with a one-line error.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from ..checkpoint import CheckpointManager
 from ..configs import get_config, get_smoke
 from ..data import MarkovLMConfig, MarkovLMDataset, ShardedLoader
 from ..device import resolve_device
-from ..models.lm import DecoderLM
+from ..models.registry import build_model
 from ..optim import AdamW, cosine_schedule
 from ..runtime import TrainConfig, Trainer
 
@@ -58,6 +63,15 @@ def main(argv=None) -> int:
     except (KeyError, RuntimeError) as e:
         print(f"error: {e.args[0]}", file=sys.stderr)
         return 2
+    if cfg is None:
+        print(f"error: arch {args.arch} has no model config to train (it "
+              "is the distortion-benchmark FC model)", file=sys.stderr)
+        return 2
+    if cfg.n_enc_layers > 0:
+        print(f"error: arch {args.arch} is an encoder-decoder: its loss "
+              "needs frame embeddings (batch['embeds']) that the CLI's "
+              "Markov-chain LM data does not give", file=sys.stderr)
+        return 2
 
     loader = ShardedLoader(MarkovLMDataset(MarkovLMConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
@@ -65,7 +79,7 @@ def main(argv=None) -> int:
     ckpt = CheckpointManager(args.ckpt_dir, save_interval=args.ckpt_every) \
         if args.ckpt_dir else None
     opt = AdamW(learning_rate=cosine_schedule(args.lr, 20, args.steps))
-    tr = Trainer(DecoderLM(cfg), opt, device,
+    tr = Trainer(build_model(cfg), opt, device,
                  TrainConfig(qat_bits=args.qat_bits,
                              grad_compression=args.grad_compression,
                              log_every=10),

@@ -1,0 +1,286 @@
+"""Jamba-style hybrid (``repro/models/hybrid.py``, arXiv:2403.19887):
+Mamba and attention interleaved 7:1, MoE on every other layer.
+
+The layers of a super-block of ``attn_period`` (8) layers::
+
+  in-block idx : 0      1      2      3      4      5      6      7
+  mixer        : mamba  mamba  mamba  mamba  mamba  mamba  mamba  ATTN
+  ffn          : MLP    MoE    MLP    MoE    MLP    MoE    MLP    MoE
+
+The parameter dict is the reference's: ``{"embed", "blocks": {"mamba",
+"attn", "mlp", "moe", "ln_mix", "ln_ffn"}, "final_norm"}``, every block
+leaf with a leading ``[NB, ...]`` axis (and ``[NB, n, ...]`` for the
+mamba, MLP and MoE stacks inside a block).  The super-blocks run as a
+Python loop (the reference's ``lax.scan``).  The attention layer's
+full-sequence pass goes through :meth:`attend`, one flash-kernel launch
+on the card (:func:`layers.blockwise_attention`); its decode step attends
+the cache with the plain :func:`layers.decode_attention`, as the
+reference's.  The MoE layers run :func:`moe.apply_moe` (dense at <= 8
+experts, else dispatch); ``forward`` returns their load-balancing loss
+summed, ``loss`` adds 0.01 x it to the CE.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from . import layers as L
+from . import moe as M
+from . import ssm as S
+from .lm import tree_map, unstack_layers
+from .xlstm_model import prepend_axis
+
+
+class HybridLM:
+    def __init__(self, cfg):
+        if cfg.attn_period <= 1:
+            raise ValueError("HybridLM needs attn_period > 1")
+        if cfg.n_layers % cfg.attn_period:
+            raise ValueError("n_layers must divide by attn_period")
+        self.cfg = cfg
+        self.n_blocks = cfg.n_layers // cfg.attn_period
+        self.per = cfg.attn_period
+        self.n_mamba = self.per - 1
+        # the FFN of a block's slot: MoE at odd indices, MLP at even ones
+        self.moe_slots = [i for i in range(self.per) if i % 2 == 1]
+        self.mlp_slots = [i for i in range(self.per) if i % 2 == 0]
+        self._axes = None
+
+    # ------------------------------------------------------------------
+    # params
+    # ------------------------------------------------------------------
+    def _build(self, generator: Optional[torch.Generator], device=None):
+        cfg, nb = self.cfg, self.n_blocks
+        dev = generator.device if generator is not None else device
+        n_mlp, n_moe = len(self.mlp_slots), len(self.moe_slots)
+        emb_p, emb_ax = L.init_embeddings(cfg, generator, device=dev)
+        mam_p, _ = S.init_mamba(cfg, generator, layers=(nb, self.n_mamba),
+                                device=dev)
+        att_p, _ = L.init_attention(cfg, generator, layers=nb, device=dev)
+        mlp_p, _ = L.init_mlp(cfg, generator, d_ff=cfg.d_ff,
+                              layers=(nb, n_mlp), device=dev)
+        moe_p, _ = M.init_moe(cfg, generator, layers=(nb, n_moe), device=dev)
+        # the axes are the reference's: one block's, with "blocks" in front
+        meta = dict(device="meta")
+        mam_ax = S.init_mamba(cfg, None, layers=self.n_mamba, **meta)[1]
+        att_ax = L.init_attention(cfg, None, **meta)[1]
+        mlp_ax = L.init_mlp(cfg, None, d_ff=cfg.d_ff, layers=n_mlp, **meta)[1]
+        moe_ax = M.init_moe(cfg, None, layers=n_moe, **meta)[1]
+        ln_mix = torch.ones((nb, self.per, cfg.d_model), device=dev)
+        ln_ffn = torch.ones((nb, self.per, cfg.d_model), device=dev)
+        lnf_p, lnf_ax = L.init_norm(cfg, cfg.d_model, device=dev)
+        params = {"embed": emb_p,
+                  "blocks": {"mamba": mam_p, "attn": att_p, "mlp": mlp_p,
+                             "moe": moe_p, "ln_mix": ln_mix,
+                             "ln_ffn": ln_ffn},
+                  "final_norm": lnf_p}
+        self._axes = {"embed": emb_ax,
+                      "blocks": {"mamba": prepend_axis(mam_ax),
+                                 "attn": prepend_axis(att_ax),
+                                 "mlp": prepend_axis(mlp_ax),
+                                 "moe": prepend_axis(moe_ax),
+                                 "ln_mix": ("blocks", "layers", "embed"),
+                                 "ln_ffn": ("blocks", "layers", "embed")},
+                      "final_norm": lnf_ax}
+        return params
+
+    def init(self, generator: torch.Generator):
+        """Random parameters drawn from ``generator``, on its device."""
+        return self._build(generator)
+
+    def logical_axes(self):
+        if self._axes is None:
+            self._build(None, device="meta")
+        return self._axes
+
+    # ------------------------------------------------------------------
+    # blocks
+    # ------------------------------------------------------------------
+    def attend(self, q, k, v):
+        """The attention layer's full-sequence causal attention, q
+        [B, S, H, dh], k/v [B, S, KV, dh]: one flash-kernel launch on the
+        card."""
+        return L.blockwise_attention(q, k, v, causal=True)
+
+    def moe(self, p, h):
+        """One MoE layer, (y, aux): :func:`moe.apply_moe`'s ``"auto"``
+        path."""
+        return M.apply_moe(self.cfg, p, h)
+
+    def _ffn(self, parts, slot, x):
+        """The FFN of ``slot`` with its residual; returns (x, aux)."""
+        h = L.rmsnorm(x, parts["ln_ffn"][slot])
+        if slot in self.moe_slots:
+            y, aux = self.moe(parts["moe"][self.moe_slots.index(slot)], h)
+        else:
+            y = L.apply_mlp(self.cfg, parts["mlp"][self.mlp_slots.index(slot)],
+                            h)
+            aux = 0.0
+        return x + y, aux
+
+    def _parts(self, bp):
+        """One block's stacks as per-slot lists (``unbind``: one stack op
+        in the backward pass)."""
+        return {"mamba": unstack_layers(bp["mamba"], self.n_mamba),
+                "mlp": unstack_layers(bp["mlp"], len(self.mlp_slots)),
+                "moe": unstack_layers(bp["moe"], len(self.moe_slots)),
+                "ln_mix": bp["ln_mix"].unbind(0),
+                "ln_ffn": bp["ln_ffn"].unbind(0), "attn": bp["attn"]}
+
+    def _attention(self, p, h, positions):
+        """The attention layer over the whole sequence: (out [B, S, D],
+        k, v)."""
+        cfg = self.cfg
+        q, k, v = L.qkv_project(cfg, p, h, positions)
+        attn = self.attend(q, k, v)
+        out = attn.reshape(h.shape[:2] + (cfg.q_dim,)) @ p["wo"].to(h.dtype)
+        return out, k, v
+
+    def _super_block(self, bp, x, positions):
+        """One super-block: (x, aux summed, the attention layer's k, v)."""
+        parts = self._parts(bp)
+        aux = 0.0
+        k = v = None
+        for slot in range(self.per):
+            h = L.rmsnorm(x, parts["ln_mix"][slot])
+            if slot < self.n_mamba:
+                x = x + S.mamba_forward(self.cfg, parts["mamba"][slot], h)
+            else:
+                y, k, v = self._attention(parts["attn"], h, positions)
+                x = x + y
+            x, a = self._ffn(parts, slot, x)
+            aux = aux + a
+        return x, aux, k, v
+
+    def _block_train(self, bp, x, positions):
+        x, aux, _, _ = self._super_block(bp, x, positions)
+        return x, aux
+
+    def _hidden(self, params, batch, remat: bool = False):
+        cfg = self.cfg
+        x = L.embed_tokens(params["embed"], batch["tokens"],
+                           getattr(torch, cfg.dtype))
+        b, s = x.shape[0], x.shape[1]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        aux = 0.0
+        for bp in unstack_layers(params["blocks"], self.n_blocks):
+            if remat:
+                x, a = checkpoint(self._block_train, bp, x, positions,
+                                  use_reentrant=False)
+            else:
+                x, a = self._block_train(bp, x, positions)
+            aux = aux + a
+        return L.apply_norm(cfg, x, params["final_norm"]), aux
+
+    def forward(self, params, batch):
+        """(logits [B, S, V], the MoE layers' load-balancing loss summed)."""
+        x, aux = self._hidden(params, batch)
+        return L.unembed(self.cfg, params["embed"], x), aux
+
+    def loss(self, params, batch, *, remat: bool = False):
+        """Mean next-token CE + 0.01 x the load-balancing loss; ``remat``
+        recomputes each super-block in the backward pass."""
+        x, aux = self._hidden(params, batch, remat)
+        ce = L.chunked_cross_entropy(self.cfg, x, params["embed"],
+                                     batch["labels"])
+        return ce + 0.01 * aux
+
+    # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, device=None):
+        """The attention layers' K/V [NB, B, T, KV, dh] and the Mamba
+        layers' ``ssm`` [NB, 7, B, H, N, P] and ``conv`` states, zero."""
+        cfg, nb = self.cfg, self.n_blocks
+        dt = getattr(torch, cfg.dtype)
+        d_in, n, h, pd = S.mamba_dims(cfg)
+        kv = (nb, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(kv, dtype=dt, device=device),
+                "v": torch.zeros(kv, dtype=dt, device=device),
+                "ssm": torch.zeros((nb, self.n_mamba, batch, h, n, pd),
+                                   dtype=torch.float32, device=device),
+                "conv": torch.zeros((nb, self.n_mamba, batch,
+                                     cfg.mamba_d_conv - 1, d_in), dtype=dt,
+                                    device=device),
+                "len": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
+
+    def cache_axes(self):
+        t = ("blocks", "batch", "cache_seq", "kv_heads", "head_dim")
+        return {"k": t, "v": t,
+                "ssm": ("blocks", "layers", "batch", "heads", "state",
+                        "head_dim"),
+                "conv": ("blocks", "layers", "batch", "conv", "ffn"),
+                "len": ("batch",)}
+
+    def prefill(self, params, batch):
+        """(logits at the last position [B, V], cache).  As the
+        reference's: the attention layers' K/V of the prompt, ``len`` the
+        prompt length, and *zero* Mamba states (the prompt's are not kept:
+        ROADMAP C.7(d))."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        x = L.embed_tokens(params["embed"], batch["tokens"], dt)
+        b, s = x.shape[0], x.shape[1]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        ks, vs = [], []
+        for bp in unstack_layers(params["blocks"], self.n_blocks):
+            x, _, k, v = self._super_block(bp, x, positions)
+            ks.append(k.to(dt))
+            vs.append(v.to(dt))
+        x = L.apply_norm(cfg, x, params["final_norm"])
+        logits = L.unembed(cfg, params["embed"], x[:, -1:])[:, 0]
+        cache = self.init_cache(b, s, device=x.device)
+        cache["k"] = torch.stack(ks)
+        cache["v"] = torch.stack(vs)
+        cache["len"] = torch.full((b,), s, dtype=torch.int32,
+                                  device=x.device)
+        return logits, cache
+
+    def decode_step(self, params, cache, batch):
+        """One token: batch = {'token': [B, 1], 'pos': [B]}.  Writes the
+        attention layers' fresh K/V into ``cache`` in place (the reference
+        returns an updated copy; a ``pos`` past the cache writes its last
+        entry, as ``dynamic_update_slice`` clamps); returns (logits
+        [B, V], cache with the new Mamba states and ``len + 1``)."""
+        cfg = self.cfg
+        tok, pos = batch["token"], batch["pos"]
+        x = L.embed_tokens(params["embed"], tok, getattr(torch, cfg.dtype))
+        b = x.shape[0]
+        positions = pos[:, None]
+        kc, vc = cache["k"], cache["v"]
+        rows = torch.arange(b, device=x.device)
+        at = torch.clamp(pos, max=kc.shape[2] - 1)
+        ssm_out, conv_out = [], []
+        for bi in range(self.n_blocks):
+            bp = tree_map(lambda a: a[bi], params["blocks"])
+            parts = self._parts(bp)
+            ssm_new, conv_new = [], []
+            for slot in range(self.per):
+                h = L.rmsnorm(x, parts["ln_mix"][slot])
+                if slot < self.n_mamba:
+                    st = {"ssm": cache["ssm"][bi, slot],
+                          "conv": cache["conv"][bi, slot]}
+                    y, st = S.mamba_decode_step(cfg, parts["mamba"][slot],
+                                                h, st)
+                    ssm_new.append(st["ssm"])
+                    conv_new.append(st["conv"])
+                else:
+                    q, k, v = L.qkv_project(cfg, parts["attn"], h, positions)
+                    kc[bi, rows, at] = k[:, 0].to(kc.dtype)
+                    vc[bi, rows, at] = v[:, 0].to(vc.dtype)
+                    attn = L.decode_attention(q, kc[bi], vc[bi], pos + 1)
+                    y = attn.reshape(b, 1, cfg.q_dim) \
+                        @ parts["attn"]["wo"].to(x.dtype)
+                x = x + y
+                x, _ = self._ffn(parts, slot, x)
+            ssm_out.append(torch.stack(ssm_new))
+            conv_out.append(torch.stack(conv_new))
+        x = L.apply_norm(cfg, x, params["final_norm"])
+        logits = L.unembed(cfg, params["embed"], x)[:, 0]
+        return logits, {"k": kc, "v": vc, "ssm": torch.stack(ssm_out),
+                        "conv": torch.stack(conv_out),
+                        "len": cache["len"] + 1}

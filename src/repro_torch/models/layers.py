@@ -45,14 +45,24 @@ def _randn(shape, generator, device):
                        dtype=torch.float32)
 
 
+def lead_shape(layers) -> tuple:
+    """The leading stacked axes of a parameter: none for ``None``, one for
+    an int, or a tuple as given (``(blocks, layers)`` in the recurrent and
+    hybrid models)."""
+    if layers is None:
+        return ()
+    return tuple(layers) if isinstance(layers, tuple) else (layers,)
+
+
 def dense_init(generator, d_in: int, d_out: int, dtype, *,
-               scale: Optional[float] = None, layers: Optional[int] = None,
-               device=None):
-    """N(0, scale^2) ``[d_in, d_out]`` (``[layers, d_in, d_out]`` stacked);
-    ``scale`` defaults to ``d_in ** -0.5``."""
+               scale: Optional[float] = None, layers=None, device=None):
+    """N(0, scale^2) ``[d_in, d_out]`` (``[*layers, d_in, d_out]`` stacked,
+    ``layers`` an int or a tuple); ``scale`` defaults to ``d_in ** -0.5``."""
     scale = scale if scale is not None else d_in ** -0.5
-    lead = (layers,) if layers is not None else ()
-    return (_randn(lead + (d_in, d_out), generator, device) * scale).to(dtype)
+    lead = lead_shape(layers)
+    # scaled in place: no second copy of a large stack while drawing it
+    return _randn(lead + (d_in, d_out), generator, device).mul_(scale).to(
+        dtype)
 
 
 def embed_init(generator, vocab: int, d: int, dtype, *, device=None):
@@ -125,9 +135,9 @@ def apply_rope(x, positions, theta: float):
 # Attention
 # ---------------------------------------------------------------------------
 
-def init_attention(cfg, generator, *, layers: Optional[int] = None,
-                   device=None):
-    """GQA projection params; ``layers`` adds a leading stacked-layer axis."""
+def init_attention(cfg, generator, *, layers=None, device=None):
+    """GQA projection params; ``layers`` (an int or a tuple of sizes) adds
+    the leading stacked-layer axes."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     dt = _dtype(cfg.param_dtype)
 
@@ -140,7 +150,7 @@ def init_attention(cfg, generator, *, layers: Optional[int] = None,
           "wv": lead + ("embed", "kv"), "wo": lead + ("heads", "embed")}
     if cfg.qkv_bias:
         dev = generator.device if generator is not None else device
-        lshape = (layers,) if layers is not None else ()
+        lshape = lead_shape(layers)
         p.update({n: torch.zeros(lshape + (w,), device=dev)
                   for n, w in (("bq", qd), ("bk", kvd), ("bv", kvd))})
         ax.update({"bq": lead + ("heads",), "bk": lead + ("kv",),
@@ -295,8 +305,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
 # MLP
 # ---------------------------------------------------------------------------
 
-def init_mlp(cfg, generator, *, d_ff: Optional[int] = None,
-             layers: Optional[int] = None, device=None):
+def init_mlp(cfg, generator, *, d_ff: Optional[int] = None, layers=None,
+             device=None):
     d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = _dtype(cfg.param_dtype)
 

@@ -28,20 +28,21 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import _dtype, _randn
+from .layers import _dtype, _randn, lead_shape
 
 
 def init_moe(cfg, generator: Optional[torch.Generator], *,
-             layers: Optional[int] = None, device=None):
+             layers=None, device=None):
     """Router and expert stacks drawn from ``generator`` (N(0, 1/fan_in)),
-    and their logical axes; ``layers`` adds a leading stacked axis."""
+    and their logical axes; ``layers`` (an int, or a tuple of leading
+    sizes) adds the leading stacked axes, named ``"layers"``."""
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
     dt = _dtype(cfg.param_dtype)
-    lead = (layers,) if layers is not None else ()
+    lead = lead_shape(layers)
 
     def mk(shape, fan_in):
-        return (_randn(lead + shape, generator, device)
-                * fan_in ** -0.5).to(dt)
+        return _randn(lead + shape, generator, device).mul_(
+            fan_in ** -0.5).to(dt)
 
     p = {"router": mk((d, e), d),
          "wi_gate": mk((e, d, f), d),

@@ -7,7 +7,9 @@ the adaptive mode runs under each policy, the fleet mode serves
 ``examples/fleet_spec.json``, ``--chaos-trace`` runs the batched, decode
 and fleet modes under the serving supervisor (and bare), every mode writes
 a loadable ``--trace-out`` and ``--metrics-out``, and each of the
-reference's exit-2 contracts exits 2 with one line."""
+reference's exit-2 contracts exits 2 with one line (the xLSTM, hybrid and
+encoder-decoder families in every mode, with the reference's own
+lines)."""
 
 import json
 import os
@@ -94,20 +96,34 @@ def test_decode_mode_runs_with_parity_check():
                          "sequential reference")
 
 
+def reference_refusal(arch, compiled=False, decode=False,
+                      speculative=False):
+    """The reference serve CLI's one-line refusal of ``arch`` for an
+    invocation (its ``unsupported_model_reason`` on its own model, which
+    is the line its CLI prints after ``error: ``), or None."""
+    from repro.launch.serve import unsupported_model_reason
+    from repro.models.registry import build_model
+    return unsupported_model_reason(build_model(get_smoke(arch)), arch,
+                                    compiled, decode=decode,
+                                    speculative=speculative)
+
+
 @pytest.mark.parametrize("case", ["fleet-unported-arch",
                                   "chaos-sequential"])
 def test_unported_modes_exit_2(capsys, tmp_path, case):
-    """The fleet and chaos modes are ported; what still exits 2 with one
-    line: a fleet agent of an arch the port does not register, and
-    ``--chaos-trace`` with ``--engine sequential`` (no queue to
-    supervise), as in the reference."""
+    """The fleet and chaos modes are ported; what exits 2 with one line,
+    as in the reference: a fleet agent of a family the serving engines do
+    not take (xlstm-350m: the reference's own refusal, no ``run_layers``),
+    and ``--chaos-trace`` with ``--engine sequential`` (no queue to
+    supervise)."""
     if case == "fleet-unported-arch":
         spec = tmp_path / "fleet.json"
         spec.write_text(json.dumps({"agents": [
             {"name": "drone", "arch": "qwen2-0.5b"},
             {"name": "big", "arch": "xlstm-350m"}]}))
         args, needle = ("--fleet", str(spec)), \
-            "fleet agent 'big': \"arch 'xlstm-350m' is not yet ported"
+            f"error: fleet agent 'big': {reference_refusal('xlstm-350m')}"
+        assert "XLSTMModel lacks run_layers" in needle
     else:
         args, needle = ("--engine", "sequential", "--chaos-trace",
                         str(ROOT / "examples" / "chaos_spec.json")), \
@@ -196,7 +212,7 @@ def test_speculative_without_decode_protocol_exits_2(capsys, monkeypatch):
         def cache_axes(self):
             return {"state": ("layers", "batch", "d_model")}
 
-    monkeypatch.setattr(serve, "DecoderLM", NoKVCache)
+    monkeypatch.setattr(serve, "build_model", NoKVCache)
     assert main(["--smoke", "--device", "cpu", "--speculative"]) == 2
     err = capsys.readouterr().err
     assert err.startswith("error: --speculative does not support arch "
@@ -290,9 +306,43 @@ def test_fcdnn_arch_exits_2(capsys):
 
 
 def test_unported_arch_exits_2(capsys):
+    """xlstm-350m is registered, but co-inference needs ``run_layers``:
+    the sequential engine refuses it with the reference's own line; an
+    arch name the registry does not know exits 2 too."""
     assert main(["--arch", "xlstm-350m", "--engine", "sequential",
                  "--device", "cpu", "--smoke"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert err == f"error: {reference_refusal('xlstm-350m')}\n"
+    assert main(["--arch", "xlstm-350m-v0", "--device", "cpu",
+                 "--smoke"]) == 2
+    err = capsys.readouterr().err
+    assert "unknown arch 'xlstm-350m-v0'" in err
+    assert len(err.strip().splitlines()) == 1
+
+
+NEW_FAMILIES = ("xlstm-350m", "jamba-1.5-large-398b",
+                "seamless-m4t-large-v2")
+
+
+@pytest.mark.parametrize("mode", ["sequential", "batched", "decode",
+                                  "speculative", "compiled"])
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_new_families_refused_with_the_references_line(capsys, arch, mode):
+    """The serving engines take ``DecoderLM`` only, as the reference's:
+    the xLSTM, hybrid and encoder-decoder models lack ``run_layers``, the
+    decode protocol (``decode_step_q``) and the compiled path's hooks, and
+    every mode exits 2 with the reference's own line for it."""
+    flags = {"sequential": ["--engine", "sequential"], "batched": [],
+             "decode": ["--decode"],
+             "speculative": ["--decode", "--speculative"],
+             "compiled": ["--compiled"]}[mode]
+    assert main(["--arch", arch, "--smoke", "--device", "cpu",
+                 *flags]) == 2
+    want = reference_refusal(arch, compiled=mode == "compiled",
+                             decode=mode in ("decode", "speculative"),
+                             speculative=mode == "speculative")
+    assert want is not None
+    assert capsys.readouterr().err == f"error: {want}\n"
 
 
 def test_stablelm_serves(capsys):

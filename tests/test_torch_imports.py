@@ -44,7 +44,13 @@ def test_importing_every_module_pulls_in_no_jax():
               "repro_torch.configs.llava_next_mistral_7b",
               "repro_torch.configs.qwen3_moe_235b_a22b",
               "repro_torch.configs.kimi_k2_1t_a32b",
-              "repro_torch.data", "repro_torch.data.synthetic"):
+              "repro_torch.data", "repro_torch.data.synthetic",
+              "repro_torch.models.ssm", "repro_torch.models.xlstm_model",
+              "repro_torch.models.hybrid", "repro_torch.models.encdec",
+              "repro_torch.models.registry",
+              "repro_torch.configs.xlstm_350m",
+              "repro_torch.configs.jamba_1_5_large_398b",
+              "repro_torch.configs.seamless_m4t_large_v2"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -378,14 +378,43 @@ def test_cli_smoke_improves():
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--arch", "xlstm-350m"], "xlstm-350m"),
+    (["--arch", "xlstm-350m-v0"], "xlstm-350m"),
     (["--data", "2"], "--data 2")])
 def test_cli_exits_2_on_what_is_not_ported(capsys, argv, what):
-    """``--ckpt-dir`` is ported (see below); an unregistered arch and data
-    parallelism over several chips still exit 2."""
+    """``--ckpt-dir`` is ported (see below), and so is every arch of the
+    reference (xlstm-350m trains: ``tests/test_torch_cli.py``); an arch
+    name the registry does not know and data parallelism over several
+    chips exit 2 with one line."""
     assert train_main(["--smoke", "--device", "cpu", *argv]) == 2
     err = capsys.readouterr().err
-    assert what in err and "not yet ported" in err
+    assert what in err and len(err.strip().splitlines()) == 1
+    assert ("unknown arch 'xlstm-350m-v0'" in err) == (argv[0] == "--arch")
+    assert ("not yet ported" in err) == (argv[0] == "--data")
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b"])
+def test_cli_trains_the_recurrent_families(capsys, arch):
+    """The CLI builds the model through ``models.registry.build_model``:
+    the xLSTM and the hybrid train on its Markov data, as the reference's
+    CLI trains them."""
+    assert train_main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--steps", "3", "--seq", "16"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith(f"arch={get_smoke(arch).name} params=")
+    assert "step     1 loss" in out
+    assert out.splitlines()[-1].startswith("loss ")
+
+
+def test_cli_refuses_the_encoder_decoder(capsys):
+    """seamless-m4t-large-v2's loss needs frame embeddings that the CLI's
+    Markov data does not give (the reference's CLI dies on a KeyError
+    there): one line, exit 2.  ``Trainer`` trains it from batches that
+    hold them (``tests/test_torch_encdec.py``)."""
+    assert train_main(["--arch", "seamless-m4t-large-v2", "--smoke",
+                       "--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert len(err.strip().splitlines()) == 1
+    assert "encoder-decoder" in err and "frame embeddings" in err
 
 
 def test_cli_ckpt_dir_resumes(capsys, tmp_path):
