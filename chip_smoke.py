@@ -303,7 +303,20 @@ nothing of JAX or of the JAX package ``repro``.
    plain attention; ``prefill`` and 16 greedy steps; ``Trainer.fit`` at
    8 x (64, 64), 144 flash launches a step (counted).  Prints each
    model's walls, a decode step's device ms and the peak memory.
-19. Summary: one ``{"kernels": [...]}`` line, the card line, and last
+19. Training over a mesh of ranks, qwen2-0.5b ``FULL`` at phase 9's 8 x
+   128 (QAT 8, int8 EF, seeded weights, MESH_STEPS steps a run): (a) a
+   one-rank NCCL group and a (pod 1, data 1, model 1) mesh: the pod-wise
+   step (its int8 all-gather over one rank) against phase 9's plain step
+   from one state, params, m, v, residual and losses bitwise, its flash
+   launches counted; (b) two ranks spawned on the one card as (pod 2,
+   data 1, model 1) over gloo (NCCL takes one rank a GPU; gloo stages
+   CUDA tensors through the host), each on its 4 rows: their losses,
+   grad norms and every state leaf's bit fingerprint against the same two
+   pods stepped in this process through the same functions (the
+   all-gather replaced by stacking), bitwise, the params equal on both
+   ranks after every step; the ranks' flash launches counted.  Prints the
+   walls of each step and the peak memory of each rank.
+20. Summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``; the per-shape numbers are printed
    in phases 3, 5, 6, 8, 17 and 18.
 """
@@ -320,11 +333,12 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12           # float32 outside the tensor cores
-BF16_FLOPS = 989e12         # bf16 tensor cores, dense
-TF32_FLOPS = 495e12         # tf32 tensor cores, dense
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit),
+# the port's one copy of them
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOPS  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_F32 as F32_FLOPS  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_TF32 as TF32_FLOPS  # noqa: E402
 QMM_PASSES = 3              # bf16 products per code on the wgmma route
 QMM_M = (1, 64, 256, 1024)  # 64: the sequential engine, 256: the batch
 KERNEL_TOL = 1e-4           # kernel vs plain: one matmul, the agent stage
@@ -2297,7 +2311,7 @@ def train_path(cfg, dev):
     outs = []
     for model in (DecoderLM(cfg), plain_lm(cfg)):
         t = Trainer(model, opt, dev, tc)
-        outs.append(t._plain_step(*state0, batch))
+        outs.append(t._step(*state0, batch))
         torch.cuda.synchronize()
     (pk, _, _, mk), (pp, _, _, mp) = outs
     lk, lp = float(mk["loss"]), float(mp["loss"])
@@ -4683,6 +4697,368 @@ def seamless_path(dev):
     return flash
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training over a mesh of ranks
+# ---------------------------------------------------------------------------
+
+MESH_AXES = ("pod", "data", "model")
+MESH_STEPS = 3              # steps of each phase-19 run
+
+
+def train_setup(cfg):
+    """Phase 9's training: its config, optimizer and Markov data."""
+    from repro_torch.data import MarkovLMConfig, MarkovLMDataset
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime import TrainConfig
+    tc = TrainConfig(qat_bits=8, grad_compression="int8_ef", log_every=1)
+    opt = AdamW(learning_rate=cosine_schedule(3e-4, 20, TRAIN_STEPS))
+    data = MarkovLMDataset(MarkovLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH))
+    return tc, opt, data
+
+
+def fingerprint(t) -> int:
+    """An exact fingerprint of a tensor's bits, on its device: the int64
+    (wrapping) sum of its 32-bit words, each weighted by (its index mod
+    65521) + 1.  Any one changed bit changes it."""
+    import torch
+    w = t.detach().contiguous().view(-1).view(torch.int32).to(torch.int64)
+    idx = torch.arange(w.numel(), device=w.device) % 65521 + 1
+    return int((w * idx).sum())
+
+
+def state_prints(params, opt_state, errs):
+    """Fingerprints of a training state's leaves (DTensors gathered):
+    params, m, v, the step and each residual tree in ``errs``."""
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.parallel.sharding import gather
+    trees = [params, opt_state.m, opt_state.v, *errs]
+    return {"state": [fingerprint(gather(x)) for tree in trees[:3]
+                      for x in tree_leaves(tree)] + [int(opt_state.step)],
+            "err": [[fingerprint(gather(x)) for x in tree_leaves(e)]
+                    for e in trees[3:]]}
+
+
+def stepwise(tr, loader, state, steps):
+    """``Trainer.fit`` a step at a time, synchronized: (state, losses,
+    grad norms, walls ms, peak GiB)."""
+    import torch
+    losses, norms, walls = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, hist = tr.fit(loader, 1, state=state)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(hist[-1]["loss"])
+        norms.append(hist[-1]["grad_norm"])
+    return state, losses, norms, walls, \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+class StepClock:
+    """Synchronized wall ms and calls of the functions a mesh training
+    step reaches, by name: each wrapped call waits for the card before
+    and after itself, so its time holds its own work and nothing queued
+    before it.  ``exchange`` (``compress_tree``) holds the all-gathers.
+    Used for one step after the checked ones (the waits slow it)."""
+
+    SECTIONS = (("torch.distributed", "all_gather", "all_gather"),
+                ("torch.distributed", "all_reduce", "all_reduce"),
+                ("repro_torch.runtime.train_loop", "gather", "gather"),
+                ("repro_torch.runtime.train_loop", "compress_tree",
+                 "exchange"))
+
+    def __init__(self, tr):
+        import importlib
+        self.ms, self.calls, self._undo = {}, {}, []
+        for module, attr, name in self.SECTIONS:
+            self._wrap(importlib.import_module(module), attr, name)
+        self._wrap(type(tr.opt), "update", "adamw")   # a frozen dataclass
+
+    def _wrap(self, owner, attr, name):
+        import torch
+        fn = getattr(owner, attr)
+        self.ms[name], self.calls[name] = 0.0, 0
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self.ms[name] += (time.perf_counter() - t0) * 1e3
+                self.calls[name] += 1
+        self._undo.append((owner, attr, fn))
+        setattr(owner, attr, timed)
+
+    def close(self):
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+
+    def step(self, tr, loader, state):
+        """One clocked ``Trainer.fit`` step: (state, its wall ms, a line
+        of its sections)."""
+        import torch
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = tr.fit(loader, 1, state=state)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            self.close()
+        parts = "; ".join(f"{k} {self.calls[k]} calls {self.ms[k]:.1f} ms"
+                          for k in self.ms)
+        return state, wall, f"clocked step {wall:.1f} ms: {parts}"
+
+
+def mesh_one_rank(cfg, dev):
+    """Phase 19 (a): a one-rank NCCL group and a (pod 1, data 1, model 1)
+    mesh.  Phase 9's plain step and the pod-wise step (its int8
+    all-gather over one rank: sum s q / 1 is q s exactly) from one state
+    for MESH_STEPS steps: params, m, v, residual and losses bitwise.
+    Returns the pod-wise run's flash launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels as tk
+    from repro_torch.data import ShardedLoader
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.models.lm import DecoderLM, tree_leaves
+    from repro_torch.parallel.sharding import gather
+    from repro_torch.runtime import Trainer
+
+    tc, opt, data = train_setup(cfg)
+    init_ranks(dev)
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    try:
+        mesh = make_mesh((1, 1, 1), MESH_AXES, device=dev)
+        plain = Trainer(DecoderLM(cfg), opt, dev, tc)
+        state0 = plain.init_state(0)
+        ploader = ShardedLoader(data, device=dev)
+        want, wl, wn, pwalls, ppeak = stepwise(plain, ploader, state0,
+                                               MESH_STEPS)
+        podwise = Trainer(DecoderLM(cfg), opt, mesh=mesh, train_cfg=tc)
+        assert podwise.podwise and podwise.device.type == "cuda"
+        state = podwise.place_state(*state0)
+        tk.reset_launch_counts()
+        loader = ShardedLoader(data, device=dev, mesh=mesh)
+        got, gl, gn, walls, peak = stepwise(podwise, loader, state,
+                                            MESH_STEPS)
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        per_step = 2 * cfg.n_layers       # forward + recompute
+        assert counts == {"group_quantize": 0, "qmm": 0, "qmm_int4": 0,
+                          "quantized_decode_attention": 0,
+                          "flash_attention_fwd": per_step * MESH_STEPS,
+                          "row_gemm": 0}, f"mesh training launches {counts}"
+        assert gl == wl, f"pod-wise losses {gl} != plain {wl}"
+        assert gn == wn, f"pod-wise grad norms {gn} != plain {wn}"
+
+        def leaves(state):
+            p, o, e = state
+            return [gather(x) for t in (p, o.m, o.v, e)
+                    for x in tree_leaves(t)] + [o.step]
+        bad = sum(not torch.equal(a, b)
+                  for a, b in zip(leaves(got), leaves(want)))
+        assert bad == 0, f"{bad} leaves of the pod-wise state != plain"
+        # one more step of each, clocked: where the pod-wise step's time
+        # over the plain step's goes
+        _, _, plain_clock = StepClock(plain).step(plain, ploader, want)
+        _, _, pod_clock = StepClock(podwise).step(podwise, loader, got)
+    finally:
+        dist.destroy_process_group()
+    print(f"  (a) one NCCL rank, mesh (pod 1, data 1, model 1), "
+          f"{cfg.name} B={TRAIN_BATCH} S={TRAIN_SEQ} QAT 8 int8_ef: "
+          f"{MESH_STEPS} pod-wise steps == the plain step bitwise (params, "
+          f"m, v, residual, step; losses {[f'{x:.6f}' for x in gl]}); "
+          f"walls pod-wise {[f'{w:.1f}' for w in walls]} ms, plain "
+          f"{[f'{w:.1f}' for w in pwalls]} ms; peak {peak:.2f} GiB "
+          f"(plain {ppeak:.2f}); flash launches "
+          f"{counts['flash_attention_fwd']} ({per_step} a step); "
+          f"{card_line()}")
+    print(f"      plain {plain_clock}")
+    print(f"      pod-wise {pod_clock}")
+    return counts["flash_attention_fwd"]
+
+
+def pod_rank_main(rank, world, store, out_dir):
+    """Phase 19 (b), one rank (a spawned process): pod ``rank`` of a
+    (pod 2, data 1, model 1) mesh over gloo, on the one card: MESH_STEPS
+    steps of ``Trainer.fit`` on its half of the batch; writes per-step
+    fingerprints, losses, walls and peak memory as JSON."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels as tk
+    from repro_torch.configs.qwen2_0_5b import FULL
+    from repro_torch.data import ShardedLoader
+    from repro_torch.device import set_float32_numerics
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.runtime import Trainer
+
+    set_float32_numerics()
+    dev = init_ranks("cuda:0", backend="gloo", store_file=store, rank=rank,
+                     world_size=world)
+    mesh = make_mesh((world, 1, 1), MESH_AXES, device=dev)
+    tc, opt, data = train_setup(FULL)
+    tr = Trainer(DecoderLM(FULL), opt, mesh=mesh, train_cfg=tc)
+    state = tr.init_state(0)
+    loader = ShardedLoader(data, device=dev, mesh=mesh)
+    out = {"rank": rank, "steps": [], "walls": []}
+    tk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, hist = tr.fit(loader, 1, state=state)
+        torch.cuda.synchronize()
+        out["walls"].append((time.perf_counter() - t0) * 1e3)
+        out["steps"].append(dict(loss=hist[-1]["loss"],
+                                 grad_norm=hist[-1]["grad_norm"],
+                                 **state_prints(state[0], state[1],
+                                                [state[2]])))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["launches"] = tk.launch_counts()
+    out["backend"] = dist.get_backend()
+    _, _, out["clock"] = StepClock(tr).step(tr, loader, state)
+    with open(pathlib.Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def pods_in_one_process(cfg, dev, pods):
+    """The (pod ``pods``, data 1, model 1) step in this one process
+    through the same functions (``Trainer._loss_fn``,
+    ``quantize_with_feedback``, ``pod_mean``, ``AdamW.update``), the
+    all-gather replaced by stacking the pods' codes and scales: per step
+    the fingerprints of params, m, v and each pod's residual, the loss
+    and the grad norm."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import DecoderLM, tree_map
+    from repro_torch.optim import global_norm, init_error_state
+    from repro_torch.optim.grad_compress import (pod_mean,
+                                                 quantize_with_feedback)
+    from repro_torch.runtime import Trainer
+
+    tc, opt, data = train_setup(cfg)
+    tr = Trainer(DecoderLM(cfg), opt, dev, tc)
+    params, ostate, _ = tr.init_state(0)
+    errs = [init_error_state(params) for _ in range(pods)]
+    rows = TRAIN_BATCH // pods
+    steps = []
+    for step in range(MESH_STEPS):
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in data.batch_at(step).items()}
+        grads, losses = [], []
+        for p in range(pods):
+            leaves = tree_map(lambda t: t.detach().requires_grad_(True),
+                              params)
+            loss = tr._loss_fn(leaves, {k: v[p * rows:(p + 1) * rows]
+                                        for k, v in batch.items()})
+            loss.backward()
+            grads.append(tree_map(lambda t: t.grad, leaves))
+            losses.append(loss.detach())
+
+        def exchange(*pairs):
+            out = [quantize_with_feedback(g, e) for g, e in pairs]
+            g_hat = pod_mean(torch.stack([q for q, _, _ in out]),
+                             torch.stack([s.reshape(1) for _, s, _ in out]
+                                         ).reshape(-1))
+            return g_hat, [e for _, _, e in out]
+
+        def walk(gs, es):
+            if isinstance(gs[0], dict):
+                res = {k: walk([g[k] for g in gs], [e[k] for e in es])
+                       for k in gs[0]}
+                return ({k: r[0] for k, r in res.items()},
+                        [{k: r[1][p] for k, r in res.items()}
+                         for p in range(pods)])
+            return exchange(*zip(gs, es))
+
+        g_hat, errs = walk(grads, errs)
+        loss = sum(losses[1:], losses[0]) * float(
+            np.float32(1.0) / np.float32(pods))
+        params, ostate, metrics = tr.opt.update(
+            g_hat, ostate, params, grad_norm=global_norm(g_hat))
+        steps.append(dict(loss=float(loss),
+                          grad_norm=float(metrics["grad_norm"]),
+                          **state_prints(params, ostate, errs)))
+    return steps
+
+
+def mesh_two_ranks(cfg, dev):
+    """Phase 19 (b): two ranks on the one card as (pod 2, data 1, model
+    1) over gloo (NCCL takes one rank a GPU), spawned; their losses and
+    state fingerprints held bitwise against the same two pods stepped in
+    this process, the params equal on both ranks after every step.
+    Returns the ranks' flash launches."""
+    import multiprocessing as mp
+    import shutil
+
+    out_dir = ROOT / "build" / "phase19"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    store = str(out_dir / "store")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=pod_rank_main,
+                         args=(r, 2, store, str(out_dir)))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    assert codes == [0, 0], f"phase 19 ranks exited {codes}"
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(2)]
+    want = pods_in_one_process(cfg, dev, 2)
+    for r in ranks:
+        assert r["backend"] == "gloo", r["backend"]
+        for s, (got, ref) in enumerate(zip(r["steps"], want)):
+            assert got["state"] == ranks[0]["steps"][s]["state"], \
+                f"step {s + 1}: rank {r['rank']}'s state != rank 0's"
+            assert got["state"] == ref["state"], \
+                f"step {s + 1}: rank {r['rank']}'s state != one process's"
+            assert got["err"][0] == ref["err"][r["rank"]], \
+                f"step {s + 1}: pod {r['rank']}'s residual != one process's"
+            assert got["loss"] == ref["loss"] and \
+                got["grad_norm"] == ref["grad_norm"], (s, got["loss"],
+                                                       ref["loss"])
+    assert ranks[0]["steps"][-1]["err"] != ranks[1]["steps"][-1]["err"]
+    per_step = 2 * cfg.n_layers
+    flash = 0
+    for r in ranks:
+        n = r["launches"]["flash_attention_fwd"]
+        assert n == per_step * MESH_STEPS, r["launches"]
+        flash += n
+    print(f"  (b) two gloo ranks on one card, mesh (pod 2, data 1, model "
+          f"1), {TRAIN_BATCH // 2} rows a pod: {MESH_STEPS} steps == the "
+          f"two pods stepped in one process bitwise (params, m, v, each "
+          f"pod's residual, losses "
+          f"{[round(s['loss'], 6) for s in want]}, grad norms), params "
+          f"equal on both ranks after every step, the residuals differ; "
+          f"walls rank 0 {[f'{w:.1f}' for w in ranks[0]['walls']]} ms, "
+          f"rank 1 {[f'{w:.1f}' for w in ranks[1]['walls']]} ms; peak "
+          f"{ranks[0]['peak_gib']:.2f} / {ranks[1]['peak_gib']:.2f} GiB a "
+          f"rank; flash launches {flash}; {ranks_s:.1f}s with start-up; "
+          f"{card_line()}")
+    for r in ranks:
+        print(f"      rank {r['rank']} {r['clock']}")
+    return flash
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4985,7 +5361,16 @@ def main() -> int:
     print(f"recurrent and encoder-decoder families: "
           f"{time.perf_counter() - t0:.1f}s")
 
-    # 19. summary
+    # 19. training over a mesh of ranks: one NCCL rank, then two gloo
+    # ranks on the one card
+    t0 = time.perf_counter()
+    print(f"  {release_memory()}")
+    counts["flash_attention_fwd"] += mesh_one_rank(cfg, dev)
+    print(f"  {release_memory()}")
+    counts["flash_attention_fwd"] += mesh_two_ranks(cfg, dev)
+    print(f"training over a mesh: {time.perf_counter() - t0:.1f}s")
+
+    # 20. summary
     names = {"group_quantize": ("csrc/group_quantize.cu",
                                 "src/repro/kernels/quantize.py:35"),
              "qmm": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:67"),

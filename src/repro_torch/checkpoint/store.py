@@ -25,6 +25,17 @@ of a ``like`` tree, each leaf onto its ``like`` leaf's device.  The async
 writer copies the tree to the host on the caller's thread (the next step
 must not change what is being saved) and writes it on a background thread,
 so the training loop only blocks on ``wait()`` or at the next save.
+
+Sharded trees (``DTensor`` leaves, ``runtime/train_loop.py`` over a mesh)
+are saved whole: every rank of the mesh joins the gathers, the rank at the
+mesh's origin alone writes, and the others wait for the write at a barrier
+(in ``save``, or in the ``wait`` that follows ``save_async``), so a
+checkpoint on disk is always complete before any rank goes on.  The
+records are those of the unsharded tree.  Restores are shard-aware, as the
+reference's: ``shardings`` (a tree of ``parallel.sharding.NamedSharding``)
+or a ``DTensor`` leaf of ``like`` gives each leaf's mesh and placements,
+and each rank keeps its part of the saved tensor, on any mesh: the elastic
+restart restores a checkpoint onto a smaller mesh this way.
 """
 
 from __future__ import annotations
@@ -41,6 +52,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..parallel.sharding import gather, mesh_barrier, place
 
 _TREE_FILE = "tree.bin"
 _MANIFEST = "manifest.json"
@@ -98,7 +112,10 @@ def _unflatten(like, leaves: Dict[str, Any], prefix: Tuple[str, ...] = ()):
 
 def _host(leaf) -> np.ndarray:
     """A little-endian host copy of one leaf (a tensor is copied even on
-    the CPU, so a later in-place update cannot reach it)."""
+    the CPU, so a later in-place update cannot reach it; a ``DTensor`` is
+    gathered whole, a collective over its mesh)."""
+    if isinstance(leaf, DTensor):
+        leaf = gather(leaf)
     if isinstance(leaf, torch.Tensor):
         arr = leaf.detach().to("cpu", copy=True).numpy()
     else:
@@ -183,7 +200,29 @@ def save_tree(tree: Any, directory: str, step: int,
     if compress:
         raise ValueError("repro_torch checkpoints are uncompressed "
                          "(compression 'none'); pass compress=False")
-    return _save_leaves(snapshot_tree(tree), directory, step, metadata)
+    mesh = _mesh_of(tree)
+    leaves = snapshot_tree(tree)
+    path = os.path.join(directory, f"step_{step}")
+    if _is_writer(mesh):
+        path = _save_leaves(leaves, directory, step, metadata)
+    if mesh is not None:
+        mesh_barrier(mesh)
+    return path
+
+
+def _mesh_of(tree):
+    """The mesh of a tree's ``DTensor`` leaves (the trainer's state has
+    one), or None for an unsharded tree."""
+    for _, leaf in _flatten(tree):
+        if isinstance(leaf, DTensor):
+            return leaf.device_mesh
+    return None
+
+
+def _is_writer(mesh) -> bool:
+    """Whether this rank writes: always without a mesh, else the rank at
+    the mesh's origin."""
+    return mesh is None or not any(mesh.get_coordinate())
 
 
 def _save_leaves(leaves: List[Tuple[str, np.ndarray]], directory: str,
@@ -213,12 +252,17 @@ def _save_leaves(leaves: List[Tuple[str, np.ndarray]], directory: str,
     return step_dir
 
 
-def load_tree(directory: str, step: int, like: Any
+def load_tree(directory: str, step: int, like: Any,
+              shardings: Optional[Any] = None
               ) -> Tuple[Any, Dict[str, Any]]:
     """Restore into the structure of ``like`` (a tree of tensors or
     arrays): each leaf takes its ``like`` leaf's dtype and, for a tensor,
-    its device.  Raises :class:`CorruptCheckpointError` on a checksum
-    mismatch, ``KeyError``/``ValueError`` on a missing leaf or shape."""
+    its device.  Where ``shardings`` (a tree matching ``like`` whose
+    leaves are ``NamedSharding`` or None) has a sharding, or the ``like``
+    leaf is a ``DTensor``, the leaf becomes a ``DTensor`` holding this
+    rank's part on that mesh.  Raises :class:`CorruptCheckpointError` on
+    a checksum mismatch, ``KeyError``/``ValueError`` on a missing leaf or
+    shape."""
     step_dir = os.path.join(directory, f"step_{step}")
     with open(os.path.join(step_dir, _MANIFEST)) as f:
         manifest = json.load(f)
@@ -238,6 +282,7 @@ def load_tree(directory: str, step: int, like: Any
         raise CorruptCheckpointError(
             f"checkpoint {step_dir} corrupt: content sha mismatch")
     records = _read_records(blob)
+    shard_of = dict(_flatten(shardings)) if shardings is not None else {}
     leaves = {}
     for key, leaf in _flatten(like):
         if key not in records:
@@ -246,9 +291,16 @@ def load_tree(directory: str, step: int, like: Any
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(
                 f"{key}: checkpoint shape {arr.shape} != {tuple(leaf.shape)}")
+        sharding = shard_of.get(key)
         if isinstance(leaf, torch.Tensor):
-            t = torch.from_numpy(arr)
-            leaves[key] = t.to(device=leaf.device, dtype=leaf.dtype)
+            local = leaf.to_local() if isinstance(leaf, DTensor) else leaf
+            t = torch.from_numpy(arr).to(device=local.device,
+                                         dtype=leaf.dtype)
+            if sharding is not None:
+                t = place(t, sharding.mesh, sharding.placements)
+            elif isinstance(leaf, DTensor):
+                t = place(t, leaf.device_mesh, leaf.placements)
+            leaves[key] = t
         else:
             want = np.asarray(leaf).dtype
             leaves[key] = arr.astype(want) if arr.dtype != want else arr
@@ -287,22 +339,31 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
         self._worker: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh = None      # the mesh of a sharded save_async's tree
 
     def should_save(self, step: int) -> bool:
         return step > 0 and step % self.save_interval == 0
 
     def save(self, step: int, tree: Any,
              metadata: Optional[Dict[str, Any]] = None) -> str:
+        """Write ``tree`` as step ``step`` now (a sharded tree: a
+        collective call of every rank of its mesh)."""
+        self.wait()
         path = save_tree(tree, self.directory, step, metadata)
-        self._retain()
+        if _is_writer(_mesh_of(tree)):
+            self._retain()
         return path
 
     def save_async(self, step: int, tree: Any,
                    metadata: Optional[Dict[str, Any]] = None) -> None:
-        """Copy the tree to the host now (blocking), then write it on a
-        background thread."""
+        """Copy the tree to the host now (blocking; gathered whole where
+        it is sharded), then write it on a background thread (the writing
+        rank's only)."""
         self.wait()
         host = snapshot_tree(tree)
+        self._mesh = _mesh_of(tree)
+        if not _is_writer(self._mesh):
+            return
 
         def work():
             try:
@@ -315,19 +376,26 @@ class CheckpointManager:
         self._worker.start()
 
     def wait(self) -> None:
+        """Wait for the last ``save_async`` to be on disk: its writer
+        joins its thread, and after a sharded save every rank of the mesh
+        waits for the writer."""
         if self._worker is not None:
             self._worker.join()
             self._worker = None
+        mesh, self._mesh = self._mesh, None
+        if mesh is not None:
+            mesh_barrier(mesh)
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
-    def restore_latest(self, like: Any):
-        """(tree, manifest) from the newest intact checkpoint, else None."""
+    def restore_latest(self, like: Any, shardings: Optional[Any] = None):
+        """(tree, manifest) from the newest intact checkpoint, else None;
+        ``shardings`` as :func:`load_tree`'s."""
         self.wait()
         for step in reversed(available_steps(self.directory)):
             try:
-                return load_tree(self.directory, step, like)
+                return load_tree(self.directory, step, like, shardings)
             except (IOError, KeyError, ValueError):
                 continue  # corrupt/partial: fall back to the previous one
         return None

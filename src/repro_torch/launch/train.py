@@ -15,8 +15,16 @@ The encoder-decoder (seamless-m4t-large-v2) needs frame embeddings that
 the Markov data does not give (the reference's CLI dies there with a
 ``KeyError``): it exits 2 with a one-line error, and ``Trainer`` trains it
 from batches that hold ``embeds``.  Runs on the CUDA card unless
-``--device cpu``.  Data parallelism over several chips (``--data`` > 1) is
-not yet ported: it exits 2 with a one-line error.
+``--device cpu``.
+
+Across ranks: ``torchrun --standalone --nproc-per-node N -m
+repro_torch.launch.train ...`` runs one rank a process (NCCL on the cards,
+gloo with ``--device cpu``) over a ``(data, model)`` mesh, ``--data`` the
+data-parallel degree (0: every rank, the reference's default) and the
+ranks left over on ``model`` (which shards the training state); each rank
+takes its slice of the global batch, and rank 0 prints.  A ``--data``
+that does not divide the ranks exits 2 with a one-line error, as does an
+MoE arch over several data-parallel ranks.
 """
 
 from __future__ import annotations
@@ -24,13 +32,15 @@ from __future__ import annotations
 import argparse
 import sys
 
+import torch.distributed as dist
+
 from ..checkpoint import CheckpointManager
 from ..configs import get_config, get_smoke
 from ..data import MarkovLMConfig, MarkovLMDataset, ShardedLoader
-from ..device import resolve_device
 from ..models.registry import build_model
 from ..optim import AdamW, cosine_schedule
 from ..runtime import TrainConfig, Trainer
+from .mesh import init_ranks, make_host_mesh
 
 
 def main(argv=None) -> int:
@@ -48,20 +58,30 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--data", type=int, default=0,
-                    help="data-parallel degree (0 or 1: one device; more "
-                         "is not yet ported and exits 2)")
+                    help="data-parallel degree (0 = all ranks)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.data > 1:
-        print(f"error: --data {args.data} is not yet ported to repro_torch "
-              "(training over several chips); run --data 1", file=sys.stderr)
-        return 2
+    joined = dist.is_initialized()
+    try:
+        return _run(args)
+    finally:
+        if not joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args) -> int:
     try:
         cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-        device = resolve_device(args.device)
+        device = init_ranks(args.device)
     except (KeyError, RuntimeError) as e:
         print(f"error: {e.args[0]}", file=sys.stderr)
+        return 2
+    n_ranks = dist.get_world_size()
+    data = args.data or n_ranks
+    if data < 1 or n_ranks % data:
+        print(f"error: --data {args.data} does not divide the {n_ranks} "
+              "ranks", file=sys.stderr)
         return 2
     if cfg is None:
         print(f"error: arch {args.arch} has no model config to train (it "
@@ -73,28 +93,35 @@ def main(argv=None) -> int:
               "Markov-chain LM data does not give", file=sys.stderr)
         return 2
 
+    mesh = make_host_mesh(data=data, model=n_ranks // data, device=device)
     loader = ShardedLoader(MarkovLMDataset(MarkovLMConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
-        batch_size=args.batch)), device=device)
+        batch_size=args.batch)), device=device, mesh=mesh)
     ckpt = CheckpointManager(args.ckpt_dir, save_interval=args.ckpt_every) \
         if args.ckpt_dir else None
     opt = AdamW(learning_rate=cosine_schedule(args.lr, 20, args.steps))
-    tr = Trainer(build_model(cfg), opt, device,
-                 TrainConfig(qat_bits=args.qat_bits,
-                             grad_compression=args.grad_compression,
-                             log_every=10),
-                 ckpt=ckpt)
-    print(f"arch={cfg.name} params={cfg.param_count():.3g} "
-          f"devices=1 qat_bits={args.qat_bits} device={device}")
+    try:
+        tr = Trainer(build_model(cfg), opt, device,
+                     TrainConfig(qat_bits=args.qat_bits,
+                                 grad_compression=args.grad_compression,
+                                 log_every=10),
+                     ckpt=ckpt, mesh=mesh)
+    except NotImplementedError as e:
+        print(f"error: {e.args[0]}", file=sys.stderr)
+        return 2
+    say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
+    say(f"arch={cfg.name} params={cfg.param_count():.3g} "
+        f"devices={n_ranks} qat_bits={args.qat_bits} device={device} "
+        f"mesh=(data {data}, model {n_ranks // data})")
     _, history = tr.fit(loader, args.steps,
-                        on_metrics=lambda m: print(
+                        on_metrics=lambda m: say(
                             f"step {m['step']:5d} loss {m['loss']:.4f} "
                             f"gnorm {m['grad_norm']:.3f} "
                             f"{m['steps_per_s']:.2f} it/s"))
     if history:
         first, last = history[0]["loss"], history[-1]["loss"]
-        print(f"loss {first:.4f} -> {last:.4f} "
-              f"({'improved' if last < first else 'NOT improved'})")
+        say(f"loss {first:.4f} -> {last:.4f} "
+            f"({'improved' if last < first else 'NOT improved'})")
     return 0
 
 

@@ -123,6 +123,11 @@ class DecoderLM:
             self._build(None, device="meta")
         return self._axes
 
+    def param_structs(self):
+        """The parameter tree as ``meta`` tensors: shapes and dtypes, no
+        memory (the reference's ``jax.eval_shape`` of ``init``)."""
+        return self._build(None, device="meta")
+
     # ------------------------------------------------------------------
     # blocks
     # ------------------------------------------------------------------

@@ -82,6 +82,11 @@ class XLSTMModel:
             self._build(None, device="meta")
         return self._axes
 
+    def param_structs(self):
+        """The parameter tree as ``meta`` tensors: shapes and dtypes, no
+        memory (the reference's ``jax.eval_shape`` of ``init``)."""
+        return self._build(None, device="meta")
+
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------

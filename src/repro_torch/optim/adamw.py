@@ -2,7 +2,12 @@
 
 The state mirrors the parameter dict (m, v in float32) plus a scalar int32
 step count.  Everything stays on the parameters' device: no value is read
-back to the host during an update.
+back to the host during an update.  The update takes the forms XLA
+compiles the reference's jitted update into (ROADMAP C.6): its
+multiply-adds contracted into fused ones, and ``(m / bc1) / (sqrt(v / bc2)
++ eps)`` rewritten as ``m / (bc1 * (sqrt(v / bc2) + eps))``; given the same
+gradients and clipping factor, the new parameters and moments are the
+jitted reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -51,11 +56,14 @@ class AdamW:
                             device=step.device)
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, grad_norm=None):
         """Returns (new_params, new_state, metrics) with metrics
-        ``{"grad_norm", "lr"}`` as device scalars."""
+        ``{"grad_norm", "lr"}`` as device scalars.  ``grad_norm``: the
+        global norm of the gradients when ``grads``, ``state`` and
+        ``params`` hold one rank's parts of sharded trees (the update is
+        elementwise, the norm is not)."""
         step = state.step + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
         if self.clip_norm > 0:
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-12),
                                 max=1.0)
@@ -67,19 +75,41 @@ class AdamW:
         bc2 = 1.0 - torch.pow(b2, stepf)
         lr = self._lr(step)
 
+        c1, c2 = _f32(1 - b1), _f32(1 - b2)
+
         def upd(p, g, m, v):
             g = g.to(torch.float32) * scale
-            m_new = b1 * m + (1 - b1) * g
-            v_new = b2 * v + (1 - b2) * g * g
-            delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + self.eps)
+            m_new = _fma(_f32(b1), m, g * c1)
+            v_new = _fma(_f32(b2), v, g * c2 * g)
+            # sqrt through float64: correctly rounded (torch's vectorized
+            # float32 sqrt on the CPU is not always)
+            root = torch.sqrt((v_new / bc2).to(torch.float64)).to(
+                torch.float32)
+            delta = m_new / (bc1 * (root + self.eps))
+            pf = p.to(torch.float32)
             if self.weight_decay > 0 and p.ndim >= 2:
-                delta = delta + self.weight_decay * p.to(torch.float32)
-            p_new = (p.to(torch.float32) - lr * delta).to(p.dtype)
+                delta = _fma(pf, _f32(self.weight_decay), delta)
+            p_new = _fma(-delta, lr, pf).to(p.dtype)
             return p_new, m_new, v_new
 
         new_p, new_m, new_v = _map3(upd, params, grads, state.m, state.v)
         return new_p, AdamWState(step=step, m=new_m, v=new_v), \
             {"grad_norm": gnorm, "lr": lr}
+
+
+def _f32(x: float) -> float:
+    """fl32(x) as a Python float: the constant XLA folds in."""
+    return float(np.float32(x))
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """fl32(a * b + c) rounded once, as XLA's contracted multiply-add:
+    the product of two float32 values is exact in float64, and the sum
+    rounded there and then to float32 is the fused result unless it lands
+    within 2^-53 of a float32 rounding midpoint."""
+    def wide(x):
+        return x.to(torch.float64) if isinstance(x, torch.Tensor) else x
+    return (wide(a) * wide(b) + wide(c)).to(torch.float32)
 
 
 def _map3(fn, params, *others):

@@ -3,9 +3,13 @@
 Each gradient leaf is quantized to int8 codes with one absmax scale, the
 quantization residual is kept locally and added to the next step's
 gradient (error feedback), and the dequantized gradient goes to the
-optimizer.  Across pods the reference all-gathers the codes and scales;
-that collective waits for the parallel slice, so only the single-device
-form (``axis_name=None``) is ported.
+optimizer.  Across pods (``axis_name="pod"`` with the trainer's mesh) the
+codes and the scales are all-gathered over the mesh's ``pod`` group, 1
+wire byte an element and 4 bytes a pod, and each pod's codes are weighted
+by its own scale: ``g_hat = sum_p s_p * q_p * fl(1/P)``, the reference's
+``tensordot`` over the pod index followed by its division by P in the form
+XLA compiles it to.  The residual stays with its pod.  Without an axis it
+is quantize and dequantize with error feedback on one device.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.lm import tree_map
 
@@ -34,22 +39,39 @@ def _quantize_leaf(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def _no_pod_axis(axis_name: Optional[str]) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"compression over the {axis_name!r} axis (int8 all-gather "
-            "across pods) is not yet ported: it waits for the parallel "
-            "slice")
+def _group(axis_name: Optional[str], mesh):
+    """The process group of ``axis_name`` on ``mesh``, or None."""
+    if axis_name is None:
+        return None
+    if mesh is None or axis_name not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"compression over the {axis_name!r} axis needs "
+                         f"a mesh with that axis, got {mesh}")
+    return mesh.get_group(axis_name)
 
 
-def compress_decompress(g: torch.Tensor, err: torch.Tensor,
-                        axis_name: Optional[str] = None):
-    """Quantize (g + err) to int8 and dequantize; returns (g_hat, new_err)
-    with the codes and residual bitwise the jitted reference's."""
-    _no_pod_axis(axis_name)
+def pod_mean(qs: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
+    """The mean of the pods' dequantized gradients from their stacked
+    codes ``qs`` [P, ...] and scales ``ss`` [P]: the reference's
+    ``tensordot(ss, qs, axes=(0, 0)) / P``, whose division XLA compiles
+    into a product with fl(1/P) (they differ where P is not a power of
+    two)."""
+    n = qs.shape[0]
+    inv_n = float(np.float32(1.0) / np.float32(n))
+    return torch.tensordot(ss, qs.to(torch.float32), dims=([0], [0])) \
+        * inv_n
+
+
+def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.stack(parts)
+
+
+def quantize_with_feedback(g: torch.Tensor, err: torch.Tensor):
+    """(codes, scale, new residual) of ``g + err``: this pod's part of
+    the exchange, bitwise the jitted reference's."""
     gf = g.to(torch.float32) + err
     q, scale = _quantize_leaf(gf)
-    g_hat = q.to(torch.float32) * scale
     # XLA contracts the reference's ``gf - q * scale`` into one fused
     # multiply-subtract (a single rounding).  In float64 the product of an
     # int8 code and an f32 scale is exact, and so is the difference (a
@@ -57,18 +79,34 @@ def compress_decompress(g: torch.Tensor, err: torch.Tensor,
     # other), so rounding it once to f32 gives the fused result.
     new_err = (gf.to(torch.float64) - q.to(torch.float64)
                * scale.to(torch.float64)).to(torch.float32)
+    return q, scale, new_err
+
+
+def compress_decompress(g: torch.Tensor, err: torch.Tensor,
+                        axis_name: Optional[str] = None, mesh=None):
+    """Quantize (g + err) to int8, exchange the codes over ``axis_name``
+    of ``mesh`` when given, dequantize; returns (g_hat, new_err) with the
+    codes and residual bitwise the jitted reference's."""
+    group = _group(axis_name, mesh)
+    q, scale, new_err = quantize_with_feedback(g, err)
+    if group is not None:
+        g_hat = pod_mean(_all_gather(q, group),
+                         _all_gather(scale.reshape(1), group).reshape(-1))
+    else:
+        g_hat = q.to(torch.float32) * scale
     return g_hat.to(g.dtype), new_err
 
 
-def compress_tree(grads, err_state, axis_name: Optional[str] = None):
-    """Error-feedback compression of every leaf; returns
-    (compressed_grads, new_err_state)."""
-    _no_pod_axis(axis_name)
+def compress_tree(grads, err_state, axis_name: Optional[str] = None,
+                  mesh=None):
+    """Error-feedback compression of every leaf (sorted-key order, the
+    same on every rank); returns (compressed_grads, new_err_state)."""
     if isinstance(grads, dict):
-        outs = {k: compress_tree(grads[k], err_state[k]) for k in grads}
-        return ({k: o[0] for k, o in outs.items()},
-                {k: o[1] for k, o in outs.items()})
-    return compress_decompress(grads, err_state)
+        outs = {k: compress_tree(grads[k], err_state[k], axis_name, mesh)
+                for k in sorted(grads)}
+        return ({k: outs[k][0] for k in grads},
+                {k: outs[k][1] for k in grads})
+    return compress_decompress(grads, err_state, axis_name, mesh)
 
 
 def compression_ratio(dtype=torch.float32) -> float:

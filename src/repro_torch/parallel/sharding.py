@@ -1,0 +1,217 @@
+"""Logical-axis -> mesh-axis sharding rules (``repro/parallel/sharding.py``).
+
+Every model names the logical axes of its parameters (``logical_axes()``,
+a tree of tuples mirroring the parameter tree).  These rules map them to
+mesh axes for a concrete mesh, with the reference's guards:
+
+  * a dimension whose size does not divide the product of its mesh axes
+    is replicated instead (qwen2's 14 query heads on a 16-way axis,
+    granite's single KV head);
+  * a mesh axis shards at most one dimension of a leaf;
+  * ``long_context`` maps ``cache_seq`` to ``data``.
+
+Default mapping (the reference's):
+
+  batch       -> ('pod', 'data')     activations / cache batch
+  heads/kv/ffn/vocab/experts -> 'model'
+  embed       -> 'data' iff cfg.fsdp (ZeRO-3-style weight sharding)
+  cache_seq   -> None, or 'data' with long_context
+  everything else -> replicated
+
+A spec is the reference's ``PartitionSpec`` as a plain tuple, one entry
+per leading dimension: None, an axis name, or a tuple of axis names,
+trailing Nones dropped.  :func:`placements_for` turns it into ``DTensor``
+placements, ``Shard(dim)`` or ``Replicate()`` per mesh dimension.  The
+port holds the parameters, the AdamW moments and the int8 residual as
+``DTensor``s so placed; a training step gathers them and computes on full
+tensors (``runtime/train_loop.py``): ``model`` shards the state, not the
+compute.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from ..launch.mesh import axis_sizes
+
+LogicalRules = Dict[str, Any]  # logical name -> mesh axis | tuple | None
+Spec = Tuple[Any, ...]
+
+
+def default_rules(cfg, *, long_context: bool = False) -> LogicalRules:
+    return {
+        "batch": ("pod", "data"),
+        "heads": "model",
+        "kv": "model",
+        "kv_heads": "model",
+        "ffn": "model",
+        "vocab": "model",
+        "experts": "model",
+        "gates": "model",
+        "cache_seq": "data" if long_context else None,
+        "embed": "data" if cfg.fsdp else None,
+    }
+
+
+def _physical_axes(rule, names) -> Tuple[str, ...]:
+    """A rule entry as a tuple of the mesh's axes."""
+    if rule is None:
+        return ()
+    if isinstance(rule, str):
+        rule = (rule,)
+    return tuple(a for a in rule if a in names)
+
+
+def spec_for(axes: Tuple[str, ...], shape: Tuple[int, ...],
+             rules: LogicalRules, mesh) -> Spec:
+    """The spec of one leaf, with the divisibility fallback."""
+    sizes = axis_sizes(mesh)
+    entries = []
+    used: set = set()
+    for dim, name in zip(shape, axes):
+        phys = _physical_axes(rules.get(name), sizes)
+        phys = tuple(a for a in phys if a not in used)
+        size = math.prod(sizes[a] for a in phys) if phys else 1
+        if phys and dim % size == 0:
+            entries.append(phys if len(phys) > 1 else phys[0])
+            used.update(phys)
+        else:
+            entries.append(None)
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def placements_for(spec: Spec, mesh) -> tuple:
+    """``DTensor`` placements of ``spec`` on ``mesh``: for each mesh
+    dimension ``Shard(d)`` where the spec maps tensor dimension d to it,
+    else ``Replicate()``.  A dimension over several mesh axes is split
+    over the first of them, then each part over the next (the
+    reference's major-to-minor order)."""
+    names = tuple(axis_sizes(mesh))
+    dim_of = {}
+    for d, entry in enumerate(spec):
+        for a in ((entry,) if isinstance(entry, str) else entry or ()):
+            dim_of[a] = d
+    return tuple(Shard(dim_of[a]) if a in dim_of else Replicate()
+                 for a in names)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a spec (``jax.sharding.NamedSharding``)."""
+
+    mesh: Any
+    spec: Spec = ()
+
+    @property
+    def placements(self) -> tuple:
+        return placements_for(self.spec, self.mesh)
+
+
+def _map(fn, axes_tree, struct_tree):
+    if isinstance(axes_tree, dict):
+        return {k: _map(fn, axes_tree[k], struct_tree[k]) for k in axes_tree}
+    return fn(axes_tree, struct_tree)
+
+
+def tree_shardings(axes_tree, struct_tree, rules: LogicalRules, mesh):
+    """A :class:`NamedSharding` tree matching ``struct_tree`` (tensors,
+    ``meta`` tensors from ``param_structs()``, or anything with
+    ``shape``)."""
+    def one(axes, struct):
+        if not isinstance(axes, tuple):
+            raise TypeError(f"expected axis tuple, got {axes!r}")
+        if len(axes) != len(struct.shape):
+            raise ValueError(f"axes {axes} rank != shape "
+                             f"{tuple(struct.shape)}")
+        return NamedSharding(mesh, spec_for(axes, tuple(struct.shape),
+                                            rules, mesh))
+    return _map(one, axes_tree, struct_tree)
+
+
+def batch_shardings(batch_specs: Dict[str, Any], rules: LogicalRules,
+                    mesh) -> Dict[str, NamedSharding]:
+    """Shard every input leaf along its leading (batch) dimension, or
+    replicate it where that dimension does not divide."""
+    sizes = axis_sizes(mesh)
+
+    def one(struct):
+        phys = _physical_axes(rules.get("batch"), sizes)
+        size = math.prod(sizes[a] for a in phys) if phys else 1
+        shape = tuple(struct.shape)
+        if phys and shape and shape[0] % size == 0:
+            return NamedSharding(mesh, (phys if len(phys) > 1 else phys[0],))
+        return NamedSharding(mesh, (None,))
+
+    return {k: one(v) for k, v in batch_specs.items()}
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())
+
+
+# ---------------------------------------------------------------------------
+# DTensors by hand: the local part of a full tensor, and back
+# ---------------------------------------------------------------------------
+# Only ``DTensor.from_local`` / ``to_local`` are used: the gathers below are
+# ``dist.all_gather`` over one mesh dimension's group at a time, which gloo
+# runs for CPU and CUDA tensors alike, and the local part is a slice, so the
+# same code runs on NCCL ranks, gloo ranks and one rank alone.
+
+def local_part(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's part of ``full`` under ``placements`` on ``mesh``
+    (sizes divide: :func:`spec_for` guarantees it)."""
+    coord = mesh.get_coordinate()
+    part = full
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            part = part.chunk(mesh.size(i), dim=pl.dim)[coord[i]]
+    # a copy, not a view: a view would keep the whole tensor alive
+    return part.clone() if part.numel() != full.numel() \
+        else part.contiguous()
+
+
+def place(full: torch.Tensor, mesh, placements) -> DTensor:
+    """A ``DTensor`` holding this rank's part of ``full`` (which every
+    rank of the mesh holds whole); no communication."""
+    return DTensor.from_local(local_part(full, mesh, placements), mesh,
+                              placements, run_check=False)
+
+
+def distribute(full: torch.Tensor, sharding: NamedSharding) -> DTensor:
+    """:func:`place` by a :class:`NamedSharding`."""
+    return place(full, sharding.mesh, sharding.placements)
+
+
+def gather(t):
+    """The full tensor of a ``DTensor`` (collective over the mesh
+    dimensions that shard it, innermost first); any other value as it
+    is."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh, full = t.device_mesh, t.to_local()
+    for i in reversed(range(mesh.ndim)):
+        pl = t.placements[i]
+        if isinstance(pl, Shard) and mesh.size(i) > 1:
+            parts = [torch.empty_like(full) for _ in range(mesh.size(i))]
+            dist.all_gather(parts, full.contiguous(),
+                            group=mesh.get_group(i))
+            full = torch.cat(parts, dim=pl.dim)
+    return full
+
+
+def mesh_barrier(mesh) -> None:
+    """Wait until every rank of ``mesh`` has arrived: a one-element
+    all-reduce over each mesh dimension in turn (on the mesh's device,
+    so NCCL and gloo alike)."""
+    t = torch.zeros(1, device=mesh.device_type)
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            dist.all_reduce(t, group=mesh.get_group(i))

@@ -11,7 +11,7 @@ from .decode_engine import (ClassDecodeStats, DecodeEngine,  # noqa: F401
                             fit_kv_lambda, greedy_decode_reference)
 from .fastpath import CompiledForwardCache  # noqa: F401
 from .fault_tolerance import (HostFailure, HostSet, StragglerMonitor,  # noqa: F401
-                              Supervisor, SupervisorReport)
+                              Supervisor, SupervisorReport, survivor_mesh)
 from .fleet_engine import (AgentServeStats, FleetAgentSpec,  # noqa: F401
                            FleetCoInferenceEngine, FleetReport)
 from .serve_engine import (BatchedCoInferenceEngine,  # noqa: F401

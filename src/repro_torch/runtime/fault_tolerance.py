@@ -11,13 +11,14 @@ device-only fallback, crash-recoverable decode) is
 The *cluster* is simulated (a :class:`HostSet` of logical hosts with an
 injectable failure schedule), but the recovery is real: the checkpoints
 round-trip through disk (``checkpoint/store.py``), a corrupt newest step
-falls back to the previous one, and the rebuilt session resumes from the
-newest intact step, not from step 0.  The port trains on one device:
-``make_session(n_alive)`` rebuilds a one-device session from that
-checkpoint whatever ``n_alive`` says, and re-sharding the restored state
-onto a smaller mesh waits for the parallel tooling (ROADMAP A.9).
-``remesh_history`` still records the logical host count after each
-(re)build, as the reference's does.
+falls back to the previous one, the session is rebuilt over a mesh of the
+surviving ranks (:func:`survivor_mesh`: host h runs on rank h mod the
+world size), and the restored state is re-sharded onto that mesh, each
+rank keeping its part, before the session resumes from the newest intact
+step.  Every rank runs the supervisor with the same failure schedule, so
+all of them rebuild together; a rank whose hosts are all lost is outside
+the new mesh and only follows the schedule.  ``remesh_history`` records
+the logical host count after each (re)build, as the reference's does.
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ import dataclasses
 from typing import Callable, Dict, Hashable, List, Optional
 
 import numpy as np
+import torch.distributed as dist
 
+from ..launch.mesh import make_mesh
 from ..obs import ReportBase
 
 
@@ -57,6 +60,16 @@ class HostSet:
     @property
     def n_alive(self) -> int:
         return len(self.alive)
+
+
+def survivor_mesh(hosts: HostSet, device=None):
+    """A (data, model) = (ranks, 1) mesh over the ranks that run a
+    surviving host (host h on rank h mod the world size).  Every rank of
+    the group calls it; on a rank outside it ``get_coordinate()`` is
+    None."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    ranks = sorted({h % world for h in hosts.alive})
+    return make_mesh((len(ranks), 1), ("data", "model"), ranks, device)
 
 
 @dataclasses.dataclass
@@ -140,7 +153,7 @@ class Supervisor:
                     raise RuntimeError("restart budget exhausted") from e
                 if self.hosts.n_alive == 0:
                     raise RuntimeError("no hosts left") from e
-                # rebuild over the survivors + restore
+                # elastic re-mesh over the survivors + restore
                 session = self.make_session(self.hosts.n_alive)
                 remesh.append(self.hosts.n_alive)
         return SupervisorReport(

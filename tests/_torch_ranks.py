@@ -1,0 +1,323 @@
+"""Gloo ranks for the port's multi-rank tests.
+
+``start_world(n, scenarios, tmp)`` starts ``n`` processes, one rank each,
+joined through a ``FileStore`` in ``tmp`` (no TCP port, so test workers
+running side by side cannot collide); each rank runs the named scenarios
+of :data:`SCENARIOS` in order and pickles what they return to
+``tmp/<world>_rank<r>.pkl``.  ``join_world`` waits for them and returns
+the results per rank, or raises with a failed rank's traceback.  The ranks
+import torch and ``repro_torch`` only (never JAX): the tests compute the
+reference in their own process and hand inputs over as numpy arrays in a
+pickle of their own making (``put_inputs``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import pickle
+import subprocess
+import sys
+import traceback
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+ARCH = "qwen2-0.5b"
+
+
+# ---------------------------------------------------------------------------
+# the harness (test process side)
+# ---------------------------------------------------------------------------
+
+def put_inputs(tmp, name: str, obj) -> None:
+    with open(os.path.join(tmp, f"{name}.inputs.pkl"), "wb") as f:
+        pickle.dump(obj, f)
+
+
+def start_world(n: int, scenarios, tmp, world: str):
+    """Start ``n`` ranks running ``scenarios`` (a list of (name, kwargs));
+    returns the handle for :func:`join_world`."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
+                                           str(ROOT / "tests")]))
+    store = os.path.join(tmp, f"{world}.store")
+    code = ("import sys, _torch_ranks; "
+            "_torch_ranks.rank_main(*sys.argv[1:])")
+    spec = json.dumps(scenarios)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), str(n), store, str(tmp),
+         world, spec], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    return world, tmp, procs
+
+
+def join_world(handle, timeout: float = 240.0):
+    """Wait for every rank; returns [rank 0's results, rank 1's, ...],
+    each a list with one entry per scenario."""
+    world, tmp, procs = handle
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            logs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode, logs[r][-3000:]) for r, p in enumerate(procs)
+           if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"world {world}: ranks failed: {bad}")
+    results = []
+    for r in range(len(procs)):
+        with open(os.path.join(tmp, f"{world}_rank{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# the ranks
+# ---------------------------------------------------------------------------
+
+def rank_main(rank, n, store, tmp, world, spec) -> None:
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks
+
+    torch.set_num_threads(1)
+    rank, n = int(rank), int(n)
+    try:
+        init_ranks("cpu", store_file=store, rank=rank, world_size=n)
+        out = [SCENARIOS[name](tmp, **kwargs)
+               for name, kwargs in json.loads(spec)]
+        with open(os.path.join(tmp, f"{world}_rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def _inputs(tmp, name):
+    with open(os.path.join(tmp, f"{name}.inputs.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def _np_tree(tree):
+    """Nested dicts (and AdamWState) of tensors, DTensors gathered whole,
+    as numpy."""
+    from repro_torch.parallel.sharding import gather
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_np_tree(v) for v in tree)
+    return gather(tree).detach().cpu().numpy().copy()
+
+
+def _trainer(mesh, tc, lr, clip_norm=1.0, arch=ARCH):
+    """A trainer over ``mesh``: AdamW with the linear schedule ``lr``
+    (peak, warmup, total), or a constant 1e-3 where ``lr`` is None."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamW, linear_schedule
+    from repro_torch.runtime import TrainConfig, Trainer
+    opt = AdamW(learning_rate=1e-3 if lr is None else linear_schedule(*lr),
+                clip_norm=clip_norm)
+    return Trainer(build_model(get_smoke(arch)), opt, "cpu",
+                   TrainConfig(log_every=1, **tc), mesh=mesh)
+
+
+def _start(tr, inp):
+    """The trainer's state from the test's numpy state, placed."""
+    from repro_torch.bridge import train_state_from_jax
+    return tr.place_state(*train_state_from_jax(*inp["state"],
+                                                device="cpu"))
+
+
+class MaskedData:
+    """A dataset's batches with a seeded ``loss_mask`` (about 70 % ones,
+    one whole row masked out), the same per step on every rank."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def batch_at(self, step):
+        b = dict(self.ds.batch_at(step))
+        rng = np.random.default_rng(1000 + step)
+        mask = (rng.random(b["labels"].shape) < 0.7).astype(np.float32)
+        mask[step % mask.shape[0]] = 0.0
+        b["loss_mask"] = mask
+        return b
+
+
+def markov(batch: int, seq: int, masked: bool = False, arch=ARCH):
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import MarkovLMConfig, MarkovLMDataset
+    ds = MarkovLMDataset(MarkovLMConfig(
+        vocab_size=get_smoke(arch).vocab_size, seq_len=seq,
+        batch_size=batch))
+    return MaskedData(ds) if masked else ds
+
+
+def fed_podwise(tmp, pod, model, ranks=None):
+    """The pod-wise step after the gradients: each pod's gradients (the
+    reference's, two steps' worth) fed to ``Trainer._apply`` over a (pod,
+    1, model) mesh; per step this rank's codes and scales, its ``g_hat``
+    and new residual (``compress_tree`` over the pod group), then the
+    state after ``_apply``."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import tree_map
+    from repro_torch.optim import compress_tree
+    from repro_torch.optim.grad_compress import _quantize_leaf
+    from repro_torch.parallel.sharding import gather
+
+    inp = _inputs(tmp, "fed")
+    mesh = make_mesh((pod, 1, model), ("pod", "data", "model"), ranks,
+                     device="cpu")
+    if mesh.get_coordinate() is None:
+        return None                     # a rank outside the mesh
+    tr = _trainer(mesh, inp["tc"], inp["lr"], clip_norm=0.0)
+    state = _start(tr, inp)
+    p = mesh.get_coordinate()[0]
+    out = []
+    for grads, losses in inp[f"grads{pod}"]:
+        g = tree_map(lambda a: torch.from_numpy(np.array(a[p])), grads)
+        e0 = tree_map(gather, state[2])
+        codes = tree_map(lambda t: _quantize_leaf(t)[0].numpy(),
+                         _plus(g, e0))
+        scales = tree_map(lambda t: float(_quantize_leaf(t)[1]),
+                          _plus(g, e0))
+        g_hat, e1 = compress_tree(g, e0, "pod", mesh)
+        *state, metrics = tr._apply(g, torch.tensor(float(losses[p])),
+                                    None, *state)
+        out.append({"codes": codes, "scales": scales,
+                    "g_hat": _np_tree(g_hat), "err": _np_tree(e1),
+                    "state": _np_tree(tuple(state)),
+                    "metrics": {k: float(v) for k, v in metrics.items()}})
+    return out
+
+
+def _plus(a, b):
+    if isinstance(a, dict):
+        return {k: _plus(a[k], b[k]) for k in a}
+    return a.to(b.dtype) + b
+
+
+def fit_mesh(tmp, shape, axes, steps, masked=False, batch=12, seq=32,
+             inputs="whole", ranks=None):
+    """``Trainer.fit`` over a mesh of ``shape``, from the test's state, on
+    this rank's slice of the global batch, a step at a time; returns the
+    history, the full state after it, the parameters after each step,
+    this rank's first batch slice and its coordinate."""
+    from repro_torch.data import ShardedLoader
+    from repro_torch.launch.mesh import make_mesh
+
+    inp = _inputs(tmp, inputs)
+    mesh = make_mesh(tuple(shape), tuple(axes), ranks, device="cpu")
+    if mesh.get_coordinate() is None:
+        return None                     # a rank outside the mesh
+    tr = _trainer(mesh, inp["tc"], inp["lr"])
+    loader = ShardedLoader(markov(batch, seq, masked), device="cpu",
+                           mesh=mesh)
+    first = {k: v.numpy() for k, v in next(loader).items()}
+    loader.seek(0)
+    state, hist, params = _start(tr, inp), [], []
+    for _ in range(steps):
+        state, h = tr.fit(loader, 1, state=state)
+        hist += h
+        params.append(_np_tree(state[0]))
+    return {"hist": hist, "state": _np_tree(tuple(state)),
+            "params": params, "batch": first,
+            "coord": list(mesh.get_coordinate())}
+
+
+def _placed(tree):
+    """{path: (this rank's part, [(mesh dim size, sharded tensor dim or
+    None)], coordinate)} of a tree's ``DTensor`` leaves."""
+    from repro_torch.checkpoint.store import _flatten
+    from torch.distributed.tensor import DTensor, Shard
+    out = {}
+    for path, leaf in _flatten(tree):
+        if isinstance(leaf, DTensor):
+            mesh = leaf.device_mesh
+            dims = [(mesh.size(i), pl.dim if isinstance(pl, Shard) else None)
+                    for i, pl in enumerate(leaf.placements)]
+            out[path] = (leaf.to_local().numpy().copy(), dims,
+                         list(mesh.get_coordinate()))
+    return out
+
+
+def elastic(tmp, ckpt_dir, arch="stablelm-3b"):
+    """The reference's elastic re-mesh (``tests/test_elastic.py``) on
+    ranks: a (data 4, model 2) session over eight ranks trains 10 steps,
+    checkpointing every 5; then a (data 2, model 2) session over the
+    first four (the others are outside its mesh) restores step 10 onto
+    the smaller mesh and trains to step 15.  Returns each session's
+    history and, from the second, this rank's restored parts."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import ShardedLoader
+    from repro_torch.launch.mesh import make_mesh
+
+    def session(mesh):
+        tr = _trainer(mesh, {}, None, arch=arch)
+        tr.ckpt = CheckpointManager(ckpt_dir, save_interval=5)
+        loader = ShardedLoader(markov(4, 16, arch=arch), device="cpu",
+                               mesh=mesh)
+        return tr, loader
+
+    tr1, loader = session(make_mesh((4, 2), ("data", "model"), device="cpu"))
+    _, h1 = tr1.fit(loader, 10)
+    out = {"h1": h1, "step1": tr1.step}
+    mesh = make_mesh((2, 2), ("data", "model"), ranks=range(4),
+                     device="cpu")
+    if mesh.get_coordinate() is None:
+        return out
+    tr2, loader = session(mesh)
+    state = tr2.init_state(0)
+    *state, start = tr2.maybe_restore(*state)
+    out["restored"] = _placed({"params": state[0], "opt": state[1],
+                               "err": state[2]})
+    loader.seek(start)
+    _, h2 = tr2.fit(loader, 5, state=tuple(state))
+    out.update(h2=h2, step2=tr2.step, start=start)
+    return out
+
+
+def mesh_of_two(tmp):
+    """Two pods of one rank each, int8 EF: two steps from ``init_state``
+    (history and the gathered parameters), and the one line an MoE
+    trainer over two data-parallel ranks raises."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import ShardedLoader
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import DecoderLM, tree_leaves
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    mesh = make_mesh((2, 1, 1), ("pod", "data", "model"), device="cpu")
+    tr = Trainer(DecoderLM(get_smoke(ARCH)), AdamW(), mesh=mesh,
+                 train_cfg=TrainConfig(grad_compression="int8_ef",
+                                       log_every=1))
+    (params, _, _), hist = tr.fit(ShardedLoader(markov(4, 16),
+                                                device="cpu", mesh=mesh), 2)
+    moe = dataclasses.replace(get_smoke(ARCH), n_experts=4,
+                              experts_per_token=2)
+    try:
+        Trainer(DecoderLM(moe), AdamW(),
+                mesh=make_mesh((2, 1), ("data", "model"), device="cpu"))
+        msg = None
+    except NotImplementedError as e:
+        msg = str(e)
+    return {"hist": hist, "moe": msg,
+            "params": [_np_tree(p) for p in tree_leaves(params)]}
+
+
+SCENARIOS = {"fed_podwise": fed_podwise, "fit_mesh": fit_mesh,
+             "elastic": elastic, "mesh_of_two": mesh_of_two}

@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor anything of the JAX package."""
+"""The port and its examples import neither JAX nor anything of the JAX
+package."""
 
 import os
 import pathlib
@@ -8,6 +9,9 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
+# the port's examples (beside the reference's, which import the reference)
+EXAMPLES = [ROOT / "examples" / "torch_train_lm.py",
+            ROOT / "examples" / "torch_fault_tolerant_training.py"]
 
 
 def _modules():
@@ -50,11 +54,15 @@ def test_importing_every_module_pulls_in_no_jax():
               "repro_torch.models.registry",
               "repro_torch.configs.xlstm_350m",
               "repro_torch.configs.jamba_1_5_large_398b",
-              "repro_torch.configs.seamless_m4t_large_v2"):
+              "repro_torch.configs.seamless_m4t_large_v2",
+              "repro_torch.launch.mesh", "repro_torch.parallel",
+              "repro_torch.parallel.sharding"):
         assert m in mods, m
-    code = ("import importlib, sys\n"
+    code = ("import importlib, runpy, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            f"for path in {[str(p) for p in EXAMPLES]!r}:\n"
+            "    runpy.run_path(path, run_name='not_main')\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -71,6 +79,8 @@ def test_no_jax_or_reference_import_in_source():
                      r"(?!_torch))", re.MULTILINE)
     offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
                  if pat.search(p.read_text(encoding="utf-8"))]
-    offenders += [str(p.relative_to(ROOT)) for p in [ROOT / "chip_smoke.py"]
+    offenders += [str(p.relative_to(ROOT))
+                  for p in [ROOT / "chip_smoke.py", *EXAMPLES]
                   if p.is_file() and pat.search(p.read_text("utf-8"))]
     assert offenders == []
+    assert all(p.is_file() for p in EXAMPLES)

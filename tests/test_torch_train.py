@@ -15,7 +15,7 @@ jitted step, so the port is held against ``jax.jit`` of each piece:
 * ``Trainer.fit`` loss histories over 3 steps at rtol 1e-4.
 
 The learning tests mirror ``tests/test_runtime.py``; then the CLI and the
-paths that are not ported yet (exit code 2 or ``NotImplementedError``).
+paths that are not ported (exit code 2 or an exception).
 """
 
 import dataclasses
@@ -43,7 +43,10 @@ from repro.optim import grad_compress as jgc
 from repro.runtime import TrainConfig as JTrainConfig
 from repro.runtime import Trainer as JTrainer
 from repro.runtime.qat import fake_quantize_agent as jfake_quantize_agent
+import torch.distributed as dist
+from _torch_ranks import join_world, start_world
 from repro_torch.bridge import params_from_jax, train_state_from_jax
+from repro_torch.launch.mesh import init_ranks, make_mesh
 from repro_torch.configs import get_smoke
 from repro_torch.core import quantization as tq
 from repro_torch.data import MarkovLMConfig, MarkovLMDataset, ShardedLoader
@@ -379,17 +382,19 @@ def test_cli_smoke_improves():
 
 @pytest.mark.parametrize("argv,what", [
     (["--arch", "xlstm-350m-v0"], "xlstm-350m"),
-    (["--data", "2"], "--data 2")])
+    (["--data", "3"], "--data 3")])
 def test_cli_exits_2_on_what_is_not_ported(capsys, argv, what):
-    """``--ckpt-dir`` is ported (see below), and so is every arch of the
-    reference (xlstm-350m trains: ``tests/test_torch_cli.py``); an arch
-    name the registry does not know and data parallelism over several
-    chips exit 2 with one line."""
+    """``--ckpt-dir`` is ported (see below), every arch of the reference
+    (xlstm-350m trains: ``tests/test_torch_cli.py``) and data parallelism
+    over ranks (``tests/test_torch_parallel.py``); an arch name the
+    registry does not know, and a ``--data`` that does not divide the
+    ranks (3 on this one rank), exit 2 with one line."""
     assert train_main(["--smoke", "--device", "cpu", *argv]) == 2
     err = capsys.readouterr().err
     assert what in err and len(err.strip().splitlines()) == 1
     assert ("unknown arch 'xlstm-350m-v0'" in err) == (argv[0] == "--arch")
-    assert ("not yet ported" in err) == (argv[0] == "--data")
+    assert ("does not divide the 1 ranks" in err) == (argv[0] == "--data")
+    assert not dist.is_initialized()       # the CLI left no group behind
 
 
 @pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b"])
@@ -432,16 +437,48 @@ def test_cli_ckpt_dir_resumes(capsys, tmp_path):
     assert sorted(os.listdir(d)) == ["step_10", "step_15", "step_5"]
 
 
-def test_trainer_raises_on_what_is_not_ported():
+def test_trainer_raises_on_what_is_not_ported(tmp_path):
+    """Interleaved MoE belongs to the hybrid model; an MoE trainer whose
+    loss would be split over data-parallel ranks raises.  Training over a
+    mesh and compression over ``pod`` are ported: a mesh of one rank here
+    (``axis_name="pod"`` over it is the one-device compression, bitwise),
+    a mesh of two ranks in two processes."""
     model, opt = DecoderLM(get_smoke(ARCH)), AdamW()
     moe = dataclasses.replace(get_smoke(ARCH), n_experts=4,
                               experts_per_token=2, moe_every=2)
     with pytest.raises(ValueError, match="moe_every=1"):
         DecoderLM(moe)
-    Trainer(DecoderLM(dataclasses.replace(moe, moe_every=1)), opt, "cpu")
-    with pytest.raises(NotImplementedError, match="mesh of 2"):
-        Trainer(model, opt, mesh=["cpu", "cpu"])
-    assert Trainer(model, opt, mesh=["cpu"]).device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        compress_tree({"a": torch.zeros(2)}, {"a": torch.zeros(2)},
-                      axis_name="pod")
+    moe = DecoderLM(dataclasses.replace(moe, moe_every=1))
+    Trainer(moe, opt, "cpu")
+    world = start_world(2, [("mesh_of_two", {})], str(tmp_path), "two")
+    init_ranks("cpu")
+    try:
+        if not torch.cuda.is_available():   # no device: the card, or raise
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make_mesh((1, 1, 1), ("pod", "data", "model"))
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"),
+                         device="cpu")
+        tr = Trainer(model, opt, mesh=mesh,
+                     train_cfg=TrainConfig(grad_compression="int8_ef"))
+        assert tr.device.type == "cpu" and tr.podwise
+        Trainer(moe, opt, mesh=mesh)           # one rank: the MoE trains
+        with pytest.raises(ValueError, match="axes"):
+            Trainer(model, opt,
+                    mesh=make_mesh((1,), ("data",), device="cpu"))
+        g = {"a": torch.linspace(-1.0, 0.7, 9)}
+        e = {"a": torch.full((9,), 1e-3)}
+        want = compress_tree(g, e)
+        got = compress_tree(g, e, axis_name="pod", mesh=mesh)
+        for w, x in zip(tree_leaves(want), tree_leaves(got)):
+            assert torch.equal(w, x)
+        with pytest.raises(ValueError, match="a mesh with that axis"):
+            compress_tree(g, e, axis_name="pod")
+    finally:
+        dist.destroy_process_group()
+    (a,), (b,) = join_world(world)
+    assert a["moe"] == b["moe"] and "MoE training over 2 data-parallel" \
+        in a["moe"]
+    assert [h["step"] for h in a["hist"]] == [1, 2]
+    assert [h["loss"] for h in a["hist"]] == [h["loss"] for h in b["hist"]]
+    for x, y in zip(a["params"], b["params"]):
+        np.testing.assert_array_equal(x, y)

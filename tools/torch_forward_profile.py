@@ -358,7 +358,7 @@ def _profile_train(cfg, args) -> None:
 
     def step():
         # each step restarts from the same state: equal work every time
-        return tr._plain_step(*state, batch)
+        return tr._step(*state, batch)
 
     def parts():
         """Walls of the step's parts, each ended by a synchronize."""
