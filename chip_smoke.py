@@ -316,7 +316,25 @@ nothing of JAX or of the JAX package ``repro``.
    all-gather replaced by stacking), bitwise, the params equal on both
    ranks after every step; the ranks' flash launches counted.  Prints the
    walls of each step and the peak memory of each rank.
-20. Summary: one ``{"kernels": [...]}`` line, the card line, and last
+20. The serving examples and the int8-resident forward.  (a) Each of the
+   six ``examples/torch_*.py`` serving examples called in-process through
+   its ``main([])`` on the card at its smoke config, ``co_inference_serve``
+   three times (plain, ``--mixed-precision``, ``--compiled``): launch
+   counts zeroed before each call and read after, every kernel that
+   EXAMPLE_RUNS names for the call launched at least once (a graph's
+   kernels count in its capture's eager warm-up run), the examples' own
+   bitwise assertions (decode and speculative streams == the batch-1
+   reference) held on the card; each call's printed lines, wall and peak
+   memory, memory freed between calls.  (b) ``quantize_tree_stacked``
+   over qwen2-0.5b ``FULL`` and stablelm-3b ``FULL`` (seeded weights, one
+   model at a time) at int8 per-channel, at a per-layer plan cycling 2-8
+   bits and at 12 bits (the int16 container): codes and scales bitwise
+   the same call on a CPU copy of the weights; the 4 x 64 forward over
+   each quantized tree bitwise the forward over its dequantized leaves,
+   one flash launch a layer (counted); prints max |d logits| against the
+   float forward, the quantized leaves' effective bytes against their
+   float bytes, the quantize wall and the peak memory.
+21. Summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``; the per-shape numbers are printed
    in phases 3, 5, 6, 8, 17 and 18.
 """
@@ -2785,6 +2803,32 @@ def fleet_traffic(specs):
     return out
 
 
+# phase 20 (a): (example, argv, the kernels that must launch in the call).
+# The examples run their smoke configs: quickstart, adaptive and fleet
+# serve on the fake path (flash only), co_inference_serve's classes land
+# on b̂ = 4 / 8 / 16 (a mixed class holds an int8-container layer),
+# decode and speculative decode from the quantized cache
+EXAMPLE_RUNS = (
+    ("quickstart", [], ("flash_attention_fwd",)),
+    ("co_inference_serve", [], ("group_quantize", "qmm", "qmm_int4",
+                                "flash_attention_fwd")),
+    ("co_inference_serve", ["--mixed-precision"],
+     ("group_quantize", "qmm", "flash_attention_fwd")),
+    ("co_inference_serve", ["--compiled"], ("group_quantize", "qmm",
+                                            "qmm_int4",
+                                            "flash_attention_fwd")),
+    ("decode_serve", [], ("quantized_decode_attention", "row_gemm",
+                          "flash_attention_fwd")),
+    ("speculative_serve", [], ("quantized_decode_attention", "row_gemm",
+                               "flash_attention_fwd")),
+    ("adaptive_serve", [], ("flash_attention_fwd",)),
+    ("fleet_serve", [], ("flash_attention_fwd",)),
+)
+# phase 20 (b): the per-layer bits of its mixed plan, cycled over the
+# layers
+RESIDENT_MIXED = (2, 3, 4, 5, 6, 7, 8)
+
+
 def release_memory() -> str:
     """Collect garbage and free the allocator's cached blocks; the line
     to print: the card's memory in use and free."""
@@ -5059,6 +5103,142 @@ def mesh_two_ranks(cfg, dev):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the serving examples and the int8-resident forward
+# ---------------------------------------------------------------------------
+
+def examples_path(dev):
+    """Phase 20 (a): every serving example's ``main([])`` on the card, one
+    counted window each; returns the launches summed over the calls."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+    from repro_torch import kernels as tk
+    total = {}
+    for name, argv, want in EXAMPLE_RUNS:
+        path = ROOT / "examples" / f"torch_{name}.py"
+        spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        print(f"  {release_memory()}")
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mod.main(list(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = tk.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        what = " ".join([name] + list(argv))
+        for line in out.getvalue().splitlines():
+            if line.strip():
+                print(f"    | {line}")
+        print(f"  example {what}: wall {wall:.2f} s, peak {peak:.1f} MiB, "
+              f"launches {counts}")
+        for k in want:
+            assert counts.get(k, 0) > 0, f"{what}: {k} never launched"
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def resident_forward(cfg, dev, seed):
+    """Phase 20 (b) for one config: ``quantize_tree_stacked`` on the card
+    against a CPU copy, and the 4 x 64 forward over each quantized tree
+    against the forward over its dequantized leaves; returns the flash
+    launches of the quantized forwards."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core.quantization import (QuantConfig, QuantizedTensor,
+                                               QuantPlan,
+                                               quantize_tree_stacked)
+    from repro_torch.models.lm import DecoderLM, tree_leaves, tree_map
+
+    def dequantized(tree):
+        return tree_map(lambda a: a.dequantize()
+                        if isinstance(a, QuantizedTensor) else a, tree)
+
+    torch.cuda.reset_peak_memory_stats()
+    model = DecoderLM(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    host = tree_map(lambda a: a.cpu(), params)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.
+                           Generator().manual_seed(seed)).to(dev)
+    with torch.no_grad():
+        clean = model.forward(params, {"tokens": tokens})[0]
+    plans = (
+        ("int8 per-channel", QuantConfig(bits=8)),
+        ("mixed " + "/".join(map(str, RESIDENT_MIXED)),
+         QuantPlan.from_layer_bits(
+             [RESIDENT_MIXED[i % len(RESIDENT_MIXED)]
+              for i in range(cfg.n_layers)], default_bits=8)),
+        ("12-bit per-channel (int16)", QuantConfig(bits=12)))
+    flash = 0
+    for what, qcfg in plans:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qt = quantize_tree_stacked(params, qcfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        qh = quantize_tree_stacked(host, qcfg)
+        host_wall = time.perf_counter() - t0
+        n_q = 0
+        q_bytes = f_bytes = 0
+        for a, h in zip(tree_leaves(qt), tree_leaves(qh)):
+            if isinstance(a, QuantizedTensor):
+                assert isinstance(h, QuantizedTensor) and a.bits == h.bits
+                assert a.codes.dtype == h.codes.dtype, what
+                assert torch.equal(a.codes.cpu(), h.codes), \
+                    f"{cfg.name} {what}: codes differ from the CPU's"
+                assert torch.equal(a.scale.cpu(), h.scale), \
+                    f"{cfg.name} {what}: scales differ from the CPU's"
+                n_q += 1
+                q_bytes += a.nbytes_effective()
+                f_bytes += a.codes.numel() * 4
+        del qh
+        tk.reset_launch_counts()
+        with torch.no_grad():
+            got = model.forward(qt, {"tokens": tokens})[0]
+        torch.cuda.synchronize()
+        n_flash = tk.launch_counts()["flash_attention_fwd"]
+        assert n_flash == cfg.n_layers, (what, n_flash)
+        flash += n_flash
+        with torch.no_grad():
+            deq = model.forward(dequantized(qt), {"tokens": tokens})[0]
+        assert torch.isfinite(got).all(), what
+        assert torch.equal(got, deq), \
+            f"{cfg.name} {what}: int8-resident forward != dequantized tree's"
+        delta = float((got - clean).abs().max())
+        print(f"  {cfg.name} {what}: {n_q} leaves quantized, codes and "
+              f"scales == CPU bitwise; forward == dequantized tree "
+              f"bitwise, {n_flash} flash launches; max|d logits| vs float "
+              f"{delta:.4e} (max|logits| {float(clean.abs().max()):.3f}); "
+              f"{q_bytes / 2 ** 30:.3f} GiB effective vs "
+              f"{f_bytes / 2 ** 30:.3f} GiB float ({q_bytes / f_bytes:.3f}"
+              f"x); quantize wall {wall * 1e3:.1f} ms on the card, "
+              f"{host_wall:.2f} s on the host")
+        del qt, got, deq
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  {cfg.name}: peak {peak:.2f} GiB")
+    return flash
+
+
+def int8_resident_path(dev):
+    """Phase 20 (b): qwen2-0.5b and stablelm-3b ``FULL``, one at a time."""
+    from repro_torch.configs.qwen2_0_5b import FULL as QWEN
+    from repro_torch.configs.stablelm_3b import FULL as STABLELM
+    flash = 0
+    for seed, cfg in enumerate((QWEN, STABLELM)):
+        print(f"  {release_memory()}")
+        flash += resident_forward(cfg, dev, seed)
+    return flash
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5370,7 +5550,21 @@ def main() -> int:
     counts["flash_attention_fwd"] += mesh_two_ranks(cfg, dev)
     print(f"training over a mesh: {time.perf_counter() - t0:.1f}s")
 
-    # 20. summary
+    # 20. the serving examples on the card, and the int8-resident forward
+    # at full width
+    t0 = time.perf_counter()
+    for name, n in examples_path(dev).items():
+        if name in counts:
+            counts[name] += n
+    print(f"  serving examples: {time.perf_counter() - t0:.1f}s")
+    t1 = time.perf_counter()
+    counts["flash_attention_fwd"] += int8_resident_path(dev)
+    print(f"  {release_memory()}")
+    print(f"  int8-resident forward: {time.perf_counter() - t1:.1f}s")
+    print(f"examples and int8-resident forward: "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    # 21. summary
     names = {"group_quantize": ("csrc/group_quantize.cu",
                                 "src/repro/kernels/quantize.py:35"),
              "qmm": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:67"),

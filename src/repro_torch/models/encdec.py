@@ -29,7 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
-from .lm import tree_map, unstack_layers
+from .lm import refuse_quantized, tree_map, unstack_layers
 
 
 class EncDecModel:
@@ -175,6 +175,7 @@ class EncDecModel:
 
     def _hidden(self, params, batch, remat: bool = False):
         cfg = self.cfg
+        refuse_quantized(cfg, params)
         enc_out = self.encode(params, batch["embeds"], remat)
         ek, ev = self._cross_kv(params, enc_out)
         x = L.embed_tokens(params["embed"], batch["tokens"],

@@ -30,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from . import layers as L
 from . import moe as M
 from . import ssm as S
-from .lm import tree_map, unstack_layers
+from .lm import refuse_quantized, tree_map, unstack_layers
 from .xlstm_model import prepend_axis
 
 
@@ -166,6 +166,7 @@ class HybridLM:
 
     def _hidden(self, params, batch, remat: bool = False):
         cfg = self.cfg
+        refuse_quantized(cfg, params)
         x = L.embed_tokens(params["embed"], batch["tokens"],
                            getattr(torch, cfg.dtype))
         b, s = x.shape[0], x.shape[1]

@@ -38,7 +38,9 @@ from . import moe as M
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of a nested dict."""
+    """Apply ``fn`` to every leaf of a nested dict: a tensor, or a
+    ``QuantizedTensor`` (codes and scale together) of an int8-resident
+    tree (``core.quantization.quantize_tree_stacked``)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
@@ -50,7 +52,8 @@ def unstack_layers(tree, n: int):
     Through ``unbind``, whose backward stacks the slices' gradients in one
     op; indexing each layer instead would make autograd add a zero-filled
     gradient of the whole stack per layer (O(L^2) bytes in a training
-    step)."""
+    step).  A ``QuantizedTensor`` leaf unbinds into its layers' codes and
+    scales."""
     if isinstance(tree, dict):
         parts = {k: unstack_layers(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in parts} for i in range(n)]
@@ -58,8 +61,8 @@ def unstack_layers(tree, n: int):
 
 
 def tree_leaves(tree):
-    """The tensor leaves of nested dicts (in sorted-key order) and lists:
-    the reference's pytree order."""
+    """The leaves of nested dicts (in sorted-key order) and lists: the
+    reference's pytree order.  A ``QuantizedTensor`` is one leaf."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_leaves(tree[k])
@@ -68,6 +71,19 @@ def tree_leaves(tree):
             yield from tree_leaves(sub)
     else:
         yield tree
+
+
+def refuse_quantized(cfg, params) -> None:
+    """Raise, in one line, when ``params`` holds a ``QuantizedTensor``:
+    the recurrent, hybrid and encoder-decoder families index their
+    weights directly, and the reference's forwards refuse such a tree
+    (``'QuantizedTensor' object is not subscriptable``); only the
+    decoder-only LM reads every weight through ``.to(dtype)``."""
+    from ..core.quantization import QuantizedTensor
+    if any(isinstance(a, QuantizedTensor) for a in tree_leaves(params)):
+        raise TypeError(f"{cfg.name}: 'QuantizedTensor' object is not "
+                        "subscriptable (the int8-resident forward serves "
+                        "the decoder-only LM only)")
 
 
 class DecoderLM:

@@ -26,7 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import ssm as S
-from .lm import tree_map, unstack_layers
+from .lm import refuse_quantized, tree_map, unstack_layers
 
 
 def prepend_axis(ax, name: str = "blocks"):
@@ -104,6 +104,7 @@ class XLSTMModel:
 
     def _hidden(self, params, batch, remat: bool = False):
         cfg = self.cfg
+        refuse_quantized(cfg, params)
         x = L.embed_tokens(params["embed"], batch["tokens"],
                            getattr(torch, cfg.dtype))
         for bp in unstack_layers(params["blocks"], self.n_blocks):

@@ -1,6 +1,8 @@
 """The port and its examples import neither JAX nor anything of the JAX
 package."""
 
+import ast
+import importlib
 import os
 import pathlib
 import re
@@ -10,8 +12,11 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
 # the port's examples (beside the reference's, which import the reference)
-EXAMPLES = [ROOT / "examples" / "torch_train_lm.py",
-            ROOT / "examples" / "torch_fault_tolerant_training.py"]
+EXAMPLES = [ROOT / "examples" / f"torch_{name}.py"
+            for name in ("train_lm", "fault_tolerant_training", "quickstart",
+                         "co_inference_serve", "decode_serve",
+                         "speculative_serve", "adaptive_serve",
+                         "fleet_serve")]
 
 
 def _modules():
@@ -84,3 +89,19 @@ def test_no_jax_or_reference_import_in_source():
                   if p.is_file() and pat.search(p.read_text("utf-8"))]
     assert offenders == []
     assert all(p.is_file() for p in EXAMPLES)
+
+
+def test_core_exports_the_reference_core_api():
+    """``repro_torch.core`` exports every name ``repro/core/__init__.py``
+    imports, each the object of the port's module of the same name."""
+    tree = ast.parse((ROOT / "src" / "repro" / "core" / "__init__.py")
+                     .read_text("utf-8"))
+    names = [(node.module, a.name) for node in tree.body
+             if isinstance(node, ast.ImportFrom) for a in node.names]
+    assert len(names) > 50
+    core = importlib.import_module("repro_torch.core")
+    for module, name in names:
+        mod = importlib.import_module(f"repro_torch.core.{module}")
+        assert getattr(core, name) is getattr(mod, name), name
+        assert name in core.__all__
+    assert sorted(core.__all__) == sorted(n for _, n in names)
