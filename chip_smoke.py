@@ -334,7 +334,26 @@ nothing of JAX or of the JAX package ``repro``.
    one flash launch a layer (counted); prints max |d logits| against the
    float forward, the quantized leaves' effective bytes against their
    float bytes, the quantize wall and the peak memory.
-21. Summary: one ``{"kernels": [...]}`` line, the card line, and last
+21. Tensor-parallel compute and MoE training over data-parallel ranks,
+   each run spawned as phase 19 (b) spawns its ranks (gloo, sharing the
+   card) and freed before the next.  (a) qwen2-0.5b ``FULL`` at phase 9's
+   8 x 128 (QAT 8, int8 EF, TP_STEPS steps) over (data 1, model 2): each
+   rank computes on its shards (7 of the 14 heads with their one KV
+   head, half the MLP, half the vocabulary), its model-sharded leaves
+   half their full size, the two ranks' parameters bitwise equal after
+   every step; held against one rank's plain step on the card from the
+   same seed: loss within 1e-4 relative each step, at most 0.1 % of the
+   parameters beyond 1e-3 lr.  (b) qwen3-moe-235b-a22b at its published
+   widths cut to 1 layer and 16 of 128 experts (top-8 kept), MOE_BATCH x
+   MOE_SEQ over (data 2, model 1), MOE_STEPS steps: the global batch's
+   512 tokens are one capacity group spanning both ranks (the queue
+   counts exchanged), the router statistics summed; held against one
+   rank's fit on the global batch by the same tolerances.  The state
+   bytes of both runs are reckoned before they start.  Prints each
+   rank's step walls, peak memory, the all-reduces and all-gathers a
+   step (beside phase 19 (b)'s gathered run) and the flash launches
+   (counted into the table).
+22. Summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``; the per-shape numbers are printed
    in phases 3, 5, 6, 8, 17 and 18.
 """
@@ -342,6 +361,7 @@ nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -407,7 +427,7 @@ COMPILED_REQUESTS, COMPILED_SEQ = 12, (16, 512)
 # budgets: mean-bit budgets of 28 and 29 bits over the 6 agent layers
 # (max_mean_bits 4.79 and 4.93, from the FLOP counts alone), so each plan
 # holds int4-container (<= 4 bits) and int8-container (5-8 bits) layers
-# and no 1-bit layer (ROADMAP C.5(c))
+# and no 1-bit layer (ROADMAP C.7(c))
 MIXED_CLASSES = (("mixed-a", 1.31, 0.68), ("mixed-b", 1.32, 0.68))
 # the mixed decode run's classes: every b_kv rung they can take leaves a
 # mean budget of at least 4.8 bits (no 1-bit layer)
@@ -435,7 +455,7 @@ ADAPTIVE_CLASSES = (("edge-a", 1.3, 1.2), ("edge-b", 1.5, 1.5))
 # workload, and under both allocators every member's mean-bit budget
 # (max_mean_bits at its share; the kiosk's at each wifi-markov rate) lies
 # in 4.2-5.7 bits, so its plans hold int4- and int8-container layers and
-# none below 2 bits or above 8 (ROADMAP C.5(c); host math, checked on the
+# none below 2 bits or above 8 (ROADMAP C.7(c); host math, checked on the
 # CPU with these FLOP counts and the random weights' lambda, 45.0 and
 # 69.5).  The drone's and the kiosk's good-link plans are the same, so
 # they share graphs.
@@ -3943,7 +3963,7 @@ def routed_model(base, hook: str, cfg, plain, replay=None):
                 return plain(q, k, v)
             return super().attend(q, k, v)
 
-        def routed_moe(self, p, h):
+        def routed_moe(self, p, h, tp=None, dp=None):
             n = len(self.log)
 
             def topk(probs, k):
@@ -3955,7 +3975,8 @@ def routed_model(base, hook: str, cfg, plain, replay=None):
                     v = torch.gather(probs, -1, i)
                 self.log.append(i)
                 return v, i
-            return M.apply_moe(self.cfg, p, h, router_topk=topk)
+            return M.apply_moe(self.cfg, p, h, router_topk=topk, tp=tp,
+                               dp=dp)
 
     setattr(Routed, hook, Routed.routed_moe)
     return Routed(cfg)
@@ -4765,11 +4786,18 @@ def train_setup(cfg):
 def fingerprint(t) -> int:
     """An exact fingerprint of a tensor's bits, on its device: the int64
     (wrapping) sum of its 32-bit words, each weighted by (its index mod
-    65521) + 1.  Any one changed bit changes it."""
+    65521) + 1.  Any one changed bit changes it.  Summed in slices of
+    2^26 words (wrapping sums of slices wrap to the same total), so a
+    leaf of several GB needs no int64 copy of itself."""
     import torch
-    w = t.detach().contiguous().view(-1).view(torch.int32).to(torch.int64)
-    idx = torch.arange(w.numel(), device=w.device) % 65521 + 1
-    return int((w * idx).sum())
+    w = t.detach().contiguous().view(-1).view(torch.int32)
+    total, step = 0, 1 << 26
+    for lo in range(0, w.numel(), step):
+        part = w[lo:lo + step].to(torch.int64)
+        idx = torch.arange(lo, lo + part.numel(), device=w.device) \
+            % 65521 + 1
+        total += int((part * idx).sum())
+    return (total + 2 ** 63) % 2 ** 64 - 2 ** 63
 
 
 def state_prints(params, opt_state, errs):
@@ -5040,7 +5068,8 @@ def mesh_two_ranks(cfg, dev):
     1) over gloo (NCCL takes one rank a GPU), spawned; their losses and
     state fingerprints held bitwise against the same two pods stepped in
     this process, the params equal on both ranks after every step.
-    Returns the ranks' flash launches."""
+    Returns the ranks' flash launches and a line of rank 0's walls, peak
+    and clocked step."""
     import multiprocessing as mp
     import shutil
 
@@ -5099,7 +5128,9 @@ def mesh_two_ranks(cfg, dev):
           f"{card_line()}")
     for r in ranks:
         print(f"      rank {r['rank']} {r['clock']}")
-    return flash
+    r = ranks[0]
+    return flash, (f"rank 0 walls {[f'{w:.1f}' for w in r['walls']]} ms, "
+                   f"peak {r['peak_gib']:.2f} GiB, {r['clock']}")
 
 
 
@@ -5236,6 +5267,333 @@ def int8_resident_path(dev):
     for seed, cfg in enumerate((QWEN, STABLELM)):
         print(f"  {release_memory()}")
         flash += resident_forward(cfg, dev, seed)
+    return flash
+
+
+# ---------------------------------------------------------------------------
+# phase 21: tensor-parallel compute over model, MoE over data-parallel ranks
+# ---------------------------------------------------------------------------
+
+TP_STEPS = 3                # steps of phase 21 (a)
+MOE_BATCH, MOE_SEQ, MOE_STEPS = 4, 128, 2    # phase 21 (b)
+PARAM_FLIP_SHARE = 1e-3     # phase 9's: elements beyond 1e-3 lr
+
+
+def moe_config():
+    """Phase 21 (b)'s config: qwen3-moe-235b-a22b at its published widths,
+    1 layer and 16 of its 128 experts (top-8 kept)."""
+    return family_config("qwen3-moe-235b-a22b", 1, 1, 16)
+
+
+class Collectives:
+    """Counts of ``torch.distributed.all_reduce`` and ``all_gather`` calls
+    (every collective of a training step goes through one of them)."""
+
+    NAMES = ("all_reduce", "all_gather")
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self._undo = []
+        for name in self.NAMES:
+            fn = getattr(dist, name)
+
+            def counted(*args, _fn=fn, _name=name, **kwargs):
+                self.calls[_name] += 1
+                return _fn(*args, **kwargs)
+            self._undo.append((name, fn))
+            setattr(dist, name, counted)
+
+    def take(self):
+        out = dict(self.calls)
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        return out
+
+    def close(self):
+        import torch.distributed as dist
+        for name, fn in self._undo:
+            setattr(dist, name, fn)
+
+
+def state_bytes(cfg) -> int:
+    """Bytes of one whole parameter tree of ``cfg`` (float32)."""
+    import math
+    from repro_torch.models.lm import DecoderLM, tree_leaves
+    return 4 * sum(math.prod(t.shape)
+                   for t in tree_leaves(DecoderLM(cfg).param_structs()))
+
+
+def ranked_fit(rank, world, store, out_dir, what):
+    """Phase 21, one rank (a spawned process): ``what`` is "tp" ((a):
+    qwen2-0.5b ``FULL`` over (data 1, model 2), phase 9's training) or
+    "moe" ((b): ``moe_config()`` over (data 2, model 1), plain AdamW).
+    Steps ``Trainer.fit`` a step at a time; writes per step the loss,
+    grad norm, wall, the collectives and every param's bit fingerprint,
+    its peak memory, launches and the local shapes of its model-sharded
+    leaves as JSON; rank 0 saves its final params (gathered) for the
+    parent process to hold against one rank's fit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels as tk
+    from repro_torch.configs.qwen2_0_5b import FULL
+    from repro_torch.data import ShardedLoader
+    from repro_torch.device import set_float32_numerics
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.models.lm import DecoderLM, tree_leaves
+    from repro_torch.parallel.sharding import gather
+    from repro_torch.runtime import Trainer
+
+    set_float32_numerics()
+    dev = init_ranks("cuda:0", backend="gloo", store_file=store, rank=rank,
+                     world_size=world)
+    if what == "tp":
+        cfg, mesh = FULL, make_mesh((1, world), ("data", "model"),
+                                    device=dev)
+        tc, opt, data = train_setup(cfg)
+    else:
+        cfg, _ = moe_config()
+        mesh = make_mesh((world, 1), ("data", "model"), device=dev)
+        tc, opt, data = moe_setup(cfg)
+    tr = Trainer(DecoderLM(cfg), opt, mesh=mesh, train_cfg=tc)
+    state = tr.init_state(0)
+    out = {"rank": rank, "steps": [], "backend": dist.get_backend(),
+           "plan": None if tr.tp is None else {
+               k: getattr(tr.tp, k) for k in ("size", "rank", "attn", "mlp",
+                                              "vocab", "experts")},
+           "dp": None if tr.dp is None else [tr.dp.size, tr.dp.index],
+           "halves": []}
+    if tr._local is not None:
+        for p, d in zip(tree_leaves(state[0]), tree_leaves(tr._local)):
+            if d is not None:
+                out["halves"].append([list(p.to_local().shape),
+                                      list(p.shape), d])
+    loader = ShardedLoader(data, device=dev, mesh=mesh)
+    tk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    calls = Collectives()
+    try:
+        for _ in range(TP_STEPS if what == "tp" else MOE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, hist = tr.fit(loader, 1, state=state)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            step_calls = calls.take()
+            out["steps"].append(dict(
+                wall=wall, loss=hist[-1]["loss"],
+                grad_norm=hist[-1]["grad_norm"], lr=hist[-1]["lr"],
+                calls=step_calls, params=[fingerprint(gather(x))
+                                          for x in tree_leaves(state[0])]))
+            calls.take()            # the fingerprints' gathers
+    finally:
+        calls.close()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["launches"] = tk.launch_counts()
+    final = [gather(x).cpu() for x in tree_leaves(state[0])]  # collective
+    if rank == 0:
+        torch.save(final, pathlib.Path(out_dir) / "params.pt")
+    del final
+    with open(pathlib.Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def moe_setup(cfg):
+    """Phase 21 (b)'s training: plain AdamW on the linear schedule, Markov
+    data at MOE_BATCH x MOE_SEQ."""
+    from repro_torch.data import MarkovLMConfig, MarkovLMDataset
+    from repro_torch.optim import AdamW, linear_schedule
+    from repro_torch.runtime import TrainConfig
+    return (TrainConfig(log_every=1),
+            AdamW(learning_rate=linear_schedule(3e-4, 2, 20)),
+            MarkovLMDataset(MarkovLMConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=MOE_SEQ,
+                                           batch_size=MOE_BATCH)))
+
+
+def spawn_ranks(what, world, timeout=900):
+    """Start ``world`` ranks of :func:`ranked_fit` on the card, wait for
+    them; a failed rank fails the phase.  Returns (their JSONs, the
+    wall with start-up, the output directory)."""
+    import multiprocessing as mp
+    import shutil
+
+    out_dir = ROOT / "build" / f"phase21{what}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=ranked_fit, args=(r, world, str(
+        out_dir / "store"), str(out_dir), what)) for r in range(world)]
+    t0 = time.perf_counter()
+    # the ranks share the card: segments that grow in place keep each
+    # rank's cached-but-free blocks from holding the other's headroom
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    for p in procs:
+        p.join(timeout=timeout)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    assert codes == [0] * world, f"phase 21 ({what}) ranks exited {codes}"
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(world)]
+    for r in ranks:
+        assert r["backend"] == "gloo", r["backend"]
+    return ranks, time.perf_counter() - t0, out_dir
+
+
+def hold_ranked_fit(ranks, out_dir, tr, loader, steps):
+    """The ranks' fit against one rank's fit from the same seed on the
+    global batch: params bitwise equal across the ranks after every
+    step; each step's loss within 1e-4 relative and grad norm within 1e-3;
+    at most PARAM_FLIP_SHARE of the final params beyond 1e-3 lr.
+    Returns (a line of the comparison, the reference's step walls)."""
+    import torch
+    from repro_torch.models.lm import tree_leaves
+    for s in range(steps):
+        for r in ranks[1:]:
+            assert r["steps"][s]["params"] == ranks[0]["steps"][s]["params"], \
+                f"step {s + 1}: rank {r['rank']}'s params != rank 0's"
+    state, losses, norms, walls, _ = stepwise(tr, loader, tr.init_state(0),
+                                              steps)
+    got = [st["loss"] for st in ranks[0]["steps"]]
+    gnorm = [st["grad_norm"] for st in ranks[0]["steps"]]
+    for s, (a, b) in enumerate(zip(got, losses)):
+        assert abs(a - b) <= 1e-4 * abs(b), f"step {s + 1} loss {a} vs {b}"
+    for s, (a, b) in enumerate(zip(gnorm, norms)):
+        assert abs(a - b) <= 1e-3 * b, f"step {s + 1} grad norm {a} vs {b}"
+    lr = ranks[0]["steps"][-1]["lr"]
+    mine = torch.load(out_dir / "params.pt")
+    worst, moved, n = 0.0, 0, 0
+    for a, b in zip(mine, tree_leaves(state[0])):
+        d = (a.to(b.device) - b).abs()
+        worst = max(worst, float(d.max()))
+        moved += int((d > 1e-3 * lr).sum())
+        n += d.numel()
+    del state
+    assert moved <= PARAM_FLIP_SHARE * n, f"{moved} of {n} params differ"
+    return (f"losses {[f'{x:.6f}' for x in got]} vs one rank "
+            f"{[f'{x:.6f}' for x in losses]}, grad norms "
+            f"{[f'{x:.5f}' for x in gnorm]} vs {[f'{x:.5f}' for x in norms]};"
+            f" params max|d| {worst:.3e}, {moved} of {n} beyond 1e-3 lr "
+            f"(lr {lr:.3e})"), walls
+
+
+def rank_lines(ranks, gathered=None):
+    """Per rank: step walls, peak, collectives a step (and phase 19 (b)'s
+    gathered run beside them)."""
+    lines = []
+    for r in ranks:
+        calls = r["steps"][-1]["calls"]
+        lines.append(
+            f"      rank {r['rank']}: walls "
+            f"{[f'{st['wall']:.1f}' for st in r['steps']]} ms; peak "
+            f"{r['peak_gib']:.2f} GiB; a step {calls['all_reduce']} "
+            f"all-reduces, {calls['all_gather']} all-gathers")
+    if gathered is not None:
+        lines.append(f"      beside phase 19 (b)'s gathered run "
+                     f"(pod 2, data 1, model 1): {gathered}")
+    return lines
+
+
+def tensor_parallel_path(cfg, dev, gathered):
+    """Phase 21 (a); returns the ranks' flash launches."""
+    import torch
+    from repro_torch.data import ShardedLoader
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.runtime import Trainer
+
+    whole = state_bytes(cfg)
+    print(f"  (a) reckoned: {cfg.name} params {whole / 2 ** 30:.2f} GiB "
+          f"whole; a rank holds ~half of params, m, v and the residual "
+          f"(~{2 * whole / 2 ** 30:.2f} GiB) and gathers nothing over "
+          f"model; one rank's plain step after the ranks exit holds "
+          f"~{4 * whole / 2 ** 30:.2f} GiB of state")
+    ranks, wall, out_dir = spawn_ranks("tp", 2)
+    for r in ranks:
+        assert r["plan"] == dict(size=2, rank=r["rank"], attn=True,
+                                 mlp=True, vocab=True, experts=False), r
+        assert r["halves"] and all(
+            2 * loc[d] == full[d] and loc[:d] + loc[d + 1:]
+            == full[:d] + full[d + 1:] for loc, full, d in r["halves"]), \
+            r["halves"]
+    tc, opt, data = train_setup(cfg)
+    line, ref_walls = hold_ranked_fit(
+        ranks, out_dir, Trainer(DecoderLM(cfg), opt, dev, tc),
+        ShardedLoader(data, device=dev), TP_STEPS)
+    per_step = 2 * cfg.n_layers
+    flash = 0
+    for r in ranks:
+        n = r["launches"]["flash_attention_fwd"]
+        assert n == per_step * TP_STEPS, r["launches"]
+        flash += n
+    print(f"  (a) two gloo ranks on one card, mesh (data 1, model 2), "
+          f"{cfg.name} B={TRAIN_BATCH} S={TRAIN_SEQ} QAT 8 int8_ef, "
+          f"{TP_STEPS} steps: {len(ranks[0]['halves'])} leaves computed on "
+          f"their half, params bitwise equal on both ranks after every "
+          f"step; {line}; one rank's walls "
+          f"{[f'{w:.1f}' for w in ref_walls]} ms; flash launches {flash}; "
+          f"{wall:.1f}s with start-up; {card_line()}")
+    for line in rank_lines(ranks, gathered):
+        print(line)
+    (out_dir / "params.pt").unlink()
+    torch.cuda.empty_cache()
+    return flash
+
+
+def moe_parallel_path(dev):
+    """Phase 21 (b); returns the ranks' flash launches."""
+    import torch
+    from repro_torch.data import ShardedLoader
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.runtime import Trainer
+
+    cfg, reduced = moe_config()
+    whole = state_bytes(cfg) / 2 ** 30
+    held = 3 * whole / (2 if cfg.fsdp else 1)    # p, m, v (fsdp: halves)
+    rank = 2 * held + 2 * whole    # + AdamW's new state, params, grads
+    print(f"  (b) {reduced}; reckoned: params {whole:.2f} GiB; a rank "
+          f"holds params, m, v {'halved over data (fsdp)' if cfg.fsdp else 'whole'}"
+          f" ({held:.2f} GiB) and in a step the gathered params, their "
+          f"gradients and AdamW's new state: ~{rank:.2f} GiB, two ranks "
+          f"~{2 * rank:.2f} GiB; the one-rank fit after them "
+          f"~{5 * whole:.2f} GiB")
+    ranks, wall, out_dir = spawn_ranks("moe", 2)
+    for r in ranks:
+        assert r["dp"] == [2, r["rank"]] and r["plan"] is None, r
+    tc, opt, data = moe_setup(cfg)
+    tokens = MOE_BATCH * MOE_SEQ
+    assert tokens <= 1024 and tokens % 2 == 0   # one group over both ranks
+    line, ref_walls = hold_ranked_fit(
+        ranks, out_dir, Trainer(DecoderLM(cfg), opt, dev, tc),
+        ShardedLoader(data, device=dev), MOE_STEPS)
+    per_step = 2 * cfg.n_layers
+    flash = 0
+    for r in ranks:
+        n = r["launches"]["flash_attention_fwd"]
+        assert n == per_step * MOE_STEPS, r["launches"]
+        flash += n
+    print(f"  (b) two gloo ranks on one card, mesh (data 2, model 1), "
+          f"{cfg.name} 1 layer, 16 experts top-8, B={MOE_BATCH} "
+          f"S={MOE_SEQ} ({tokens} tokens: one capacity group over both "
+          f"ranks), {MOE_STEPS} steps: params bitwise equal on both ranks; "
+          f"{line}; one rank's walls {[f'{w:.1f}' for w in ref_walls]} ms;"
+          f" flash launches {flash}; {wall:.1f}s with start-up; "
+          f"{card_line()}")
+    for line in rank_lines(ranks):
+        print(line)
+    (out_dir / "params.pt").unlink()
+    torch.cuda.empty_cache()
     return flash
 
 
@@ -5547,7 +5905,8 @@ def main() -> int:
     print(f"  {release_memory()}")
     counts["flash_attention_fwd"] += mesh_one_rank(cfg, dev)
     print(f"  {release_memory()}")
-    counts["flash_attention_fwd"] += mesh_two_ranks(cfg, dev)
+    flash_pods, gathered = mesh_two_ranks(cfg, dev)
+    counts["flash_attention_fwd"] += flash_pods
     print(f"training over a mesh: {time.perf_counter() - t0:.1f}s")
 
     # 20. the serving examples on the card, and the int8-resident forward
@@ -5564,7 +5923,19 @@ def main() -> int:
     print(f"examples and int8-resident forward: "
           f"{time.perf_counter() - t0:.1f}s")
 
-    # 21. summary
+    # 21. tensor-parallel compute over model, then MoE training over
+    # data-parallel ranks, two gloo ranks sharing the card each
+    t0 = time.perf_counter()
+    print(f"  {release_memory()}")
+    counts["flash_attention_fwd"] += tensor_parallel_path(cfg, dev,
+                                                          gathered)
+    print(f"  {release_memory()}")
+    counts["flash_attention_fwd"] += moe_parallel_path(dev)
+    print(f"  {release_memory()}")
+    print(f"tensor and MoE data parallelism: "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    # 22. summary
     names = {"group_quantize": ("csrc/group_quantize.cu",
                                 "src/repro/kernels/quantize.py:35"),
              "qmm": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:67"),

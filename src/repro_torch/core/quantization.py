@@ -249,9 +249,12 @@ def _uniform_qdq(x: torch.Tensor, cfg: QuantConfig, *,
     return torch.copysign(q * step, x)
 
 
-def _potlog_qdq(x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
-    """Power-of-two logarithmic codebook: {0} U {amax 2^{-k}, k=0..n-2}."""
-    amax = _absmax(x, cfg)
+def _potlog_qdq(x: torch.Tensor, cfg: QuantConfig,
+                amax: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Power-of-two logarithmic codebook: {0} U {amax 2^{-k}, k=0..n-2}.
+    ``amax`` as in :func:`_uniform_qdq`."""
+    if amax is None:
+        amax = _absmax(x, cfg)
     amax = torch.where(amax <= 0, torch.ones_like(amax), amax)
     n = cfg.magnitude_levels
     if n <= 1:
@@ -484,17 +487,18 @@ class _QatQuantize(torch.autograd.Function):
     """Fake quantization forward, identity (straight-through) backward."""
 
     @staticmethod
-    def forward(ctx, x, cfg):
+    def forward(ctx, x, cfg, amax):
         if cfg.scheme == "uniform":
-            return _uniform_qdq(x, cfg, compiled=True)
-        return _potlog_qdq(x, cfg)
+            return _uniform_qdq(x, cfg, compiled=True, amax=amax)
+        return _potlog_qdq(x, cfg, amax=amax)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad, None, None
 
 
-def qat_quantize(x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+def qat_quantize(x: torch.Tensor, cfg: QuantConfig,
+                 amax: "torch.Tensor | None" = None) -> torch.Tensor:
     """Fake-quant with identity (straight-through) gradients: the training
     loop's agent partition sees quantized weights in the forward while
     gradients pass through unchanged.
@@ -502,9 +506,11 @@ def qat_quantize(x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
     The reference only runs this inside its jitted train step, so the
     uniform step is formed as there, ``amax * fl(1/levels)``, and the
     forward is bitwise the jitted reference's (:func:`quantize_dequantize`
-    keeps the eager reference's true division).
+    keeps the eager reference's true division).  ``amax`` (shaped as the
+    granularity's reduction) replaces that reduction: a shard's, reduced
+    over the ranks that hold the rest of the weight.
     """
-    return _QatQuantize.apply(x, cfg)
+    return _QatQuantize.apply(x, cfg, amax)
 
 
 def wire_bytes(n_codes: int, bits: int) -> int:

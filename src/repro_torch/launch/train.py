@@ -21,10 +21,11 @@ Across ranks: ``torchrun --standalone --nproc-per-node N -m
 repro_torch.launch.train ...`` runs one rank a process (NCCL on the cards,
 gloo with ``--device cpu``) over a ``(data, model)`` mesh, ``--data`` the
 data-parallel degree (0: every rank, the reference's default) and the
-ranks left over on ``model`` (which shards the training state); each rank
-takes its slice of the global batch, and rank 0 prints.  A ``--data``
-that does not divide the ranks exits 2 with a one-line error, as does an
-MoE arch over several data-parallel ranks.
+ranks left over on ``model`` (a decoder LM computes on its shards there,
+the other families gather the state); each rank takes its slice of the
+global batch, and rank 0 prints.  A ``--data`` that does not divide the
+ranks exits 2 with a one-line error, as does the hybrid MoE arch
+(jamba) over several data-parallel ranks.
 """
 
 from __future__ import annotations

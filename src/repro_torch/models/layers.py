@@ -165,11 +165,18 @@ def matmul_group(x, ws, biases=None):
     return ys if biases is None else [y + b for y, b in zip(ys, biases)]
 
 
-def qkv_project(cfg, p, x, positions, products=matmul_group):
+def qkv_project(cfg, p, x, positions, products=matmul_group, tp=None):
     """x [B,S,D] -> q [B,S,H,dh], k/v [B,S,KV,dh] with RoPE applied.
     ``products(x, ws, biases)`` computes q, k and v (and adds their
     biases): :func:`matmul_group`, or the decode step's
-    :func:`row_matmul_group`, one launch for the three."""
+    :func:`row_matmul_group`, one launch for the three.
+
+    Under tensor-parallel attention (``tp.attn``) the weights are this
+    rank's column shards, whole KV groups: the heads returned are its
+    own, ``H / model`` and ``KV / model`` of them."""
+    if tp is not None and tp.attn:
+        x = tp.copy(x)
+        cfg = tp.attn_cfg(cfg)
     biases = ([p[b].to(x.dtype) for b in ("bq", "bk", "bv")]
               if cfg.qkv_bias else None)
     q, k, v = products(x, [p[n].to(x.dtype) for n in ("wq", "wk", "wv")],
@@ -331,9 +338,13 @@ def activation(cfg, h):
     return F.gelu(h, approximate="tanh")
 
 
-def apply_mlp(cfg, p, x, products=matmul_group):
+def apply_mlp(cfg, p, x, products=matmul_group, tp=None):
     """The MLP; ``products`` as in :func:`qkv_project` (gate and up share
-    one call)."""
+    one call).  Under a tensor-parallel MLP (``tp.mlp``) the weights are
+    this rank's column (``wi*``) and row (``wo``) shards and the result is
+    its partial sum, for the caller to reduce over ``model``."""
+    if tp is not None and tp.mlp:
+        x = tp.copy(x)
     if cfg.act == "silu":
         g, u = products(x, [p["wi_gate"].to(x.dtype),
                             p["wi_up"].to(x.dtype)])
@@ -359,11 +370,26 @@ def init_embeddings(cfg, generator, *, device=None):
     return p, ax
 
 
-def embed_tokens(p, tokens, dtype):
-    return p["tok"].to(dtype)[tokens]
+def embed_tokens(p, tokens, dtype, tp=None):
+    """The token embeddings.  Vocabulary-parallel (``tp.vocab``): ``tok``
+    holds this rank's rows; each rank looks up the tokens in its range,
+    zeros the others and the ranks' rows are summed, which adds one
+    nonzero term to zeros (exact)."""
+    if tp is None or not tp.vocab:
+        return p["tok"].to(dtype)[tokens]
+    tok = p["tok"].to(dtype)
+    local = tokens - tp.offset(tok.shape[0])
+    mine = (local >= 0) & (local < tok.shape[0])
+    rows = tok[torch.where(mine, local, torch.zeros_like(local))]
+    return tp.reduce(torch.where(mine[..., None], rows,
+                                 torch.zeros((), dtype=rows.dtype)))
 
 
-def unembed(cfg, p, x, matmul=torch.matmul):
+def unembed(cfg, p, x, matmul=torch.matmul, tp=None):
+    """The head's logits; vocabulary-parallel (``tp.vocab``), this rank's
+    columns of them."""
+    if tp is not None and tp.vocab:
+        x = tp.copy(x)
     if cfg.tie_embeddings:
         return matmul(x, p["tok"].to(x.dtype).T)
     return matmul(x, p["unembed"].to(x.dtype))
@@ -373,11 +399,28 @@ def unembed(cfg, p, x, matmul=torch.matmul):
 # Losses
 # ---------------------------------------------------------------------------
 
-def softmax_cross_entropy(logits, labels, mask=None):
-    """Mean next-token CE in float32.  logits [..., V], labels [...] int."""
-    logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+def _lse_label(logits, labels, tp=None):
+    """(logsumexp, the label's logit) over the last axis of f32 logits.
+    Vocabulary-parallel (``tp.vocab``), ``logits`` are this rank's
+    columns: the max is reduced (no gradient: it cancels), then the sum
+    of exponentials, and the label's logit comes from the rank that holds
+    it (the others add zero)."""
+    if tp is None or not tp.vocab:
+        return (torch.logsumexp(logits, dim=-1),
+                torch.gather(logits, -1, labels[..., None].long())[..., 0])
+    mx = tp.all_max(torch.amax(logits, dim=-1))
+    total = tp.reduce(torch.sum(torch.exp(logits - mx[..., None]), dim=-1))
+    local = labels.long() - tp.offset(logits.shape[-1])
+    mine = (local >= 0) & (local < logits.shape[-1])
+    ll = torch.gather(logits, -1, torch.where(
+        mine, local, torch.zeros_like(local))[..., None])[..., 0]
+    return torch.log(total) + mx, tp.reduce(torch.where(mine, ll, 0.0))
+
+
+def softmax_cross_entropy(logits, labels, mask=None, tp=None):
+    """Mean next-token CE in float32.  logits [..., V] (vocabulary-parallel
+    under ``tp.vocab``: this rank's columns), labels [...] int."""
+    lse, ll = _lse_label(logits.to(torch.float32), labels, tp)
     nll = lse - ll
     if mask is not None:
         nll = nll * mask
@@ -386,7 +429,7 @@ def softmax_cross_entropy(logits, labels, mask=None):
 
 
 def chunked_cross_entropy(cfg, x, embed_params, labels, mask=None,
-                          chunk: int = 256):
+                          chunk: int = 256, tp=None):
     """CE from final *hidden states* with sequence-chunked unembedding.
 
     The [B, S, V] logits dominate a training step's temporary memory at
@@ -395,19 +438,19 @@ def chunked_cross_entropy(cfg, x, embed_params, labels, mask=None,
     ``torch.utils.checkpoint``: backward recomputes each chunk's logits,
     and only one chunk's are ever live.  x [B, S, D] (final-normed),
     labels [B, S], mask [B, S] or None; returns the mean NLL (masked mean
-    when a mask is given).
+    when a mask is given).  Vocabulary-parallel under ``tp.vocab``: each
+    chunk's logits are this rank's columns (:func:`_lse_label`).
     """
     b, s, _ = x.shape
     if s <= chunk or s % chunk != 0:
-        return softmax_cross_entropy(unembed(cfg, embed_params, x), labels,
-                                     mask)
+        return softmax_cross_entropy(unembed(cfg, embed_params, x, tp=tp),
+                                     labels, mask, tp)
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
 
     def one(xi, li, mi):
-        logits = unembed(cfg, embed_params, xi).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        logits = unembed(cfg, embed_params, xi, tp=tp).to(torch.float32)
+        lse, ll = _lse_label(logits, li, tp)
         return torch.sum((lse - ll) * mi)
 
     tot = x.new_zeros((), dtype=torch.float32)

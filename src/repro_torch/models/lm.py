@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attn import quantized_decode_attention
 from ..kernels.quantize import kv_quantize
+from ..parallel.sharding import constrain_activations, sequence_sharded
 from . import layers as L
 from . import moe as M
 
@@ -147,25 +148,61 @@ class DecoderLM:
     # ------------------------------------------------------------------
     # blocks
     # ------------------------------------------------------------------
-    def _block(self, lp, x, positions):
+    def _block(self, lp, x, positions, tp=None, dp=None, seq=False):
         """One layer; returns (x, aux): the MoE router's load-balancing
-        loss, or 0.0 for a dense layer."""
-        cfg = self.cfg
-        h = L.apply_norm(cfg, x, lp["ln1"])
-        q, k, v = L.qkv_project(cfg, lp["attn"], h, positions)
-        attn = self.attend(q, k, v)
-        x = x + attn.reshape(x.shape[:2] + (cfg.q_dim,)) \
-            @ lp["attn"]["wo"].to(x.dtype)
-        h2 = L.apply_norm(cfg, x, lp["ln2"])
-        y, aux = self._ffn(lp["ffn"], h2)
-        return x + y, aux
+        loss, or 0.0 for a dense layer.
 
-    def _ffn(self, p, h):
+        Under tensor-parallel compute (``tp``) the attention, MLP or
+        experts whose sizes divide compute on this rank's shards and their
+        partial sums are reduced over ``model``; the others compute
+        replicated.  With ``seq`` (``parallel.sharding.sequence_sharded``)
+        ``x`` is this rank's sequence chunk: it is gathered whole before
+        each norm (so the norms' scales see every position, as without
+        ``seq``, and need no reduction of their gradients), and the partial
+        sums come back reduce-scattered.  ``dp``: the MoE router's
+        statistics and capacity over the data-parallel ranks."""
+        cfg = self.cfg
+        h = L.apply_norm(cfg, self._enter(x, tp, seq), lp["ln1"])
+        sharded = tp is not None and tp.attn
+        q, k, v = L.qkv_project(cfg, lp["attn"], h, positions, tp=tp)
+        attn = self.attend(q, k, v)
+        y = attn.reshape(h.shape[:2] + (q.shape[2] * q.shape[3],)) \
+            @ lp["attn"]["wo"].to(x.dtype)
+        x = x + self._exit(y, tp, seq, sharded)
+        h2 = L.apply_norm(cfg, self._enter(x, tp, seq), lp["ln2"])
+        y, aux = self._ffn(lp["ffn"], h2, tp, dp)
+        sharded = tp is not None and (tp.experts if cfg.n_experts
+                                      else tp.mlp)
+        return x + self._exit(y, tp, seq, sharded), aux
+
+    @staticmethod
+    def _enter(x, tp, seq):
+        """The residual whole for a block's norm: gathered over the
+        sequence chunks under ``seq`` (chunk backward; the sharded
+        products' inputs add their own all-reduce backward).  Under
+        ``tp`` without ``seq``, a view: the norm's uses of its input then
+        sum their gradients before the residual's is added, in the order
+        the gather's backward sums them, so ``seq`` changes no bit."""
+        if seq:
+            return tp.gather(x, 1)
+        return x if tp is None else x.view_as(x)
+
+    @staticmethod
+    def _exit(y, tp, seq, sharded):
+        """A block's output back into the residual's layout: partial sums
+        (``sharded``) reduced, or reduce-scattered under ``seq``; a
+        replicated result as it is, or its chunk under ``seq``."""
+        if sharded:
+            return tp.scatter(y, 1) if seq else tp.reduce(y)
+        return tp.split(y, 1) if seq else y
+
+    def _ffn(self, p, h, tp=None, dp=None):
         """The layer's MLP, or its MoE (the reference's ``"auto"`` path);
-        returns (y, aux)."""
+        returns (y, aux), y a partial sum over ``model`` where ``tp``
+        shards it."""
         if self.cfg.n_experts:
-            return M.apply_moe(self.cfg, p, h)
-        return L.apply_mlp(self.cfg, p, h), 0.0
+            return M.apply_moe(self.cfg, p, h, tp=tp, dp=dp)
+        return L.apply_mlp(self.cfg, p, h, tp=tp), 0.0
 
     def attend(self, q, k, v):
         """One layer's full-sequence causal attention, q [B, S, H, dh],
@@ -176,20 +213,27 @@ class DecoderLM:
         return L.blockwise_attention(q, k, v, causal=True,
                                      window=self.cfg.sliding_window)
 
-    def _run_stack(self, params, x, positions, *, remat: bool = False):
+    def _run_stack(self, params, x, positions, *, remat: bool = False,
+                   tp=None, dp=None):
         """All layers for training; returns (x, the layers' aux losses
         summed in layer order).  ``remat`` recomputes each layer in the
         backward pass (``torch.utils.checkpoint``), keeping only the layer
-        inputs alive, as the reference's per-layer ``jax.checkpoint``."""
+        inputs alive, as the reference's per-layer ``jax.checkpoint``.
+        ``tp``/``dp`` as in :meth:`_block`; under the activation-sharding
+        context the residual is held as its spec says between the blocks
+        (``parallel.sharding.constrain_activations``) and returned
+        whole."""
+        seq = sequence_sharded(tp, x.shape[1])
+        x = constrain_activations(x, tp)
         aux = 0.0
         for lp_i in unstack_layers(params["layers"], self.cfg.n_layers):
             if remat:
-                x, a = checkpoint(self._block, lp_i, x, positions,
-                                  use_reentrant=False)
+                x, a = checkpoint(self._block, lp_i, x, positions, tp, dp,
+                                  seq, use_reentrant=False)
             else:
-                x, a = self._block(lp_i, x, positions)
+                x, a = self._block(lp_i, x, positions, tp, dp, seq)
             aux = aux + a
-        return x, aux
+        return (tp.gather(x, 1) if seq else x), aux
 
     def run_layers_window(self, params, x, positions, lo: int, hi: int):
         """Layers [lo, hi) applied in order; returns (x, aux=0.0): the
@@ -206,15 +250,16 @@ class DecoderLM:
     # ------------------------------------------------------------------
     # embedding
     # ------------------------------------------------------------------
-    def _embed(self, params, batch: Dict[str, Any]):
-        """batch dict -> (x [B, S, D], positions [B, S])."""
+    def _embed(self, params, batch: Dict[str, Any], tp=None):
+        """batch dict -> (x [B, S, D], positions [B, S]); ``tp``: a
+        vocabulary-parallel lookup (:func:`layers.embed_tokens`)."""
         dtype = getattr(torch, self.cfg.dtype)
         parts = []
         if "embeds" in batch:
             parts.append(batch["embeds"].to(dtype))
         if "tokens" in batch:
             parts.append(L.embed_tokens(params["embed"], batch["tokens"],
-                                        dtype))
+                                        dtype, tp))
         x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
         b, s = x.shape[0], x.shape[1]
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -232,21 +277,39 @@ class DecoderLM:
         x = L.apply_norm(self.cfg, x, params["final_norm"])
         return L.unembed(self.cfg, params["embed"], x), aux
 
-    def loss(self, params, batch, *, remat: bool = False):
+    def loss(self, params, batch, *, remat: bool = False, tp=None,
+             dp=None, ce_weight=None):
         """Mean next-token CE of ``batch["labels"]`` (masked by
         ``batch["loss_mask"]`` when present) from the final hidden states,
         with the chunked unembedding: the full [B, S, V] logits never
         materialize for long sequences.  MoE configs add 0.01 x the
-        layers' load-balancing loss."""
-        x, positions = self._embed(params, batch)
-        x, aux = self._run_stack(params, x, positions, remat=remat)
+        layers' load-balancing loss.  ``tp``: tensor-parallel compute over
+        the mesh's ``model`` axis, ``params`` holding this rank's shards
+        of the parts that ``tp`` splits (``parallel/tensor_parallel.py``).
+
+        ``dp`` (an MoE config whose batch is split over data-parallel
+        ranks): this rank's part of the global batch's loss.  The layers'
+        router statistics and capacity queues span the ranks, so the aux
+        term is the global batch's on every rank, and its gradient here is
+        this rank's tokens' part.  The result is ``ce_weight`` (this
+        rank's share of the loss tokens) x its mean CE plus 0.01 x the
+        aux term valued at 1 / ``dp.size`` of it: summed over the ranks,
+        the values give the global loss and the gradients its gradient."""
+        x, positions = self._embed(params, batch, tp)
+        x, aux = self._run_stack(params, x, positions, remat=remat, tp=tp,
+                                 dp=dp)
         x = L.apply_norm(self.cfg, x, params["final_norm"])
         labels = batch["labels"]
         if x.shape[1] != labels.shape[1]:
             x = x[:, -labels.shape[1]:]
         ce = L.chunked_cross_entropy(self.cfg, x, params["embed"], labels,
-                                     batch.get("loss_mask"))
-        return ce + 0.01 * aux if self.cfg.n_experts else ce
+                                     batch.get("loss_mask"), tp=tp)
+        if not self.cfg.n_experts:
+            return ce
+        if dp is not None:
+            ce = ce * ce_weight
+            aux = aux + aux.detach() * (1.0 / dp.size - 1.0)
+        return ce + 0.01 * aux
 
     # ------------------------------------------------------------------
     # serving: the decode protocol

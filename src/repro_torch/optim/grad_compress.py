@@ -32,8 +32,14 @@ def init_error_state(params) -> Any:
                                           device=p.device), params)
 
 
-def _quantize_leaf(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize_leaf(g: torch.Tensor,
+                   tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int8 codes, the absmax scale) of ``g``; under ``tp`` ``g`` is this
+    rank's shard of a leaf split over ``model`` and the absmax is the
+    whole leaf's (a max over the ranks: exact)."""
     amax = torch.amax(torch.abs(g))
+    if tp is not None:
+        amax = tp.all_max(amax)
     scale = torch.where(amax > 0, amax * _INV_127, 1.0)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -67,11 +73,12 @@ def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
     return torch.stack(parts)
 
 
-def quantize_with_feedback(g: torch.Tensor, err: torch.Tensor):
+def quantize_with_feedback(g: torch.Tensor, err: torch.Tensor, tp=None):
     """(codes, scale, new residual) of ``g + err``: this pod's part of
-    the exchange, bitwise the jitted reference's."""
+    the exchange, bitwise the jitted reference's (``tp``: as in
+    :func:`_quantize_leaf`, elementwise on the shard)."""
     gf = g.to(torch.float32) + err
-    q, scale = _quantize_leaf(gf)
+    q, scale = _quantize_leaf(gf, tp)
     # XLA contracts the reference's ``gf - q * scale`` into one fused
     # multiply-subtract (a single rounding).  In float64 the product of an
     # int8 code and an f32 scale is exact, and so is the difference (a
@@ -83,12 +90,14 @@ def quantize_with_feedback(g: torch.Tensor, err: torch.Tensor):
 
 
 def compress_decompress(g: torch.Tensor, err: torch.Tensor,
-                        axis_name: Optional[str] = None, mesh=None):
+                        axis_name: Optional[str] = None, mesh=None,
+                        tp=None):
     """Quantize (g + err) to int8, exchange the codes over ``axis_name``
     of ``mesh`` when given, dequantize; returns (g_hat, new_err) with the
-    codes and residual bitwise the jitted reference's."""
+    codes and residual bitwise the jitted reference's.  ``tp``: ``g`` is
+    this rank's shard over ``model`` (:func:`_quantize_leaf`)."""
     group = _group(axis_name, mesh)
-    q, scale, new_err = quantize_with_feedback(g, err)
+    q, scale, new_err = quantize_with_feedback(g, err, tp)
     if group is not None:
         g_hat = pod_mean(_all_gather(q, group),
                          _all_gather(scale.reshape(1), group).reshape(-1))
@@ -98,15 +107,19 @@ def compress_decompress(g: torch.Tensor, err: torch.Tensor,
 
 
 def compress_tree(grads, err_state, axis_name: Optional[str] = None,
-                  mesh=None):
+                  mesh=None, tp=None, local=None):
     """Error-feedback compression of every leaf (sorted-key order, the
-    same on every rank); returns (compressed_grads, new_err_state)."""
+    same on every rank); returns (compressed_grads, new_err_state).
+    ``local`` mirrors ``grads`` with the dimension a leaf is split on over
+    ``tp``'s ``model`` group, None where it is whole."""
     if isinstance(grads, dict):
-        outs = {k: compress_tree(grads[k], err_state[k], axis_name, mesh)
+        outs = {k: compress_tree(grads[k], err_state[k], axis_name, mesh,
+                                 tp, None if local is None else local[k])
                 for k in sorted(grads)}
         return ({k: outs[k][0] for k in grads},
                 {k: outs[k][1] for k in grads})
-    return compress_decompress(grads, err_state, axis_name, mesh)
+    return compress_decompress(grads, err_state, axis_name, mesh,
+                               None if local is None else tp)
 
 
 def compression_ratio(dtype=torch.float32) -> float:

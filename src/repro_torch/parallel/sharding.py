@@ -23,16 +23,23 @@ per leading dimension: None, an axis name, or a tuple of axis names,
 trailing Nones dropped.  :func:`placements_for` turns it into ``DTensor``
 placements, ``Shard(dim)`` or ``Replicate()`` per mesh dimension.  The
 port holds the parameters, the AdamW moments and the int8 residual as
-``DTensor``s so placed; a training step gathers them and computes on full
-tensors (``runtime/train_loop.py``): ``model`` shards the state, not the
-compute.
+``DTensor``s so placed; a training step gathers them over every mesh
+axis but ``model`` and computes on its ``model`` shards where the part
+they belong to divides (``parallel/tensor_parallel.py``,
+``runtime/train_loop.py``).
+
+:func:`activation_sharding` and :func:`constrain_activations` are the
+reference's sequence-parallel context: under tensor-parallel compute, a
+spec that maps the sequence axis (the second) to ``model`` holds the
+residual stream sequence-sharded between blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -42,6 +49,56 @@ from ..launch.mesh import axis_sizes
 
 LogicalRules = Dict[str, Any]  # logical name -> mesh axis | tuple | None
 Spec = Tuple[Any, ...]
+
+
+# ---------------------------------------------------------------------------
+# Activation-sharding context (Megatron-style sequence parallelism)
+# ---------------------------------------------------------------------------
+# The reference constrains the [B, S, D] residual at every layer boundary to
+# this spec (typically (('pod', 'data'), 'model')) and GSPMD inserts the
+# all-gather before attention and the MLP and the reduce-scatter after them.
+# The port's tensor-parallel blocks do so by hand: with the sequence entry
+# on 'model' each block takes and returns this rank's sequence chunk.
+
+_ACTIVATION_SPEC: Optional[Spec] = None
+
+
+@contextlib.contextmanager
+def activation_sharding(spec: Optional[Spec]):
+    """Within the context, models hold the residual stream as ``spec``
+    (a spec tuple over [B, S, D]) says."""
+    global _ACTIVATION_SPEC
+    prev = _ACTIVATION_SPEC
+    _ACTIVATION_SPEC = spec
+    try:
+        yield
+    finally:
+        _ACTIVATION_SPEC = prev
+
+
+def sequence_sharded(tp, seq_len: int) -> bool:
+    """Whether the residual of a ``seq_len`` sequence is held
+    sequence-sharded over ``tp``'s ``model`` group: under the context,
+    with the spec's sequence entry on ``model`` and a length that
+    divides."""
+    spec = _ACTIVATION_SPEC
+    if tp is None or spec is None or len(spec) < 2:
+        return False
+    entry = spec[1]
+    names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+    return "model" in names and seq_len % tp.size == 0
+
+
+def constrain_activations(x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The full residual [B, S, D] as the ambient spec holds it between
+    blocks: this rank's sequence chunk where :func:`sequence_sharded`
+    (chunk forward, all-gather backward), else ``x``.  A no-op outside
+    the context and without tensor-parallel compute.  The blocks keep the
+    layout, so one call at the layer stack's entry holds it between all
+    of them (the reference constrains at each boundary)."""
+    if x.dim() < 2 or not sequence_sharded(tp, x.shape[1]):
+        return x
+    return tp.split(x, 1)
 
 
 def default_rules(cfg, *, long_context: bool = False) -> LogicalRules:
@@ -165,13 +222,16 @@ def replicated(mesh) -> NamedSharding:
 # runs for CPU and CUDA tensors alike, and the local part is a slice, so the
 # same code runs on NCCL ranks, gloo ranks and one rank alone.
 
-def local_part(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+def local_part(full: torch.Tensor, mesh, placements,
+               keep: Tuple[str, ...] = ()) -> torch.Tensor:
     """This rank's part of ``full`` under ``placements`` on ``mesh``
-    (sizes divide: :func:`spec_for` guarantees it)."""
+    (sizes divide: :func:`spec_for` guarantees it).  ``full`` is already
+    this rank's part along the mesh axes named in ``keep``."""
     coord = mesh.get_coordinate()
+    names = mesh.mesh_dim_names or ()
     part = full
     for i, pl in enumerate(placements):
-        if isinstance(pl, Shard):
+        if isinstance(pl, Shard) and not (keep and names[i] in keep):
             part = part.chunk(mesh.size(i), dim=pl.dim)[coord[i]]
     # a copy, not a view: a view would keep the whole tensor alive
     return part.clone() if part.numel() != full.numel() \
@@ -190,16 +250,19 @@ def distribute(full: torch.Tensor, sharding: NamedSharding) -> DTensor:
     return place(full, sharding.mesh, sharding.placements)
 
 
-def gather(t):
+def gather(t, keep: Tuple[str, ...] = ()):
     """The full tensor of a ``DTensor`` (collective over the mesh
-    dimensions that shard it, innermost first); any other value as it
-    is."""
+    dimensions that shard it, innermost first), but for the mesh axes
+    named in ``keep``, along which it stays this rank's part; any other
+    value as it is."""
     if not isinstance(t, DTensor):
         return t
     mesh, full = t.device_mesh, t.to_local()
+    names = mesh.mesh_dim_names or ()
     for i in reversed(range(mesh.ndim)):
         pl = t.placements[i]
-        if isinstance(pl, Shard) and mesh.size(i) > 1:
+        if isinstance(pl, Shard) and mesh.size(i) > 1 \
+                and not (keep and names[i] in keep):
             parts = [torch.empty_like(full) for _ in range(mesh.size(i))]
             dist.all_gather(parts, full.contiguous(),
                             group=mesh.get_group(i))

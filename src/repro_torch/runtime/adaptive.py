@@ -26,7 +26,7 @@ An infeasible window degrades instead of raising: the engine falls back
 to the lowest-distortion plan that still meets the deadline alone, and
 past that to b̂ = 1 at the maximum frequencies.  On the kernel path a
 1-bit layer computes NaN in the reference and the port alike (levels = 0,
-ROADMAP C.5(c)); the fallback is ported as it stands.
+ROADMAP C.7(c)); the fallback is ported as it stands.
 
 Every plan a replan installs goes through the engine's weight cache
 (``group_quantize`` once per plan on the kernel path) and, with

@@ -20,14 +20,23 @@ Over a mesh (a ``DeviceMesh`` with axes ``("data", "model")`` or ``("pod",
 "data", "model")``) each rank holds its part of the state, steps on its
 slice of the global batch (``data/loader.py``) and
 
-* gathers the parameters and the residual whole, computes the loss and
-  the gradients on full tensors (``model`` shards the state, not the
-  compute: tensor-parallel products wait for a later slice), then
+* gathers the parameters and the residual over every mesh axis but
+  ``model``.  A decoder LM (dense or MoE) over ``model`` > 1 computes on
+  its ``model`` shards (``parallel/tensor_parallel.py``:
+  ``decoder_plan``): the attention leaves (``wq``/``wk``/``wv``, their
+  biases, ``wo``) where the KV heads divide, the MLP's where ``d_ff``
+  does, the expert stacks where the experts do, the embedding and head
+  where the vocabulary does; those leaves stay this rank's shard and the
+  collectives run inside the forward and backward.  Every other leaf
+  (norms, the router, and the parts whose sizes do not divide) is
+  gathered whole and computes replicated; so do all leaves of the other
+  families (their tensor-parallel compute is later work).  Then
 * without a ``pod`` axis or without int8 compression (the reference's
   ``_plain_step``, GSPMD over the global batch): sums each rank's
   gradients weighted by its share of the global batch's loss tokens over
   ``pod`` x ``data``, which gives the global batch's mean-loss gradient,
-  then compresses on one device when asked;
+  then compresses on one device when asked (the int8 scale of a leaf
+  split over ``model`` is its whole absmax, a max over the ranks);
 * with a ``pod`` axis and int8 compression (``_podwise_step``): sums the
   weighted gradients over ``data`` inside each pod, exchanges them as
   int8 codes over ``pod`` (``g_hat = sum_p s_p q_p / P``), takes the
@@ -41,8 +50,14 @@ slice of the global batch (``data/loader.py``) and
 
 A mesh of one rank runs the same code as one device and computes the same
 bits.  MoE layers' load-balancing loss and expert capacity depend on every
-token of the batch the loss sees: a trainer whose loss would be split over
-several data-parallel ranks raises for an MoE config.
+token of the batch the loss sees.  When the loader splits the batch over
+several data-parallel ranks (``build_step`` asks its rule), a decoder
+LM's MoE layers sum the router's per-expert statistics over them and
+count each expert's capacity queue across them
+(``parallel/tensor_parallel.py``: ``DataParallel``); each rank
+backpropagates its part of the global batch's loss (``DecoderLM.loss``
+with ``dp``), and the ranks' losses and gradients are summed (the dense
+path weights the gradients after the backward instead).
 """
 
 from __future__ import annotations
@@ -58,13 +73,16 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from ..core.quantization import QuantConfig
+from ..data.loader import BATCH_RULES
 from ..device import resolve_device, set_float32_numerics
 from ..launch.mesh import axis_sizes
-from ..models.lm import tree_leaves, tree_map
+from ..models.lm import DecoderLM, tree_leaves, tree_map
 from ..optim import AdamW, AdamWState, compress_tree, global_norm
 from ..optim import init_error_state
-from ..parallel.sharding import (default_rules, distribute, gather,
-                                 local_part, tree_shardings)
+from ..parallel.sharding import (batch_shardings, default_rules,
+                                 distribute, gather, local_part,
+                                 tree_shardings)
+from ..parallel.tensor_parallel import DataParallel, decoder_plan
 from . import qat as qat_mod
 
 MESH_AXES = (("data", "model"), ("pod", "data", "model"))
@@ -90,11 +108,28 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def _part(full, like):
-    """This rank's part of ``full`` where ``like`` is a ``DTensor``."""
+def _part(full, like, dim=None):
+    """This rank's part of ``full`` where ``like`` is a ``DTensor``;
+    ``dim`` not None: ``full`` is already this rank's ``model`` shard."""
     if isinstance(like, DTensor):
-        return local_part(full, like.device_mesh, like.placements)
+        return local_part(full, like.device_mesh, like.placements,
+                          () if dim is None else ("model",))
     return full
+
+
+def _gather(t, dim=None):
+    """``t`` whole, or (``dim`` not None) whole but for its ``model``
+    shard."""
+    return gather(t, () if dim is None else ("model",))
+
+
+def _map3(fn, a, b, c):
+    """``fn`` over the leaves of three nested dicts of one structure;
+    ``c`` may be None (None at every leaf)."""
+    if isinstance(a, dict):
+        return {k: _map3(fn, a[k], b[k], None if c is None else c[k])
+                for k in a}
+    return fn(a, b, c)
 
 
 def _wrap(local, like):
@@ -122,8 +157,16 @@ class Trainer:
             raise ValueError(f"grad_compression must be 'none' or "
                              f"'int8_ef', got {self.tc.grad_compression!r}")
         self.rules = default_rules(self.cfg)
+        self._axes = model.logical_axes()
         self.podwise = False
         self._dp_groups = []
+        # tensor-parallel compute over ``model``: the plan and the model
+        # dimension each leaf keeps local (None: gathered whole)
+        self.tp, self._local = None, None
+        # an MoE step's data-parallel ranks, whether the loader splits the
+        # batch over them (``build_step``), and the rows each rank's slice
+        # then has
+        self.dp, self._split, self._rows = None, False, None
         if mesh is not None:
             names = tuple(mesh.mesh_dim_names or ())
             if names not in MESH_AXES:
@@ -142,16 +185,22 @@ class Trainer:
             dp_axes = ("data",) if self.podwise else tuple(
                 a for a in ("pod", "data") if a in sizes)
             dp = math.prod(sizes[a] for a in dp_axes)
+            decoder = isinstance(model, DecoderLM)
             if self.cfg.n_experts and dp > 1:
-                raise NotImplementedError(
-                    f"MoE training over {dp} data-parallel ranks: the "
-                    "router's load-balancing loss and expert capacity "
-                    "depend on the whole batch (ROADMAP A.7)")
+                if not decoder:
+                    raise NotImplementedError(
+                        f"MoE training over {dp} data-parallel ranks is "
+                        f"ported for the decoder-only LM, not "
+                        f"{type(model).__name__} (ROADMAP A.7.2(b))")
+                self.dp = DataParallel.of(mesh, dp_axes)
             self._dp_groups = [mesh.get_group(a) for a in dp_axes
                                if sizes[a] > 1]
+            if decoder and sizes["model"] > 1:
+                specs = _zip_map(lambda s, _: s.spec,
+                                 self.param_shardings(), self._axes)
+                self.tp, self._local = decoder_plan(self.cfg, specs, mesh)
         self.device = resolve_device(device)
         set_float32_numerics()
-        self._axes = model.logical_axes()
         self._step_fn = None
         self.step = 0
         self.qcfg = None
@@ -176,64 +225,141 @@ class Trainer:
     # ------------------------------------------------------------------
     # step construction
     # ------------------------------------------------------------------
+    def _quantized(self, params):
+        if self.qcfg is None:
+            return params
+        return qat_mod.fake_quantize_agent(
+            params, self._axes, self.cfg, self.qcfg, ste=True, tp=self.tp,
+            local=self._local)
+
     def _loss_fn(self, params, batch):
-        if self.qcfg is not None:
-            params = qat_mod.fake_quantize_agent(
-                params, self._axes, self.cfg, self.qcfg, ste=True)
-        return self.model.loss(params, batch, remat=self.tc.remat)
+        """The loss this rank backpropagates: its batch's, or (an MoE step
+        over data-parallel ranks) its part of the global batch's."""
+        params = self._quantized(params)
+        kw = {} if self.tp is None else {"tp": self.tp}
+        if self._split:
+            kw.update(dp=self.dp, ce_weight=self._token_share(batch))
+        return self.model.loss(params, batch, remat=self.tc.remat, **kw)
+
+    def _token_share(self, batch):
+        """This rank's share of the global batch's loss tokens
+        (``loss_mask`` when the batch has one) over the data-parallel
+        ranks."""
+        n = (batch["loss_mask"].sum(dtype=torch.float32)
+             if "loss_mask" in batch else
+             torch.tensor(float(batch["labels"].numel()),
+                          device=batch["labels"].device))
+        total = n.clone()
+        for g in self._dp_groups:
+            dist.all_reduce(total, group=g)
+        return n / torch.clamp(total, min=1.0)
+
+    def _sum_over_ranks(self, tensors):
+        for t in tensors:
+            for g in self._dp_groups:
+                dist.all_reduce(t, group=g)
 
     def _mean_over_ranks(self, grads, loss, batch):
         """The gradients and loss of the mean loss over the batch slices
         of the data-parallel ranks: each rank's weighted by its share of
         the loss tokens (``loss_mask`` when the batch has one), summed."""
-        n = (batch["loss_mask"].sum(dtype=torch.float32)
-             if "loss_mask" in batch else
-             torch.tensor(float(batch["labels"].numel()),
-                          device=loss.device))
-        total = n.clone()
-        for g in self._dp_groups:
-            dist.all_reduce(total, group=g)
-        w = n / torch.clamp(total, min=1.0)
+        w = self._token_share(batch)
         grads = tree_map(lambda t: t * w, grads)
         loss = loss * w
-        for t in [loss, *tree_leaves(grads)]:
-            for g in self._dp_groups:
-                dist.all_reduce(t, group=g)
+        self._sum_over_ranks([loss, *tree_leaves(grads)])
         return grads, loss
 
     def _step(self, params, opt_state, err, batch):
         """(params, opt_state, err, batch) -> the same, updated, and the
         metrics ``{"loss", "grad_norm", "lr"}`` as device scalars."""
-        leaves = tree_map(lambda p: gather(p).detach().requires_grad_(True),
-                          params)
+        return self._apply(*self._backward(params, batch), batch, params,
+                           opt_state, err)
+
+    def _backward(self, params, batch):
+        """([this rank's gradients], its loss); the leaves it computed
+        with are freed on return, only their gradients kept.  An MoE step
+        over data-parallel ranks returns them summed over the ranks
+        already."""
+        if self._rows is not None and batch["labels"].shape[0] != self._rows:
+            raise ValueError(
+                f"this rank's batch has {batch['labels'].shape[0]} rows; "
+                f"the loader's rule gives it {self._rows}")
+        leaves = _zip_map(lambda p, d: _gather(p, d).detach()
+                          .requires_grad_(True), params, self._dims(params))
         loss = self._loss_fn(leaves, batch)
         loss.backward()
-        return self._apply(tree_map(lambda p: p.grad, leaves),
-                           loss.detach(), batch, params, opt_state, err)
+        grads, loss = tree_map(lambda p: p.grad, leaves), loss.detach()
+        if self._split:
+            self._sum_over_ranks([loss, *tree_leaves(grads)])
+        return [grads], loss
 
-    def _apply(self, grads, loss, batch, params, opt_state, err):
-        """The step after this rank's full gradients and loss: their mean
-        over the data-parallel ranks, compression, AdamW on this rank's
-        part of the state."""
-        if self._dp_groups:
+    def _dims(self, tree):
+        """The model dimension each leaf keeps local, mirroring ``tree``
+        (None everywhere without tensor-parallel compute)."""
+        if self._local is None:
+            return tree_map(lambda _: None, tree)
+        return self._local
+
+    def _global_norm(self, grads):
+        """``global_norm`` of the whole gradients: a leaf split over
+        ``model`` adds the sum of its shards' squares over the ranks (one
+        all-reduce for all of them), the leaves in sorted-key order."""
+        if self.tp is None:
+            return global_norm(grads)
+        sqs = [torch.sum(torch.square(g.to(torch.float32)))
+               for g in tree_leaves(grads)]
+        split = [i for i, d in enumerate(tree_leaves(self._local))
+                 if d is not None]
+        if split:
+            summed = self.tp.all_sum(torch.stack([sqs[i] for i in split]))
+            for j, i in enumerate(split):
+                sqs[i] = summed[j]
+        total = sqs[0]
+        for sq in sqs[1:]:
+            total = total + sq
+        return torch.sqrt(total)
+
+    def _apply(self, held, loss, batch, params, opt_state, err):
+        """The step after the backward, given ``held``, a list holding
+        this rank's gradients (a leaf that computes on its ``model`` shard
+        has that shard's), and its loss.  The list is emptied, so the
+        whole gradients are freed before AdamW, only this rank's parts of
+        them kept."""
+        grads, loss, err = self._reduce(held.pop(), loss, batch, err)
+        norm = self._global_norm(grads)
+        parts = _map3(_part, grads, params, self._local)
+        del grads
+        return self._update(parts, norm, loss, params, opt_state, err)
+
+    def _reduce(self, grads, loss, batch, err):
+        """(gradients, loss, residual) after the mean over the
+        data-parallel ranks (an MoE step's backward summed them already)
+        and the compression; new trees where either ran."""
+        if self._dp_groups and not self._split:
             grads, loss = self._mean_over_ranks(grads, loss, batch)
+        dims = self._dims(grads)
         if self.tc.grad_compression == "int8_ef":
             axis = "pod" if self.podwise else None
-            grads, new_err = compress_tree(grads, tree_map(gather, err),
-                                           axis, self.mesh)
-            err = _zip_map(lambda e, like: _wrap(_part(e, like), like),
-                           new_err, err)
+            grads, new_err = compress_tree(
+                grads, _zip_map(_gather, err, dims), axis, self.mesh,
+                self.tp, self._local)
+            err = _map3(lambda e, like, d: _wrap(_part(e, like, d), like),
+                        new_err, err, self._local)
             if self.podwise:
                 group = self.mesh.get_group("pod")
                 dist.all_reduce(loss, group=group)
                 loss = loss * float(np.float32(1.0) / np.float32(
                     dist.get_world_size(group)))
+        return grads, loss, err
+
+    def _update(self, parts, norm, loss, params, opt_state, err):
+        """AdamW on this rank's part of the state, given its parts of the
+        gradients and their global norm."""
         new_p, new_state, metrics = self.opt.update(
-            _zip_map(_part, grads, params),
+            parts,
             AdamWState(step=opt_state.step, m=tree_map(_local, opt_state.m),
                        v=tree_map(_local, opt_state.v)),
-            tree_map(_local, params),
-            grad_norm=global_norm(grads))
+            tree_map(_local, params), grad_norm=norm)
         params = _zip_map(_wrap, new_p, params)
         opt_state = AdamWState(step=new_state.step,
                                m=_zip_map(_wrap, new_state.m, opt_state.m),
@@ -242,7 +368,25 @@ class Trainer:
         return params, opt_state, err, metrics
 
     def build_step(self, batch_struct=None) -> Callable:
-        """The step function (eager: nothing is traced or compiled)."""
+        """The step function (eager: nothing is traced or compiled).
+        ``batch_struct``, the global batch's shapes (the loader's
+        ``peek_structure``), tells an MoE step over data-parallel ranks
+        how the loader places the batch, by the loader's own rule: sliced
+        over every ``pod`` x ``data`` rank, or whole on each where it
+        does not divide; the step then checks each batch's rows."""
+        self._split, self._rows = False, None
+        if self.dp is not None:
+            if batch_struct is None:
+                raise ValueError("an MoE step over data-parallel ranks "
+                                 "needs the global batch's structure")
+            labels = batch_struct["labels"]
+            phys = batch_shardings({"labels": labels}, BATCH_RULES,
+                                   self.mesh)["labels"].spec[0]
+            axes = (() if phys is None else
+                    phys if isinstance(phys, tuple) else (phys,))
+            sizes = axis_sizes(self.mesh)
+            self._split = bool(axes)
+            self._rows = labels.shape[0] // math.prod(sizes[a] for a in axes)
         self._step_fn = self._step
         return self._step_fn
 

@@ -118,16 +118,19 @@ def _np_tree(tree):
     return gather(tree).detach().cpu().numpy().copy()
 
 
-def _trainer(mesh, tc, lr, clip_norm=1.0, arch=ARCH):
+def _trainer(mesh, tc, lr, clip_norm=1.0, arch=ARCH, variant=None):
     """A trainer over ``mesh``: AdamW with the linear schedule ``lr``
-    (peak, warmup, total), or a constant 1e-3 where ``lr`` is None."""
+    (peak, warmup, total), or a constant 1e-3 where ``lr`` is None;
+    ``variant`` replaces fields of the smoke config."""
+    import dataclasses
     from repro_torch.configs import get_smoke
     from repro_torch.models.registry import build_model
     from repro_torch.optim import AdamW, linear_schedule
     from repro_torch.runtime import TrainConfig, Trainer
     opt = AdamW(learning_rate=1e-3 if lr is None else linear_schedule(*lr),
                 clip_norm=clip_norm)
-    return Trainer(build_model(get_smoke(arch)), opt, "cpu",
+    cfg = dataclasses.replace(get_smoke(arch), **(variant or {}))
+    return Trainer(build_model(cfg), opt, "cpu",
                    TrainConfig(log_every=1, **tc), mesh=mesh)
 
 
@@ -193,7 +196,8 @@ def fed_podwise(tmp, pod, model, ranks=None):
         scales = tree_map(lambda t: float(_quantize_leaf(t)[1]),
                           _plus(g, e0))
         g_hat, e1 = compress_tree(g, e0, "pod", mesh)
-        *state, metrics = tr._apply(g, torch.tensor(float(losses[p])),
+        *state, metrics = tr._apply([_model_shards(tr, g)],
+                                    torch.tensor(float(losses[p])),
                                     None, *state)
         out.append({"codes": codes, "scales": scales,
                     "g_hat": _np_tree(g_hat), "err": _np_tree(e1),
@@ -202,38 +206,89 @@ def fed_podwise(tmp, pod, model, ranks=None):
     return out
 
 
+def _model_shards(tr, grads):
+    """Whole gradients as ``Trainer._apply`` takes them: this rank's
+    ``model`` shard of the leaves that compute on their shards."""
+    if tr.tp is None:
+        return grads
+
+    def one(g, d):
+        if isinstance(g, dict):
+            return {k: one(g[k], d[k]) for k in g}
+        return g if d is None else g.chunk(tr.tp.size, d)[tr.tp.rank]
+    return one(grads, tr._local)
+
+
 def _plus(a, b):
     if isinstance(a, dict):
         return {k: _plus(a[k], b[k]) for k in a}
     return a.to(b.dtype) + b
 
 
+def products(tr, state, batch):
+    """[(x's shape, w's shape)] of every ``torch.matmul`` and ``@`` in one
+    forward of the trainer's loss on ``batch``, from the leaves its step
+    computes with (each gathered but for its ``model`` shard where it
+    computes on it)."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+    from repro_torch.runtime.train_loop import _gather, _zip_map
+
+    seen = []
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if getattr(func, "__name__", "") in ("matmul", "__matmul__"):
+                seen.append((tuple(args[0].shape), tuple(args[1].shape)))
+            return func(*args, **(kwargs or {}))
+
+    leaves = _zip_map(_gather, state[0], tr._dims(state[0]))
+    with torch.no_grad(), Record():
+        tr._loss_fn(leaves, batch)
+    return seen
+
+
 def fit_mesh(tmp, shape, axes, steps, masked=False, batch=12, seq=32,
-             inputs="whole", ranks=None):
+             inputs="whole", ranks=None, arch=ARCH, variant=None,
+             spec=None, record=False):
     """``Trainer.fit`` over a mesh of ``shape``, from the test's state, on
     this rank's slice of the global batch, a step at a time; returns the
     history, the full state after it, the parameters after each step,
-    this rank's first batch slice and its coordinate."""
+    this rank's first batch slice and its coordinate.  ``variant``
+    replaces fields of the smoke config of ``arch``; ``spec`` runs the
+    steps under ``activation_sharding(spec)``; ``record`` adds the
+    products of one forward on the first batch (:func:`products`) and
+    the trainer's tensor-parallel plan."""
+    import contextlib
     from repro_torch.data import ShardedLoader
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import activation_sharding
 
     inp = _inputs(tmp, inputs)
     mesh = make_mesh(tuple(shape), tuple(axes), ranks, device="cpu")
     if mesh.get_coordinate() is None:
         return None                     # a rank outside the mesh
-    tr = _trainer(mesh, inp["tc"], inp["lr"])
-    loader = ShardedLoader(markov(batch, seq, masked), device="cpu",
-                           mesh=mesh)
-    first = {k: v.numpy() for k, v in next(loader).items()}
+    tr = _trainer(mesh, inp["tc"], inp["lr"], arch=arch, variant=variant)
+    loader = ShardedLoader(markov(batch, seq, masked, arch=arch),
+                           device="cpu", mesh=mesh)
+    first = next(loader)
     loader.seek(0)
+    tr.build_step(loader.peek_structure())
     state, hist, params = _start(tr, inp), [], []
-    for _ in range(steps):
-        state, h = tr.fit(loader, 1, state=state)
-        hist += h
-        params.append(_np_tree(state[0]))
+    out = {}
+    if record:
+        out["products"] = products(tr, state, first)
+        out["plan"] = {k: getattr(tr.tp, k) for k in
+                       ("size", "rank", "attn", "mlp", "vocab", "experts")}
+    with (contextlib.nullcontext() if spec is None
+          else activation_sharding(tuple(spec))):
+        for _ in range(steps):
+            state, h = tr.fit(loader, 1, state=state)
+            hist += h
+            params.append(_np_tree(state[0]))
     return {"hist": hist, "state": _np_tree(tuple(state)),
-            "params": params, "batch": first,
-            "coord": list(mesh.get_coordinate())}
+            "params": params, "coord": list(mesh.get_coordinate()),
+            "batch": {k: v.numpy() for k, v in first.items()}, **out}
 
 
 def _placed(tree):
@@ -290,14 +345,16 @@ def elastic(tmp, ckpt_dir, arch="stablelm-3b"):
 
 def mesh_of_two(tmp):
     """Two pods of one rank each, int8 EF: two steps from ``init_state``
-    (history and the gathered parameters), and the one line an MoE
-    trainer over two data-parallel ranks raises."""
+    (history and the gathered parameters); an MoE decoder's trainer over
+    two data-parallel ranks (its ``DataParallel``), and the one line an
+    MoE hybrid's raises there."""
     import dataclasses
 
     from repro_torch.configs import get_smoke
     from repro_torch.data import ShardedLoader
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.lm import DecoderLM, tree_leaves
+    from repro_torch.models.registry import build_model
     from repro_torch.optim import AdamW
     from repro_torch.runtime import TrainConfig, Trainer
 
@@ -309,15 +366,50 @@ def mesh_of_two(tmp):
                                                 device="cpu", mesh=mesh), 2)
     moe = dataclasses.replace(get_smoke(ARCH), n_experts=4,
                               experts_per_token=2)
+    dp2 = make_mesh((2, 1), ("data", "model"), device="cpu")
+    dp = Trainer(DecoderLM(moe), AdamW(), mesh=dp2).dp
     try:
-        Trainer(DecoderLM(moe), AdamW(),
-                mesh=make_mesh((2, 1), ("data", "model"), device="cpu"))
+        Trainer(build_model(get_smoke("jamba-1.5-large-398b")), AdamW(),
+                mesh=dp2)
         msg = None
     except NotImplementedError as e:
         msg = str(e)
-    return {"hist": hist, "moe": msg,
+    return {"hist": hist, "moe": (dp.size, dp.index), "hybrid": msg,
             "params": [_np_tree(p) for p in tree_leaves(params)]}
 
 
+def vocab_ce(tmp, model, ranks=None):
+    """The vocabulary-parallel lookup and cross-entropy of a (data 1,
+    ``model``) mesh's trainer plan, on the test's inputs (``ce``: the
+    tied table, and per length hidden states, labels and a mask): whether
+    the lookup of this rank's rows, summed over ``model``, equals the
+    whole table's; per length the loss and its gradient in the hidden
+    states."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+
+    inp = _inputs(tmp, "ce")
+    mesh = make_mesh((1, model), ("data", "model"), ranks, device="cpu")
+    if mesh.get_coordinate() is None:
+        return None
+    tr = _trainer(mesh, {}, None)
+    tok = torch.from_numpy(inp["tok"])
+    mine = {"tok": tok.chunk(model, 0)[tr.tp.rank].clone()}
+    out = {}
+    for s in (k for k in inp if k != "tok"):
+        d = {k: torch.from_numpy(v) for k, v in inp[s].items()}
+        out["lookup_equal"] = out.get("lookup_equal", True) and torch.equal(
+            L.embed_tokens(mine, d["labels"], torch.float32, tr.tp),
+            tok[d["labels"]])
+        x = d["x"].clone().requires_grad_(True)
+        loss = L.chunked_cross_entropy(tr.cfg, x, mine, d["labels"],
+                                       d["mask"], tp=tr.tp)
+        loss.backward()
+        out[s] = (float(loss), x.grad.numpy().copy())
+    return out
+
+
 SCENARIOS = {"fed_podwise": fed_podwise, "fit_mesh": fit_mesh,
-             "elastic": elastic, "mesh_of_two": mesh_of_two}
+             "elastic": elastic, "mesh_of_two": mesh_of_two,
+             "vocab_ce": vocab_ce}

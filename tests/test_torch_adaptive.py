@@ -1,9 +1,9 @@
 """Adaptive serving in the port against the JAX reference, on the CPU
 (mirrors tests/test_adaptive.py's twelve tests).
 
-The reference runs these cases on stablelm-3b's smoke config; the port
-has qwen2-0.5b only (ROADMAP A.8), so its smoke config stands in, in both
-packages, with the reference's parameters carried across by
+The reference runs these cases on stablelm-3b's smoke config; these keep
+qwen2-0.5b's smoke config (the port's only config when they were
+written), in both packages, with the reference's parameters carried across by
 ``bridge.params_from_jax``.  Every scenario runs through the JAX
 ``AdaptiveCoInferenceEngine`` and the port's on the same environment
 (``repro_torch.env``, a copy of ``repro.env``) and the same numpy-seeded
@@ -15,6 +15,7 @@ port's adaptive engine equals its batched engine bitwise, also on the
 kernel path from the compiled forward.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import math
 
@@ -279,7 +280,7 @@ def test_degraded_plan_meets_deadline_when_only_energy_is_impossible(
 def test_infeasible_window_mixed_precision_mode(models_split2):
     """The degraded b̂ spent as a flat per-layer budget: (1, 1), the
     reference's plan (the fake path clamps its levels; on the kernel path
-    a 1-bit layer is NaN in both packages, ROADMAP C.5(c))."""
+    a 1-bit layer is NaN in both packages, ROADMAP C.7(c))."""
     _, eng, res = _both(models_split2, _capped, qos=("tight", 0.12, 1.5),
                         max_batch=2, mixed_precision=True,
                         submit=lambda e: _submit(e, n=2, qos="tight"))

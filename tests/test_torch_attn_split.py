@@ -15,6 +15,7 @@ bf16 inputs).  The kernels themselves run in tests/test_torch_cuda.py
 and chip_smoke.py on the card.  Inputs come from numpy seeds.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import inspect
 import pathlib
 import re

@@ -17,6 +17,7 @@ tests/test_fault_tolerance.py).
   newest checkpoint, not from step 0, within the restart budget.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import hashlib
 import json
 import os

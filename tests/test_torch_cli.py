@@ -11,6 +11,7 @@ reference's exit-2 contracts exits 2 with one line (the xLSTM, hybrid and
 encoder-decoder families in every mode, with the reference's own
 lines)."""
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 import pathlib

@@ -6,6 +6,7 @@ discrete choices (b̂, feasibility) are equal and f, f̃, delay, energy and
 the objective agree at rtol = 1e-12.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import itertools
 
 import numpy as np

@@ -52,6 +52,7 @@ writes; an MoE decode step (dispatch at 16 experts) replays its eager
 bits from a graph.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import importlib
 
 import numpy as np
@@ -141,7 +142,7 @@ def test_group_quantize_mixed_bits_table_is_one_launch(dev):
     """One vector launch over a table whose matrices differ in bits (a
     mixed-precision configure: 1-8 bits, packed where <= 4), each equal to
     the plain version; at 1 bit (levels 0) codes 0 and scales +inf, as the
-    reference's container gives (ROADMAP C.5(c))."""
+    reference's container gives (ROADMAP C.7(c))."""
     bits = [2, 3, 5, 6, 7, 8, 1, 4, 3]
     ws = [_normal(k * n + g + 1, (k, n), dev) for k, n, g in GROUPED]
     gs = [g for _, _, g in GROUPED]

@@ -20,6 +20,7 @@ as its tests run it: interpret-mode Pallas inside its AOT executables.
   relative.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

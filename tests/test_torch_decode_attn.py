@@ -11,6 +11,7 @@ bucket with the lengths fixed changes no bit, and the raw b_kv >= 16
 container with unit scales is exact.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

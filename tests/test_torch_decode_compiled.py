@@ -24,6 +24,7 @@ but the capture itself is the card's code path:
   ``forward.capture``), the same metric series and counts.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import numpy as np
 import pytest

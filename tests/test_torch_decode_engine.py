@@ -9,6 +9,7 @@ into chunks.  Everything here runs on the CPU with the kernels' plain
 versions, the captured calls uncaptured.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,7 @@ kernels' plain versions:
   each row alone bitwise its batched bits, for RMSNorm and LayerNorm.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ constant H at rtol = 1e-4 (per-example gradients through ``torch.func``
 against the reference's ``jax.vmap(jax.grad)``).
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

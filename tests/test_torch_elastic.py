@@ -11,6 +11,7 @@ restored part is bitwise its slice of the checkpoint, read back here with
 the port's fault-tolerant training example runs on two ranks.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import os
 import pathlib
 import subprocess

@@ -14,6 +14,7 @@ masks them, so a length of 20 compares with the port run through an
 exact float64 numpy attention instead.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import numpy as np

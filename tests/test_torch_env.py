@@ -9,6 +9,7 @@ at every step and between steps is the reference's, and ``apply`` (the
 drift detector compare agree field for field.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import numpy as np

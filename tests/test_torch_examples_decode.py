@@ -7,6 +7,7 @@ host-math lines agree with the reference's own functions.  The examples
 keep the originals' constants; nothing is monkeypatched.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import torch
 
 from _torch_examples import load, load_reference, match, printed_close, run

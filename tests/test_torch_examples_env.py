@@ -6,6 +6,7 @@ functions.  The examples keep the originals' constants; nothing is
 monkeypatched.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import re
 
 import torch

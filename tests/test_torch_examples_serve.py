@@ -9,6 +9,7 @@ monkeypatched but a spy on ``exponential_mle`` that records the λ the
 quickstart prints.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import pytest

@@ -16,6 +16,7 @@ The registry holds each config field for field, and each arch serves and
 trains through the CLIs.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -17,6 +17,7 @@ compiled batched engine at rtol = atol = 1e-4, and its cache keys, bucket
 shapes, batch composition and the report's integer fields equal.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -14,6 +14,7 @@ that is not a multiple of its block is held against the numpy oracle
 into the softmax there (ROADMAP C), the port masks them.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

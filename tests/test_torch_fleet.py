@@ -13,13 +13,14 @@ engine's captured weights from serving another's requests.
   one under ``wifi-markov``, as in ``examples/fleet_spec.json``): logits
   within rtol = atol = 1e-4 (on the kernel path a padded batch is held
   against the reference's request alone where its padded kernel path
-  differs, ROADMAP C.5(a), and a b_emb = 8 uplink code that sat on a
+  differs, ROADMAP C.7(a), and a b_emb = 8 uplink code that sat on a
   rounding edge is traced stage by stage), report counts equal, clocks
   and energies within rtol 1e-12, bounds within the λ tolerance.
 * Port on port: a one-agent fleet equals the batched engine bitwise, and
   the reference's shared-codesign-cache, FIFO and mixed-precision cases.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax
@@ -314,7 +315,7 @@ def test_fleet_engine_matches_reference(fleet_models, path, compiled,
 def _hold_logits(got, want, jmember, tmember, toks):
     """A port response against the reference's: within TOL, else against
     the reference's engine serving the request alone (its eager kernel
-    path is not padding-invisible, ROADMAP C.5(a)), else every difference
+    path is not padding-invisible, ROADMAP C.7(a)), else every difference
     traced to uplink codes that sat on a rounding edge."""
     g = got.logits.numpy()
     if np.allclose(g, np.asarray(want.logits), **TOL):

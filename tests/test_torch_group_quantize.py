@@ -13,6 +13,7 @@ output element written by exactly one block.  ``route`` is a function of
 the shape alone, and the grouped entry equals one call per matrix.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,6 +15,7 @@ the plain blockwise attention; on the card it is one flash-kernel launch
 per forward, which :meth:`HybridLM.attend` counts here too.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import numpy as np

@@ -1,6 +1,7 @@
 """The port and its examples import neither JAX nor anything of the JAX
 package."""
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import ast
 import importlib
 import os

@@ -7,6 +7,7 @@ matmuls agree at rtol = atol = 1e-4, the tolerance of
 tests/test_kernels.py (two f32 dot products summed in different orders).
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ prefill and decode executables), where XLA turns ``amax / levels`` into
 scales are bitwise the jitted reference's, zero vectors included.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,11 +15,12 @@ quantizer at every kernel bit-width.
   asserts that margin.
 * ``group_quantize`` at bits 1-8 is bitwise the reference's, bits = 1
   included: levels = 2^0 - 1 = 0 gives codes 0 and scales +inf (ROADMAP
-  C.5(c): on the kernel path a 1-bit layer serves NaN in both packages).
+  C.7(c): on the kernel path a 1-bit layer serves NaN in both packages).
 * The paper's proxies (blip2-proxy, git-proxy) forward at smoke size, on
   tokens and on tokens + vision embeddings, at rtol = 1e-4.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import itertools
 import math
@@ -386,7 +387,7 @@ def test_quantize_linear_matches_reference_at_every_bit_width(bits, shape):
     np.testing.assert_array_equal(got.scales.numpy(),
                                   np.asarray(want.scales))
     if bits == 1:
-        # ROADMAP C.5(c): levels = 0, so every code is 0 and every scale of
+        # ROADMAP C.7(c): levels = 0, so every code is 0 and every scale of
         # a nonzero group +inf, in both packages (the kernel path then
         # computes 0 * inf = NaN: no serving run allocates 1 bit)
         assert not got.codes.any()

@@ -6,6 +6,7 @@ Inputs come from a numpy seed; the reference's parameters cross through
 1e-4 (the error of four layers of such sums).
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ combine adds a token's k weighted outputs in another order than XLA's
 contraction): rtol = atol = 1e-5, the aux loss at 1e-6.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -21,15 +21,16 @@ global batch of 12 x 32):
 * one rank (pod 1): bitwise the one-device trainer over three steps;
 * data 2 without a pod axis, plain and masked: within 1e-4 of the
   reference's one-device step on the global batch (its ``Trainer.fit``
-  from the same state), and of the port's; model 2: within 1e-4 of the
-  reference, and bitwise the port's one-device step (``model`` shards the
-  state, not the compute);
+  from the same state), and of the port's; model 2: tensor-parallel
+  compute (each rank's products on its shards, the collectives inside
+  the forward and backward), within 1e-4 of the reference;
 * every rank ends with the same parameters, bitwise; each rank's batch is
   its (pod, data) slice of the global batch.
 
 Then the CLI under ``torchrun`` on two CPU ranks.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import concurrent.futures
 import os
 import pathlib
@@ -189,7 +190,8 @@ def run(tmp_path_factory):
         start_world(2, [("fit_mesh", dict(shape=(2, 1), **plain2)),
                         ("fit_mesh", dict(shape=(2, 1), masked=True,
                                           **plain2)),
-                        ("fit_mesh", dict(shape=(1, 2), **plain2)),
+                        ("fit_mesh", dict(shape=(1, 2), record=True,
+                                          **plain2)),
                         ("fit_mesh", dict(shape=(1, 1, 1), axes=mesh3,
                                           steps=3, ranks=[0]))], tmp, "w2")]
 
@@ -387,17 +389,30 @@ def test_data_parallel_within_1e4_of_the_global_batch(run, index, tag):
         _within_1e4(res[index], hist, params)
 
 
-def test_model_axis_shards_state_not_compute(run):
-    """(data 1, model 2): each rank holds half of the sharded leaves, the
-    step computes on the gathered tensors: within 1e-4 of the reference's
-    one-device step, and bitwise the port's."""
+def test_model_axis_shards_compute(run):
+    """(data 1, model 2): each rank holds half of the sharded leaves and
+    computes with them: qwen2's smoke heads (4 over 2 KV heads) split by
+    whole KV groups, so every product of a forward takes this rank's
+    column shard (``wq`` 64 -> 32, ``wk``/``wv`` 32 -> 16, gate/up 160 ->
+    80, the tied head's 512 vocabulary columns -> 256) or row shard
+    (``wo`` 32 -> 64, down 80 -> 64), the partial sums reduced over
+    ``model``.  Within 1e-4 of the reference's one-device step; both
+    ranks' parameters bitwise equal."""
     ref, results = run
-    hist, state = ref["one"]["plain"]
-    for res in results["w2"]:
+    b, s = B, S
+    layer = [((b, s, 64), (64, 32)), ((b, s, 64), (64, 16)),
+             ((b, s, 64), (64, 16)), ((b, s, 32), (32, 64)),
+             ((b, s, 64), (64, 80)), ((b, s, 64), (64, 80)),
+             ((b, s, 80), (80, 64))]
+    for rank, res in enumerate(results["w2"]):
         got = res[2]
         _within_1e4(got, *ref["jax"]["plain"])
-        assert [h["loss"] for h in got["hist"]] == [h["loss"] for h in hist]
-        _state_equal(got["state"], state)
+        assert got["plan"] == dict(size=2, rank=rank, attn=True, mlp=True,
+                                   vocab=True, experts=False)
+        assert got["products"] == layer * 4 + [((b, s, 64), (64, 256))]
+    a, c = (_leaves(r[2]["state"][0]) for r in results["w2"])
+    for x, y in zip(a, c):
+        np.testing.assert_array_equal(x, y)
 
 
 def test_loader_slices_by_pod_and_data(run):

@@ -11,6 +11,7 @@ pure functions of the shape, also checked here; the kernel itself runs in
 tests/test_torch_cuda.py and chip_smoke.py on the card.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import importlib
 import inspect
 

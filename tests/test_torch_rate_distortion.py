@@ -18,6 +18,7 @@ does not clamp), and where the underflow starts differs by one or two
 multipliers, so the port is NaN only where the reference is.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import itertools
 import math
 

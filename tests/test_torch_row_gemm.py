@@ -22,6 +22,7 @@ reference.
   helpers built on it.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import importlib
 import inspect
 

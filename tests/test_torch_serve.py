@@ -8,6 +8,7 @@ the discrete results (agent path, wire bytes) are equal.  Batching and
 padding are then checked port against port.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

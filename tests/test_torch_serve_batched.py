@@ -1,9 +1,9 @@
 """The port's batched co-inference engine on the CPU, case for case with the
 reference's tests/test_serve_batched.py, then held against the reference.
 
-The reference runs these cases on stablelm-3b's smoke config; the port
-has qwen2-0.5b only (ROADMAP A.8), so its smoke config stands in
-throughout.  Its three classes resolve to b̂ = 3, 9 and 16 (the fake
+The reference runs these cases on stablelm-3b's smoke config; these keep
+qwen2-0.5b's smoke config (the port's only config when they were
+written) throughout.  Its three classes resolve to b̂ = 3, 9 and 16 (the fake
 path); KERNEL_CLASSES resolve to 4 and 8, so the kernel path is batched
 too.  Port against port, batched == sequential is bitwise on the CPU.
 Against the reference (its weights carried across by
@@ -12,6 +12,7 @@ batches in the same order with equal integer accounting, and per-request
 logits at rtol = atol = 1e-4.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,7 +7,7 @@ The serving config is qwen2-0.5b cut to 3 layers at widths that reach the
 reference's Pallas kernels (split 2, so a plan has two agent layers); the
 reference's parameters cross over.  Each package allocates from its own
 layer statistics; the (T0, E0) points are ones whose allocations are
-mixed, hold no 1-bit layer (ROADMAP C.5(c)) and have a greedy margin far
+mixed, hold no 1-bit layer (ROADMAP C.7(c)) and have a greedy margin far
 above the statistics' difference (``tests/test_torch_mixed_precision.py``
 asserts that margin).  Bits and frequencies are equal; on one unpadded
 request the boundary activation and the server stage agree at rtol = atol
@@ -18,6 +18,7 @@ sat within that difference of an edge).  Batching, padding and the
 compiled path are then proved port on port, bitwise.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

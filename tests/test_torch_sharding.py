@@ -11,6 +11,7 @@ not divide.  Then the reference's own cases
 spec becomes.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import numpy as np
 import pytest

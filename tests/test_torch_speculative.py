@@ -19,6 +19,7 @@ every position, bitwise the port's own batch-1 reference state after the
 same tokens (commit-on-verify, port on port).
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

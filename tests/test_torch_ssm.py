@@ -15,6 +15,7 @@ gradient is NaN there: ROADMAP C.7(e)) and equal the reference's at a
 chunk size where its own is finite.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -20,6 +20,7 @@ copy of ``repro.env``; the traces are asserted equal):
   reference's message.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import json
 import pathlib

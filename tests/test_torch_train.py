@@ -18,6 +18,7 @@ The learning tests mirror ``tests/test_runtime.py``; then the CLI and the
 paths that are not ported (exit code 2 or an exception).
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import os
 import pathlib
@@ -438,11 +439,12 @@ def test_cli_ckpt_dir_resumes(capsys, tmp_path):
 
 
 def test_trainer_raises_on_what_is_not_ported(tmp_path):
-    """Interleaved MoE belongs to the hybrid model; an MoE trainer whose
-    loss would be split over data-parallel ranks raises.  Training over a
-    mesh and compression over ``pod`` are ported: a mesh of one rank here
-    (``axis_name="pod"`` over it is the one-device compression, bitwise),
-    a mesh of two ranks in two processes."""
+    """Interleaved MoE belongs to the hybrid model, whose MoE trainer over
+    data-parallel ranks raises (ROADMAP A.7.2(b)); a decoder LM's MoE
+    trainer at dp = 2 constructs, with its ranks' ``DataParallel``.
+    Training over a mesh and compression over ``pod`` are ported: a mesh
+    of one rank here (``axis_name="pod"`` over it is the one-device
+    compression, bitwise), a mesh of two ranks in two processes."""
     model, opt = DecoderLM(get_smoke(ARCH)), AdamW()
     moe = dataclasses.replace(get_smoke(ARCH), n_experts=4,
                               experts_per_token=2, moe_every=2)
@@ -476,8 +478,10 @@ def test_trainer_raises_on_what_is_not_ported(tmp_path):
     finally:
         dist.destroy_process_group()
     (a,), (b,) = join_world(world)
-    assert a["moe"] == b["moe"] and "MoE training over 2 data-parallel" \
-        in a["moe"]
+    assert a["moe"] == (2, 0) and b["moe"] == (2, 1)
+    assert a["hybrid"] == b["hybrid"] and "MoE training over 2 " \
+        "data-parallel ranks is ported for the decoder-only LM, not " \
+        "HybridLM" in a["hybrid"]
     assert [h["step"] for h in a["hist"]] == [1, 2]
     assert [h["loss"] for h in a["hist"]] == [h["loss"] for h in b["hist"]]
     for x, y in zip(a["params"], b["params"]):

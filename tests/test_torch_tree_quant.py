@@ -17,6 +17,7 @@ encoder-decoder families refuse the tree in one line, as the reference's
 forwards do.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,7 @@ port's float32 sums in another order move them by about as much.
 C.7(d)) bit for bit.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import numpy as np
