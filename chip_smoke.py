@@ -353,7 +353,27 @@ nothing of JAX or of the JAX package ``repro``.
    rank's step walls, peak memory, the all-reduces and all-gathers a
    step (beside phase 19 (b)'s gathered run) and the flash launches
    (counted into the table).
-22. Summary: one ``{"kernels": [...]}`` line, the card line, and last
+22. The dry-run's accounting (``launch/opcount.py``, ``launch/dryrun.py``,
+   ``launch/roofline.py``) on the card.  (a) For the co-inference forward
+   4 x 64 at b̂ = 8 and 4 (each with its configure), the engine's B = 4
+   token step over a seeded quantized cache (T = 1024), ``prefill`` 4 x
+   64 and phase 9's 8 x 128 training step (QAT 8, int8 EF): the
+   accountant over the real call on the card equals the accountant over
+   the same call under ``FakeTensorMode`` (FLOPs, HBM and collective
+   bytes exactly), its kernel ops' calls equal the launches counted, and
+   the outputs under the accountant are bitwise the outputs without it.
+   (b) Each call's device ms (CUDA events, median of 5, L2 flushed)
+   beside its compute and memory terms on the H100's constants (float32
+   peak) and the ratio of the measured time to the bound.  (c)
+   ``fused_attention_acct`` under ``flash_attention_mode`` on a one-rank
+   mesh launches the flash kernel once and equals
+   ``blockwise_attention`` bitwise.  (d) The dry-run in a subprocess:
+   qwen2-0.5b x the four shapes x both meshes x {baseline, flash} and
+   one cell of each other family (DRYRUN_OTHERS), every record ``ok`` or
+   ``skip``, written under chiprun_out/dryrun/; the roofline table and
+   the phase's seconds.  The launches of phases 4-21 are printed before
+   the phase's are added.
+23. Summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``; the per-shape numbers are printed
    in phases 3, 5, 6, 8, 17 and 18.
 """
@@ -5597,6 +5617,292 @@ def moe_parallel_path(dev):
     return flash
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the dry-run's accounting on the card
+# ---------------------------------------------------------------------------
+
+#: the dry-run cells of (d) beside qwen2-0.5b's 16: one of each other family
+DRYRUN_OTHERS = (("llava-next-mistral-7b", "prefill_32k"),      # vlm
+                 ("seamless-m4t-large-v2", "prefill_32k"),      # encdec
+                 ("qwen3-moe-235b-a22b", "decode_32k"),         # moe
+                 ("xlstm-350m", "decode_32k"),                  # ssm
+                 ("jamba-1.5-large-398b", "long_500k"))         # hybrid
+#: the launch counter each kernel op's calls count on
+OP_LAUNCHES = {"qmm": "qmm", "qmm_int4": "qmm_int4",
+               "group_quantize": "group_quantize",
+               "quantized_decode_attention": "quantized_decode_attention",
+               "flash_attention_fwd": "flash_attention_fwd",
+               "row_gemm": "row_gemm", "row_gemm_group": "row_gemm"}
+
+
+def fake_tree(conv, tree):
+    """``tree`` with every tensor through ``conv``: a FakeTensorMode's
+    ``from_tensor`` (fake copies on the card) or a move to ``meta`` (the
+    dry-run's tensors): shapes and dtypes only."""
+    from repro_torch.models.lm import tree_map
+    return tree_map(conv, tree)
+
+
+def held_equal(a, b) -> bool:
+    """Whether two trees (dicts, lists, tuples, tensors, numbers) are
+    bitwise equal."""
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(held_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(held_equal(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and a.dtype == b.dtype and bool(
+            torch.equal(a, b))
+    return a == b
+
+
+def account_call(what, real, fake, flush, counts):
+    """Phase 22 (a) and (b) for one call: ``real()`` builds its inputs on
+    the card and returns a function of none that runs the call (fresh
+    inputs each time: calls that write their cache or cache their
+    weights run on their own copies); ``fake(conv, device)`` the same
+    on the tensors ``conv`` makes of the real ones, on ``device``.  The
+    accountant's FLOPs, HBM and collective bytes of the real run must
+    equal the run's under FakeTensorMode exactly, its kernel ops' calls
+    the launches counted, and its outputs be bitwise the outputs of a run
+    without the accountant.  The same run on ``meta`` tensors (the
+    dry-run's) must give the same FLOPs and kernel-op calls; its bytes
+    are printed beside the card's (an op PyTorch decomposes by device is
+    billed as meta decomposes it).  Then the call's
+    device ms (CUDA events, median of 5) beside its compute, memory and
+    bound terms on the H100's constants.  Adds the real runs' launches to
+    ``counts``; returns a summary line's dict."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import kernels as tk
+    from repro_torch.launch import opcount as oc
+
+    start = tk.launch_counts()
+    call = real()               # building it may launch (an engine's first
+    torch.cuda.synchronize()    # configure): outside the accounted call
+    before = tk.launch_counts()
+    out_real, real_costs = oc.account(call)
+    torch.cuda.synchronize()
+    after = tk.launch_counts()
+    launched = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    out_bare = real()()
+    if not held_equal(out_real, out_bare):
+        # held against the accountant only where the call repeats its own
+        # bits: a second run without it must equal the first
+        again = real()()
+        assert not held_equal(out_bare, again), \
+            f"{what}: the accountant changed the outputs"
+        print(f"  {what}: not bitwise reproducible on the card run to run "
+              "(with or without the accountant)")
+    torch.cuda.synchronize()
+    for k, n in tk.launch_counts().items():
+        counts[k] += n - start[k]
+    with FakeTensorMode() as fm:
+        _, fake_costs = oc.account(fake(fm.from_tensor, None))
+    for key in ("flops", "hbm_bytes", "collective_bytes"):
+        assert getattr(real_costs, key) == getattr(fake_costs, key), \
+            (what, key, getattr(real_costs, key), getattr(fake_costs, key))
+    assert real_costs.kernel_calls == fake_costs.kernel_calls, what
+    meta = torch.device("meta")
+    _, meta_costs = oc.account(fake(lambda t: t.to(meta), meta))
+    assert meta_costs.flops == real_costs.flops, (what, meta_costs.flops)
+    assert meta_costs.kernel_calls == real_costs.kernel_calls, what
+    ops = set(meta_costs.op_bytes) | set(real_costs.op_bytes)
+    moved = sorted(((meta_costs.op_bytes.get(o, 0.0)
+                     - real_costs.op_bytes.get(o, 0.0), o) for o in ops),
+                   key=lambda x: -abs(x[0]))
+    if moved and moved[0][0]:
+        extra = meta_costs.hbm_bytes - real_costs.hbm_bytes
+        print(f"  {what}: meta bills {extra:.6g} B more than the card; "
+              f"by op: "
+              + ", ".join(f"{o} {d:+.4g}" for d, o in moved[:6] if d))
+    by_counter = {}
+    for op, n in real_costs.kernel_calls.items():
+        by_counter[OP_LAUNCHES[op]] = by_counter.get(OP_LAUNCHES[op], 0) + n
+    assert by_counter == launched, (what, by_counter, launched)
+
+    fns = [real() for _ in range(6)]
+    ms = time_ms(lambda: fns.pop()(), flush, reps=5)
+    compute = real_costs.flops / F32_FLOPS * 1e3
+    memory = real_costs.hbm_bytes / HBM_BYTES_PER_S * 1e3
+    bound = max(compute, memory)
+    line = dict(call=what, flops=real_costs.flops,
+                hbm_bytes=real_costs.hbm_bytes, kernels=by_counter,
+                ms=ms, compute_ms=compute, memory_ms=memory,
+                bound_ms=bound, ratio=ms / bound)
+    print(f"  {what:28s} flops={real_costs.flops:.6g} "
+          f"hbm={real_costs.hbm_bytes:.6g} B fake == real (meta: the "
+          f"same flops, hbm={meta_costs.hbm_bytes:.6g} B, "
+          f"{meta_costs.hbm_bytes / real_costs.hbm_bytes:.4f}x); launches "
+          f"{by_counter}; device ms={ms:.4f} compute={compute:.4f} "
+          f"memory={memory:.4f} bound={bound:.4f} "
+          f"measured/bound={ms / bound:.2f}")
+    return line
+
+
+def dryrun_path(cfg, params, sysp, dev, flush, counts):
+    """Phase 22: (a) fake == real and (b) measured against the bound for
+    the co-inference forward at b̂ = 8 and 4 (with its configure), the
+    B = 4 token step over the quantized cache (T = 1024), prefill and
+    phase 9's 8 x 128 training step; (c) flash through the accounting op;
+    (d) the dry-run in a subprocess.  Adds the phase's launches to
+    ``counts``."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.data import MarkovLMConfig, MarkovLMDataset
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import DecoderLM, tree_map
+    from repro_torch.optim import AdamWState
+    from repro_torch.parallel.sharding import flash_attention_mode
+    from repro_torch.runtime import CoInferenceEngine, Trainer
+
+    model = DecoderLM(cfg)
+    tokens = torch.as_tensor(MarkovLMDataset(MarkovLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, batch_size=B)).batch_at(0)[
+            "tokens"], dtype=torch.long, device=dev)
+    lam = CoInferenceEngine(model, params, sysp, path="kernel").lam
+
+    # (a), (b)
+    lines = []
+    for b_hat in (8, 4):
+        def fwd_real(b_hat=b_hat):
+            eng = CoInferenceEngine(model, params, sysp, path="kernel",
+                                    lam=lam)
+
+            def call():
+                eng.configure(b_hat)
+                return eng.serve_batch({"tokens": tokens})[0]
+            return call
+
+        def fwd_fake(conv, device, b_hat=b_hat):
+            eng = CoInferenceEngine(model, fake_tree(conv, params), sysp,
+                                    path="kernel", lam=lam, device=device)
+            tok = conv(tokens)
+
+            def call():
+                eng.configure(b_hat)
+                return eng.serve_batch({"tokens": tok})[0]
+            return call
+        lines.append(account_call(f"forward {B}x{S} b_hat={b_hat}",
+                                  fwd_real, fwd_fake, flush, counts))
+
+    t_cache = 1024
+    shape = (cfg.n_layers, B, t_cache, cfg.n_kv_heads, cfg.head_dim)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    cache0 = {"k_codes": torch.randint(-127, 128, shape, generator=gen,
+                                       device=dev, dtype=torch.int8),
+              "v_codes": torch.randint(-127, 128, shape, generator=gen,
+                                       device=dev, dtype=torch.int8),
+              "k_scales": torch.rand(shape[:-1], generator=gen,
+                                     device=dev) * 0.02 + 0.01,
+              "v_scales": torch.rand(shape[:-1], generator=gen,
+                                     device=dev) * 0.02 + 0.01}
+    lens = torch.tensor([700, 1000, 90, 513], dtype=torch.int32, device=dev)
+    step_batch = {"token": tokens[:, :1], "pos": lens}
+
+    def dec_real():
+        qc = dict(tree_map(lambda t: t.clone(), cache0), len=lens.clone())
+        return lambda: model.decode_step_q(params, qc, step_batch,
+                                           b_kv=8)[0]
+
+    def dec_fake(conv, device):
+        qc = dict(fake_tree(conv, cache0), len=conv(lens))
+        sb = fake_tree(conv, step_batch)
+        pf = fake_tree(conv, params)
+        return lambda: model.decode_step_q(pf, qc, sb, b_kv=8)[0]
+    lines.append(account_call(f"token step B={B} T={t_cache}", dec_real,
+                              dec_fake, flush, counts))
+
+    def pre_real():
+        return lambda: model.prefill(params, {"tokens": tokens})
+
+    def pre_fake(conv, device):
+        pf, tok = fake_tree(conv, params), conv(tokens)
+        return lambda: model.prefill(pf, {"tokens": tok})
+    lines.append(account_call(f"prefill {B}x{S}", pre_real, pre_fake,
+                              flush, counts))
+
+    tc, opt, data = train_setup(cfg)
+    tr = Trainer(DecoderLM(cfg), opt, dev, tc)
+    tr.build_step()
+    tr_meta = Trainer(DecoderLM(cfg), opt, "meta", tc)
+    tr_meta.build_step()
+    state0 = tr.init_state(0)
+    batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+             for k, v in data.batch_at(0).items()}
+
+    # the step is a function of its state (AdamW and the compression
+    # return new trees), so every run starts from state0
+    def train_real():
+        return lambda: tr._step(*state0, batch)
+
+    def train_fake(conv, device):
+        p, o, e = state0
+        fake = (fake_tree(conv, p), AdamWState(
+            conv(o.step), fake_tree(conv, o.m), fake_tree(conv, o.v)),
+            fake_tree(conv, e))
+        b = fake_tree(conv, batch)
+        step = (tr if device is None else tr_meta)._step
+        return lambda: step(*fake, b)
+    lines.append(account_call(f"train step {TRAIN_BATCH}x{TRAIN_SEQ}",
+                              train_real, train_fake, flush, counts))
+    del state0
+    torch.cuda.empty_cache()
+
+    # (c) flash through the accounting op, on a one-rank mesh
+    g = torch.Generator(device=dev).manual_seed(23)
+    q = torch.randn((B, S, cfg.n_heads, cfg.head_dim), generator=g,
+                    device=dev)
+    k, v = (torch.randn((B, S, cfg.n_kv_heads, cfg.head_dim), generator=g,
+                        device=dev) for _ in range(2))
+    before = tk.launch_counts()["flash_attention_fwd"]
+    with flash_attention_mode(AbstractMesh((1, 1), ("data", "model"))):
+        acct = L.blockwise_attention(q, k, v, causal=True)
+    plain = L.blockwise_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    n = tk.launch_counts()["flash_attention_fwd"] - before
+    assert n == 2, n
+    counts["flash_attention_fwd"] += n
+    assert torch.equal(acct, plain), "accounting op != blockwise_attention"
+    print(f"  (c) fused_attention_acct {B}x{S}, one-rank mesh: 1 flash "
+          f"launch, bitwise blockwise_attention")
+
+    # (d) the dry-run beside the card, in a process of its own
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    runs = [["--arch", "qwen2-0.5b", "--shape", "all", "--mesh", "both",
+             "--variant", variant, "--out", str(out_dir)]
+            for variant in ("baseline", "flash")]
+    runs += [["--arch", arch, "--shape", shape_name, "--mesh", "both",
+              "--out", str(out_dir)] for arch, shape_name in DRYRUN_OTHERS]
+    code = ("from repro_torch.launch import dryrun\n"
+            f"codes = [dryrun.main(a) for a in {runs!r}]\n"
+            "assert codes == [0] * len(codes), codes\n")
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=600)
+    secs = time.perf_counter() - t0
+    print("\n".join("    " + ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("[")))
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    from repro_torch.launch import roofline
+    recs = roofline.load_records(str(out_dir))
+    assert len(recs) == 16 + 2 * len(DRYRUN_OTHERS), len(recs)
+    assert all(r["status"] in ("ok", "skip") for r in recs)
+    rows = sorted((t for r in recs if (t := roofline.roofline_terms(r))),
+                  key=lambda r: (r["mesh"], r["arch"], r["shape"],
+                                 r["variant"]))
+    print(roofline.markdown_table(rows))
+    print(f"  (d) dry-run: {len(recs)} records in {secs:.1f}s")
+    return lines
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5935,7 +6241,14 @@ def main() -> int:
     print(f"tensor and MoE data parallelism: "
           f"{time.perf_counter() - t0:.1f}s")
 
-    # 22. summary
+    # 22. the dry-run's accounting on the card
+    t0 = time.perf_counter()
+    print(f"  {release_memory()}")
+    print(f"  launches of phases 4-21: {dict(counts)}")
+    dryrun_path(cfg, params, sysp, dev, flush, counts)
+    print(f"dry-run accounting: {time.perf_counter() - t0:.1f}s")
+
+    # 23. summary
     names = {"group_quantize": ("csrc/group_quantize.cu",
                                 "src/repro/kernels/quantize.py:35"),
              "qmm": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:67"),

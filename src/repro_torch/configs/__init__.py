@@ -13,7 +13,24 @@ from . import (blip2_proxy, fcdnn16, git_proxy, granite_34b, internlm2_20b,
                jamba_1_5_large_398b, kimi_k2_1t_a32b, llava_next_mistral_7b,
                qwen2_0_5b, qwen3_moe_235b_a22b, seamless_m4t_large_v2,
                stablelm_3b, xlstm_350m)
-from .base import ModelConfig  # noqa: F401
+from .base import (ALL_SHAPES, DECODE_32K, LONG_500K,  # noqa: F401
+                   PREFILL_32K, TRAIN_4K, ModelConfig, ShapeSpec,
+                   cell_applicable, smoke_shape)
+
+#: the assigned architectures, in the reference's order (the dry-run's
+#: ``--arch all``)
+ARCH_IDS = (
+    "stablelm-3b",
+    "qwen2-0.5b",
+    "granite-34b",
+    "internlm2-20b",
+    "xlstm-350m",
+    "llava-next-mistral-7b",
+    "seamless-m4t-large-v2",
+    "kimi-k2-1t-a32b",
+    "qwen3-moe-235b-a22b",
+    "jamba-1.5-large-398b",
+)
 
 #: the paper's own evaluation models (§VI)
 PAPER_IDS = ("fcdnn-16", "blip2-proxy", "git-proxy")

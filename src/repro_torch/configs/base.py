@@ -2,14 +2,15 @@
 
 Field for field the same dataclass as ``repro/configs/base.py``, so a
 config built on either side describes the same model and
-``dataclasses.replace`` takes the same keywords.  The dry-run shape grid
-of the reference is not part of this port yet.
+``dataclasses.replace`` takes the same keywords.  The dry-run's shape grid
+(:class:`ShapeSpec`, the four production shapes, :func:`cell_applicable`)
+is the reference's too.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal
+from typing import Literal, Tuple
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio"]
 
@@ -151,3 +152,42 @@ class ModelConfig:
             + self.d_model * self.n_experts)
         n_mlp_replaced = n_moe_layers * 3 * self.d_model * self.d_ff
         return float(dense - n_mlp_replaced + active_moe)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One dry-run shape: a sequence length, a global batch and the step
+    it feeds (a training step, a prefill, or one decode token against a
+    cache of ``seq_len``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                     LONG_500K)
+
+#: archs allowed to run long_500k (sub-quadratic sequence mixing)
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """(runs?, reason) for one (arch x shape) cell."""
+    if shape.name == "long_500k" and cfg.family not in SUBQUADRATIC_FAMILIES:
+        return False, "SKIP (full attention; no sub-quadratic path)"
+    return True, ""
+
+
+def smoke_shape(kind: str) -> ShapeSpec:
+    """Reduced shapes for CPU smoke tests."""
+    if kind == "train":
+        return ShapeSpec("smoke_train", 32, 2, "train")
+    if kind == "prefill":
+        return ShapeSpec("smoke_prefill", 32, 2, "prefill")
+    return ShapeSpec("smoke_decode", 32, 2, "decode")

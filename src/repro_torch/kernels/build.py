@@ -23,9 +23,10 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -34,6 +35,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+#: the devices whose tensors take the kernels' path: the card, and
+#: ``meta``, the dry-run's stand-in for it (shapes only: an op on a meta
+#: tensor runs its fake version, which refuses what the kernel would)
+CARD_DEVICES = ("cuda", "meta")
 
 
 def _nvcc() -> str:
@@ -161,3 +167,32 @@ def check(status: int, what: str) -> None:
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
                            f"{status}")
+
+
+# ---------------------------------------------------------------------------
+# the kernels as torch.library ops
+# ---------------------------------------------------------------------------
+
+LIB = torch.library.Library("repro_torch", "DEF")
+
+
+def kernel_op(name: str, schema: str, impl: Callable, fake: Callable,
+              flops: Optional[Callable] = None):
+    """Define the op ``repro_torch::<name><schema>`` and return its
+    overload.  ``impl`` serves CPU and CUDA tensors (it branches on the
+    device: the plain version or the launch); ``fake`` computes the
+    outputs' shapes for fake and meta tensors, allocating and launching
+    nothing, and raises wherever the kernel would; ``flops`` (a
+    ``torch.utils.flop_counter`` formula over the arguments' shapes) is
+    the op's FLOP count, None for an op opaque to the census.  Defined at
+    the dispatcher's level (``Library.define`` and ``impl``) rather than
+    through ``torch.library.custom_op``: a call costs a few microseconds
+    of host time instead of about twenty."""
+    LIB.define(name + schema)
+    for key in ("CPU", "CUDA"):
+        LIB.impl(name, impl, key)
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=LIB)
+    packet = getattr(torch.ops.repro_torch, name)
+    if flops is not None:
+        register_flop_formula(packet)(flops)
+    return packet.default

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-
 import torch
 
 from . import build
@@ -105,30 +104,52 @@ def quantized_decode_attention(q, k_codes, v_codes, k_scales, v_scales,
     if bt < 1 or t % bt != 0:
         raise ValueError(f"cache length {t} is not a multiple of the tile "
                          f"{bt}")
-    if q.device.type == "cpu":
-        return _ref.quantized_decode_attention_ref(
-            q, k_codes, v_codes, k_scales, v_scales, cache_len,
-            window=window, block_t=block_t)
-    if q.device.type != "cuda":
+    if q.device.type != "cpu" and q.device.type not in build.CARD_DEVICES:
         raise ValueError(f"quantized_decode_attention runs on cuda or cpu, "
                          f"got {q.device}")
-    tensors = (q, k_codes, v_codes, k_scales, v_scales)
-    if any(x.device != q.device for x in tensors):
+    lens = cache_len if isinstance(cache_len, torch.Tensor) else None
+    return decode_attention_op(q, k_codes, v_codes, k_scales, v_scales,
+                               lens, 0 if lens is not None else
+                               int(cache_len), window, block_t)
+
+
+def _kernel_checks(q, k_codes, v_codes, k_scales, v_scales, lens) -> None:
+    """Raise where the kernel cannot take CUDA operands (the op's real and
+    fake versions both run it)."""
+    if any(x.device != q.device for x in (k_codes, v_codes, k_scales,
+                                          v_scales)):
         raise ValueError("operands on several devices")
-    g = h // kv
-    smem = smem_bytes(g, dh, t)
+    b, _, h, dh = q.shape
+    t, kv = k_codes.shape[1], k_codes.shape[2]
+    smem = smem_bytes(h // kv, dh, t)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"G={g}, dh={dh} needs {smem} bytes of "
+        raise ValueError(f"G={h // kv}, dh={dh} needs {smem} bytes of "
                          f"shared memory per block; the card has "
                          f"{MAX_SMEM_BYTES}")
     if b * kv > 65535:
         raise ValueError(f"B * KV = {b * kv} rows exceed the grid's 65535")
-    if isinstance(cache_len, torch.Tensor):
-        if cache_len.device != q.device:
-            raise ValueError("cache_len must be on q's device")
-        lens = cache_len.reshape(-1).expand(b)
+    if lens is not None and lens.device != q.device:
+        raise ValueError("cache_len must be on q's device")
+
+
+def _impl(q, k_codes, v_codes, k_scales, v_scales, lens, cache_len, window,
+          block_t):
+    """:func:`quantized_decode_attention` as an op: ``lens`` the lengths
+    as a tensor, else the int ``cache_len``."""
+    length = lens if lens is not None else cache_len
+    if q.device.type == "cpu":
+        return _ref.quantized_decode_attention_ref(
+            q, k_codes, v_codes, k_scales, v_scales, length,
+            window=window, block_t=block_t)
+    _kernel_checks(q, k_codes, v_codes, k_scales, v_scales, lens)
+    b, _, h, dh = q.shape
+    t, kv = k_codes.shape[1], k_codes.shape[2]
+    g = h // kv
+    smem = smem_bytes(g, dh, t)
+    if lens is None:
+        lens = torch.full((b,), cache_len, device=q.device)
     else:
-        lens = torch.full((b,), int(cache_len), device=q.device)
+        lens = lens.reshape(-1).expand(b)
     lens = lens.to(torch.int32).contiguous()
     qf = q.to(torch.float32).contiguous()
     kc, vc = k_codes.contiguous(), v_codes.contiguous()
@@ -155,6 +176,27 @@ def quantized_decode_attention(q, k_codes, v_codes, k_scales, v_scales,
         build.check(status, "quantized_decode_attention")
         build.count(quantized_decode_attention)
     return out.to(q.dtype)
+
+
+def _fake(q, k_codes, v_codes, k_scales, v_scales, lens, cache_len, window,
+          block_t):
+    if q.device.type != "cpu":
+        _kernel_checks(q, k_codes, v_codes, k_scales, v_scales, lens)
+    return q.new_empty(q.shape)
+
+
+def _flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """Both products of one query over every cached position, masked or
+    not, as the reference's einsums count them: 2 x 2 B H T dh."""
+    b, _, h, dh = q_shape
+    return 4 * b * h * k_shape[1] * dh
+
+
+decode_attention_op = build.kernel_op(
+    "quantized_decode_attention",
+    "(Tensor q, Tensor k_codes, Tensor v_codes, Tensor k_scales, "
+    "Tensor v_scales, Tensor? lens, int cache_len, int window, "
+    "int block_t) -> Tensor", _impl, _fake, _flops)
 
 
 quantized_decode_attention.launches = 0

@@ -23,6 +23,7 @@ import torch
 
 from . import build
 from . import ref as _ref
+from .bucketing import seq_bucket
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +48,21 @@ def _copies_16(*xs) -> bool:
                and all(x.stride(i) % 4 == 0 for i in range(3)) for x in xs)
 
 
+def _kernel_checks(q, k, v) -> None:
+    """Raise where the kernel cannot take CUDA operands: several devices,
+    another dtype, head_dim > MAX_HEAD_DIM.  The op's real and fake
+    versions both run it, so an accounting under fake tensors refuses
+    what the card would."""
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("operands on several devices")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must all be float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM}")
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                         block_q: int = 512, block_k: int = 512,
                         kv_len=None) -> torch.Tensor:
@@ -63,6 +79,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     set the plain version's tiles (the reference's); the kernel's tiles
     are a fixed 64 x 64, so its bits depend on neither.  Raises on a CUDA
     tensor the kernel cannot take (head_dim > MAX_HEAD_DIM, another dtype).
+    The work is the custom op ``repro_torch::flash_attention_fwd``.
     """
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"needs q [B, H, S, dh] and k, v [B, KV, T, dh], "
@@ -74,31 +91,37 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError("q and k, v disagree on B or dh")
     if kv < 1 or h % kv != 0:
         raise ValueError(f"{h} query heads do not group over {kv} KV heads")
-    if q.device.type == "cpu":
-        return _ref.flash_attention_ref(q, k, v, causal=causal,
-                                        window=window, block_q=block_q,
-                                        block_k=block_k, kv_len=kv_len)
-    if q.device.type != "cuda":
+    if q.device.type != "cpu" and q.device.type not in build.CARD_DEVICES:
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu, got "
                          f"{q.device}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("operands on several devices")
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q, k, v must all be float32 or bfloat16, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if dh > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {dh} > {MAX_HEAD_DIM}")
+    lens = kv_len if isinstance(kv_len, torch.Tensor) else None
+    n = -1 if kv_len is None or lens is not None else int(kv_len)
+    return flash_attention_op(q, k, v, lens, n, causal, window, block_q,
+                              block_k)
+
+
+def _impl(q, k, v, lens, kv_len, causal, window, block_q, block_k):
+    """:func:`flash_attention_fwd` as an op: ``lens`` a [B] (or scalar)
+    tensor of key lengths, else ``kv_len`` (-1: every key)."""
+    length = lens if lens is not None else (None if kv_len < 0 else kv_len)
+    if q.device.type == "cpu":
+        # dense, as the fake version says (the plain version's output
+        # can be a view of its padded tiles)
+        return _ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window, block_q=block_q,
+            block_k=block_k, kv_len=length).contiguous()
+    _kernel_checks(q, k, v)
+    b, h, s, dh = q.shape
+    kv, t = k.shape[1], k.shape[2]
     q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
-    if kv_len is None:
+    if length is None:
         lens = None
-    elif isinstance(kv_len, torch.Tensor):
-        if kv_len.device != q.device:
+    elif isinstance(length, torch.Tensor):
+        if length.device != q.device:
             raise ValueError("kv_len must be on q's device")
-        lens = kv_len.reshape(-1).expand(b).to(torch.int32).contiguous()
+        lens = length.reshape(-1).expand(b).to(torch.int32).contiguous()
     else:
-        lens = torch.full((b,), int(kv_len), dtype=torch.int32,
-                          device=q.device)
+        lens = torch.full((b,), length, dtype=torch.int32, device=q.device)
     out = torch.empty_like(q)            # q's strides when q is dense
     if out.numel():
         strides = (ctypes.c_longlong * 12)(
@@ -115,6 +138,34 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
         build.check(status, "flash_attention_fwd")
         build.count(flash_attention_fwd)
     return out
+
+
+def _fake(q, k, v, lens, kv_len, causal, window, block_q, block_k):
+    if q.device.type != "cpu":
+        _kernel_checks(q, k, v)
+        if lens is not None and lens.device != q.device:
+            raise ValueError("kv_len must be on q's device")
+        return torch.empty_like(q if q.stride(-1) == 1 else q.contiguous())
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+def _flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """The dots the reference's census counts for this attention on its
+    ``baseline`` path, ``layers.blockwise_attention``: both einsums of
+    every (q block, kv block) pair of its scan, masked or not, over the
+    sequence and keys padded to whole blocks of min(512, seq_bucket),
+    2 x 2 B H S_pad T_pad dh."""
+    b, h, s, dh = q_shape
+    t = k_shape[2]
+    sp = -(-s // min(512, seq_bucket(s))) * min(512, seq_bucket(s))
+    tp = -(-t // min(512, seq_bucket(t))) * min(512, seq_bucket(t))
+    return 4 * b * h * sp * tp * dh
+
+
+flash_attention_op = build.kernel_op(
+    "flash_attention_fwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor? lens, int kv_len, bool causal, "
+    "int window, int block_q, int block_k) -> Tensor", _impl, _fake, _flops)
 
 
 flash_attention_fwd.launches = 0

@@ -111,14 +111,20 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(fn, packed: bool, x, w, scales, group: int) -> torch.Tensor:
+def _device_checks(what: str, x, w, scales) -> None:
+    """Raise where the kernel cannot take the operands' devices (the op's
+    real and fake versions both run it)."""
     devices = {x.device, w.device, scales.device}
     if len(devices) != 1:
-        raise ValueError(f"{fn.__name__}: operands on several devices "
+        raise ValueError(f"{what}: operands on several devices "
                          f"{devices}")
-    if x.device.type != "cuda":
-        raise ValueError(f"{fn.__name__}: runs on cuda or cpu, got "
+    if x.device.type not in build.CARD_DEVICES:
+        raise ValueError(f"{what}: runs on cuda or cpu, got "
                          f"{x.device}")
+
+
+def _launch(fn, packed: bool, x, w, scales, group: int) -> torch.Tensor:
+    _device_checks(fn.__name__, x, w, scales)
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
@@ -160,21 +166,54 @@ def qmm(x: torch.Tensor, codes: torch.Tensor,
 
     Launches a CUDA kernel on a CUDA tensor (any M, K, N and any G that
     divides K; :func:`route` picks which) and runs the plain version on a
-    CPU tensor.
+    CPU tensor; the custom op ``repro_torch::qmm``.
     """
-    group = _check_args(x, codes, scales, False, "qmm")
-    if x.device.type == "cpu":
-        return _ref.qmm_ref(x, codes, scales)
-    return _launch(qmm, False, x, codes, scales, group)
+    _check_args(x, codes, scales, False, "qmm")
+    return qmm_op(x, codes, scales)
 
 
 def qmm_int4(x: torch.Tensor, packed: torch.Tensor,
              scales: torch.Tensor) -> torch.Tensor:
-    """x [M, K] @ dequant(packed [K/2, N] int4x2, scales [K//G, N])."""
-    group = _check_args(x, packed, scales, True, "qmm_int4")
+    """x [M, K] @ dequant(packed [K/2, N] int4x2, scales [K//G, N]); the
+    custom op ``repro_torch::qmm_int4``."""
+    _check_args(x, packed, scales, True, "qmm_int4")
+    return qmm_int4_op(x, packed, scales)
+
+
+def _qmm_impl(x, codes, scales):
+    if x.device.type == "cpu":
+        return _ref.qmm_ref(x, codes, scales)
+    return _launch(qmm, False, x, codes, scales,
+                   x.shape[1] // scales.shape[0])
+
+
+def _qmm_int4_impl(x, packed, scales):
     if x.device.type == "cpu":
         return _ref.qmm_int4_ref(x, packed, scales)
-    return _launch(qmm_int4, True, x, packed, scales, group)
+    return _launch(qmm_int4, True, x, packed, scales,
+                   x.shape[1] // scales.shape[0])
+
+
+def _fake(what):
+    def fake(x, w, scales):
+        if x.device.type != "cpu" or w.device != x.device \
+                or scales.device != x.device:
+            _device_checks(what, x, w, scales)
+        return x.new_empty((x.shape[0], w.shape[1]))
+    return fake
+
+
+def _flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    """2 M K N: the product the kernel computes (its three bf16 passes
+    are how, not what)."""
+    m, k = x_shape
+    return 2 * m * k * w_shape[1]
+
+
+_SCHEMA = "(Tensor x, Tensor codes, Tensor scales) -> Tensor"
+qmm_op = build.kernel_op("qmm", _SCHEMA, _qmm_impl, _fake("qmm"), _flops)
+qmm_int4_op = build.kernel_op("qmm_int4", _SCHEMA, _qmm_int4_impl,
+                              _fake("qmm_int4"), _flops)
 
 
 def reset_route_launches() -> None:

@@ -132,13 +132,20 @@ def group_quantize_many(ws: Sequence[torch.Tensor], groups: Sequence[int],
                          f"{devices}")
     if not ws:
         return []
+    flat = group_quantize_op(list(ws), list(groups), list(bits), pack)
+    return [(flat[2 * i], flat[2 * i + 1]) for i in range(len(ws))]
+
+
+def _impl(ws, groups, bits, pack):
+    """:func:`group_quantize_many` as an op: [codes_0, scales_0, codes_1,
+    ...]."""
     dev = ws[0].device
     if dev.type == "cpu":
         out = []
         for w, g, b in zip(ws, groups, bits):
             codes, scales = _ref.group_quantize_ref(w, g, b)
-            out.append((_ref.pack_int4_ref(codes) if pack and b <= 4
-                        else codes, scales))
+            out += [_ref.pack_int4_ref(codes) if pack and b <= 4
+                    else codes, scales]
         return out
     if dev.type != "cuda":
         raise ValueError(f"group_quantize runs on cuda or cpu, got {dev}")
@@ -185,7 +192,31 @@ def group_quantize_many(ws: Sequence[torch.Tensor], groups: Sequence[int],
                 _slots([c[4] for c in chunk]), stream)
             build.check(status, "group_quantize_vec_f32")
             build.count(group_quantize, "vector")
+    return [t for pair in out for t in pair]
+
+
+def _fake(ws, groups, bits, pack):
+    dev = ws[0].device
+    if dev.type != "cpu" and dev.type not in build.CARD_DEVICES:
+        raise ValueError(f"group_quantize runs on cuda or cpu, got {dev}")
+    out = []
+    for w, g, b in zip(ws, groups, bits):
+        k, n = w.shape
+        out += [w.new_empty((k // 2 if pack and b <= 4 else k, n),
+                            dtype=torch.int8),
+                w.new_empty((k // g, n), dtype=torch.float32)]
     return out
+
+
+def _flops(*args, out_shape=None, **kwargs) -> int:
+    """No products: the quantizer's cost is its bytes."""
+    return 0
+
+
+group_quantize_op = build.kernel_op(
+    "group_quantize",
+    "(Tensor[] ws, int[] groups, int[] bits, bool pack) -> Tensor[]",
+    _impl, _fake, _flops)
 
 
 def emulate_vector(ws: Sequence[torch.Tensor], groups: Sequence[int],

@@ -175,14 +175,38 @@ def _check(x: torch.Tensor, ws: Sequence[torch.Tensor],
     tensors = [x, *ws, *(b for b in biases if b is not None)]
     if all(t.device.type == "cpu" for t in tensors):
         return "cpu"
-    if x.device.type != "cuda" or any(t.device != x.device
-                                      for t in tensors):
+    if x.device.type not in build.CARD_DEVICES or any(
+            t.device != x.device for t in tensors):
         raise ValueError(f"row_gemm runs on one cuda device or on the cpu, "
                          f"got {sorted({str(t.device) for t in tensors})}")
     if any(t.dtype != torch.float32 for t in tensors):
         raise ValueError(f"row_gemm takes float32, got "
                          f"{sorted({str(t.dtype) for t in tensors})}")
     return "cuda"
+
+
+def _launch_checks(x, ws, address) -> Optional[tuple]:
+    """Raise where one launch cannot take the operands; returns (layouts,
+    shared memory) or None when no launch is needed.  ``address(t)`` is a
+    tensor's byte address mod 16 (the data pointer on the card, the
+    storage offset in bytes under fake tensors, whose storage the
+    allocator would align as it aligns every allocation)."""
+    m, k = x.shape
+    if m == 0 or k == 0 or all(w.shape[1] == 0 for w in ws):
+        return None
+    layouts = [_layout(w, k) for w in ws]
+    if len(ws) > 1 and any(tr for tr, _ in layouts):
+        raise ValueError("a grouped launch takes row-major weights only")
+    if any(n == 0 for n in (w.shape[1] for w in ws)):
+        raise ValueError("a grouped launch takes products with N > 0")
+    if any(ld % 4 for _, ld in layouts) or any(
+            address(t) % 16 for t in (x, *ws)):
+        raise ValueError("row_gemm needs 16-byte aligned rows")
+    smem = smem_bytes(m, k, ws[0].shape[1], bool(layouts[0][0]))
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"K={k} needs {smem} bytes of shared memory per "
+                         f"block; the card has {MAX_SMEM_BYTES}")
+    return layouts, smem
 
 
 def _launch(x, ws, biases):
@@ -196,21 +220,12 @@ def _launch(x, ws, biases):
     if k == 0:
         return [o.zero_() if b is None else o.zero_() + b
                 for o, b in zip(outs, biases)]
-    layouts = [_layout(w, k) for w in ws]
-    if len(ws) > 1 and any(tr for tr, _ in layouts):
-        raise ValueError("a grouped launch takes row-major weights only")
-    transposed = layouts[0][0]
-    if any(n == 0 for n in (w.shape[1] for w in ws)):
-        raise ValueError("a grouped launch takes products with N > 0")
     xc = x.contiguous()
     bs = [None if b is None else b.contiguous() for b in biases]
-    if any(ld % 4 for _, ld in layouts) or any(
-            t.data_ptr() % 16 for t in (xc, *ws, *outs)):
+    layouts, smem = _launch_checks(xc, ws, lambda t: t.data_ptr())
+    if any(o.data_ptr() % 16 for o in outs):
         raise ValueError("row_gemm needs 16-byte aligned rows")
-    smem = smem_bytes(m, k, ws[0].shape[1], bool(transposed))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"K={k} needs {smem} bytes of shared memory per "
-                         f"block; the card has {MAX_SMEM_BYTES}")
+    transposed = layouts[0][0]
     s = schedule(k, ws[0].shape[1])
     count = len(ws)
     status = _entry()(
@@ -234,12 +249,11 @@ def row_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     Launches the CUDA kernel on CUDA tensors (once per call; float32, any
     M, ``w`` row-major with N % 4 == 0 or the transposed view of a
     row-major [N, K] with K % 4 == 0, 16-byte aligned) and runs the plain
-    version on CPU tensors; anything else raises.
+    version on CPU tensors; anything else raises.  The custom op
+    ``repro_torch::row_gemm``.
     """
-    if _check(x, [w], [None]) == "cpu":
-        return _ref.row_gemm_ref(x, w)
-    with torch.cuda.device(x.device):
-        return _launch(x, [w], [None])[0]
+    _check(x, [w], [None])
+    return row_gemm_op(x, w)
 
 
 def row_gemm_group(x: torch.Tensor, ws: Sequence[torch.Tensor],
@@ -249,16 +263,55 @@ def row_gemm_group(x: torch.Tensor, ws: Sequence[torch.Tensor],
     one x, in one launch on CUDA tensors: each output bitwise what
     :func:`row_gemm` gives for its product alone, followed by one float32
     add of its bias.  On CPU tensors, the plain version; anything else
-    raises.  Counts one launch of :func:`row_gemm`."""
+    raises.  Counts one launch of :func:`row_gemm`.  The custom op
+    ``repro_torch::row_gemm_group``."""
     ws = list(ws)
     biases = [None] * len(ws) if biases is None else list(biases)
     if len(biases) != len(ws) or not 1 <= len(ws) <= MAX_PRODUCTS:
         raise ValueError(f"1 to {MAX_PRODUCTS} products with one bias "
                          f"each, got {len(ws)} and {len(biases)}")
-    if _check(x, ws, biases) == "cpu":
+    _check(x, ws, biases)
+    return row_gemm_group_op(x, ws, biases)
+
+
+def _impl(x, w):
+    if x.device.type == "cpu":
+        return _ref.row_gemm_ref(x, w)
+    with torch.cuda.device(x.device):
+        return _launch(x, [w], [None])[0]
+
+
+def _group_impl(x, ws, biases):
+    if x.device.type == "cpu":
         return _ref.row_gemm_group_ref(x, ws, biases)
     with torch.cuda.device(x.device):
         return _launch(x, ws, biases)
+
+
+def _fake_outs(x, ws, biases):
+    if x.device.type != "cpu":
+        _check(x, ws, biases)
+        _launch_checks(x.contiguous(), ws,
+                       lambda t: t.storage_offset() * t.element_size())
+    return [x.new_empty((x.shape[0], w.shape[1]),
+                        dtype=torch.promote_types(x.dtype, w.dtype))
+            for w in ws]
+
+
+def _flops(x_shape, w_shapes, *args, out_shape=None, **kwargs) -> int:
+    """2 M K N summed over the products."""
+    m, k = x_shape
+    if isinstance(w_shapes[0], int):
+        w_shapes = [w_shapes]
+    return sum(2 * m * k * n for _, n in w_shapes)
+
+
+row_gemm_op = build.kernel_op(
+    "row_gemm", "(Tensor x, Tensor w) -> Tensor", _impl,
+    lambda x, w: _fake_outs(x, [w], [None])[0], _flops)
+row_gemm_group_op = build.kernel_op(
+    "row_gemm_group", "(Tensor x, Tensor[] ws, Tensor?[] biases) -> Tensor[]",
+    _group_impl, _fake_outs, _flops)
 
 
 row_gemm.launches = 0

@@ -29,7 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
-from .lm import refuse_quantized, tree_map, unstack_layers
+from .lm import input_specs_of, refuse_quantized, tree_map, unstack_layers
 
 
 class EncDecModel:
@@ -224,6 +224,19 @@ class EncDecModel:
     def cache_axes(self):
         t = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
         return {"k": t, "v": t, "ek": t, "ev": t, "len": ("batch",)}
+
+    def input_specs(self, shape):
+        """The batch of a dry-run cell as ``meta`` tensors: half the
+        sequence is frame embeddings, half tokens."""
+        half = shape.seq_len // 2
+        return input_specs_of(shape, text=half,
+                              embeds=(half, self.cfg.d_model,
+                                      getattr(torch, self.cfg.dtype)))
+
+    def cache_specs(self, shape):
+        """The cache of a dry-run decode cell as ``meta`` tensors."""
+        return self.init_cache(shape.global_batch, shape.seq_len,
+                               device="meta")
 
     def prefill(self, params, batch):
         """(logits at the last position [B, V], cache): the decoder's

@@ -30,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from . import layers as L
 from . import moe as M
 from . import ssm as S
-from .lm import refuse_quantized, tree_map, unstack_layers
+from .lm import input_specs_of, refuse_quantized, tree_map, unstack_layers
 from .xlstm_model import prepend_axis
 
 
@@ -221,6 +221,15 @@ class HybridLM:
                         "head_dim"),
                 "conv": ("blocks", "layers", "batch", "conv", "ffn"),
                 "len": ("batch",)}
+
+    def input_specs(self, shape):
+        """The batch of a dry-run cell as ``meta`` tensors."""
+        return input_specs_of(shape)
+
+    def cache_specs(self, shape):
+        """The cache of a dry-run decode cell as ``meta`` tensors."""
+        return self.init_cache(shape.global_batch, shape.seq_len,
+                               device="meta")
 
     def prefill(self, params, batch):
         """(logits at the last position [B, V], cache).  As the

@@ -20,15 +20,21 @@ parity tests carry the reference's parameters across instead
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.bucketing import seq_bucket
-from ..kernels.flash import flash_attention
+from ..kernels.build import LIB, kernel_op
+from ..kernels.flash import MAX_HEAD_DIM, flash_attention, \
+    flash_attention_fwd
 from ..kernels.row_gemm import row_gemm, row_gemm_group
+from ..launch.opcount import note_flops
+from ..parallel import sharding as _shctx
+
+Axes = Any  # nested dicts of tuples of logical axis names
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -206,13 +212,18 @@ def blockwise_attention(q, k, v, *, causal: bool, q_block: int = 512,
 
     On a CPU tensor, plain torch with the reference's einsums: loops over
     KV blocks inside a loop over Q blocks, carrying the running (max, sum,
-    acc) of the streaming softmax; ``window`` > 0 adds a sliding-window mask.  Block sizes snap
+    acc) of the streaming softmax; ``window`` > 0 adds a sliding-window
+    mask.  Under ``parallel.sharding.flash_attention_mode`` it is
+    :func:`fused_attention_acct` instead.  Block sizes snap
     to the geometric sequence ladder (``seq_bucket``), never to the raw
     S/T, so right-padding inside a bucket partitions the sequence into
     the same blocks and masked lanes contribute exact zeros.  The keys
     padded onto the last block are masked whether or not the attention is
     causal (the reference masks them only through the causal mask).
     """
+    if _shctx.flash_mesh() is not None:
+        return fused_attention_acct(q, k, v, causal=causal, window=window,
+                                    mesh=_shctx.flash_mesh())
     if q.device.type != "cpu":
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal, window)
@@ -289,11 +300,20 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
     q [B, 1, H, dh]; caches [B, T, KV, dh]; ``cache_len`` an int or [B]:
     entries >= it (and, with ``window``, before it - window) are masked.
     Dot products are elementwise products summed over one axis, so a
-    row's bits do not depend on B.
+    row's bits do not depend on B.  Under
+    ``parallel.sharding.flash_attention_mode`` it is
+    :func:`fused_decode_attention_acct` instead.
     """
+    if _shctx.flash_mesh() is not None:
+        return fused_decode_attention_acct(q, k_cache, v_cache, cache_len,
+                                           window=window,
+                                           mesh=_shctx.flash_mesh())
     B, _, H, dh = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
+    # the reference's two einsums, 2 B H T dh each (the census cannot see
+    # products computed as multiplies and sums)
+    note_flops(4 * B * H * T * dh, dots=2)
     qr = q.reshape(B, KV, G, 1, dh).to(torch.float32)
     k = k_cache.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
     v = v_cache.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
@@ -305,6 +325,230 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
         valid = valid & (idx >= lens - window)
     p = torch.softmax(torch.where(valid, s, -torch.inf), dim=-1)
     out = torch.sum(p[..., None] * v, dim=-2)                # [B,KV,G,dh]
+    return out.reshape(B, 1, H, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Fused attention with the fused kernel's accounting (the dry-run's path)
+# ---------------------------------------------------------------------------
+# The reference runs these bodies on the host inside ``pure_callback``s so
+# that its compiled program shows one custom-call a layer with the fused
+# kernel's operands and results.  Here each is one custom op of its own,
+# with no FLOP formula: the accountant bills its operands and results as
+# the kernel's HBM traffic and leaves its products to the roofline's
+# analytic attention term, as the reference's census does.
+
+def _attention_fwd_host(q, k, v, causal: bool, window: int):
+    """Plain GQA attention: q [B,S,H,dh], k/v [B,T,KV,dh] -> (out
+    [B,S,H,dh], p [B,H,S,T]) in float32 (p is reused by the backward).
+    A causal mask is right-aligned when T > S."""
+    q, k, v = (x.to(torch.float32) for x in (q, k, v))
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    ke = torch.repeat_interleave(k, G, dim=2)
+    ve = torch.repeat_interleave(v, G, dim=2)
+    s = torch.einsum("bshd,bthd->bhst", q, ke) * dh ** -0.5
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (qpos + (T - S) >= kpos)
+    if window > 0:
+        mask = mask & ((qpos + (T - S) - kpos) < window)
+    s = torch.where(mask, s, -torch.inf)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
+    return torch.einsum("bhst,bthd->bshd", p, ve), p
+
+
+def _naive_attention_host(causal: bool, window: int, q, k, v):
+    """The accounting op's plain body: the attention in q's dtype."""
+    return _attention_fwd_host(q, k, v, causal, window)[0].to(q.dtype)
+
+
+def _attention_bwd_host(causal: bool, window: int, q, k, v, g):
+    """Plain attention backward: (q, k, v, dout) -> (dq, dk, dv), the
+    gradients of the KV heads summed over the query heads sharing each."""
+    qf, kf, vf, gf = (x.to(torch.float32) for x in (q, k, v, g))
+    B, S, H, dh = qf.shape
+    KV = kf.shape[2]
+    G = H // KV
+    _, p = _attention_fwd_host(qf, kf, vf, causal, window)   # [B,H,S,T]
+    ve = torch.repeat_interleave(vf, G, dim=2)
+    dv_e = torch.einsum("bhst,bshd->bthd", p, gf)             # [B,T,H,dh]
+    dp = torch.einsum("bshd,bthd->bhst", gf, ve)
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    scale = dh ** -0.5
+    ke = torch.repeat_interleave(kf, G, dim=2)
+    dq = torch.einsum("bhst,bthd->bshd", ds, ke) * scale
+    dk_e = torch.einsum("bhst,bshd->bthd", ds, qf) * scale
+    dk = dk_e.reshape(B, -1, KV, G, dh).sum(dim=3)
+    dv = dv_e.reshape(B, -1, KV, G, dh).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _fused_checks(q, k, v, causal: bool) -> None:
+    """What the flash kernel refuses of CUDA operands in the model's
+    layout (the accounting op's real and fake versions both run it)."""
+    if q.device.type == "cpu":
+        return
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError("the flash kernel's causal mask is not "
+                         "right-aligned: causal attention needs S == T")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must all be float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM}")
+
+
+def _fused_impl(q, k, v, causal, window):
+    _fused_checks(q, k, v, causal)
+    if q.device.type == "cpu":
+        return _naive_attention_host(causal, window, q, k, v).contiguous()
+    out = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=window)
+    return out.transpose(1, 2).contiguous()
+
+
+def _fused_fake(q, k, v, causal, window):
+    _fused_checks(q, k, v, causal)
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+_fused_attention_op = kernel_op(
+    "fused_attention_acct",
+    "(Tensor q, Tensor k, Tensor v, bool causal, int window) -> Tensor",
+    _fused_impl, _fused_fake)
+
+
+def _fused_bwd_impl(q, k, v, g, causal, window):
+    return [t.contiguous()
+            for t in _attention_bwd_host(causal, window, q, k, v, g)]
+
+
+def _fused_bwd_fake(q, k, v, g, causal, window):
+    return [torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            for x in (q, k, v)]
+
+
+_fused_attention_bwd_op = kernel_op(
+    "fused_attention_acct_bwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor g, bool causal, int window) "
+    "-> Tensor[]", _fused_bwd_impl, _fused_bwd_fake)
+
+
+def _fused_setup(ctx, inputs, output):
+    q, k, v, causal, window = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.causal, ctx.window = causal, window
+
+
+def _fused_backward(ctx, g):
+    q, k, v = ctx.saved_tensors
+    dq, dk, dv = _fused_attention_bwd_op(q, k, v, g.contiguous(),
+                                         ctx.causal, ctx.window)
+    return dq, dk, dv, None, None
+
+
+torch.library.register_autograd("repro_torch::fused_attention_acct",
+                                _fused_backward, setup_context=_fused_setup,
+                                lib=LIB)
+
+
+def fused_attention_acct(q, k, v, *, causal: bool, window: int = 0, mesh):
+    """Flash attention with the fused kernel's HBM accounting (the
+    dry-run's path): q [B, S, H, dh], k/v [B, T, KV, dh] -> [B, S, H, dh].
+
+    One op a call (``repro_torch::fused_attention_acct``): on a CUDA
+    tensor it launches the flash kernel once (counted), on a CPU tensor
+    it runs the plain attention, under fake tensors it allocates and
+    launches nothing.  Differentiable: its backward is a second op,
+    (q, k, v, dout) -> (dq, dk, dv), the flash backward's interface
+    (plain torch on any device; the port has no backward kernel).
+
+    The operands are this rank's already: the reference picks its own
+    head layout inside a ``shard_map`` (KV heads split, or q heads split
+    over replicated KV heads, or replicated); the port runs
+    ``parallel.tensor_parallel.decoder_plan``'s, which splits attention
+    only by whole KV groups, so a rank never holds q heads without their
+    KV heads and no gradient sum over ``model`` is needed.  ``mesh`` is
+    the accounting context's (:func:`parallel.sharding.flash_mesh`).
+    """
+    del mesh
+    return _fused_attention_op(q, k, v, causal, window)
+
+
+def _decode_partials_host(window: int, q, k, v, cache_len, offset):
+    """Flash-decoding partials of one cache shard: unnormalized (acc [B, 1,
+    KV, G, dh], m [B, KV, G, 1], l [B, KV, G, 1]) over the shard's
+    positions [offset, offset + T_s), float32."""
+    q, k, v = (x.to(torch.float32) for x in (q, k, v))
+    B, _, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qr = q.reshape(B, 1, KV, G, dh)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qr, k) * dh ** -0.5
+    gidx = torch.as_tensor(offset, device=q.device).reshape(-1, 1) \
+        + torch.arange(T, device=q.device)[None, :]
+    ln = cache_len.reshape(-1, 1)
+    valid = gidx < ln
+    if window > 0:
+        valid = valid & (gidx >= ln - window)
+    valid = valid[:, None, None, None, :]
+    s = torch.where(valid, s, -torch.inf)
+    m = torch.amax(s, dim=-1)                                 # [B,KV,G,1]
+    msafe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(valid, torch.exp(s - msafe[..., None]), 0.0)
+    return (torch.einsum("bkgqt,btkd->bqkgd", p, v), m,
+            torch.sum(p, dim=-1))
+
+
+def _decode_impl(q, k, v, lens, offset, window):
+    return [t.contiguous()
+            for t in _decode_partials_host(window, q, k, v, lens, offset)]
+
+
+def _decode_fake(q, k, v, lens, offset, window):
+    B, _, H, dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return [torch.empty((B, 1, KV, G, dh), **f32),
+            torch.empty((B, KV, G, 1), **f32),
+            torch.empty((B, KV, G, 1), **f32)]
+
+
+_fused_decode_op = kernel_op(
+    "fused_decode_attention_acct",
+    "(Tensor q, Tensor k, Tensor v, Tensor lens, int offset, int window) "
+    "-> Tensor[]", _decode_impl, _decode_fake)
+
+
+def fused_decode_attention_acct(q, k_cache, v_cache, cache_len, *,
+                                window: int, mesh):
+    """Flash-decoding with the fused kernel's accounting (the dry-run's
+    path): q [B, 1, H, dh] over this rank's cache [B, T, KV, dh] ->
+    [B, 1, H, dh].
+
+    The cache is read once inside one op
+    (``repro_torch::fused_decode_attention_acct``, plain torch on any
+    device, nothing under fake tensors) that returns the unnormalized
+    (acc, m, l) partials, then normalized.  The cache is whole along the
+    sequence: the port's decode step writes it so (the reference's
+    ``cacheshard`` merge of the partials over ``model`` is ROADMAP
+    A.7.4(b)).  ``mesh`` is the accounting context's."""
+    del mesh
+    B, _, H, dh = q.shape
+    lens = torch.as_tensor(cache_len, device=q.device).reshape(-1) \
+        .expand(B).to(torch.int32)
+    acc, _, l = _fused_decode_op(q, k_cache, v_cache, lens, 0, window)
+    out = acc / torch.clamp(l[:, None], min=1e-30)
     return out.reshape(B, 1, H, dh).to(q.dtype)
 
 

@@ -87,6 +87,32 @@ def refuse_quantized(cfg, params) -> None:
                         "the decoder-only LM only)")
 
 
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs_of(shape, *, text: Optional[int] = None, embeds=None):
+    """The dry-run's batch for ``shape`` (a ``configs.ShapeSpec``) as
+    ``meta`` tensors, the reference's ``input_specs``: a training or
+    prefill step's ``tokens`` (and a training step's ``labels``) of
+    ``text`` positions (default the whole sequence), behind stub
+    ``embeds`` of ``(positions, width, dtype)`` when given; a decode
+    step's one ``token`` and its ``pos``."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind not in ("train", "prefill"):
+        return {"token": _meta((b, 1), i32), "pos": _meta((b,), i32)}
+    st = s if text is None else text
+    out = {}
+    if embeds is not None:
+        n, width, dt = embeds
+        out["embeds"] = _meta((b, n, width), dt)
+    out["tokens"] = _meta((b, st), i32)
+    if shape.kind == "train":
+        out["labels"] = _meta((b, st), i32)
+    return out
+
+
 class DecoderLM:
     """Config-driven decoder-only LM (dense or MoE layers)."""
 
@@ -314,9 +340,14 @@ class DecoderLM:
     # ------------------------------------------------------------------
     # serving: the decode protocol
     # ------------------------------------------------------------------
-    def prefill(self, params, batch, last_index=None):
+    def prefill(self, params, batch, last_index=None, tp=None):
         """Full-sequence pass building the KV cache; returns (logits at
         each row's last prompt position [B, V], cache).
+
+        ``tp``: tensor-parallel compute over ``model`` as in :meth:`loss`
+        (``params`` holding this rank's shards of what it splits); the
+        cache then holds this rank's KV heads where attention is split,
+        and the logits are gathered whole.
 
         ``last_index`` ([B] ints, optional) names each row's true final
         position in a right-padded batch: logits are gathered there and
@@ -326,19 +357,22 @@ class DecoderLM:
         """
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
-        x, positions = self._embed(params, batch)
+        x, positions = self._embed(params, batch, tp)
         b, s = x.shape[0], x.shape[1]
         lp = params["layers"]
         ks, vs = [], []
         for i in range(cfg.n_layers):
             p_i = tree_map(lambda a: a[i], lp)
             h = L.apply_norm(cfg, x, p_i["ln1"])
-            q, k, v = L.qkv_project(cfg, p_i["attn"], h, positions)
+            q, k, v = L.qkv_project(cfg, p_i["attn"], h, positions, tp=tp)
             attn = self.attend(q, k, v)
-            x = x + attn.reshape(b, s, cfg.q_dim) \
+            y = attn.reshape(b, s, q.shape[2] * q.shape[3]) \
                 @ p_i["attn"]["wo"].to(x.dtype)
+            x = x + self._exit(y, tp, False, tp is not None and tp.attn)
             h2 = L.apply_norm(cfg, x, p_i["ln2"])
-            x = x + self._ffn(p_i["ffn"], h2)[0]
+            y = self._ffn(p_i["ffn"], h2, tp)[0]
+            x = x + self._exit(y, tp, False, tp is not None and (
+                tp.experts if cfg.n_experts else tp.mlp))
             ks.append(k.to(dtype))
             vs.append(v.to(dtype))
         x = L.apply_norm(cfg, x, params["final_norm"])
@@ -349,9 +383,18 @@ class DecoderLM:
             idx = torch.as_tensor(last_index, device=x.device).reshape(-1)
             sel = x[torch.arange(b, device=x.device), idx.long()][:, None]
             lens = (idx + 1).to(torch.int32)
-        logits = L.unembed(cfg, params["embed"], sel)[:, 0]
+        logits = self._logits(params, sel, tp)
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
                         "len": lens}
+
+    def _logits(self, params, x, tp, matmul=torch.matmul):
+        """The head's logits [B, V] of x [B, 1, D], gathered whole over
+        ``model`` when ``tp`` splits the vocabulary."""
+        logits = L.unembed(self.cfg, params["embed"], x, matmul=matmul,
+                           tp=tp)[:, 0]
+        if tp is not None and tp.vocab:
+            logits = tp.gather(logits, -1)
+        return logits
 
     def init_cache(self, batch: int, max_len: int, device=None):
         cfg = self.cfg
@@ -366,7 +409,28 @@ class DecoderLM:
         t = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
         return {"k": t, "v": t, "len": ("batch",)}
 
-    def _decode_layers(self, params, x, pos, t: int, write, attend):
+    # ------------------------------------------------------------------
+    # dry-run input specs
+    # ------------------------------------------------------------------
+    def input_specs(self, shape):
+        """The batch of a dry-run cell as ``meta`` tensors: a multimodal
+        config's first ``int(S * vis_frac) // 16 * 16`` positions are
+        stub embeddings, the rest tokens."""
+        cfg = self.cfg
+        if cfg.frontend == "none":
+            return input_specs_of(shape)
+        sv = int(shape.seq_len * cfg.vis_frac) // 16 * 16
+        return input_specs_of(shape, text=shape.seq_len - sv,
+                              embeds=(sv, cfg.d_model,
+                                      getattr(torch, cfg.dtype)))
+
+    def cache_specs(self, shape):
+        """The cache of a dry-run decode cell as ``meta`` tensors."""
+        return self.init_cache(shape.global_batch, shape.seq_len,
+                               device="meta")
+
+    def _decode_layers(self, params, x, pos, t: int, write, attend,
+                       tp=None):
         """The layer loop of one decode token over a cache of ``t``
         positions.  ``write(i, k, v, at)`` stores layer i's fresh entry at
         cache position ``at`` and
@@ -377,7 +441,8 @@ class DecoderLM:
         :func:`layers.row_matmul` too; its experts run as the reference's
         products over the expert stacks: dense at <= 8 experts (one token
         at a time, so rows stay independent), else dispatch over the whole
-        block as one group of ``min(1024, B)``."""
+        block as one group of ``min(1024, B)``.  ``tp``: tensor-parallel
+        compute over ``model`` (as in :meth:`prefill`)."""
         cfg = self.cfg
         mm = L.row_matmul
         b = x.shape[0]
@@ -391,32 +456,37 @@ class DecoderLM:
             p_i = tree_map(lambda a: a[i], lp)
             h = L.apply_norm(cfg, x, p_i["ln1"])
             q, k, v = L.qkv_project(cfg, p_i["attn"], h, positions,
-                                    products=L.row_matmul_group)
+                                    products=L.row_matmul_group, tp=tp)
             write(i, k, v, at)
             attn = attend(i, q)
-            x = x + mm(attn.reshape(b, 1, cfg.q_dim),
-                       p_i["attn"]["wo"].to(x.dtype))
+            y = mm(attn.reshape(b, 1, q.shape[2] * q.shape[3]),
+                   p_i["attn"]["wo"].to(x.dtype))
+            x = x + self._exit(y, tp, False, tp is not None and tp.attn)
             h2 = L.apply_norm(cfg, x, p_i["ln2"])
             if cfg.n_experts:
-                x = x + M.apply_moe(
+                y = M.apply_moe(
                     cfg, p_i["ffn"], h2,
                     path="dense" if cfg.n_experts <= 8 else "dispatch",
                     group_size=min(1024, b), router_matmul=mm,
-                    experts=M.expert_matmul_rows)[0]
+                    experts=M.expert_matmul_rows, tp=tp)[0]
+                split = tp is not None and tp.experts
             else:
-                x = x + L.apply_mlp(cfg, p_i["ffn"], h2,
-                                    products=L.row_matmul_group)
+                y = L.apply_mlp(cfg, p_i["ffn"], h2,
+                                products=L.row_matmul_group, tp=tp)
+                split = tp is not None and tp.mlp
+            x = x + self._exit(y, tp, False, split)
         x = L.apply_norm(cfg, x, params["final_norm"])
-        return L.unembed(cfg, params["embed"], x, matmul=mm)[:, 0]
+        return self._logits(params, x, tp, matmul=mm)
 
-    def decode_step(self, params, cache, batch):
+    def decode_step(self, params, cache, batch, tp=None):
         """One token over a full-precision cache: batch = {'token': [B, 1],
         'pos': [B]}.  Writes the fresh K/V into ``cache`` in place (the
         reference returns an updated copy) and returns (logits [B, V],
-        cache with ``len + 1``)."""
+        cache with ``len + 1``).  ``tp`` as in :meth:`prefill`: the cache
+        holds this rank's KV heads where attention is split."""
         tok, pos = batch["token"], batch["pos"]
         x = L.embed_tokens(params["embed"], tok, getattr(torch,
-                                                         self.cfg.dtype))
+                                                         self.cfg.dtype), tp)
         kc, vc = cache["k"], cache["v"]
         rows = torch.arange(x.shape[0], device=x.device)
 
@@ -429,7 +499,7 @@ class DecoderLM:
                                       window=self.cfg.sliding_window)
 
         logits = self._decode_layers(params, x, pos, kc.shape[2], write,
-                                     attend)
+                                     attend, tp)
         return logits, {**cache, "len": cache["len"] + 1}
 
     def decode_step_q(self, params, qcache, batch, *, b_kv: int):

@@ -26,7 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import ssm as S
-from .lm import refuse_quantized, tree_map, unstack_layers
+from .lm import input_specs_of, refuse_quantized, tree_map, unstack_layers
 
 
 def prepend_axis(ax, name: str = "blocks"):
@@ -160,6 +160,15 @@ class XLSTMModel:
                 "sn": ("blocks", "batch", "embed"),
                 "sm": ("blocks", "batch", "embed"),
                 "len": ("batch",)}
+
+    def input_specs(self, shape):
+        """The batch of a dry-run cell as ``meta`` tensors."""
+        return input_specs_of(shape)
+
+    def cache_specs(self, shape):
+        """The cache of a dry-run decode cell as ``meta`` tensors."""
+        return self.init_cache(shape.global_batch, shape.seq_len,
+                               device="meta")
 
     def prefill(self, params, batch):
         """(logits at the last position [B, V], cache).  As the

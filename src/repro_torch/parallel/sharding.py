@@ -101,6 +101,37 @@ def constrain_activations(x: torch.Tensor, tp=None) -> torch.Tensor:
     return tp.split(x, 1)
 
 
+# ---------------------------------------------------------------------------
+# Fused-attention (flash) accounting mode
+# ---------------------------------------------------------------------------
+# When set to a mesh, the models route full-sequence and decode attention
+# through the fused accounting ops (models/layers.fused_attention_acct and
+# fused_decode_attention_acct): one opaque op a layer whose operands and
+# results are the fused kernel's interface (q, k, v -> out), so the
+# dry-run's accountant bills the kernel's HBM traffic instead of the plain
+# attention's score blocks.  On the card the same op launches the flash
+# kernel.
+
+_FLASH_MESH = None
+
+
+@contextlib.contextmanager
+def flash_attention_mode(mesh):
+    """Within the context, attention runs through the accounting ops over
+    ``mesh`` (None: the ordinary paths)."""
+    global _FLASH_MESH
+    prev = _FLASH_MESH
+    _FLASH_MESH = mesh
+    try:
+        yield
+    finally:
+        _FLASH_MESH = prev
+
+
+def flash_mesh():
+    return _FLASH_MESH
+
+
 def default_rules(cfg, *, long_context: bool = False) -> LogicalRules:
     return {
         "batch": ("pod", "data"),

@@ -146,7 +146,7 @@ class Trainer:
 
     def __init__(self, model, optimizer: AdamW, device=None,
                  train_cfg: Optional[TrainConfig] = None, *, ckpt=None,
-                 mesh=None):
+                 mesh=None, rules=None):
         self.model = model
         self.cfg = model.cfg
         self.opt = optimizer
@@ -156,7 +156,9 @@ class Trainer:
         if self.tc.grad_compression not in ("none", "int8_ef"):
             raise ValueError(f"grad_compression must be 'none' or "
                              f"'int8_ef', got {self.tc.grad_compression!r}")
-        self.rules = default_rules(self.cfg)
+        # the sharding rules (default: ``default_rules``; the dry-run
+        # passes its variants')
+        self.rules = default_rules(self.cfg) if rules is None else rules
         self._axes = model.logical_axes()
         self.podwise = False
         self._dp_groups = []

@@ -410,6 +410,40 @@ def vocab_ce(tmp, model, ranks=None):
     return out
 
 
+def serve_tp(tmp, model, ranks=None):
+    """Tensor-parallel serving on a (data 1, ``model``) mesh's trainer
+    plan, from the test's state: ``prefill`` of the test's prompts and
+    one ``decode_step`` over the test's cache (this rank's KV heads of it
+    where attention splits), on the leaves the plan computes with, under
+    ``tp``.  Returns the plan's attention flag, the prefill's logits and
+    cache, and the decode step's logits."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.train_loop import _gather, _zip_map
+
+    inp = _inputs(tmp, "serve")
+    mesh = make_mesh((1, model), ("data", "model"), ranks, device="cpu")
+    if mesh.get_coordinate() is None:
+        return None
+    tr = _trainer(mesh, {}, None)
+    state = _start(tr, _inputs(tmp, "plain"))
+    leaves = _zip_map(_gather, state[0], tr._dims(state[0]))
+    heads = (lambda a: a.chunk(model, 3)[tr.tp.rank]) if tr.tp.attn \
+        else (lambda a: a)
+    cache = {k: heads(torch.from_numpy(inp[k])).contiguous()
+             for k in ("k", "v")}
+    cache["len"] = torch.from_numpy(inp["pos"])
+    with torch.no_grad():
+        logits, pre = tr.model.prefill(
+            leaves, {"tokens": torch.from_numpy(inp["tokens"])}, tp=tr.tp)
+        step, _ = tr.model.decode_step(
+            leaves, cache, {"token": torch.from_numpy(inp["token"]),
+                            "pos": torch.from_numpy(inp["pos"])}, tp=tr.tp)
+    return {"attn": tr.tp.attn, "prefill": logits.numpy().copy(),
+            "k": pre["k"].numpy().copy(), "v": pre["v"].numpy().copy(),
+            "decode": step.numpy().copy()}
+
+
 SCENARIOS = {"fed_podwise": fed_podwise, "fit_mesh": fit_mesh,
              "elastic": elastic, "mesh_of_two": mesh_of_two,
-             "vocab_ce": vocab_ce}
+             "vocab_ce": vocab_ce, "serve_tp": serve_tp}

@@ -186,15 +186,26 @@ def test_wrapper_rejects_what_it_cannot_run():
     q, k, v = _t(*_qkv(10, 1, 6, 4, 16, 8))
     with pytest.raises(ValueError, match="group"):
         flash_attention_fwd(q, k, v)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        flash_attention_fwd(*(x[:, :2].to("meta") for x in (q, k, v)))
+    # on meta (the dry-run's stand-in for the card) the op's fake version
+    # refuses what the kernel refuses
+    wide = torch.zeros(1, 2, 8, 160, device="meta")
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_fwd(wide, wide, wide)
+    half = torch.zeros(1, 2, 8, 16, dtype=torch.float16, device="meta")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_fwd(half, half, half)
 
 
 def test_blockwise_attention_runs_the_loop_on_the_cpu_only():
     """Off the CPU the model's call site goes to the flash wrapper, which
-    launches the kernel or raises: the plain loop never runs on another
-    device."""
+    runs the kernel's op (the launch on CUDA, the fake version on
+    ``meta``): the plain loop never runs on another device, so no
+    product of it is dispatched."""
+    from repro_torch.launch import opcount as oc
     q, k, v = (x.transpose(1, 2).to("meta")
                for x in _t(*_qkv(12, 1, 4, 2, 16, 8)))
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        tL.blockwise_attention(q, k, v, causal=True)
+    out, c = oc.account(lambda: tL.blockwise_attention(q, k, v,
+                                                       causal=True))
+    assert c.kernel_calls == {"flash_attention_fwd": 1}
+    assert c.n_dots == 0
+    assert out.device.type == "meta" and out.shape == q.shape

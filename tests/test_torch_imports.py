@@ -62,7 +62,9 @@ def test_importing_every_module_pulls_in_no_jax():
               "repro_torch.configs.jamba_1_5_large_398b",
               "repro_torch.configs.seamless_m4t_large_v2",
               "repro_torch.launch.mesh", "repro_torch.parallel",
-              "repro_torch.parallel.sharding"):
+              "repro_torch.parallel.sharding",
+              "repro_torch.launch.dryrun", "repro_torch.launch.opcount",
+              "repro_torch.launch.roofline"):
         assert m in mods, m
     code = ("import importlib, runpy, sys\n"
             f"for m in {mods!r}:\n"

@@ -129,16 +129,27 @@ def test_group_layout_follows_reference():
 
 
 def test_wrappers_never_fall_back_off_the_cpu():
-    """Only a CPU tensor runs the plain version; any other device either
-    launches the kernel (CUDA) or raises."""
+    """Only a CPU tensor runs the plain version; off the CPU a wrapper
+    runs its kernel's op: the launch on CUDA, and on ``meta`` (the
+    dry-run's stand-in for the card) the op's fake version, which
+    computes nothing (no product of the plain version is dispatched) and
+    refuses what the kernel would (a CPU operand beside a card one)."""
+    from repro_torch.launch import opcount as oc
     x = torch.zeros(4, 256, device="meta")
     codes = torch.zeros(256, 64, dtype=torch.int8, device="meta")
     scales = torch.ones(2, 64, device="meta")
-    for call in (lambda: tk.qmm(x, codes, scales),
-                 lambda: tk.qmm_int4(x, codes[:128], scales),
-                 lambda: tk.group_quantize(x.T.contiguous())):
-        with pytest.raises(ValueError, match="cuda or cpu"):
-            call()
+    wt = x.T.contiguous()
+    for name, call in (("qmm", lambda: tk.qmm(x, codes, scales)),
+                       ("qmm_int4", lambda: tk.qmm_int4(x, codes[:128],
+                                                        scales)),
+                       ("group_quantize", lambda: tk.group_quantize(wt))):
+        out, c = oc.account(call)
+        assert c.kernel_calls == {name: 1}
+        assert c.n_dots == 0
+        for t in (out if isinstance(out, tuple) else (out,)):
+            assert t.device.type == "meta"
+    with pytest.raises(ValueError, match="several devices"):
+        tk.qmm(x, codes, torch.ones(2, 64))
 
 
 def test_kernel_build_keeps_ieee_numerics():

@@ -68,6 +68,35 @@ def _ce_inputs(seed):
     return out
 
 
+def _serve_inputs(seed):
+    """Prompts, a cache of T = 24 positions, a decode token and its
+    positions, from a numpy seed (qwen2-0.5b smoke's widths)."""
+    cfg = jget_smoke(ARCH)
+    rng = np.random.default_rng(seed)
+    shape = (cfg.n_layers, 2, 24, cfg.n_kv_heads, cfg.head_dim)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (2, 16)).astype(
+                np.int32),
+            "k": rng.standard_normal(shape).astype(np.float32),
+            "v": rng.standard_normal(shape).astype(np.float32),
+            "token": rng.integers(0, cfg.vocab_size, (2, 1)).astype(
+                np.int32),
+            "pos": np.asarray([16, 21], np.int32)}
+
+
+def _ref_serve(state, inp):
+    """The reference's prefill and one decode step from ``state``."""
+    from repro.models.registry import build_model as jbuild
+    model = jbuild(jget_smoke(ARCH))
+    params = jax.tree_util.tree_map(jnp.asarray, state[0])
+    logits, cache = model.prefill(params, {"tokens": inp["tokens"]})
+    step, _ = model.decode_step(
+        params, {"k": jnp.asarray(inp["k"]), "v": jnp.asarray(inp["v"]),
+                 "len": jnp.asarray(inp["pos"])},
+        {"token": inp["token"], "pos": inp["pos"]})
+    return {"prefill": np.asarray(logits), "k": np.asarray(cache["k"]),
+            "v": np.asarray(cache["v"]), "decode": np.asarray(step)}
+
+
 def _ref_ce(inp):
     """The reference's chunked CE and its gradient in x, per length."""
     cfg = jget_smoke(ARCH)
@@ -92,6 +121,8 @@ def run(tmp_path_factory):
     put_inputs(tmp, "ce", ce)
     state, _, _ = ref_fit(cfg, ARCH, B, S, steps=0)
     put_inputs(tmp, "plain", {"state": state, "tc": {}, "lr": LR})
+    serve = _serve_inputs(8)
+    put_inputs(tmp, "serve", serve)
     fit = dict(axes=("data", "model"), steps=3, inputs="plain")
     world = start_world(4, [
         ("fit_mesh", dict(shape=(2, 2), **fit)),
@@ -100,7 +131,9 @@ def run(tmp_path_factory):
         ("fit_mesh", dict(shape=(2, 2), batch=LONG[0], seq=LONG[1],
                           **fit)),
         ("vocab_ce", dict(model=2, ranks=[0, 1])),
-        ("vocab_ce", dict(model=4))], tmp, "tp4")
+        ("vocab_ce", dict(model=4)),
+        ("serve_tp", dict(model=2, ranks=[0, 1])),
+        ("serve_tp", dict(model=4))], tmp, "tp4")
     # the reference beside the ranks
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         fits = {"short": pool.submit(ref_fit, cfg, ARCH, B, S),
@@ -108,6 +141,7 @@ def run(tmp_path_factory):
         ranks = join_world(world, timeout=600)
         ref = {k: f.result()[1:] for k, f in fits.items()}
     ref["ce"] = _ref_ce(ce)
+    ref["serve"] = _ref_serve(state, serve)
     return ref, ranks
 
 
@@ -188,3 +222,28 @@ def test_vocab_parallel_lookup_and_loss(run, index, model):
             np.testing.assert_allclose(got_loss, loss, rtol=1e-6)
             np.testing.assert_allclose(got_grad, grad, rtol=1e-5,
                                        atol=1e-5 * np.abs(grad).max())
+
+
+@pytest.mark.parametrize("index,model", [(6, 2), (7, 4)])
+def test_tensor_parallel_prefill_and_decode(run, index, model):
+    """``prefill`` and ``decode_step`` with ``tp`` (the dry-run's serving
+    steps): at model 2 attention splits by KV groups, each rank's prefill
+    cache its own KV head; at model 4 attention is replicated and the
+    cache whole; the MLP and the vocabulary split in both.  Logits (the
+    vocabulary gathered whole) and caches within 1e-4 of the reference's
+    one-device prefill and decode step."""
+    ref, ranks = run
+    want = ref["serve"]
+    outs = [r[index] for r in ranks if r[index] is not None]
+    assert len(outs) == model
+    for rank, out in enumerate(outs):
+        assert out["attn"] == (model == 2)
+        for key in ("prefill", "decode"):
+            np.testing.assert_allclose(out[key], want[key], rtol=1e-4,
+                                       atol=1e-4)
+        for key in ("k", "v"):
+            full = want[key]
+            mine = (np.split(full, model, axis=3)[rank] if out["attn"]
+                    else full)
+            np.testing.assert_allclose(out[key], mine, rtol=1e-4,
+                                       atol=1e-4)
