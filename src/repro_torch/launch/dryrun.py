@@ -24,21 +24,22 @@ Per cell the step is this rank's:
 
   train    ``Trainer._backward`` then ``_apply`` (``runtime/train_loop.py``:
            the state placed by the sharding rules, gathered over every
-           axis but ``model``, a decoder LM computing on its ``model``
-           shards by ``decoder_plan``, the gradient mean over the
+           axis but ``model``, every family computing on its ``model``
+           shards by ``model_plan``, the gradient mean over the
            data-parallel ranks, AdamW on this rank's part); ``gradcomp``
            on the two-pod mesh is the pod-wise int8 step
   prefill  ``model.prefill`` on this rank's rows of the batch
   decode   one ``model.decode_step`` against this rank's part of the
            full-size cache
 
-A decoder LM's serving steps compute tensor-parallel over ``model`` as
-its training does; the other families gather every weight whole first
-and compute replicated (ROADMAP A.7.1(b)), and hold the cache whole but
-for their batch rows.  Train and prefill cells run in bfloat16 (the
-reference's ``_to_bf16``); decode cells in float32, because the decode
-step's products run through ``row_gemm``, which takes float32 only
-(``model_stats["dtype"]`` says which).
+Every family's serving steps compute tensor-parallel over ``model`` as
+its training does (``model_plan``: the parts whose sizes divide on their
+shards, the others on leaves gathered whole), and hold the cache as the
+rules place it (batch rows, and the ``heads``, ``kv_heads`` and ``ffn``
+axes where the part that writes them is split).  Train and prefill
+cells run in bfloat16 (the reference's ``_to_bf16``); decode cells in
+float32, because the decode step's products run through ``row_gemm``,
+which takes float32 only (``model_stats["dtype"]`` says which).
 
 The record has the reference's keys.  ``hlo`` holds the accountant's
 per-device counts under the reference's names; ``cost_analysis`` repeats
@@ -75,13 +76,13 @@ from torch.distributed.tensor import DTensor
 
 from ..configs import ALL_SHAPES, ARCH_IDS, cell_applicable, get_config
 from ..configs.base import ModelConfig, ShapeSpec
-from ..models.lm import DecoderLM, tree_leaves, tree_map
+from ..models.lm import tree_leaves, tree_map
 from ..models.registry import build_model
 from ..optim import AdamW
 from ..parallel.sharding import (activation_sharding, batch_shardings,
                                  default_rules, flash_attention_mode, gather,
                                  local_part, tree_shardings)
-from ..parallel.tensor_parallel import decoder_plan
+from ..parallel.tensor_parallel import model_plan
 from ..runtime.train_loop import Trainer, TrainConfig, _map3
 from .mesh import make_mesh
 from .opcount import account, tensor_bytes
@@ -149,18 +150,13 @@ def _bytes(tree) -> int:
 
 def _serving_params(model, cfg, rules, mesh):
     """(the leaves a serving step computes with, ``tp``, this rank's parts
-    as held).  A decoder LM keeps the leaves it computes on shards of
-    (``decoder_plan``) and gathers the rest whole; other families gather
-    every leaf whole."""
+    as held).  The leaves the plan computes on shards of (``model_plan``)
+    stay this rank's; the rest are gathered whole."""
     axes = model.logical_axes()
     structs = model.param_structs()
     sh = tree_shardings(axes, structs, rules, mesh)
     held = _local_tree(_meta_tree(structs), sh)
-    tp, local = None, tree_map(lambda _: None, held)
-    if isinstance(model, DecoderLM):
-        specs = tree_map(lambda s: s.spec, sh)
-        tp, plan = decoder_plan(cfg, specs, mesh)
-        local = plan
+    tp, local = model_plan(cfg, tree_map(lambda s: s.spec, sh), mesh)
 
     def whole(part, s, dim):
         d = DTensor.from_local(part, mesh, s.placements, run_check=False)
@@ -231,11 +227,15 @@ def _cell_fn_and_args(model, cfg: ModelConfig, shape: ShapeSpec,
         return fn, {"params": held_params, "batch": batch}
 
     c_structs = model.cache_specs(shape)
-    # the cache as the step needs it: a decoder LM's split where its
-    # attention is (the rules' kv_heads), another family's whole but for
-    # its batch rows
-    c_rules = rules if isinstance(model, DecoderLM) else \
-        {"batch": rules["batch"]}
+    # the cache as the step needs it: split by the rules' kv_heads where
+    # attention computes on its shards, by heads (and a Mamba conv state
+    # by ffn) where the recurrent layers do, whole along those axes where
+    # the plan computes the part replicated
+    on = {"kv_heads": tp is not None and tp.attn,
+          "heads": tp is not None and (tp.mamba or tp.mlstm),
+          "ffn": tp is not None and tp.mamba}
+    c_rules = {k: (None if k in on and not on[k] else r)
+               for k, r in rules.items()}
     c_sh = tree_shardings(model.cache_axes(), c_structs, c_rules, mesh)
     cache = _local_tree(_meta_tree(c_structs), c_sh)
 
@@ -258,7 +258,25 @@ def run_cell(arch: str, shape: ShapeSpec, *, multi_pod: bool,
         return rec
 
     t0 = time.monotonic()
-    mesh = _production_mesh(multi_pod)
+    return _account(rec, arch, cfg, shape, _production_mesh(multi_pod),
+                    variant, t0)
+
+
+def run_config(cfg: ModelConfig, shape: ShapeSpec, mesh,
+               variant: str = "baseline") -> Dict[str, Any]:
+    """Account one cell of any config on any mesh of the process's
+    group (a smoke config on a small fake mesh, say), as :func:`run_cell`
+    does a production cell; returns the record."""
+    rec: Dict[str, Any] = {"arch": cfg.name, "shape": shape.name,
+                           "variant": variant,
+                           "mesh": "x".join(map(str, mesh.shape))}
+    return _account(rec, cfg.name, cfg, shape, mesh, variant,
+                    time.monotonic())
+
+
+def _account(rec, arch, cfg, shape, mesh, variant, t0):
+    """:func:`run_cell`'s accounting of ``cfg``'s step on ``mesh``."""
+    multi_pod = "pod" in mesh.mesh_dim_names
     rules = default_rules(cfg, long_context=shape.name == "long_500k")
     if "cacheshard" in variant:
         rules["cache_seq"] = "model"

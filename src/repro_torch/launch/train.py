@@ -21,11 +21,13 @@ Across ranks: ``torchrun --standalone --nproc-per-node N -m
 repro_torch.launch.train ...`` runs one rank a process (NCCL on the cards,
 gloo with ``--device cpu``) over a ``(data, model)`` mesh, ``--data`` the
 data-parallel degree (0: every rank, the reference's default) and the
-ranks left over on ``model`` (a decoder LM computes on its shards there,
-the other families gather the state); each rank takes its slice of the
-global batch, and rank 0 prints.  A ``--data`` that does not divide the
-ranks exits 2 with a one-line error, as does the hybrid MoE arch
-(jamba) over several data-parallel ranks.
+ranks left over on ``model`` (every family computes on its shards there
+where its sizes divide: ``parallel.tensor_parallel.model_plan``); each
+rank takes its slice of the global batch, and rank 0 prints.  An MoE
+model (a decoder LM, or the hybrid jamba) over several data-parallel
+ranks sums its router statistics and counts its capacity queues over
+them.  A ``--data`` that does not divide the ranks exits 2 with a
+one-line error.
 """
 
 from __future__ import annotations
@@ -101,15 +103,11 @@ def _run(args) -> int:
     ckpt = CheckpointManager(args.ckpt_dir, save_interval=args.ckpt_every) \
         if args.ckpt_dir else None
     opt = AdamW(learning_rate=cosine_schedule(args.lr, 20, args.steps))
-    try:
-        tr = Trainer(build_model(cfg), opt, device,
-                     TrainConfig(qat_bits=args.qat_bits,
-                                 grad_compression=args.grad_compression,
-                                 log_every=10),
-                     ckpt=ckpt, mesh=mesh)
-    except NotImplementedError as e:
-        print(f"error: {e.args[0]}", file=sys.stderr)
-        return 2
+    tr = Trainer(build_model(cfg), opt, device,
+                 TrainConfig(qat_bits=args.qat_bits,
+                             grad_compression=args.grad_compression,
+                             log_every=10),
+                 ckpt=ckpt, mesh=mesh)
     say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
     say(f"arch={cfg.name} params={cfg.param_count():.3g} "
         f"devices={n_ranks} qat_bits={args.qat_bits} device={device} "

@@ -18,6 +18,16 @@ the cache with the plain :func:`layers.decode_attention`, as the
 reference's.  The MoE layers run :func:`moe.apply_moe` (dense at <= 8
 experts, else dispatch); ``forward`` returns their load-balancing loss
 summed, ``loss`` adds 0.01 x it to the CE.
+
+``loss``, ``prefill`` and ``decode_step`` take ``tp``, tensor-parallel
+compute over the mesh's ``model`` axis
+(``parallel.tensor_parallel.model_plan``): ``params`` then hold this
+rank's shards of the parts it splits (attention by whole KV groups, the
+MLP, the experts, the Mamba layers by heads, the vocabulary), whose
+partial sums are all-reduced into the replicated residual, and the cache
+this rank's KV heads and Mamba heads and channels.  ``loss`` also takes
+``dp`` and ``ce_weight`` (MoE over data-parallel ranks), as
+``DecoderLM.loss``.
 """
 
 from __future__ import annotations
@@ -110,21 +120,28 @@ class HybridLM:
         card."""
         return L.blockwise_attention(q, k, v, causal=True)
 
-    def moe(self, p, h):
+    def moe(self, p, h, tp=None, dp=None):
         """One MoE layer, (y, aux): :func:`moe.apply_moe`'s ``"auto"``
-        path."""
-        return M.apply_moe(self.cfg, p, h)
+        path (``tp``: expert parallelism, y a partial sum; ``dp``: the
+        router's statistics and capacity over the data-parallel
+        ranks)."""
+        return M.apply_moe(self.cfg, p, h, tp=tp, dp=dp)
 
-    def _ffn(self, parts, slot, x):
+    def _ffn(self, parts, slot, x, tp=None, dp=None):
         """The FFN of ``slot`` with its residual; returns (x, aux)."""
         h = L.rmsnorm(x, parts["ln_ffn"][slot])
         if slot in self.moe_slots:
-            y, aux = self.moe(parts["moe"][self.moe_slots.index(slot)], h)
+            # a hook of the old (p, h) signature serves one device
+            kw = {k: v for k, v in (("tp", tp), ("dp", dp)) if v is not None}
+            y, aux = self.moe(parts["moe"][self.moe_slots.index(slot)], h,
+                              **kw)
+            split = tp is not None and tp.experts
         else:
             y = L.apply_mlp(self.cfg, parts["mlp"][self.mlp_slots.index(slot)],
-                            h)
+                            h, tp=tp)
             aux = 0.0
-        return x + y, aux
+            split = tp is not None and tp.mlp
+        return x + L.reduced(y, tp, split), aux
 
     def _parts(self, bp):
         """One block's stacks as per-slot lists (``unbind``: one stack op
@@ -135,16 +152,16 @@ class HybridLM:
                 "ln_mix": bp["ln_mix"].unbind(0),
                 "ln_ffn": bp["ln_ffn"].unbind(0), "attn": bp["attn"]}
 
-    def _attention(self, p, h, positions):
+    def _attention(self, p, h, positions, tp=None):
         """The attention layer over the whole sequence: (out [B, S, D],
-        k, v)."""
-        cfg = self.cfg
-        q, k, v = L.qkv_project(cfg, p, h, positions)
+        k, v); under ``tp.attn`` this rank's KV heads, ``out`` reduced."""
+        q, k, v = L.qkv_project(self.cfg, p, h, positions, tp=tp)
         attn = self.attend(q, k, v)
-        out = attn.reshape(h.shape[:2] + (cfg.q_dim,)) @ p["wo"].to(h.dtype)
-        return out, k, v
+        out = attn.reshape(h.shape[:2] + (q.shape[2] * q.shape[3],)) \
+            @ p["wo"].to(h.dtype)
+        return L.reduced(out, tp, tp is not None and tp.attn), k, v
 
-    def _super_block(self, bp, x, positions):
+    def _super_block(self, bp, x, positions, tp=None, dp=None):
         """One super-block: (x, aux summed, the attention layer's k, v)."""
         parts = self._parts(bp)
         aux = 0.0
@@ -152,32 +169,39 @@ class HybridLM:
         for slot in range(self.per):
             h = L.rmsnorm(x, parts["ln_mix"][slot])
             if slot < self.n_mamba:
-                x = x + S.mamba_forward(self.cfg, parts["mamba"][slot], h)
+                y = S.mamba_forward(self.cfg, parts["mamba"][slot], h, tp=tp)
+                x = x + L.reduced(y, tp, tp is not None and tp.mamba)
             else:
-                y, k, v = self._attention(parts["attn"], h, positions)
+                y, k, v = self._attention(parts["attn"], h, positions, tp)
                 x = x + y
-            x, a = self._ffn(parts, slot, x)
+            x, a = self._ffn(parts, slot, x, tp, dp)
             aux = aux + a
         return x, aux, k, v
 
-    def _block_train(self, bp, x, positions):
-        x, aux, _, _ = self._super_block(bp, x, positions)
+    def _block_train(self, bp, x, positions, tp=None, dp=None):
+        x, aux, _, _ = self._super_block(bp, x, positions, tp, dp)
         return x, aux
 
-    def _hidden(self, params, batch, remat: bool = False):
+    def _embed(self, params, tokens, tp=None):
+        """(x [B, S, D], positions [B, S]); ``tp``: a vocabulary-parallel
+        lookup."""
+        x = L.embed_tokens(params["embed"], tokens,
+                           getattr(torch, self.cfg.dtype), tp)
+        b, s = x.shape[0], x.shape[1]
+        return x, torch.arange(s, device=x.device).expand(b, s)
+
+    def _hidden(self, params, batch, remat: bool = False, tp=None,
+                dp=None):
         cfg = self.cfg
         refuse_quantized(cfg, params)
-        x = L.embed_tokens(params["embed"], batch["tokens"],
-                           getattr(torch, cfg.dtype))
-        b, s = x.shape[0], x.shape[1]
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        x, positions = self._embed(params, batch["tokens"], tp)
         aux = 0.0
         for bp in unstack_layers(params["blocks"], self.n_blocks):
             if remat:
-                x, a = checkpoint(self._block_train, bp, x, positions,
-                                  use_reentrant=False)
+                x, a = checkpoint(self._block_train, bp, x, positions, tp,
+                                  dp, use_reentrant=False)
             else:
-                x, a = self._block_train(bp, x, positions)
+                x, a = self._block_train(bp, x, positions, tp, dp)
             aux = aux + a
         return L.apply_norm(cfg, x, params["final_norm"]), aux
 
@@ -186,24 +210,42 @@ class HybridLM:
         x, aux = self._hidden(params, batch)
         return L.unembed(self.cfg, params["embed"], x), aux
 
-    def loss(self, params, batch, *, remat: bool = False):
+    def loss(self, params, batch, *, remat: bool = False, tp=None,
+             dp=None, ce_weight=None):
         """Mean next-token CE + 0.01 x the load-balancing loss; ``remat``
-        recomputes each super-block in the backward pass."""
-        x, aux = self._hidden(params, batch, remat)
+        recomputes each super-block in the backward pass.  ``tp``:
+        tensor-parallel compute over ``model`` (the module's docstring).
+
+        ``dp`` (the batch split over data-parallel ranks): this rank's
+        part of the global batch's loss, as ``DecoderLM.loss``: the MoE
+        layers' router statistics and capacity queues span the ranks, the
+        result is ``ce_weight`` (this rank's share of the loss tokens) x
+        its mean CE plus 0.01 x the aux term valued at 1 / ``dp.size`` of
+        it, so that the ranks' values and gradients sum to the global
+        loss's."""
+        x, aux = self._hidden(params, batch, remat, tp, dp)
         ce = L.chunked_cross_entropy(self.cfg, x, params["embed"],
-                                     batch["labels"])
+                                     batch["labels"], tp=tp)
+        if dp is not None:
+            ce = ce * ce_weight
+            aux = aux + aux.detach() * (1.0 / dp.size - 1.0)
         return ce + 0.01 * aux
 
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int, device=None):
+    def init_cache(self, batch: int, max_len: int, device=None, tp=None):
         """The attention layers' K/V [NB, B, T, KV, dh] and the Mamba
-        layers' ``ssm`` [NB, 7, B, H, N, P] and ``conv`` states, zero."""
+        layers' ``ssm`` [NB, 7, B, H, N, P] and ``conv`` states, zero;
+        under ``tp`` this rank's KV heads (``tp.attn``) and Mamba heads
+        and channels (``tp.mamba``) of them."""
         cfg, nb = self.cfg, self.n_blocks
         dt = getattr(torch, cfg.dtype)
-        d_in, n, h, pd = S.mamba_dims(cfg)
-        kv = (nb, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        _, n, _, pd = S.mamba_dims(cfg)
+        _, d_in, h = S._mamba_split(cfg, tp)
+        kv_heads = cfg.n_kv_heads // (tp.size if tp is not None and tp.attn
+                                      else 1)
+        kv = (nb, batch, max_len, kv_heads, cfg.head_dim)
         return {"k": torch.zeros(kv, dtype=dt, device=device),
                 "v": torch.zeros(kv, dtype=dt, device=device),
                 "ssm": torch.zeros((nb, self.n_mamba, batch, h, n, pd),
@@ -231,39 +273,42 @@ class HybridLM:
         return self.init_cache(shape.global_batch, shape.seq_len,
                                device="meta")
 
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, tp=None):
         """(logits at the last position [B, V], cache).  As the
         reference's: the attention layers' K/V of the prompt, ``len`` the
         prompt length, and *zero* Mamba states (the prompt's are not kept:
-        ROADMAP C.7(d))."""
+        ROADMAP C.7(d)).  ``tp``: as in :meth:`loss`, the cache this
+        rank's part (:meth:`init_cache`), the logits gathered whole."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
-        x = L.embed_tokens(params["embed"], batch["tokens"], dt)
+        x, positions = self._embed(params, batch["tokens"], tp)
         b, s = x.shape[0], x.shape[1]
-        positions = torch.arange(s, device=x.device).expand(b, s)
         ks, vs = [], []
         for bp in unstack_layers(params["blocks"], self.n_blocks):
-            x, _, k, v = self._super_block(bp, x, positions)
+            x, _, k, v = self._super_block(bp, x, positions, tp)
             ks.append(k.to(dt))
             vs.append(v.to(dt))
         x = L.apply_norm(cfg, x, params["final_norm"])
-        logits = L.unembed(cfg, params["embed"], x[:, -1:])[:, 0]
-        cache = self.init_cache(b, s, device=x.device)
+        logits = L.unembed_whole(cfg, params["embed"], x[:, -1:],
+                                 tp=tp)[:, 0]
+        cache = self.init_cache(b, s, device=x.device, tp=tp)
         cache["k"] = torch.stack(ks)
         cache["v"] = torch.stack(vs)
         cache["len"] = torch.full((b,), s, dtype=torch.int32,
                                   device=x.device)
         return logits, cache
 
-    def decode_step(self, params, cache, batch):
+    def decode_step(self, params, cache, batch, tp=None):
         """One token: batch = {'token': [B, 1], 'pos': [B]}.  Writes the
         attention layers' fresh K/V into ``cache`` in place (the reference
         returns an updated copy; a ``pos`` past the cache writes its last
         entry, as ``dynamic_update_slice`` clamps); returns (logits
-        [B, V], cache with the new Mamba states and ``len + 1``)."""
+        [B, V], cache with the new Mamba states and ``len + 1``).  ``tp``
+        as in :meth:`prefill`."""
         cfg = self.cfg
         tok, pos = batch["token"], batch["pos"]
-        x = L.embed_tokens(params["embed"], tok, getattr(torch, cfg.dtype))
+        x = L.embed_tokens(params["embed"], tok, getattr(torch, cfg.dtype),
+                           tp)
         b = x.shape[0]
         positions = pos[:, None]
         kc, vc = cache["k"], cache["v"]
@@ -280,22 +325,25 @@ class HybridLM:
                     st = {"ssm": cache["ssm"][bi, slot],
                           "conv": cache["conv"][bi, slot]}
                     y, st = S.mamba_decode_step(cfg, parts["mamba"][slot],
-                                                h, st)
+                                                h, st, tp)
                     ssm_new.append(st["ssm"])
                     conv_new.append(st["conv"])
+                    y = L.reduced(y, tp, tp is not None and tp.mamba)
                 else:
-                    q, k, v = L.qkv_project(cfg, parts["attn"], h, positions)
+                    q, k, v = L.qkv_project(cfg, parts["attn"], h, positions,
+                                            tp=tp)
                     kc[bi, rows, at] = k[:, 0].to(kc.dtype)
                     vc[bi, rows, at] = v[:, 0].to(vc.dtype)
                     attn = L.decode_attention(q, kc[bi], vc[bi], pos + 1)
-                    y = attn.reshape(b, 1, cfg.q_dim) \
+                    y = attn.reshape(b, 1, q.shape[2] * q.shape[3]) \
                         @ parts["attn"]["wo"].to(x.dtype)
+                    y = L.reduced(y, tp, tp is not None and tp.attn)
                 x = x + y
-                x, _ = self._ffn(parts, slot, x)
+                x, _ = self._ffn(parts, slot, x, tp)
             ssm_out.append(torch.stack(ssm_new))
             conv_out.append(torch.stack(conv_new))
         x = L.apply_norm(cfg, x, params["final_norm"])
-        logits = L.unembed(cfg, params["embed"], x)[:, 0]
+        logits = L.unembed_whole(cfg, params["embed"], x, tp=tp)[:, 0]
         return logits, {"k": kc, "v": vc, "ssm": torch.stack(ssm_out),
                         "conv": torch.stack(conv_out),
                         "len": cache["len"] + 1}

@@ -639,6 +639,22 @@ def unembed(cfg, p, x, matmul=torch.matmul, tp=None):
     return matmul(x, p["unembed"].to(x.dtype))
 
 
+def unembed_whole(cfg, p, x, matmul=torch.matmul, tp=None):
+    """The head's logits over the whole vocabulary: :func:`unembed`, its
+    vocabulary-sharded columns all-gathered under ``tp.vocab``."""
+    logits = unembed(cfg, p, x, matmul=matmul, tp=tp)
+    if tp is not None and tp.vocab:
+        logits = tp.gather(logits, -1)
+    return logits
+
+
+def reduced(y, tp, split: bool):
+    """A block's output into the replicated residual: its partial sums
+    all-reduced over ``model`` where the block computed ``split`` on its
+    shards, else ``y`` as it is."""
+    return tp.reduce(y) if tp is not None and split else y
+
+
 # ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------

@@ -390,11 +390,8 @@ class DecoderLM:
     def _logits(self, params, x, tp, matmul=torch.matmul):
         """The head's logits [B, V] of x [B, 1, D], gathered whole over
         ``model`` when ``tp`` splits the vocabulary."""
-        logits = L.unembed(self.cfg, params["embed"], x, matmul=matmul,
-                           tp=tp)[:, 0]
-        if tp is not None and tp.vocab:
-            logits = tp.gather(logits, -1)
-        return logits
+        return L.unembed_whole(self.cfg, params["embed"], x, matmul=matmul,
+                               tp=tp)[:, 0]
 
     def init_cache(self, batch: int, max_len: int, device=None):
         cfg = self.cfg

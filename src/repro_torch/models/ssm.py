@@ -15,6 +15,15 @@ Each ``*_decode_step`` takes one token and the O(1) state of its
 so ``bridge.params_from_jax`` carries them across; ``layers`` (an int or
 a tuple of sizes) adds leading stacked axes.
 
+Under tensor-parallel compute over ``model`` (``tp``, a
+``parallel.tensor_parallel.TensorParallel`` whose ``mamba``, ``mlstm`` or
+``slstm`` flag is set) each cell computes on this rank's shards and the
+parallel cells return a partial sum for the caller to reduce: Mamba and
+mLSTM on their local heads (the column-parallel projections' input
+entering through ``tp.copy``), sLSTM with its gate pre-activations
+all-gathered.  Without ``tp`` (or with the flag unset) they compute on
+whole leaves, as before.
+
 The reference's constants are kept: input-gate padding of -1e9,
 stabilizer floors of -1e30, and -inf in masked exponents.  A mask is
 applied to the exponent, before ``exp``, never to an ``exp`` that may
@@ -103,24 +112,62 @@ def _causal_conv(x, w, state=None):
     return y, new_state
 
 
-def _gated_out(p, y, z, dtype):
-    """Mamba-2's gated RMSNorm, then the out-projection."""
-    yf = rmsnorm(y.to(torch.float32) * F.silu(z.to(torch.float32)),
-                 p["norm"])
+def gated_rmsnorm(g, scale, tp=None, eps: float = 1e-6):
+    """RMSNorm of f32 ``g`` [..., C] over its last axis.  Under ``tp``
+    (Mamba split over ``model``) ``g`` is this rank's channels of the whole
+    ``d_in`` and ``scale`` its chunk of the norm: the per-row sum of
+    squares is all-reduced over the group (forward and backward: each
+    rank's outputs are its own channels) before the ``rsqrt``."""
+    if tp is None:
+        return rmsnorm(g, scale, eps)
+    ss = tp.total(torch.sum(g * g, dim=-1, keepdim=True))
+    return g * torch.rsqrt(ss / (g.shape[-1] * tp.size) + eps) \
+        * scale.to(torch.float32)
+
+
+def _gated_out(p, y, z, dtype, tp=None):
+    """Mamba-2's gated RMSNorm, then the out-projection (a partial sum
+    over ``model`` under ``tp``)."""
+    yf = gated_rmsnorm(y.to(torch.float32) * F.silu(z.to(torch.float32)),
+                       p["norm"], tp)
     return yf.to(dtype) @ p["out"].to(dtype)
 
 
-def mamba_forward(cfg, p, x, chunk: int = 256):
-    """x [B, S, D] -> [B, S, D]: the full-sequence (and prefill) path."""
-    b, s, _ = x.shape
-    d_in, n, h, pd = mamba_dims(cfg)
+def _mamba_split(cfg, tp):
+    """(tp where Mamba splits over ``model`` else None, d_in, heads):
+    the local widths."""
+    d_in, _, h, _ = mamba_dims(cfg)
+    if tp is None or not tp.mamba:
+        return None, d_in, h
+    return tp, d_in // tp.size, h // tp.size
+
+
+def _mamba_inputs(p, x, tp):
+    """(x for the column-parallel products, B and C [.., N] in f32):
+    under ``tp`` the products' input enters through ``tp.copy`` and
+    ``in_B``/``in_C`` (replicated) are computed whole outside it, their
+    results entering through ``tp.copy`` (each rank's scan reads them on
+    its own heads)."""
     dt_ = x.dtype
+    bc = (x @ p["in_B"].to(dt_)).to(torch.float32)
+    cc = (x @ p["in_C"].to(dt_)).to(torch.float32)
+    if tp is None:
+        return x, bc, cc
+    return tp.copy(x), tp.copy(bc), tp.copy(cc)
+
+
+def mamba_forward(cfg, p, x, chunk: int = 256, tp=None):
+    """x [B, S, D] -> [B, S, D]: the full-sequence (and prefill) path;
+    a partial sum over ``model`` where ``tp.mamba``."""
+    b, s, _ = x.shape
+    _, n, _, pd = mamba_dims(cfg)
+    tp, d_in, h = _mamba_split(cfg, tp)
+    dt_ = x.dtype
+    x, bc, cc = _mamba_inputs(p, x, tp)                        # [B,S,N]
     xb = x @ p["in_x"].to(dt_)
     z = x @ p["in_z"].to(dt_)
     xb, _ = _causal_conv(xb, p["conv_x"])
     xb = F.silu(xb)
-    bc = (x @ p["in_B"].to(dt_)).to(torch.float32)             # [B,S,N]
-    cc = (x @ p["in_C"].to(dt_)).to(torch.float32)             # [B,S,N]
     dt_r = (x @ p["in_dt"].to(dt_)).to(torch.float32)          # [B,S,H]
     dt = F.softplus(dt_r + p["dt_bias"])
     a = -torch.exp(p["A_log"])                                 # [H]
@@ -167,29 +214,35 @@ def mamba_forward(cfg, p, x, chunk: int = 256):
     y = torch.stack(ys, dim=1).reshape(b, nc * c_len, h, pd)[:, :s]
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(b, s, d_in).to(dt_)
-    return _gated_out(p, y, z, dt_)
+    return _gated_out(p, y, z, dt_, tp)
 
 
-def mamba_init_state(cfg, batch: int, dtype=torch.float32, device=None):
-    d_in, n, h, pd = mamba_dims(cfg)
+def mamba_init_state(cfg, batch: int, dtype=torch.float32, device=None,
+                     tp=None):
+    """The zero decode state; under ``tp.mamba`` this rank's heads and
+    channels of it."""
+    _, n, _, pd = mamba_dims(cfg)
+    _, d_in, h = _mamba_split(cfg, tp)
     return {"ssm": torch.zeros((batch, h, n, pd), dtype=torch.float32,
                                device=device),
             "conv": torch.zeros((batch, cfg.mamba_d_conv - 1, d_in),
                                 dtype=dtype, device=device)}
 
 
-def mamba_decode_step(cfg, p, x, state):
+def mamba_decode_step(cfg, p, x, state, tp=None):
     """x [B, 1, D]; ``state`` from :func:`mamba_init_state`; returns
-    (y [B, 1, D], new state)."""
+    (y [B, 1, D], new state); under ``tp.mamba`` the state holds this
+    rank's heads and y is a partial sum over ``model``."""
     b = x.shape[0]
-    d_in, n, h, pd = mamba_dims(cfg)
+    _, n, _, pd = mamba_dims(cfg)
+    tp, d_in, h = _mamba_split(cfg, tp)
     dt_ = x.dtype
+    x, bc, cc = _mamba_inputs(p, x, tp)
+    bc, cc = bc[:, 0], cc[:, 0]                                # [B,N]
     xb = x @ p["in_x"].to(dt_)
     z = x @ p["in_z"].to(dt_)
     xb, conv_state = _causal_conv(xb, p["conv_x"], state["conv"])
     xb = F.silu(xb)
-    bc = (x @ p["in_B"].to(dt_)).to(torch.float32)[:, 0]       # [B,N]
-    cc = (x @ p["in_C"].to(dt_)).to(torch.float32)[:, 0]
     dt_r = (x @ p["in_dt"].to(dt_)).to(torch.float32)[:, 0]
     dt = F.softplus(dt_r + p["dt_bias"])                       # [B,H]
     a = torch.exp(dt * -torch.exp(p["A_log"]))                 # [B,H]
@@ -198,7 +251,7 @@ def mamba_decode_step(cfg, p, x, state):
     hs = state["ssm"] * a[:, :, None, None] \
         + torch.einsum("bn,bhp->bhnp", bc, xbar)
     y = torch.einsum("bn,bhnp->bhp", cc, hs) + xh * p["D"][None, :, None]
-    out = _gated_out(p, y.reshape(b, 1, d_in), z, dt_)
+    out = _gated_out(p, y.reshape(b, 1, d_in), z, dt_, tp)
     return out, {"ssm": hs, "conv": conv_state}
 
 
@@ -232,24 +285,40 @@ def init_mlstm(cfg, generator, *, layers=None, device=None):
     return p, ax
 
 
-def _mlstm_inputs(cfg, p, x):
+def _mlstm_heads(cfg, tp):
+    """(tp where mLSTM splits over ``model`` else None, the local heads)."""
+    if tp is None or not tp.mlstm:
+        return None, cfg.n_heads
+    return tp, cfg.n_heads // tp.size
+
+
+def _mlstm_inputs(cfg, p, x, tp=None):
     """q, k (scaled by dh^-0.5), v [B, S, H, dh] in x's dtype, and the
     f32 input gate's pre-activation, log forget gate [B, S, H] and output
-    gate [B, S, H*dh]."""
+    gate [B, S, H*dh].  Under ``tp`` (:func:`_mlstm_heads`) this rank's
+    heads: the input enters through ``tp.copy`` and the replicated gate
+    weights are sliced to the local heads through ``tp.split`` (their
+    gradient all-gathered whole)."""
     b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.head_dim
+    tp, h = _mlstm_heads(cfg, tp)
+    dh = cfg.head_dim
     dt_ = x.dtype
+    gates = {n: p[n] for n in ("w_i", "w_f", "b_i", "b_f")}
+    if tp is not None:
+        x = tp.copy(x)
+        gates = {n: tp.split(w, -1) for n, w in gates.items()}
     q = (x @ p["wq"].to(dt_)).reshape(b, s, h, dh)
     k = (x @ p["wk"].to(dt_)).reshape(b, s, h, dh) * dh ** -0.5
     v = (x @ p["wv"].to(dt_)).reshape(b, s, h, dh)
-    i_raw = (x @ p["w_i"].to(dt_)).to(torch.float32) + p["b_i"]
-    f_raw = (x @ p["w_f"].to(dt_)).to(torch.float32) + p["b_f"]
+    i_raw = (x @ gates["w_i"].to(dt_)).to(torch.float32) + gates["b_i"]
+    f_raw = (x @ gates["w_f"].to(dt_)).to(torch.float32) + gates["b_f"]
     o_gate = torch.sigmoid((x @ p["w_o"].to(dt_)).to(torch.float32))
     return q, k, v, i_raw, F.logsigmoid(f_raw), o_gate
 
 
-def mlstm_forward(cfg, p, x, chunk: int = 256):
-    """Chunked matrix LSTM.  x [B, S, D] -> [B, S, D].
+def mlstm_forward(cfg, p, x, chunk: int = 256, tp=None):
+    """Chunked matrix LSTM.  x [B, S, D] -> [B, S, D] (a partial sum
+    over ``model`` where ``tp.mlstm``: this rank's heads).
 
     Recurrence (per head, stabilizer m):
         m_t = max(log f_t + m_{t-1}, i_t)
@@ -259,8 +328,8 @@ def mlstm_forward(cfg, p, x, chunk: int = 256):
     Within a chunk the pairs are a masked product, across chunks the loop.
     """
     b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.head_dim
-    q, k, v, i_raw, log_f, o_gate = _mlstm_inputs(cfg, p, x)
+    h, dh = _mlstm_heads(cfg, tp)[1], cfg.head_dim
+    q, k, v, i_raw, log_f, o_gate = _mlstm_inputs(cfg, p, x, tp)
 
     c_len = min(chunk, s)
     nc = -(-s // c_len)
@@ -318,8 +387,8 @@ def mlstm_forward(cfg, p, x, chunk: int = 256):
     return y.to(x.dtype) @ p["wout"].to(x.dtype)
 
 
-def mlstm_init_state(cfg, batch: int, device=None):
-    h, dh = cfg.n_heads, cfg.head_dim
+def mlstm_init_state(cfg, batch: int, device=None, tp=None):
+    h, dh = _mlstm_heads(cfg, tp)[1], cfg.head_dim
     return {"C": torch.zeros((batch, h, dh, dh), dtype=torch.float32,
                              device=device),
             "n": torch.zeros((batch, h, dh), dtype=torch.float32,
@@ -328,11 +397,13 @@ def mlstm_init_state(cfg, batch: int, device=None):
                             device=device)}
 
 
-def mlstm_decode_step(cfg, p, x, state):
-    """x [B, 1, D], O(1) state; returns (y [B, 1, D], new state)."""
+def mlstm_decode_step(cfg, p, x, state, tp=None):
+    """x [B, 1, D], O(1) state; returns (y [B, 1, D], new state); under
+    ``tp.mlstm`` the state holds this rank's heads and y is a partial
+    sum over ``model``."""
     b = x.shape[0]
-    h, dh = cfg.n_heads, cfg.head_dim
-    q, k, v, i_raw, log_f, o_gate = _mlstm_inputs(cfg, p, x)
+    h, dh = _mlstm_heads(cfg, tp)[1], cfg.head_dim
+    q, k, v, i_raw, log_f, o_gate = _mlstm_inputs(cfg, p, x, tp)
     q, k, v = (t.reshape(b, h, dh).to(torch.float32) for t in (q, k, v))
     i_raw, log_f, o_gate = i_raw[:, 0], log_f[:, 0], o_gate[:, 0]
     m_new = torch.maximum(log_f + state["m"], i_raw)
@@ -399,11 +470,21 @@ def _slstm_cell(cfg, r, xt, hs, c, n, m):
     return o * c_new / n_new, c_new, n_new, m_new
 
 
-def slstm_forward(cfg, p, x):
-    """Sequential sLSTM.  x [B, S, D] -> [B, S, D]."""
+def _slstm_gates(p, x, tp):
+    """The gate pre-activations x @ wx [..., 4D] in f32: under
+    ``tp.slstm`` from this rank's chunk of ``wx``'s columns (its input
+    through ``tp.copy``), all-gathered whole."""
+    if tp is None or not tp.slstm:
+        return (x @ p["wx"].to(x.dtype)).to(torch.float32)
+    xg = (tp.copy(x) @ p["wx"].to(x.dtype)).to(torch.float32)
+    return tp.gather(xg, -1)
+
+
+def slstm_forward(cfg, p, x, tp=None):
+    """Sequential sLSTM.  x [B, S, D] -> [B, S, D], whole under ``tp``
+    too (the cell runs replicated)."""
     b, s, d = x.shape
-    xg = (x @ p["wx"].to(x.dtype)).to(torch.float32)
-    xg = xg.reshape(b, s, 4, d) + p["b"]
+    xg = _slstm_gates(p, x, tp).reshape(b, s, 4, d) + p["b"]
     r = p["r"].to(torch.float32)
     zeros = torch.zeros((b, d), dtype=torch.float32, device=x.device)
     state = (zeros, zeros, zeros,
@@ -424,11 +505,11 @@ def slstm_init_state(cfg, batch: int, device=None):
                             device=device)}
 
 
-def slstm_decode_step(cfg, p, x, state):
-    """x [B, 1, D]; returns (y [B, 1, D], new state)."""
+def slstm_decode_step(cfg, p, x, state, tp=None):
+    """x [B, 1, D]; returns (y [B, 1, D], new state), whole under
+    ``tp`` as :func:`slstm_forward`."""
     b, _, d = x.shape
-    xg = (x @ p["wx"].to(x.dtype)).to(torch.float32)
-    xg = xg.reshape(b, 4, d) + p["b"]
+    xg = _slstm_gates(p, x, tp).reshape(b, 4, d) + p["b"]
     h_new, c_new, n_new, m_new = _slstm_cell(
         cfg, p["r"].to(torch.float32), xg, state["h"], state["c"],
         state["n"], state["m"])

@@ -15,6 +15,14 @@ separate FFN.  The parameter dict is the reference's::
 The super-blocks run as a Python loop (the reference's ``lax.scan``),
 each recomputed in the backward pass under ``loss(remat=True)`` as the
 reference's ``jax.checkpoint``.  The decode state is O(1) per layer.
+
+``loss``, ``prefill`` and ``decode_step`` take ``tp``, tensor-parallel
+compute over the mesh's ``model`` axis
+(``parallel.tensor_parallel.model_plan``): the mLSTM layers on this
+rank's heads where they divide (their partial sums all-reduced into the
+replicated residual, the state this rank's heads), the sLSTM's input
+projection on its stored chunk of the gates (the pre-activations
+all-gathered, the cell replicated), the vocabulary where it divides.
 """
 
 from __future__ import annotations
@@ -90,28 +98,30 @@ class XLSTMModel:
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    def _super_block(self, bp, x):
+    def _super_block(self, bp, x, tp=None):
         cfg = self.cfg
         mlstm = unstack_layers(bp["mlstm"], self.n_m)
         ln = bp["ln"].unbind(0)
         for slot in range(self.per):
             h = L.rmsnorm(x, ln[slot])
             if slot < self.n_m:
-                x = x + S.mlstm_forward(cfg, mlstm[slot], h)
+                y = S.mlstm_forward(cfg, mlstm[slot], h, tp=tp)
+                x = x + L.reduced(y, tp, tp is not None and tp.mlstm)
             else:
-                x = x + S.slstm_forward(cfg, bp["slstm"], h)
+                x = x + S.slstm_forward(cfg, bp["slstm"], h, tp=tp)
         return x
 
-    def _hidden(self, params, batch, remat: bool = False):
+    def _hidden(self, params, batch, remat: bool = False, tp=None):
         cfg = self.cfg
         refuse_quantized(cfg, params)
         x = L.embed_tokens(params["embed"], batch["tokens"],
-                           getattr(torch, cfg.dtype))
+                           getattr(torch, cfg.dtype), tp)
         for bp in unstack_layers(params["blocks"], self.n_blocks):
             if remat:
-                x = checkpoint(self._super_block, bp, x, use_reentrant=False)
+                x = checkpoint(self._super_block, bp, x, tp,
+                               use_reentrant=False)
             else:
-                x = self._super_block(bp, x)
+                x = self._super_block(bp, x, tp)
         return L.apply_norm(cfg, x, params["final_norm"])
 
     def forward(self, params, batch):
@@ -119,22 +129,24 @@ class XLSTMModel:
         x = self._hidden(params, batch)
         return L.unembed(self.cfg, params["embed"], x), 0.0
 
-    def loss(self, params, batch, *, remat: bool = False):
+    def loss(self, params, batch, *, remat: bool = False, tp=None):
         """Mean next-token CE of ``batch["labels"]`` (chunked unembedding);
-        ``remat`` recomputes each super-block in the backward pass."""
-        x = self._hidden(params, batch, remat)
+        ``remat`` recomputes each super-block in the backward pass;
+        ``tp``: tensor-parallel compute over ``model``."""
+        x = self._hidden(params, batch, remat, tp)
         return L.chunked_cross_entropy(self.cfg, x, params["embed"],
-                                       batch["labels"])
+                                       batch["labels"], tp=tp)
 
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int, device=None):
+    def init_cache(self, batch: int, max_len: int, device=None, tp=None):
         """The recurrent states, zero (stabilizers at -1e30): O(1) in
-        ``max_len``."""
+        ``max_len``; under ``tp.mlstm`` the mLSTM states' heads are this
+        rank's."""
         del max_len
         cfg, nb, nm = self.cfg, self.n_blocks, self.n_m
-        h, dh, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+        h, dh, d = S._mlstm_heads(cfg, tp)[1], cfg.head_dim, cfg.d_model
 
         def z(*shape):
             return torch.zeros(shape, dtype=torch.float32, device=device)
@@ -170,24 +182,27 @@ class XLSTMModel:
         return self.init_cache(shape.global_batch, shape.seq_len,
                                device="meta")
 
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, tp=None):
         """(logits at the last position [B, V], cache).  As the
         reference's: the full forward, and a *fresh* zero-state cache
         whose ``len`` is the prompt length; the prompt's final states are
-        not carried into it (ROADMAP C.7(d))."""
-        logits, _ = self.forward(params, batch)
+        not carried into it (ROADMAP C.7(d)).  ``tp``: as in :meth:`loss`
+        (the logits gathered whole, the cache this rank's part)."""
+        x = self._hidden(params, batch, tp=tp)
+        logits = L.unembed_whole(self.cfg, params["embed"], x, tp=tp)
         b, s = batch["tokens"].shape
-        cache = self.init_cache(b, 0, device=logits.device)
+        cache = self.init_cache(b, 0, device=logits.device, tp=tp)
         cache["len"] = torch.full((b,), s, dtype=torch.int32,
                                   device=logits.device)
         return logits[:, -1], cache
 
-    def decode_step(self, params, cache, batch):
+    def decode_step(self, params, cache, batch, tp=None):
         """One token: batch = {'token': [B, 1], ...}; returns (logits
-        [B, V], the cache's new states with ``len + 1``)."""
+        [B, V], the cache's new states with ``len + 1``).  ``tp`` as in
+        :meth:`prefill`."""
         cfg = self.cfg
         x = L.embed_tokens(params["embed"], batch["token"],
-                           getattr(torch, cfg.dtype))
+                           getattr(torch, cfg.dtype), tp)
         new = {k: [] for k in ("mC", "mn", "mm", "sh", "sc", "sn", "sm")}
         for bi in range(self.n_blocks):
             bp = tree_map(lambda a: a[bi], params["blocks"])
@@ -199,14 +214,16 @@ class XLSTMModel:
                           "n": cache["mn"][bi, slot],
                           "m": cache["mm"][bi, slot]}
                     y, st = S.mlstm_decode_step(
-                        cfg, tree_map(lambda a: a[slot], bp["mlstm"]), h, st)
+                        cfg, tree_map(lambda a: a[slot], bp["mlstm"]), h, st,
+                        tp)
+                    y = L.reduced(y, tp, tp is not None and tp.mlstm)
                     mC.append(st["C"])
                     mn.append(st["n"])
                     mm.append(st["m"])
                 else:
                     st = {"h": cache["sh"][bi], "c": cache["sc"][bi],
                           "n": cache["sn"][bi], "m": cache["sm"][bi]}
-                    y, st = S.slstm_decode_step(cfg, bp["slstm"], h, st)
+                    y, st = S.slstm_decode_step(cfg, bp["slstm"], h, st, tp)
                     for k in ("h", "c", "n", "m"):
                         new["s" + k].append(st[k])
                 x = x + y
@@ -214,7 +231,7 @@ class XLSTMModel:
             new["mn"].append(torch.stack(mn))
             new["mm"].append(torch.stack(mm))
         x = L.apply_norm(cfg, x, params["final_norm"])
-        logits = L.unembed(cfg, params["embed"], x)[:, 0]
+        logits = L.unembed_whole(cfg, params["embed"], x, tp=tp)[:, 0]
         out: Dict[str, Any] = {k: torch.stack(v) for k, v in new.items()}
         out["len"] = cache["len"] + 1
         return logits, out

@@ -21,12 +21,14 @@ function over a process group, so the backward carries its adjoint:
 A failed collective raises; nothing here catches it.
 
 :class:`TensorParallel` names the ``model`` group and which parts of a
-decoder LM compute on their shards (:func:`decoder_plan`):
+model compute on their shards (:func:`model_plan`, for every family):
 
 * attention, where the KV heads divide over ``model``: ``wq``/``wk``/``wv``
   and their biases column-parallel by whole KV groups (``q_dim`` is
   head-major, so the q heads of KV head j lie on the rank that holds j),
-  ``wo`` row-parallel;
+  ``wo`` row-parallel.  The encoder-decoder's three attentions (the
+  encoder's, the decoder's causal self-attention and its cross-attention,
+  whose k/v come from the encoder's output) split alike;
 * the MLP, where ``d_ff`` divides: ``wi``/``wi_gate``/``wi_up``
   column-parallel, ``wo`` row-parallel;
 * the vocabulary, where it divides: the embedding looks up its own rows
@@ -35,7 +37,21 @@ decoder LM compute on their shards (:func:`decoder_plan`):
   the max, the sum of exponentials and the label's logit;
 * the experts, where they divide: each rank runs its ``E / model``
   experts on the dispatch and combine that every rank computes whole from
-  the replicated router, and the partial outputs are all-reduced.
+  the replicated router, and the partial outputs are all-reduced;
+* Mamba, where its heads divide: ``in_x``/``in_z``/``in_dt`` column-
+  parallel by whole heads (``d_in`` is head-major), the conv, the chunked
+  scan and ``A_log``/``D``/``dt_bias`` on the local heads, ``in_B`` and
+  ``in_C`` (the ``state`` axis has no rule) computed whole on every rank,
+  the gated RMSNorm over the whole ``d_in`` (its per-row sum of squares
+  all-reduced), ``out`` row-parallel;
+* mLSTM, where its heads divide: ``wq``/``wk``/``wv``/``w_o`` column-
+  parallel by heads, the replicated ``w_i``/``w_f``/``b_i``/``b_f``
+  sliced to the local heads, ``wout`` row-parallel;
+* sLSTM, where its ``wx`` is stored split (over the ``gates`` axis, in
+  contiguous chunks: at ``model`` 2 rank 0 holds z and i, rank 1 f and
+  o): ``wx`` column-parallel on the stored chunk, the gate
+  pre-activations all-gathered, the cell (whose recurrence needs all four
+  gates of a head) and ``r``, ``b``, ``wout`` replicated.
 
 A part whose sizes do not divide computes replicated on leaves gathered
 whole, as before tensor parallelism; its leaves' storage is unchanged.
@@ -122,7 +138,7 @@ class _Scatter(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
-    """The ``model`` group of this rank and the parts of a decoder LM that
+    """The ``model`` group of this rank and the parts of a model that
     compute on their shards of it (the others compute replicated)."""
 
     group: Any
@@ -132,6 +148,9 @@ class TensorParallel:
     mlp: bool = False
     vocab: bool = False
     experts: bool = False
+    mamba: bool = False
+    mlstm: bool = False
+    slstm: bool = False
 
     def copy(self, x):
         return _Copy.apply(x, self.group)
@@ -149,6 +168,12 @@ class TensorParallel:
     def split(self, x, dim: int):
         return _Scatter.apply(x, dim, self.group, self.rank, self.size,
                               False)
+
+    def total(self, x):
+        """The sum of ``x`` over the group, for every rank to go on using
+        on its own shards: all-reduce forward and backward (each rank's
+        gradient of the sum is a partial one)."""
+        return self.copy(self.reduce(x))
 
     def all_max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise max of ``t`` over the group (no gradient)."""
@@ -183,59 +208,95 @@ def _model_dim(spec) -> Optional[int]:
 
 
 # the tensor dimension each sharded compute layout keeps split over
-# ``model`` (layer-stacked leaves: dimension 0 is the layer)
+# ``model``, its leaves stacked over one leading axis (a decoder's
+# ``layers``, an encoder-decoder's layers, a hybrid's ``blocks``); a part
+# stacked over two (a hybrid's or xLSTM's ``blocks`` x ``layers``) keeps
+# each one further on
 _ATTN_DIMS = {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "bq": 1, "bk": 1,
               "bv": 1}
 _MLP_DIMS = {"wi": 2, "wi_gate": 2, "wi_up": 2, "wo": 1}
 _EXPERT_DIMS = {"wi_gate": 1, "wi_up": 1, "wo": 1}
+_MAMBA_DIMS = {"in_x": 2, "in_z": 2, "in_dt": 2, "conv_x": 2, "A_log": 1,
+               "D": 1, "dt_bias": 1, "norm": 1, "out": 1}
+_MLSTM_DIMS = {"wq": 2, "wk": 2, "wv": 2, "w_o": 2, "wout": 1}
+_SLSTM_DIMS = {"wx": 2}
 
 
-def decoder_plan(cfg, specs, mesh) -> Tuple[Optional[TensorParallel], Any]:
-    """(the :class:`TensorParallel` of a decoder LM's step over ``mesh``,
-    a tree mirroring ``specs`` of the model-sharded dimension each leaf
-    keeps local in the step, or None where the leaf is gathered whole).
+def _deeper(dims):
+    return {k: d + 1 for k, d in dims.items()}
+
+
+def _parts(cfg, specs):
+    """[(flag, the paths of its subtrees, their split dimensions, the
+    count that must divide over ``model`` or None)] of the model whose
+    parameter tree ``specs`` mirrors, by the tree's structure."""
+    kv = cfg.n_kv_heads
+    if "layers" in specs:                                  # decoder LM
+        ffn = [("layers", "ffn")]
+        return [("attn", [("layers", "attn")], _ATTN_DIMS, kv),
+                ("experts", ffn, _EXPERT_DIMS, cfg.n_experts)
+                if cfg.n_experts else ("mlp", ffn, _MLP_DIMS, None)]
+    if "enc" in specs:                                     # encoder-decoder
+        return [("attn", [("enc", "attn"), ("dec", "attn"),
+                          ("dec", "cross")], _ATTN_DIMS, kv),
+                ("mlp", [("enc", "mlp"), ("dec", "mlp")], _MLP_DIMS, None)]
+    if "mamba" in specs["blocks"]:                         # hybrid
+        heads = cfg.d_model * cfg.mamba_expand // cfg.mamba_headdim
+        return [("attn", [("blocks", "attn")], _ATTN_DIMS, kv),
+                ("mlp", [("blocks", "mlp")], _deeper(_MLP_DIMS), None),
+                ("experts", [("blocks", "moe")], _deeper(_EXPERT_DIMS),
+                 cfg.n_experts),
+                ("mamba", [("blocks", "mamba")], _deeper(_MAMBA_DIMS),
+                 heads)]
+    return [("mlstm", [("blocks", "mlstm")], _deeper(_MLSTM_DIMS),   # xLSTM
+             cfg.n_heads),
+            ("slstm", [("blocks", "slstm")], _SLSTM_DIMS, None)]
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def model_plan(cfg, specs, mesh) -> Tuple[Optional[TensorParallel], Any]:
+    """(the :class:`TensorParallel` of a model's step over ``mesh``, a
+    tree mirroring ``specs`` of the model-sharded dimension each leaf
+    keeps local in the step, or None where the leaf is gathered whole),
+    for any family: the decoder LM (dense or MoE), the hybrid, the xLSTM
+    and the encoder-decoder, told apart by their parameter trees.
 
     ``specs`` is the tree of the leaves' spec tuples
     (``parallel/sharding.py``).  A part computes on its shards when its
-    sizes divide over ``model`` (attention: the KV heads) and its leaves
-    are stored split there, on the dimension its products split; None
+    sizes divide over ``model`` (attention: the KV heads; experts, Mamba
+    and mLSTM: their counts) and its leaves are stored split there, on
+    the dimension its products split; otherwise it computes replicated on
+    its leaves gathered whole, a stated plan and not a fallback.  None
     and no local leaves when ``model`` is 1."""
     sizes = axis_sizes(mesh)
     m = sizes.get("model", 1)
     if m <= 1:
         return None, _map_specs(lambda s: None, specs)
-
-    def held(tree, dims):
-        return all(_model_dim(tree[k]) == d for k, d in dims.items()
-                   if k in tree)
-
-    layers = specs["layers"]
-    attn = cfg.n_kv_heads % m == 0 and held(layers["attn"], _ATTN_DIMS)
-    ffn = layers["ffn"]
-    if cfg.n_experts:
-        mlp = False
-        experts = cfg.n_experts % m == 0 and held(ffn, _EXPERT_DIMS)
-    else:
-        mlp = held(ffn, _MLP_DIMS)
-        experts = False
+    local = _map_specs(lambda s: None, specs)
+    flags = {}
+    for flag, paths, dims, count in _parts(cfg, specs):
+        on = (count is None or count % m == 0) and all(
+            _model_dim(_at(specs, p)[k]) == d for p in paths
+            for k, d in dims.items() if k in _at(specs, p))
+        flags[flag] = on
+        for p in paths:
+            sub = _at(specs, p)
+            _at(local, p[:-1])[p[-1]] = {
+                k: (dims[k] if on and k in dims else None) for k in sub}
     emb = specs["embed"]
     vocab = _model_dim(emb["tok"]) == 0 and (
         "unembed" not in emb or _model_dim(emb["unembed"]) == 1)
+    local["embed"] = {k: ({"tok": 0, "unembed": 1}[k] if vocab else None)
+                      for k in emb}
     coord = mesh.get_coordinate()
     tp = TensorParallel(group=mesh.get_group("model"), size=m,
                         rank=coord[mesh.mesh_dim_names.index("model")],
-                        attn=attn, mlp=mlp, vocab=vocab, experts=experts)
-
-    def part(tree, on, dims):
-        return {k: (dims[k] if on and k in dims else None) for k in tree}
-
-    local = _map_specs(lambda s: None, specs)
-    local["layers"]["attn"] = part(layers["attn"], attn, _ATTN_DIMS)
-    local["layers"]["ffn"] = part(
-        ffn, experts if cfg.n_experts else mlp,
-        _EXPERT_DIMS if cfg.n_experts else _MLP_DIMS)
-    local["embed"] = {k: ({"tok": 0, "unembed": 1}[k] if vocab else None)
-                      for k in emb}
+                        vocab=vocab, **flags)
     return tp, local
 
 

@@ -21,16 +21,18 @@ Over a mesh (a ``DeviceMesh`` with axes ``("data", "model")`` or ``("pod",
 slice of the global batch (``data/loader.py``) and
 
 * gathers the parameters and the residual over every mesh axis but
-  ``model``.  A decoder LM (dense or MoE) over ``model`` > 1 computes on
-  its ``model`` shards (``parallel/tensor_parallel.py``:
-  ``decoder_plan``): the attention leaves (``wq``/``wk``/``wv``, their
-  biases, ``wo``) where the KV heads divide, the MLP's where ``d_ff``
-  does, the expert stacks where the experts do, the embedding and head
-  where the vocabulary does; those leaves stay this rank's shard and the
-  collectives run inside the forward and backward.  Every other leaf
-  (norms, the router, and the parts whose sizes do not divide) is
-  gathered whole and computes replicated; so do all leaves of the other
-  families (their tensor-parallel compute is later work).  Then
+  ``model``.  Over ``model`` > 1 every family computes on its ``model``
+  shards (``parallel/tensor_parallel.py``: ``model_plan``): the attention
+  leaves (``wq``/``wk``/``wv``, their biases, ``wo``; the
+  encoder-decoder's three attentions) where the KV heads divide, the
+  MLP's where ``d_ff`` does, the expert stacks where the experts do, the
+  Mamba layers' and the mLSTM layers' where their heads do, the sLSTM's
+  input projection where its gates are stored split, the embedding and
+  head where the vocabulary does; those leaves stay this rank's shard and
+  the collectives run inside the forward and backward.  Every other leaf
+  (norms, the router, Mamba's ``in_B``/``in_C``, the sLSTM's recurrent
+  weights, and the parts whose sizes do not divide) is gathered whole and
+  computes replicated.  Then
 * without a ``pod`` axis or without int8 compression (the reference's
   ``_plain_step``, GSPMD over the global batch): sums each rank's
   gradients weighted by its share of the global batch's loss tokens over
@@ -51,13 +53,14 @@ slice of the global batch (``data/loader.py``) and
 A mesh of one rank runs the same code as one device and computes the same
 bits.  MoE layers' load-balancing loss and expert capacity depend on every
 token of the batch the loss sees.  When the loader splits the batch over
-several data-parallel ranks (``build_step`` asks its rule), a decoder
-LM's MoE layers sum the router's per-expert statistics over them and
-count each expert's capacity queue across them
+several data-parallel ranks (``build_step`` asks its rule), the MoE
+layers of a decoder LM or a hybrid sum the router's per-expert statistics
+over them and count each expert's capacity queue across them
 (``parallel/tensor_parallel.py``: ``DataParallel``); each rank
 backpropagates its part of the global batch's loss (``DecoderLM.loss``
-with ``dp``), and the ranks' losses and gradients are summed (the dense
-path weights the gradients after the backward instead).
+or ``HybridLM.loss`` with ``dp``), and the ranks' losses and gradients
+are summed (the dense path weights the gradients after the backward
+instead).
 """
 
 from __future__ import annotations
@@ -76,13 +79,13 @@ from ..core.quantization import QuantConfig
 from ..data.loader import BATCH_RULES
 from ..device import resolve_device, set_float32_numerics
 from ..launch.mesh import axis_sizes
-from ..models.lm import DecoderLM, tree_leaves, tree_map
+from ..models.lm import tree_leaves, tree_map
 from ..optim import AdamW, AdamWState, compress_tree, global_norm
 from ..optim import init_error_state
 from ..parallel.sharding import (batch_shardings, default_rules,
                                  distribute, gather, local_part,
                                  tree_shardings)
-from ..parallel.tensor_parallel import DataParallel, decoder_plan
+from ..parallel.tensor_parallel import DataParallel, model_plan
 from . import qat as qat_mod
 
 MESH_AXES = (("data", "model"), ("pod", "data", "model"))
@@ -187,20 +190,14 @@ class Trainer:
             dp_axes = ("data",) if self.podwise else tuple(
                 a for a in ("pod", "data") if a in sizes)
             dp = math.prod(sizes[a] for a in dp_axes)
-            decoder = isinstance(model, DecoderLM)
             if self.cfg.n_experts and dp > 1:
-                if not decoder:
-                    raise NotImplementedError(
-                        f"MoE training over {dp} data-parallel ranks is "
-                        f"ported for the decoder-only LM, not "
-                        f"{type(model).__name__} (ROADMAP A.7.2(b))")
                 self.dp = DataParallel.of(mesh, dp_axes)
             self._dp_groups = [mesh.get_group(a) for a in dp_axes
                                if sizes[a] > 1]
-            if decoder and sizes["model"] > 1:
+            if sizes["model"] > 1:
                 specs = _zip_map(lambda s, _: s.spec,
                                  self.param_shardings(), self._axes)
-                self.tp, self._local = decoder_plan(self.cfg, specs, mesh)
+                self.tp, self._local = model_plan(self.cfg, specs, mesh)
         self.device = resolve_device(device)
         set_float32_numerics()
         self._step_fn = None

@@ -44,6 +44,28 @@ def ref_fit(cfg, arch, batch, seq, steps=3, masked=False):
     return state0, hist, np_tree(params)
 
 
+def ref_step_states(cfg, arch, batch, seq, steps=3):
+    """The reference's one-device ``Trainer.fit`` of ``cfg`` on the global
+    batch as :func:`ref_fit`, a step at a time: (its state before each
+    step and after the last, as numpy, the history).  The hybrid's and
+    the xLSTM's smoke fits part from any other float32 run after a step
+    (clipped Adam at lr 3e-3 follows the gradients' rounding, the port's
+    own one-device fit too), so their mesh fits are held a step at a
+    time from these states."""
+    opt = jadamw.AdamW(learning_rate=jadamw.linear_schedule(*LR),
+                       clip_norm=1.0)
+    jtr = JTrainer(build_model(cfg), opt, make_host_mesh(),
+                   JTrainConfig(log_every=1))
+    state = jtr.init_state(jax.random.PRNGKey(0))
+    loader = JLoader(markov(batch, seq, arch=arch))
+    states, hist = [np_tree(state)], []
+    for _ in range(steps):
+        state, h = jtr.fit(loader, 1, state=state)
+        states.append(np_tree(state))   # the next fit donates the state
+        hist += h
+    return states, hist
+
+
 def ref_podwise_fit(cfg, arch, batch, seq, pods, steps=2):
     """The reference's pod-wise step with int8 error feedback
     (``_podwise_step``: each pod's loss and gradients on its slice of the
@@ -94,6 +116,32 @@ def within_1e4(got, hist, params):
             np.testing.assert_allclose(h[key], w[key], rtol=1e-4)
     for g, w in zip(leaves(got["state"][0]), leaves(params)):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+
+
+def steps_within_training(got, states, hist):
+    """A rank's stepwise fit (each step from the reference's state before
+    it) against :func:`ref_step_states`: each step's loss, grad norm and
+    lr at 1e-4 relative, and the parameters after it at rtol = atol =
+    1e-4 of the reference's after the same step but for at most 0.1 % of
+    them (the repo's training tolerance's share), each of those within
+    twice that step's lr: an element whose gradient sits near Adam's eps
+    takes an update that follows the rounding.  The port's own
+    one-device step from the same state leaves 52 of jamba-smoke's
+    764,180 elements and 470 of xlstm-smoke's 2,085,040 beyond 1e-4 at
+    step 1, by up to 1.96 lr (measured)."""
+    assert [h["step"] for h in got["hist"]] == [h["step"] for h in hist]
+    for h, w in zip(got["hist"], hist):
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(h[key], w[key], rtol=1e-4,
+                                       err_msg=f"step {w['step']} {key}")
+    for i, (params, want) in enumerate(zip(got["params"], states[1:])):
+        bad = n = 0
+        for g, w in zip(leaves(params), leaves(want[0])):
+            bad += int((~np.isclose(g, w, rtol=1e-4, atol=1e-4)).sum())
+            n += g.size
+            np.testing.assert_allclose(g, w, rtol=0,
+                                       atol=2.0 * hist[i]["lr"])
+        assert bad <= 1e-3 * n, (i, bad, n)
 
 
 def within_training(got, hist, params, max_diff=None):

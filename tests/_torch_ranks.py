@@ -19,6 +19,7 @@ import pathlib
 import pickle
 import subprocess
 import sys
+import time
 import traceback
 
 import numpy as np
@@ -32,8 +33,12 @@ ARCH = "qwen2-0.5b"
 # ---------------------------------------------------------------------------
 
 def put_inputs(tmp, name: str, obj) -> None:
-    with open(os.path.join(tmp, f"{name}.inputs.pkl"), "wb") as f:
+    """Pickle ``obj`` as the inputs ``name`` (whole or not at all: a rank
+    may be waiting for them)."""
+    path = os.path.join(tmp, f"{name}.inputs.pkl")
+    with open(path + ".part", "wb") as f:
         pickle.dump(obj, f)
+    os.replace(path + ".part", path)
 
 
 def start_world(n: int, scenarios, tmp, world: str):
@@ -102,8 +107,15 @@ def rank_main(rank, n, store, tmp, world, spec) -> None:
     dist.destroy_process_group()
 
 
-def _inputs(tmp, name):
-    with open(os.path.join(tmp, f"{name}.inputs.pkl"), "rb") as f:
+def _inputs(tmp, name, wait: float = 0.0):
+    """The test's inputs ``name``; ``wait`` > 0: polls up to that many
+    seconds for them (the test may write them while the ranks run)."""
+    path = os.path.join(tmp, f"{name}.inputs.pkl")
+    deadline = time.monotonic() + wait
+    while wait and not os.path.exists(path) \
+            and time.monotonic() < deadline:
+        time.sleep(0.2)
+    with open(path, "rb") as f:
         return pickle.load(f)
 
 
@@ -157,12 +169,34 @@ class MaskedData:
         return b
 
 
+class FramesData:
+    """A dataset's batches with ``frames`` seeded stub frame embeddings a
+    row (standard normals, ``embeds`` [B, frames, D]), for an
+    encoder-decoder: the same per step on every rank and in the test
+    process."""
+
+    def __init__(self, ds, frames: int, d_model: int):
+        self.ds, self.frames, self.d = ds, frames, d_model
+
+    def batch_at(self, step):
+        b = dict(self.ds.batch_at(step))
+        rng = np.random.default_rng(2000 + step)
+        b["embeds"] = rng.standard_normal(
+            (b["labels"].shape[0], self.frames, self.d)).astype(np.float32)
+        return b
+
+
 def markov(batch: int, seq: int, masked: bool = False, arch=ARCH):
+    """``arch``'s smoke vocabulary's Markov data (``masked``: with a
+    :class:`MaskedData` mask); an encoder-decoder's batches also carry
+    ``seq`` frames of stub embeddings (:class:`FramesData`)."""
     from repro_torch.configs import get_smoke
     from repro_torch.data import MarkovLMConfig, MarkovLMDataset
+    cfg = get_smoke(arch)
     ds = MarkovLMDataset(MarkovLMConfig(
-        vocab_size=get_smoke(arch).vocab_size, seq_len=seq,
-        batch_size=batch))
+        vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch))
+    if cfg.n_enc_layers:
+        ds = FramesData(ds, seq, cfg.d_model)
     return MaskedData(ds) if masked else ds
 
 
@@ -278,8 +312,14 @@ def fit_mesh(tmp, shape, axes, steps, masked=False, batch=12, seq=32,
     out = {}
     if record:
         out["products"] = products(tr, state, first)
-        out["plan"] = {k: getattr(tr.tp, k) for k in
-                       ("size", "rank", "attn", "mlp", "vocab", "experts")}
+        out["plan"] = None if tr.tp is None else {
+            k: getattr(tr.tp, k) for k in
+            ("size", "rank", "attn", "mlp", "vocab", "experts")}
+        out["flags"] = None if tr.tp is None else {
+            k: getattr(tr.tp, k) for k in FLAGS}
+        out["dp"] = None if tr.dp is None else [tr.dp.size, tr.dp.index]
+        out["local"] = [list(p.to_local().shape) for p in
+                        _tree_leaves(state[0])]
     with (contextlib.nullcontext() if spec is None
           else activation_sharding(tuple(spec))):
         for _ in range(steps):
@@ -289,6 +329,127 @@ def fit_mesh(tmp, shape, axes, steps, masked=False, batch=12, seq=32,
     return {"hist": hist, "state": _np_tree(tuple(state)),
             "params": params, "coord": list(mesh.get_coordinate()),
             "batch": {k: v.numpy() for k, v in first.items()}, **out}
+
+
+FLAGS = ("attn", "mlp", "vocab", "experts", "mamba", "mlstm", "slstm")
+
+
+def _tree_leaves(tree):
+    from repro_torch.models.lm import tree_leaves
+    return list(tree_leaves(tree))
+
+
+def serve_family(tmp, arch, model, steps, ranks=None):
+    """Tensor-parallel serving of ``arch``'s smoke model on a (data 1,
+    ``model``) mesh's trainer plan, from the test's state and inputs
+    (``serve_<arch>``: a prompt batch, its grown cache's length and the
+    decode tokens): ``prefill`` under ``tp``, its cache grown as the test
+    grows the reference's, then ``steps`` ``decode_step``s of the given
+    tokens.  Returns the plan's flags, the logits of each call and this
+    rank's cache after the prefill and after the last step."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.train_loop import _gather, _zip_map
+
+    inp = _inputs(tmp, f"serve_{arch}")
+    mesh = make_mesh((1, model), ("data", "model"), ranks, device="cpu")
+    if mesh.get_coordinate() is None:
+        return None
+    tr = _trainer(mesh, {}, None, arch=arch)
+    state = _start(tr, inp)
+    leaves = _zip_map(_gather, state[0], tr._dims(state[0]))
+    m, tp = tr.model, tr.tp
+    prompt = {k: torch.from_numpy(v) for k, v in inp["prompt"].items()}
+    with torch.no_grad():
+        logits, cache = m.prefill(leaves, prompt, tp=tp)
+        first = {k: v.numpy().copy() for k, v in cache.items()}
+        cache = grow_cache(m, cache, inp["grown"], tp)
+        out = [logits.numpy().copy()]
+        for tok, pos in zip(inp["tokens"], inp["pos"]):
+            logits, cache = m.decode_step(
+                leaves, cache, {"token": torch.from_numpy(tok),
+                                "pos": torch.from_numpy(pos)}, tp=tp)
+            out.append(logits.numpy().copy())
+    return {"flags": {k: getattr(tp, k) for k in FLAGS}, "logits": out,
+            "prefill_cache": first,
+            "cache": {k: v.numpy().copy() for k, v in cache.items()}}
+
+
+def grow_cache(model, cache, length, tp=None):
+    """A prefill's cache in one of ``length`` positions (the decode steps'
+    room): the attention caches' prompt positions copied into a fresh
+    cache, every other entry kept (torch; the test grows the reference's
+    numpy cache alike)."""
+    if "k" not in cache:
+        return cache
+    b, s = cache["k"].shape[1], cache["k"].shape[2]
+    grown = model.init_cache(b, length, tp=tp)
+    for k in grown:
+        if k in ("k", "v"):
+            grown[k][:, :, :s] = cache[k]
+        else:
+            grown[k] = cache[k]
+    return grown
+
+
+def gated_norm(tmp, model, ranks=None):
+    """Mamba's gated RMSNorm split over ``model``: this rank's channels of
+    the test's rows and scale through ``ssm.gated_rmsnorm`` with the
+    plan's ``tp`` (the sum of squares all-reduced), and the gradient of
+    sum(out x weights) in the rows and the scale."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.ssm import gated_rmsnorm
+
+    inp = _inputs(tmp, "norm")
+    mesh = make_mesh((1, model), ("data", "model"), ranks, device="cpu")
+    if mesh.get_coordinate() is None:
+        return None
+    tp = _trainer(mesh, {}, None, arch="jamba-1.5-large-398b").tp
+    g, scale, w = (torch.from_numpy(inp[k]).chunk(model, -1)[tp.rank]
+                   .clone().requires_grad_(True) for k in ("g", "scale", "w"))
+    out = gated_rmsnorm(g, scale, tp)
+    torch.sum(out * w).backward()
+    return {"out": out.detach().numpy().copy(),
+            "g": g.grad.numpy().copy(), "scale": scale.grad.numpy().copy()}
+
+
+def fit_steps(tmp, shape, axes, arch, batch, seq, inputs):
+    """:func:`fit_mesh`'s fit over a mesh of ``shape``, each step from the
+    reference's state before it (the inputs ``inputs``, written by the
+    test while the ranks run: ``states``, one a step and the last): per
+    step the history and the parameters after it, then the plan's flags,
+    the data-parallel index, this rank's leaves' shapes and its
+    coordinate."""
+    from repro_torch.data import ShardedLoader
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(tuple(shape), tuple(axes), device="cpu")
+    inp = _inputs(tmp, inputs, wait=600.0)
+    tr = _trainer(mesh, {}, LR_STEPS, arch=arch)
+    loader = ShardedLoader(markov(batch, seq, arch=arch), device="cpu",
+                           mesh=mesh)
+    tr.build_step(loader.peek_structure())
+    hist, params = [], []
+    for i, st in enumerate(inp["states"][:-1]):
+        state = _start(tr, {"state": st})
+        tr.step = i
+        loader.seek(i)
+        state, h = tr.fit(loader, 1, state=state)
+        hist += h
+        params.append(_np_tree(state[0]))
+    return {"hist": hist, "params": params,
+            "state": _np_tree(tuple(state)),
+            "flags": None if tr.tp is None else {
+                k: getattr(tr.tp, k) for k in FLAGS},
+            "dp": None if tr.dp is None else [tr.dp.size, tr.dp.index],
+            "local": [list(p.to_local().shape)
+                      for p in _tree_leaves(state[0])],
+            "coord": list(mesh.get_coordinate())}
+
+
+#: the linear schedule of the reference's fits (``_torch_fits.LR``)
+LR_STEPS = (3e-3, 2, 20)
 
 
 def _placed(tree):
@@ -345,9 +506,8 @@ def elastic(tmp, ckpt_dir, arch="stablelm-3b"):
 
 def mesh_of_two(tmp):
     """Two pods of one rank each, int8 EF: two steps from ``init_state``
-    (history and the gathered parameters); an MoE decoder's trainer over
-    two data-parallel ranks (its ``DataParallel``), and the one line an
-    MoE hybrid's raises there."""
+    (history and the gathered parameters); an MoE decoder's trainer and an
+    MoE hybrid's over two data-parallel ranks (their ``DataParallel``)."""
     import dataclasses
 
     from repro_torch.configs import get_smoke
@@ -368,13 +528,11 @@ def mesh_of_two(tmp):
                               experts_per_token=2)
     dp2 = make_mesh((2, 1), ("data", "model"), device="cpu")
     dp = Trainer(DecoderLM(moe), AdamW(), mesh=dp2).dp
-    try:
-        Trainer(build_model(get_smoke("jamba-1.5-large-398b")), AdamW(),
-                mesh=dp2)
-        msg = None
-    except NotImplementedError as e:
-        msg = str(e)
-    return {"hist": hist, "moe": (dp.size, dp.index), "hybrid": msg,
+    hybrid = Trainer(build_model(get_smoke("jamba-1.5-large-398b")),
+                     AdamW(), mesh=dp2)
+    return {"hist": hist, "moe": (dp.size, dp.index),
+            "hybrid": (type(hybrid.model).__name__, hybrid.dp.size,
+                       hybrid.dp.index, hybrid.tp),
             "params": [_np_tree(p) for p in tree_leaves(params)]}
 
 
@@ -446,4 +604,6 @@ def serve_tp(tmp, model, ranks=None):
 
 SCENARIOS = {"fed_podwise": fed_podwise, "fit_mesh": fit_mesh,
              "elastic": elastic, "mesh_of_two": mesh_of_two,
-             "vocab_ce": vocab_ce, "serve_tp": serve_tp}
+             "vocab_ce": vocab_ce, "serve_tp": serve_tp,
+             "serve_family": serve_family, "gated_norm": gated_norm,
+             "fit_steps": fit_steps}

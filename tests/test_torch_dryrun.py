@@ -14,6 +14,12 @@ package's cell definitions, on the CPU.
   specs alone; the ``flash`` records bill no attention products (the
   roofline adds them).  The reference's ``repro.launch.dryrun`` is never
   imported here: it sets ``XLA_FLAGS`` at import.
+* ``run_config`` on a fake (data 2, model 2) mesh of four ranks, in a
+  subprocess: a jamba-smoke training cell (the MoE hybrid over two
+  data-parallel ranks, tensor-parallel over ``model``) and an xlstm-smoke
+  decode cell end ``ok``; jamba-smoke's decode cell computing on its
+  ``model`` shards moves fewer collective bytes than the same cell with
+  every weight gathered whole (the plan switched off).
 """
 
 import _torch_threads  # noqa: F401  (one torch thread: see the module)
@@ -230,3 +236,64 @@ def test_flash_records_bill_no_attention_products(records):
         d = by[("qwen2-0.5b", "decode_32k", mesh, "baseline")]["hlo"]
         f = by[("qwen2-0.5b", "decode_32k", mesh, "flash")]["hlo"]
         assert f["flops_per_device"] < d["flops_per_device"]
+
+
+@pytest.fixture(scope="module")
+def small_mesh_records():
+    """``run_config`` of smoke cells on a fake (data 2, model 2) mesh, in
+    a subprocess of its own (it joins a fake process group): jamba-smoke
+    ``train``, xlstm-smoke ``decode`` and jamba-smoke ``decode``, then the
+    last again with ``model_plan`` replaced by one that splits nothing
+    (every weight gathered whole, the cache whole but for its rows)."""
+    code = """
+import json, sys
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+from repro_torch.configs import get_smoke, smoke_shape
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+def cell(arch, kind):
+    cfg = get_smoke(arch)
+    cfg = cfg if kind == "decode" else dryrun._to_bf16(cfg)
+    return dryrun.run_config(cfg, smoke_shape(kind), mesh)
+out = [cell("jamba-1.5-large-398b", "train"), cell("xlstm-350m", "decode"),
+       cell("jamba-1.5-large-398b", "decode")]
+def none(tree):
+    return {k: none(v) for k, v in tree.items()} if isinstance(tree, dict) \
+        else None
+dryrun.model_plan = lambda cfg, specs, mesh: (None, none(specs))
+out.append(cell("jamba-1.5-large-398b", "decode"))
+print(json.dumps(out))
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    import json
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_family_cells_on_a_small_mesh(small_mesh_records):
+    """The jamba-smoke training cell (MoE over data-parallel ranks, the
+    hybrid tensor-parallel over ``model``) and the xlstm-smoke decode
+    cell end ``ok`` on a fake (data 2, model 2) mesh, each with the
+    reference's keys and nonzero flops and bytes; jamba-smoke's decode
+    on its ``model`` shards moves fewer collective bytes than with every
+    weight gathered whole."""
+    train, xdec, jdec, gathered = small_mesh_records
+    for rec in (train, xdec, jdec, gathered):
+        assert rec["status"] == "ok", rec
+        assert REF_KEYS <= set(rec)
+        assert rec["mesh"] == "2x2"
+        assert rec["hlo"]["flops_per_device"] > 0
+        assert rec["hlo"]["hbm_bytes_per_device"] > 0
+    assert train["arch"] == "jamba-smoke" and train["shape"] == \
+        "smoke_train"
+    assert xdec["arch"] == "xlstm-350m-smoke"
+    assert train["hlo"]["collective_bytes_per_device"] > 0
+    assert 0 < jdec["hlo"]["collective_bytes_per_device"] < \
+        gathered["hlo"]["collective_bytes_per_device"]
+    assert jdec["memory"]["argument_bytes"] < \
+        gathered["memory"]["argument_bytes"]

@@ -439,9 +439,9 @@ def test_cli_ckpt_dir_resumes(capsys, tmp_path):
 
 
 def test_trainer_raises_on_what_is_not_ported(tmp_path):
-    """Interleaved MoE belongs to the hybrid model, whose MoE trainer over
-    data-parallel ranks raises (ROADMAP A.7.2(b)); a decoder LM's MoE
-    trainer at dp = 2 constructs, with its ranks' ``DataParallel``.
+    """Interleaved MoE belongs to the hybrid model; a decoder LM's MoE
+    trainer and the MoE hybrid's at dp = 2 construct, each with its
+    ranks' ``DataParallel`` (and no tensor-parallel plan at model 1).
     Training over a mesh and compression over ``pod`` are ported: a mesh
     of one rank here (``axis_name="pod"`` over it is the one-device
     compression, bitwise), a mesh of two ranks in two processes."""
@@ -479,9 +479,8 @@ def test_trainer_raises_on_what_is_not_ported(tmp_path):
         dist.destroy_process_group()
     (a,), (b,) = join_world(world)
     assert a["moe"] == (2, 0) and b["moe"] == (2, 1)
-    assert a["hybrid"] == b["hybrid"] and "MoE training over 2 " \
-        "data-parallel ranks is ported for the decoder-only LM, not " \
-        "HybridLM" in a["hybrid"]
+    assert a["hybrid"] == ("HybridLM", 2, 0, None)
+    assert b["hybrid"] == ("HybridLM", 2, 1, None)
     assert [h["step"] for h in a["hist"]] == [1, 2]
     assert [h["loss"] for h in a["hist"]] == [h["loss"] for h in b["hist"]]
     for x, y in zip(a["params"], b["params"]):
