@@ -111,6 +111,10 @@ nothing of JAX or of the JAX package ``repro``.
    tests/test_flash.py, elementwise), bf16 within one bf16 ulp; every
    row of a batch bitwise equal to the row alone, and a sequence
    right-padded inside its bucket bitwise equal on its real positions.
+   A query chunk at an offset (FLASH_OFFSETS: half a sequence's queries
+   against every key, causal, a window, bf16; offset 0 too) within the
+   same tolerances of the plain version at that offset, and bitwise the
+   whole sequence's call on the rows it covers.
    Times the kernel, its plain version and ``scaled_dot_product_attention
    (is_causal=True, enable_gqa=True)`` on f32 at the serve shape (B = 4,
    S = 64), the training shape (B = 8, S = 128) and S = 1024, B = 1,
@@ -329,7 +333,9 @@ nothing of JAX or of the JAX package ``repro``.
    over qwen2-0.5b ``FULL`` and stablelm-3b ``FULL`` (seeded weights, one
    model at a time) at int8 per-channel, at a per-layer plan cycling 2-8
    bits and at 12 bits (the int16 container): codes and scales bitwise
-   the same call on a CPU copy of the weights; the 4 x 64 forward over
+   the same call on a CPU copy of the weights (its first
+   RESIDENT_HOST_LAYERS layers: each layer quantizes on its own, and the
+   host's quantize was most of the phase); the 4 x 64 forward over
    each quantized tree bitwise the forward over its dequantized leaves,
    one flash launch a layer (counted); prints max |d logits| against the
    float forward, the quantized leaves' effective bytes against their
@@ -361,19 +367,42 @@ nothing of JAX or of the JAX package ``repro``.
    accountant over the real call on the card equals the accountant over
    the same call under ``FakeTensorMode`` (FLOPs, HBM and collective
    bytes exactly), its kernel ops' calls equal the launches counted, and
-   the outputs under the accountant are bitwise the outputs without it.
+   the outputs under the accountant are bitwise the outputs without it;
+   (e) the same call on ``meta`` tensors (the dry-run's) bills the same
+   FLOPs, kernel-op calls and HBM bytes, op by op (``F.rms_norm`` one op
+   on both, ``layers.rmsnorm``).
    (b) Each call's device ms (CUDA events, median of 5, L2 flushed)
    beside its compute and memory terms on the H100's constants (float32
    peak) and the ratio of the measured time to the bound.  (c)
    ``fused_attention_acct`` under ``flash_attention_mode`` on a one-rank
    mesh launches the flash kernel once and equals
    ``blockwise_attention`` bitwise.  (d) The dry-run in a subprocess:
-   qwen2-0.5b x the four shapes x both meshes x {baseline, flash} and
-   one cell of each other family (DRYRUN_OTHERS), every record ``ok`` or
-   ``skip``, written under chiprun_out/dryrun/; the roofline table and
-   the phase's seconds.  The launches of phases 4-21 are printed before
-   the phase's are added.
-23. Summary: one ``{"kernels": [...]}`` line, the card line, and last
+   qwen2-0.5b x the four shapes x both meshes x {baseline, flash}, one
+   cell of each other family (DRYRUN_OTHERS) and qwen2-0.5b's variant
+   cells on both meshes (DRYRUN_VARIANTS: ``cacheshard``, ``notp``,
+   ``seqshard``, ``int8w``), every record ``ok`` or ``skip``, written
+   under chiprun_out/dryrun/; the roofline table and the phase's
+   seconds.  The launches of phases 4-21 are printed before the phase's
+   are added.
+23. Tensor-parallel compute over (data 1, model 2) for the hybrid (jamba
+   at one super-block), xlstm-350m and seamless-m4t-large-v2, and
+   jamba-smoke's MoE over (data 2, model 1), two gloo ranks sharing the
+   card, each held against one rank.
+24. The dry-run's variants on real tensors, two gloo ranks sharing the
+   card, against one rank.  (a) A cache whose sequence is split:
+   qwen2-0.5b ``FULL`` over (data 1, model 2) on its tensor-parallel
+   plan, prefill SEQ_PROMPT, the cache (every KV head) cut into halves of
+   SEQ_T, then SEQ_NEW ``decode_step(..., cache_seq=)`` of the one-rank
+   run's tokens; jamba (phase 23's cut, bfloat16) over (data 2, model 1)
+   at B = 1, prefill JSEQ_PROMPT over JSEQ_T: logits within E2E_TOL of
+   one rank's scale, greedy equal where clear, each step's write on the
+   rank that owns its position only.  (b) ``notp``: phase 9's step over
+   (data 1, model 2) with the sequence split (every part replicated, the
+   per-token work on each rank's half, flash at the half's offset) held
+   against one rank by phase 21's tolerances.  (c) ``int8w``: qwen2-0.5b's
+   int8-resident prefill and one step over (model 2) within KERNEL_TOL of
+   one rank's; each rank's held weight bytes.
+25. Summary: one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``; the per-shape numbers are printed
    in phases 3, 5, 6, 8, 17 and 18.
 """
@@ -437,6 +466,11 @@ WIDE_STEPS = (("32 slots", 32, 1024), ("DECODE_32K", 128, 32768),
 # section 5, H100 80GB HBM3, 700.00 W)
 UNGROUPED_STEP = dict(wall_ms=5.568, tokens_s=718.4, device_ms=4.94)
 FLASH_TOL = 2e-5            # flash vs plain, f32: tests/test_flash.py's
+# flash at a query offset (B, T, offset, dtype, window): a chunk of T / 2
+# queries; the first is phase 24 (b)'s notp chunk (8 x 128 over 2 ranks)
+FLASH_OFFSETS = ((8, 128, 64, None, 0), (8, 128, 64, "bf16", 0),
+                 (1, 1024, 512, None, 0), (2, 600, 300, None, 128),
+                 (4, 256, 96, None, 0), (4, 128, 0, None, 0))
 FLASH_PASSES = 3            # tf32 products per f32 product in the kernel
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 10
 # (name, T0, E0) of the compiled serving phase: the codesign's b̂ is 4 and
@@ -1288,14 +1322,16 @@ def flash_case(dev, b, s, seed, dh=64, dtype=None, h=14, kv=2):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def flash_bound(q, k, causal=True, passes=FLASH_PASSES):
+def flash_bound(q, k, causal=True, passes=FLASH_PASSES, q_offset=0):
     """(ms, "bytes"|"operations") of one flash call: q, k, v and the
     output once each against 4 * dh flops per visible (query, key) pair,
     issued as ``passes`` TF32 tensor-core products each (3 for f32
-    inputs; ``passes=None``: f32 outside the tensor cores)."""
+    inputs; ``passes=None``: f32 outside the tensor cores).  Query row r
+    sits at position ``q_offset + r``."""
     b, h, s, dh = q.shape
     kv, t = k.shape[1], k.shape[2]
-    pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
+    pairs = sum(min(q_offset + i + 1, t) for i in range(s)) if causal \
+        else s * t
     n_bytes = q.element_size() * (2 * b * h * s * dh + 2 * b * kv * t * dh)
     n_ops = 4.0 * dh * pairs * b * h
     if passes is None:
@@ -1360,8 +1396,34 @@ def check_flash_kernel(dev, flush):
         long = fwd(q, k, v, causal=causal, kv_len=None if causal else s)
         assert torch.equal(long[:, :, :s], short), \
             f"flash attention: padding {s} -> {padded} changed bits"
-    print(f"flash attention vs plain: ok over {len(cases)} cases, "
-          f"max|d|={err:.3e} (f32); rows alone and bucket padding bitwise")
+    # a sequence chunk's queries at an offset (sequence-parallel
+    # attention, phase 24 (b)): the plain version at the offset, and
+    # bitwise the whole sequence's call on the rows the chunk covers
+    n_off = 0
+    for b, t, off, dtype, window in FLASH_OFFSETS:
+        dtype = torch.bfloat16 if dtype == "bf16" else None
+        q, k, v = flash_case(dev, b, t, seed=t + off, dtype=dtype)
+        qc = q[:, :, off:off + t // 2]
+        out = fwd(qc, k, v, causal=True, window=window, q_offset=off)
+        want = ref.flash_attention_ref(qc, k, v, causal=True, window=window,
+                                       q_offset=off)
+        whole = fwd(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        what = f"flash attention at offset {off} of {b}x{t} {dtype} w{window}"
+        d = (out.float() - want.float()).abs()
+        if out.dtype == torch.bfloat16:
+            assert bool((d <= want.float().abs() * 2.0 ** -7
+                         + FLASH_TOL).all()), what
+        else:
+            torch.testing.assert_close(out, want, rtol=FLASH_TOL,
+                                       atol=FLASH_TOL, msg=what)
+            err = max(err, float(d.max()))
+        assert torch.equal(out, whole[:, :, off:off + t // 2]), \
+            f"{what}: rows != the whole call's"
+        n_off += 1
+    print(f"flash attention vs plain: ok over {len(cases)} cases and "
+          f"{n_off} at a query offset, max|d|={err:.3e} (f32); rows alone, "
+          f"bucket padding and an offset chunk's rows bitwise")
 
     rows = {}
     for b, s, heads in ((4, 64, {}), (8, 128, {}), (1, 1024, {}),
@@ -2867,6 +2929,7 @@ EXAMPLE_RUNS = (
 # phase 20 (b): the per-layer bits of its mixed plan, cycled over the
 # layers
 RESIDENT_MIXED = (2, 3, 4, 5, 6, 7, 8)
+RESIDENT_HOST_LAYERS = len(RESIDENT_MIXED)   # layers the CPU copy checks
 
 
 def release_memory() -> str:
@@ -5216,7 +5279,12 @@ def resident_forward(cfg, dev, seed):
     torch.cuda.reset_peak_memory_stats()
     model = DecoderLM(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
-    host = tree_map(lambda a: a.cpu(), params)
+    # the CPU copy holds the first RESIDENT_HOST_LAYERS layers of every
+    # stacked leaf (a full cycle of the mixed plan: the stacks' widest
+    # bits are the whole model's): the host's quantize is the phase's
+    # cost, and each layer is quantized on its own
+    host = tree_map(lambda a: (a[:RESIDENT_HOST_LAYERS] if a.ndim >= 3
+                               else a).cpu(), params)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.
                            Generator().manual_seed(seed)).to(dev)
     with torch.no_grad():
@@ -5244,9 +5312,10 @@ def resident_forward(cfg, dev, seed):
             if isinstance(a, QuantizedTensor):
                 assert isinstance(h, QuantizedTensor) and a.bits == h.bits
                 assert a.codes.dtype == h.codes.dtype, what
-                assert torch.equal(a.codes.cpu(), h.codes), \
+                n = h.codes.shape[0]
+                assert torch.equal(a.codes[:n].cpu(), h.codes), \
                     f"{cfg.name} {what}: codes differ from the CPU's"
-                assert torch.equal(a.scale.cpu(), h.scale), \
+                assert torch.equal(a.scale[:n].cpu(), h.scale), \
                     f"{cfg.name} {what}: scales differ from the CPU's"
                 n_q += 1
                 q_bytes += a.nbytes_effective()
@@ -5295,7 +5364,7 @@ def int8_resident_path(dev):
 # ---------------------------------------------------------------------------
 
 TP_STEPS = 3                # steps of phase 21 (a)
-MOE_BATCH, MOE_SEQ, MOE_STEPS = 4, 128, 2    # phase 21 (b)
+MOE_BATCH, MOE_SEQ, MOE_STEPS = 4, 128, 1    # phase 21 (b)
 PARAM_FLIP_SHARE = 1e-3     # phase 9's: elements beyond 1e-3 lr
 
 
@@ -5364,16 +5433,19 @@ def ranked_fit(rank, world, store, out_dir, what):
     from repro_torch.launch.mesh import init_ranks, make_mesh
     from repro_torch.models.lm import tree_leaves
     from repro_torch.models.registry import build_model
-    from repro_torch.parallel.sharding import gather
+    from repro_torch.parallel.sharding import activation_sharding, gather
     from repro_torch.runtime import Trainer
 
     set_float32_numerics()
     dev = init_ranks("cuda:0", backend="gloo", store_file=store, rank=rank,
                      world_size=world)
-    if what == "tp":
+    rules, spec = None, None
+    if what in ("tp", "notp"):
         cfg, mesh = FULL, make_mesh((1, world), ("data", "model"),
                                     device=dev)
         tc, opt, data = train_setup(cfg)
+        if what == "notp":      # phase 24 (b): the sequence split
+            rules, spec = notp_rules(cfg), (("data",), "model")
     elif what == "moe":
         cfg, _ = moe_config()
         mesh = make_mesh((world, 1), ("data", "model"), device=dev)
@@ -5381,7 +5453,8 @@ def ranked_fit(rank, world, store, out_dir, what):
     else:
         cfg, shape, tc, opt, data = tpf_setup(what)
         mesh = make_mesh(shape, ("data", "model"), device=dev)
-    tr = Trainer(build_model(cfg), opt, mesh=mesh, train_cfg=tc)
+    tr = Trainer(build_model(cfg), opt, mesh=mesh, train_cfg=tc,
+                 rules=rules)
     state = tr.init_state(0)
     out = {"rank": rank, "steps": [], "backend": dist.get_backend(),
            "plan": None if tr.tp is None else {
@@ -5406,29 +5479,33 @@ def ranked_fit(rank, world, store, out_dir, what):
     tk.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     calls = Collectives()
-    steps = {"tp": TP_STEPS, "moe": MOE_STEPS, "hybrid-dp": HDP_STEPS}.get(
-        what, TPF_STEPS)
+    steps = {"tp": TP_STEPS, "notp": NOTP_STEPS, "moe": MOE_STEPS,
+             "hybrid-dp": HDP_STEPS}.get(what, TPF_STEPS)
     save_at = TPF_HELD.get(what, steps)
     try:
-        for step in range(steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, hist = tr.fit(loader, 1, state=state)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-            step_calls = calls.take()
-            out["steps"].append(dict(
-                wall=wall, loss=hist[-1]["loss"],
-                grad_norm=hist[-1]["grad_norm"], lr=hist[-1]["lr"],
-                calls=step_calls, params=[fingerprint(gather(x))
-                                          for x in tree_leaves(state[0])]))
-            if step + 1 == save_at:
-                # the params the parent holds (a collective)
-                final = [gather(x).cpu() for x in tree_leaves(state[0])]
-                if rank == 0:
-                    torch.save(final, pathlib.Path(out_dir) / "params.pt")
-                del final
-            calls.take()            # the fingerprints' gathers
+        with activation_sharding(spec):
+            for step in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, hist = tr.fit(loader, 1, state=state)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                step_calls = calls.take()
+                prints = [fingerprint(gather(x))
+                          for x in tree_leaves(state[0])]
+                out["steps"].append(dict(
+                    wall=wall, loss=hist[-1]["loss"],
+                    grad_norm=hist[-1]["grad_norm"], lr=hist[-1]["lr"],
+                    calls=step_calls, params=prints))
+                if step + 1 == save_at:
+                    # the params the parent holds (a collective)
+                    final = [gather(x).cpu()
+                             for x in tree_leaves(state[0])]
+                    if rank == 0:
+                        torch.save(final,
+                                   pathlib.Path(out_dir) / "params.pt")
+                    del final
+                calls.take()            # the fingerprints' gathers
     finally:
         calls.close()
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -5653,7 +5730,7 @@ TPF_SERVE = {"xlstm-350m": (2, 256, None),        # (b) B, tokens, frames
 TPF_SERVE_NEW = 8              # (b) decode steps after the prefill
 TPF_TRAIN = {"xlstm-350m": (4, 128, None),        # (b) B, tokens, frames
              "seamless-m4t-large-v2": (4, 64, 64)}
-TPF_STEPS = 3                  # (b) training steps
+TPF_STEPS = 2                  # (b) training steps
 # (b) the steps held against one rank, where fewer than TPF_STEPS: at
 # xlstm-350m FULL's random weights the gradient norm reaches ~4e6 by step
 # 2 and two float32 fits from one state part there (the one-ulp fit
@@ -5870,7 +5947,7 @@ def serve_on_ranks(tr, state, out_dir):
             torch.cuda.synchronize()
             walls = [(time.perf_counter() - t0) * 1e3]
             flash = tk.launch_counts()["flash_attention_fwd"]
-            cache = grown_cache(m, cache, one["grown"], tp)
+            cache = grown_cache(cache, one["grown"])
             outs = [logits.cpu()]
             calls.take()
             for t in range(TPF_SERVE_NEW):
@@ -5890,21 +5967,18 @@ def serve_on_ranks(tr, state, out_dir):
     return outs, flash, walls, step_calls
 
 
-def grown_cache(model, cache, length, tp=None):
+def grown_cache(cache, length):
     """A prefill's cache in one of ``length`` positions (room for the
-    decode steps): the self-attention caches' prompt positions copied into
-    a fresh cache, every other entry kept; a cache without ``k`` (the
-    xLSTM's states) as it is."""
-    if "k" not in cache:
-        return cache
-    b, s = cache["k"].shape[1], cache["k"].shape[2]
-    grown = model.init_cache(b, length, device=cache["k"].device, tp=tp)
-    for key in grown:
-        if key in ("k", "v"):
-            grown[key][:, :, :s] = cache[key]
-        else:
-            grown[key] = cache[key]
-    return grown
+    decode steps): the self-attention caches ``k``/``v`` [layers, B, S,
+    KV, dh] (this rank's KV heads where attention splits) zero past the
+    prompt, every other entry kept; a cache without ``k`` (the xLSTM's
+    states) as it is."""
+    out = dict(cache)
+    for key in ("k", "v") if "k" in cache else ():
+        c = cache[key]
+        out[key] = c.new_zeros(c.shape[:2] + (length,) + c.shape[3:])
+        out[key][:, :, :c.shape[2]] = c
+    return out
 
 
 def tpf_setup(what):
@@ -5986,7 +6060,7 @@ def tpf_one_rank_serve(arch, dev, out_dir):
                 weights, {k: v.to(dev) for k, v in prompt.items()})
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-            cache = grown_cache(model, cache, grown)
+            cache = grown_cache(cache, grown)
             outs = [logits.cpu()]
             for t in range(TPF_SERVE_NEW):
                 tok = (logits.argmax(-1)[:, None] if tokens is None
@@ -6123,8 +6197,8 @@ def hold_ranked_fit_spread(ranks, out_dir, tr, loader, steps, held):
 def family_tp_path(dev):
     """Phase 23: (a) jamba serving at its published widths over (data 1,
     model 2) against one rank; (b) xlstm-350m and seamless-m4t-large-v2
-    FULL, serving and three training steps over (data 1, model 2) against
-    one rank; (c) jamba-smoke's MoE over (data 2, model 1), two steps
+    FULL, serving and TPF_STEPS training steps over (data 1, model 2)
+    against one rank; (c) jamba-smoke's MoE over (data 2, model 1), two steps
     against one rank on the global batch.  Returns the flash launches of
     the ranks' main paths (the one-rank runs' are not counted)."""
     import shutil
@@ -6163,7 +6237,7 @@ def family_tp_path(dev):
         logits, cache = model.prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         one_pre = (time.perf_counter() - t1) * 1e3
-        grown = grown_cache(model, cache, s + TPF_NEW)
+        grown = grown_cache(cache, s + TPF_NEW)
         del cache
         outs, toks, one_steps = [logits.cpu()], [], []
         for t in range(TPF_NEW):
@@ -6324,6 +6398,11 @@ DRYRUN_OTHERS = (("llava-next-mistral-7b", "prefill_32k"),      # vlm
                  ("qwen3-moe-235b-a22b", "decode_32k"),         # moe
                  ("xlstm-350m", "decode_32k"),                  # ssm
                  ("jamba-1.5-large-398b", "long_500k"))         # hybrid
+#: (d)'s variant cells of qwen2-0.5b, both meshes: (variant, shapes)
+DRYRUN_VARIANTS = (("cacheshard", "decode_32k"),
+                   ("notp", "train_4k,prefill_32k"),
+                   ("seqshard", "train_4k,prefill_32k"),
+                   ("int8w", "prefill_32k,decode_32k"))
 #: the launch counter each kernel op's calls count on
 OP_LAUNCHES = {"qmm": "qmm", "qmm_int4": "qmm_int4",
                "group_quantize": "group_quantize",
@@ -6366,9 +6445,8 @@ def account_call(what, real, fake, flush, counts):
     equal the run's under FakeTensorMode exactly, its kernel ops' calls
     the launches counted, and its outputs be bitwise the outputs of a run
     without the accountant.  The same run on ``meta`` tensors (the
-    dry-run's) must give the same FLOPs and kernel-op calls; its bytes
-    are printed beside the card's (an op PyTorch decomposes by device is
-    billed as meta decomposes it).  Then the call's
+    dry-run's) must give the same FLOPs, kernel-op calls and HBM bytes,
+    op by op ((e): ``F.rms_norm`` is one op on both).  Then the call's
     device ms (CUDA events, median of 5) beside its compute, memory and
     bound terms on the H100's constants.  Adds the real runs' launches to
     ``counts``; returns a summary line's dict."""
@@ -6412,11 +6490,14 @@ def account_call(what, real, fake, flush, counts):
     moved = sorted(((meta_costs.op_bytes.get(o, 0.0)
                      - real_costs.op_bytes.get(o, 0.0), o) for o in ops),
                    key=lambda x: -abs(x[0]))
-    if moved and moved[0][0]:
-        extra = meta_costs.hbm_bytes - real_costs.hbm_bytes
-        print(f"  {what}: meta bills {extra:.6g} B more than the card; "
-              f"by op: "
-              + ", ".join(f"{o} {d:+.4g}" for d, o in moved[:6] if d))
+    # (e) meta bills the card's bytes: ``F.rms_norm`` is one op both ways
+    # (``layers.rmsnorm``'s ``repro_norm::rms_norm``)
+    assert not (moved and moved[0][0]), (
+        f"{what}: meta bills "
+        f"{meta_costs.hbm_bytes - real_costs.hbm_bytes:.6g} B more than the "
+        f"card; by op: "
+        + ", ".join(f"{o} {d:+.4g}" for d, o in moved[:6] if d))
+    assert meta_costs.hbm_bytes == real_costs.hbm_bytes, what
     by_counter = {}
     for op, n in real_costs.kernel_calls.items():
         by_counter[OP_LAUNCHES[op]] = by_counter.get(OP_LAUNCHES[op], 0) + n
@@ -6432,22 +6513,48 @@ def account_call(what, real, fake, flush, counts):
                 ms=ms, compute_ms=compute, memory_ms=memory,
                 bound_ms=bound, ratio=ms / bound)
     print(f"  {what:28s} flops={real_costs.flops:.6g} "
-          f"hbm={real_costs.hbm_bytes:.6g} B fake == real (meta: the "
-          f"same flops, hbm={meta_costs.hbm_bytes:.6g} B, "
-          f"{meta_costs.hbm_bytes / real_costs.hbm_bytes:.4f}x); launches "
+          f"hbm={real_costs.hbm_bytes:.6g} B fake == real == meta; "
+          f"launches "
           f"{by_counter}; device ms={ms:.4f} compute={compute:.4f} "
           f"memory={memory:.4f} bound={bound:.4f} "
           f"measured/bound={ms / bound:.2f}")
     return line
 
 
-def dryrun_path(cfg, params, sysp, dev, flush, counts):
+def start_dryrun():
+    """Phase 22 (d)'s dry-run, started in a process of its own (it needs
+    the host's CPU only, so it runs beside phases 21-22): qwen2-0.5b x the
+    four shapes x both meshes x {baseline, flash}, DRYRUN_OTHERS and
+    DRYRUN_VARIANTS.  Returns (the process, its start, its records'
+    directory); the process is killed at exit if still running."""
+    import atexit
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    runs = [["--arch", "qwen2-0.5b", "--shape", "all", "--mesh", "both",
+             "--variant", variant, "--out", str(out_dir)]
+            for variant in ("baseline", "flash")]
+    runs += [["--arch", arch, "--shape", shape_name, "--mesh", "both",
+              "--out", str(out_dir)] for arch, shape_name in DRYRUN_OTHERS]
+    runs += [["--arch", "qwen2-0.5b", "--shape", shapes, "--mesh", "both",
+              "--variant", variant, "--out", str(out_dir)]
+             for variant, shapes in DRYRUN_VARIANTS]
+    code = ("from repro_torch.launch import dryrun\n"
+            f"codes = [dryrun.main(a) for a in {runs!r}]\n"
+            "assert codes == [0] * len(codes), codes\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, time.perf_counter(), out_dir
+
+
+def dryrun_path(cfg, params, sysp, dev, flush, counts, dry):
     """Phase 22: (a) fake == real and (b) measured against the bound for
     the co-inference forward at b̂ = 8 and 4 (with its configure), the
     B = 4 token step over the quantized cache (T = 1024), prefill and
     phase 9's 8 x 128 training step; (c) flash through the accounting op;
-    (d) the dry-run in a subprocess.  Adds the phase's launches to
-    ``counts``."""
+    (d) the dry-run, in the subprocess ``dry`` (:func:`start_dryrun`).
+    Adds the phase's launches to ``counts``."""
     import numpy as np
     import torch
     from repro_torch import kernels as tk
@@ -6552,6 +6659,27 @@ def dryrun_path(cfg, params, sysp, dev, flush, counts):
     del state0
     torch.cuda.empty_cache()
 
+    # (e) the norm the accountant bills as one op keeps F.rms_norm's bits,
+    # forward and backward, at the training step's rows
+    g = torch.Generator(device=dev).manual_seed(24)
+    x, w, dy = (torch.randn(shape, generator=g, device=dev) for shape in (
+        (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model), (cfg.d_model,),
+        (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model)))
+    ours = [t.clone().requires_grad_(True) for t in (x, w)]
+    theirs = [t.clone().requires_grad_(True) for t in (x, w)]
+    y0 = L.rmsnorm(*ours)
+    y1 = torch.nn.functional.rms_norm(theirs[0], (cfg.d_model,), theirs[1],
+                                      1e-6)
+    y0.backward(dy)
+    y1.backward(dy)
+    assert torch.equal(y0, y1) and all(
+        torch.equal(a.grad, b.grad) for a, b in zip(ours, theirs)), \
+        "repro_norm::rms_norm != F.rms_norm"
+    print(f"  (e) rms_norm as one op: meta's bytes == the card's in every "
+          f"call above; y, dx, dgain bitwise F.rms_norm's at "
+          f"{TRAIN_BATCH * TRAIN_SEQ} x {cfg.d_model}")
+    del x, w, dy, ours, theirs, y0, y1
+
     # (c) flash through the accounting op, on a one-rank mesh
     g = torch.Generator(device=dev).manual_seed(23)
     q = torch.randn((B, S, cfg.n_heads, cfg.head_dim), generator=g,
@@ -6570,34 +6698,335 @@ def dryrun_path(cfg, params, sysp, dev, flush, counts):
     print(f"  (c) fused_attention_acct {B}x{S}, one-rank mesh: 1 flash "
           f"launch, bitwise blockwise_attention")
 
-    # (d) the dry-run beside the card, in a process of its own
-    out_dir = ROOT / "chiprun_out" / "dryrun"
-    runs = [["--arch", "qwen2-0.5b", "--shape", "all", "--mesh", "both",
-             "--variant", variant, "--out", str(out_dir)]
-            for variant in ("baseline", "flash")]
-    runs += [["--arch", arch, "--shape", shape_name, "--mesh", "both",
-              "--out", str(out_dir)] for arch, shape_name in DRYRUN_OTHERS]
-    code = ("from repro_torch.launch import dryrun\n"
-            f"codes = [dryrun.main(a) for a in {runs!r}]\n"
-            "assert codes == [0] * len(codes), codes\n")
-    t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, env=env, timeout=600)
+    # (d) the dry-run beside the card, in the process start_dryrun began
+    proc, t0, out_dir = dry
+    stdout, stderr = proc.communicate(timeout=600)
     secs = time.perf_counter() - t0
-    print("\n".join("    " + ln for ln in proc.stdout.splitlines()
+    print("\n".join("    " + ln for ln in stdout.splitlines()
                     if ln.startswith("[")))
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert proc.returncode == 0, stdout[-3000:] + stderr[-3000:]
     from repro_torch.launch import roofline
     recs = roofline.load_records(str(out_dir))
-    assert len(recs) == 16 + 2 * len(DRYRUN_OTHERS), len(recs)
-    assert all(r["status"] in ("ok", "skip") for r in recs)
+    n_var = sum(2 * len(shapes.split(",")) for _, shapes in DRYRUN_VARIANTS)
+    assert len(recs) == 16 + 2 * len(DRYRUN_OTHERS) + n_var, len(recs)
+    assert all(r["status"] in ("ok", "skip") for r in recs), \
+        [(r["arch"], r["shape"], r["variant"], r.get("error"))
+         for r in recs if r["status"] not in ("ok", "skip")]
     rows = sorted((t for r in recs if (t := roofline.roofline_terms(r))),
                   key=lambda r: (r["mesh"], r["arch"], r["shape"],
                                  r["variant"]))
     print(roofline.markdown_table(rows))
-    print(f"  (d) dry-run: {len(recs)} records in {secs:.1f}s")
+    print(f"  (d) dry-run: {len(recs)} records in {secs:.1f}s since its "
+          f"start before phase 21")
     return lines
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the dry-run's last variants on real tensors: the sequence-
+# sharded KV cache, sequence-parallel training where nothing is split
+# (notp) and the int8-resident tree over a mesh (int8w)
+# ---------------------------------------------------------------------------
+
+SEQ_PROMPT, SEQ_T = (4, 504), 1024     # (a) qwen2-0.5b: B x prompt; the
+#                        cache's T over (model 2): the steps cross 512
+JSEQ_PROMPT, JSEQ_T = 4088, 8192       # (a) jamba at B = 1: the prompt;
+#                        the cache's T over (data 2): the steps cross 4096
+SEQ_NEW = 16                           # (a) decode steps after each prompt
+NOTP_STEPS = 2                         # (b) phase 9's steps, sequence split
+
+
+def jamba_seq_config():
+    """Phase 24 (a)'s jamba: phase 23's cut (one super-block, 2 of 16
+    experts) in bfloat16, so that two whole copies (the data-parallel
+    ranks hold every weight) and the one-rank run's fit the card; the
+    reduced line."""
+    import dataclasses
+    cfg, reduced = family_config("jamba-1.5-large-398b", 8, 8, 2)
+    return (dataclasses.replace(cfg, dtype="bfloat16",
+                                param_dtype="bfloat16"),
+            reduced + "; bfloat16 weights and compute")
+
+
+def notp_rules(cfg):
+    """The dry-run's ``notp`` rules: heads, KV, FFN and vocabulary
+    replicated (``launch/dryrun.py``'s ``_account``)."""
+    from repro_torch.parallel.sharding import default_rules
+    rules = default_rules(cfg)
+    rules.update(heads=None, kv=None, kv_heads=None, ffn=None, vocab=None)
+    return rules
+
+
+def seq_one_rank(dev, out_dir):
+    """Phase 24's one-rank runs, saved for the ranks: (a) qwen2-0.5b FULL
+    prefill at SEQ_PROMPT and SEQ_NEW greedy steps over a cache of SEQ_T,
+    and jamba (:func:`jamba_seq_config`) likewise at JSEQ_PROMPT and
+    JSEQ_T; (c) qwen2-0.5b's int8-resident prefill and one decode step
+    (``quantize_tree_stacked`` at 8 bits per channel, phase 20 (b)'s
+    forward).  Returns the logits per call of each, and walls."""
+    import torch
+    from repro_torch.configs.qwen2_0_5b import FULL
+    from repro_torch.core.quantization import QuantConfig, \
+        quantize_tree_stacked
+    from repro_torch.models.hybrid import HybridLM
+    from repro_torch.models.lm import DecoderLM
+
+    out = {}
+
+    def run(model, params, prompt, t_len):
+        b, s = prompt.shape
+        toks, outs = [], []
+        with torch.no_grad():
+            logits, cache = model.prefill(params, {"tokens": prompt})
+            cache = grown_cache(cache, t_len)
+            outs.append(logits.cpu())
+            for t in range(SEQ_NEW):
+                tok = logits.argmax(-1)[:, None]
+                toks.append(tok.cpu())
+                logits, cache = model.decode_step(params, cache, {
+                    "token": tok, "pos": torch.full(
+                        (b,), s + t, dtype=torch.int32, device=dev)})
+                outs.append(logits.cpu())
+        return outs, torch.cat(toks, 1)
+
+    gen = torch.Generator().manual_seed(24)
+    model = DecoderLM(FULL)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    prompt = torch.randint(0, FULL.vocab_size, SEQ_PROMPT, generator=gen)
+    t0 = time.perf_counter()
+    out["qwen"], tokens = run(model, params, prompt.to(dev), SEQ_T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    qt = quantize_tree_stacked(params, QuantConfig(
+        bits=8, granularity="per-channel"))
+    del params
+    with torch.no_grad():
+        logits, cache = model.prefill(qt, {"tokens": prompt.to(dev)})
+        cache = grown_cache(cache, SEQ_T)
+        step, _ = model.decode_step(qt, cache, {
+            "token": tokens[:, :1].to(dev),
+            "pos": torch.full((SEQ_PROMPT[0],), SEQ_PROMPT[1],
+                              dtype=torch.int32, device=dev)})
+    out["int8w"] = [logits.cpu(), step.cpu()]
+    del qt, cache
+    torch.cuda.empty_cache()
+    cfg, _ = jamba_seq_config()
+    jam = HybridLM(cfg)
+    jp = jam.init(torch.Generator(device=dev).manual_seed(1))
+    jprompt = torch.randint(0, cfg.vocab_size, (1, JSEQ_PROMPT),
+                            generator=gen)
+    t0 = time.perf_counter()
+    out["jamba"], jtokens = run(jam, jp, jprompt.to(dev), JSEQ_T)
+    torch.cuda.synchronize()
+    jwall = time.perf_counter() - t0
+    del jp
+    torch.cuda.empty_cache()
+    torch.save({"prompt": prompt, "tokens": tokens, "jprompt": jprompt,
+                "jtokens": jtokens}, pathlib.Path(out_dir) / "one.pt")
+    return out, wall, jwall
+
+
+def seq_rank(rank, world, store, out_dir, what):
+    """Phase 24 (a) and (c), one rank of two sharing the card over gloo:
+    (a) qwen2-0.5b FULL over (data 1, model 2) on its plan's leaves, the
+    prefill's cache (this rank's KV head) gathered over ``model``, grown
+    to SEQ_T and cut to this rank's half of the sequence, then SEQ_NEW
+    ``decode_step(..., cache_seq=)`` of the one-rank run's tokens; jamba
+    over (data 2, model 1) likewise, every weight whole, its attention
+    cache's half of JSEQ_T; (c) qwen2-0.5b's int8-resident tree over
+    (model 2): prefill and one decode step on the plan's leaves.  Writes
+    the logits (rank 0 a file of them), the local positions each decode
+    changed, the held weight bytes and walls as JSON."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.qwen2_0_5b import FULL
+    from repro_torch.core.quantization import (QuantConfig, QuantizedTensor,
+                                               quantize_tree_stacked)
+    from repro_torch.device import set_float32_numerics
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.models.hybrid import HybridLM
+    from repro_torch.models.lm import DecoderLM, tree_leaves
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.tensor_parallel import (SequenceShards,
+                                                      shard_leaf)
+    from repro_torch.runtime import Trainer
+    from repro_torch.runtime.train_loop import _zip_map
+
+    set_float32_numerics()
+    dev = init_ranks("cuda:0", backend="gloo", store_file=store, rank=rank,
+                     world_size=world)
+    one = torch.load(pathlib.Path(out_dir) / "one.pt")
+    mesh_m = make_mesh((1, world), ("data", "model"), device=dev)
+    mesh_d = make_mesh((world, 1), ("data", "model"), device=dev)
+    res = {"rank": rank, "backend": dist.get_backend()}
+    logits_out = {}
+
+    def decode(model, leaves, cache, tokens, start, shards, tp, key):
+        """SEQ_NEW steps of ``tokens`` from ``start``; the logits and the
+        local positions of the attention cache the steps changed."""
+        b = tokens.shape[0]
+        before = cache["k"].clone()
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for t in range(SEQ_NEW):
+                logits, cache = model.decode_step(leaves, cache, {
+                    "token": tokens[:, t:t + 1].to(dev),
+                    "pos": torch.full((b,), start + t, dtype=torch.int32,
+                                      device=dev)}, tp=tp, cache_seq=shards)
+                outs.append(logits.cpu())
+        torch.cuda.synchronize()
+        res[key + "_wall_ms"] = (time.perf_counter() - t0) * 1e3 / SEQ_NEW
+        moved = (cache["k"] != before).flatten(3).any(-1).any(0).any(0)
+        res[key + "_written"] = torch.nonzero(moved).flatten().tolist()
+        res[key + "_offset"] = shards.offset
+        return outs
+
+    # (a) qwen2-0.5b over (data 1, model 2), the cache's sequence on model
+    tr = Trainer(DecoderLM(FULL), AdamW(learning_rate=1e-4), mesh=mesh_m)
+    tp = tr.tp
+    params = tr.model.init(torch.Generator(device=dev).manual_seed(0))
+    leaves = _zip_map(lambda p, d: shard_leaf(p, d, tp), params,
+                      tr._dims(params))
+    prompt = one["prompt"].to(dev)
+    b, s = prompt.shape
+    with torch.no_grad():
+        first, cache = tr.model.prefill(leaves, {"tokens": prompt}, tp=tp)
+    shards = SequenceShards.of(mesh_m, ("model",), SEQ_T // world)
+    whole = {}
+    for key in ("k", "v"):                  # every KV head, then this half
+        heads = [torch.empty_like(cache[key]) for _ in range(world)]
+        dist.all_gather(heads, cache[key].contiguous(), group=tp.group)
+        full = torch.zeros(cache[key].shape[:2] + (SEQ_T,)
+                           + (FULL.n_kv_heads, FULL.head_dim), device=dev)
+        full[:, :, :s] = torch.cat(heads, 3)
+        whole[key] = full[:, :, shards.offset:shards.offset
+                          + shards.length].clone()
+    whole["len"] = cache["len"]
+    del cache
+    logits_out["qwen"] = [first.cpu()] + decode(
+        tr.model, leaves, whole, one["tokens"], s, shards, tp, "qwen")
+
+    # (c) the int8-resident tree over (model 2)
+    qt = quantize_tree_stacked(params, QuantConfig(
+        bits=8, granularity="per-channel"))
+    del params, leaves, whole
+    qleaves = _zip_map(lambda p, d: shard_leaf(p, d, tp), qt,
+                       tr._dims(qt))
+    del qt
+    res["held_bytes"] = sum(
+        (x.codes.numel() * x.codes.element_size()
+         + x.scale.numel() * x.scale.element_size())
+        if isinstance(x, QuantizedTensor) else x.numel() * x.element_size()
+        for x in tree_leaves(qleaves))
+    with torch.no_grad():
+        q_first, cache = tr.model.prefill(qleaves, {"tokens": prompt},
+                                          tp=tp)
+        cache = grown_cache(cache, SEQ_T)
+        step, _ = tr.model.decode_step(qleaves, cache, {
+            "token": one["tokens"][:, :1].to(dev),
+            "pos": torch.full((b,), s, dtype=torch.int32, device=dev)},
+            tp=tp)
+    logits_out["int8w"] = [q_first.cpu(), step.cpu()]
+    del qleaves, cache, tr
+    torch.cuda.empty_cache()
+
+    # (a) jamba over (data 2, model 1), the attention cache's sequence on
+    # data; every rank holds every weight
+    cfg, _ = jamba_seq_config()
+    jam = HybridLM(cfg)
+    jp = jam.init(torch.Generator(device=dev).manual_seed(1))
+    jprompt = one["jprompt"].to(dev)
+    with torch.no_grad():
+        jfirst, cache = jam.prefill(jp, {"tokens": jprompt})
+    cache = grown_cache(cache, JSEQ_T)
+    jshards = SequenceShards.of(mesh_d, ("data",), JSEQ_T // world)
+    for key in ("k", "v"):
+        cache[key] = cache[key][:, :, jshards.offset:jshards.offset
+                                + jshards.length].clone()
+    torch.cuda.empty_cache()
+    logits_out["jamba"] = [jfirst.cpu()] + decode(
+        jam, jp, cache, one["jtokens"], JSEQ_PROMPT, jshards, None,
+        "jamba")
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del jp, cache
+    torch.save(logits_out, pathlib.Path(out_dir) / f"logits{rank}.pt")
+    with open(pathlib.Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def variants_path(cfg, dev):
+    """Phase 24: (a) the sequence-sharded KV cache, (b) notp training and
+    (c) the int8-resident tree over a mesh, two gloo ranks sharing the
+    card each, against one rank; returns the flash launches."""
+    import torch
+    from repro_torch.data import ShardedLoader
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.runtime import Trainer
+
+    out_dir = ROOT / "build" / "phase24seq"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    one, wall, jwall = seq_one_rank(dev, out_dir)
+    print(f"  one rank: qwen2-0.5b prefill {SEQ_PROMPT[0]}x{SEQ_PROMPT[1]} "
+          f"+ {SEQ_NEW} steps over T={SEQ_T} {wall:.2f}s, its "
+          f"int8-resident prefill + 1 step; jamba ({jamba_seq_config()[1]})"
+          f" prefill 1x{JSEQ_PROMPT} + {SEQ_NEW} steps over T={JSEQ_T} "
+          f"{jwall:.2f}s; {time.perf_counter() - t0:.1f}s")
+    print(f"  {release_memory()}")
+    ranks, wall, _ = spawn_ranks("seq", 2, target=seq_rank, tag="phase24")
+    got = [torch.load(out_dir / f"logits{r}.pt") for r in range(2)]
+    for arch, half, prompt in (("qwen", SEQ_T // 2, SEQ_PROMPT[1]),
+                               ("jamba", JSEQ_T // 2, JSEQ_PROMPT)):
+        for r, g in zip(ranks, got):
+            line = hold_logits(g[arch], one[arch], f"(a) {arch} rank "
+                               f"{r['rank']}")
+            # the steps' positions prompt .. prompt + SEQ_NEW - 1, each
+            # written on the rank whose half holds it, nowhere else
+            o = r[f"{arch}_offset"]
+            want = [p - o for p in range(prompt, prompt + SEQ_NEW)
+                    if o <= p < o + half]
+            assert r[f"{arch}_written"] == want, (arch, r["rank"],
+                                                  r[f"{arch}_written"])
+        print(f"  (a) {arch}, cache sequence over "
+              f"{'model' if arch == 'qwen' else 'data'} 2: {line}; writes "
+              f"on their owners ({len(ranks[0][arch + '_written'])} + "
+              f"{len(ranks[1][arch + '_written'])} positions); "
+              f"{ranks[0][arch + '_wall_ms']:.2f} ms a step")
+    for r, g in zip(ranks, got):
+        for a, b_ in zip(g["int8w"], one["int8w"]):
+            scale = float(b_.abs().max())
+            diff = float((a - b_).abs().max())
+            assert diff <= KERNEL_TOL * scale, ("(c)", r["rank"], diff)
+    print(f"  (c) int8-resident prefill + 1 step over (model 2) vs one "
+          f"rank: logits within {KERNEL_TOL} of scale; held weight bytes "
+          f"per rank {[r['held_bytes'] for r in ranks]}; peaks "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; {wall:.1f}s "
+          f"with start-up")
+    print(f"  {release_memory()}")
+
+    # (b) notp: phase 9's step over (data 1, model 2), the sequence split
+    ranks, wall, nout = spawn_ranks("notp", 2, tag="phase24")
+    for r in ranks:
+        assert r["flags"] == dict.fromkeys(TPF_FLAGS, False), r["flags"]
+    tc, opt, data = train_setup(cfg)
+    line, ref_walls = hold_ranked_fit(
+        ranks, nout, Trainer(DecoderLM(cfg), opt, dev, tc),
+        ShardedLoader(data, device=dev), NOTP_STEPS)
+    flash = 0
+    for r in ranks:
+        n = r["launches"]["flash_attention_fwd"]
+        assert n == 2 * cfg.n_layers * NOTP_STEPS, r["launches"]
+        flash += n
+    print(f"  (b) notp over (data 1, model 2), the sequence split: "
+          f"{line}; flash launches {flash} (at offset {TRAIN_SEQ // 2} on "
+          f"rank 1); {wall:.1f}s with start-up; {card_line()}")
+    for ln in rank_lines(ranks):
+        print(ln)
+    (nout / "params.pt").unlink()
+    torch.cuda.empty_cache()
+    return flash
 
 
 def main() -> int:
@@ -6926,6 +7355,9 @@ def main() -> int:
     print(f"examples and int8-resident forward: "
           f"{time.perf_counter() - t0:.1f}s")
 
+    # 22 (d)'s dry-run needs the host's CPU only: it runs beside 21-22
+    dry = start_dryrun()
+
     # 21. tensor-parallel compute over model, then MoE training over
     # data-parallel ranks, two gloo ranks sharing the card each
     t0 = time.perf_counter()
@@ -6942,7 +7374,7 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"  {release_memory()}")
     print(f"  launches of phases 4-21: {dict(counts)}")
-    dryrun_path(cfg, params, sysp, dev, flush, counts)
+    dryrun_path(cfg, params, sysp, dev, flush, counts, dry)
     print(f"dry-run accounting: {time.perf_counter() - t0:.1f}s")
 
     # 23. tensor-parallel compute for the hybrid, xLSTM and
@@ -6953,7 +7385,15 @@ def main() -> int:
     print(f"  {release_memory()}")
     print(f"family tensor parallelism: {time.perf_counter() - t0:.1f}s")
 
-    # 24. summary
+    # 24. the sequence-sharded KV cache, notp training and the
+    # int8-resident tree over a mesh, two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    print(f"  {release_memory()}")
+    counts["flash_attention_fwd"] += variants_path(cfg, dev)
+    print(f"  {release_memory()}")
+    print(f"dry-run variants on the card: {time.perf_counter() - t0:.1f}s")
+
+    # 25. summary
     names = {"group_quantize": ("csrc/group_quantize.cu",
                                 "src/repro/kernels/quantize.py:35"),
              "qmm": ("csrc/qmm.cu", "src/repro/kernels/qmm.py:67"),

@@ -67,8 +67,9 @@
 // Masking: a key is visible to a query when kpos < kend (kend = min(T,
 // kv_len[b]): keys past the true length never enter the softmax, causal or
 // not), kpos <= qpos when causal, and qpos - kpos < window when window >
-// 0.  Only the kv tiles that hold a position visible to some row of the
-// query tile are walked.
+// 0, where query row r sits at qpos = q_off + r (q_off > 0: a sequence
+// chunk's queries against the whole sequence's keys).  Only the kv tiles
+// that hold a position visible to some row of the query tile are walked.
 //
 // Two properties hold by construction (chip_smoke.py checks them bitwise):
 // * Row independence: a block reads only its own row's q, k, v and kv_len,
@@ -352,7 +353,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  const int* __restrict__ kv_len, Strides st, int h, int g,
                  int s_len, int t_len, int dh, int causal, int window,
-                 float scale, long long* clock_out) {
+                 int q_off, float scale, long long* clock_out) {
   using L = Layout<DH>;
   constexpr bool kExact = !std::is_same<T, float>::value;   // bf16
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -388,9 +389,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + b * st.vb + kvh * st.vh;
 
   // kv tiles holding a position visible to some row of this query tile
-  const int q_last = min(q0 + kTile, s_len) - 1;
+  // (query row r sits at position q_off + r for the masks)
+  const int q_last = min(q0 + kTile, s_len) - 1 + q_off;
   const int hi = causal ? min(kend, q_last + 1) : kend;
-  const int lo = window > 0 ? max(q0 - window + 1, 0) : 0;
+  const int lo = window > 0 ? max(q0 + q_off - window + 1, 0) : 0;
   const int j_first = lo / kTile;
   const int j_end = hi > lo ? (hi + kTile - 1) / kTile : j_first;
 
@@ -493,7 +495,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // 2. the online-softmax update; no mask to test where the warp's 16
     // rows see every key of the tile
-    const int row0 = q0 + r0;
+    const int row0 = q0 + r0 + q_off;      // the warp's first position
     float corr[2];
     if (t0 + kTile <= kend && (!causal || t0 + kTile - 1 <= row0) &&
         (window <= 0 || row0 + 15 - t0 < window)) {
@@ -621,7 +623,8 @@ cudaError_t allow_smem() {
 template <typename T, int DH, bool kAsync>
 int launch_one(const T* q, const T* k, const T* v, T* out, const int* kv_len,
                const Strides& st, int b, int h, int kv, int s, int t, int dh,
-               int causal, int window, float scale, cudaStream_t stream,
+               int causal, int window, int q_off, float scale,
+               cudaStream_t stream,
                long long* clock_out) {
   const cudaError_t e = allow_smem<T, DH, kAsync>();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -629,16 +632,18 @@ int launch_one(const T* q, const T* k, const T* v, T* out, const int* kv_len,
   flash_fwd_kernel<T, DH, kAsync>
       <<<grid, kThreads, Layout<DH>::kBytes, stream>>>(
           q, k, v, out, kv_len, st, h, h / kv, s, t, dh, causal, window,
-          scale, clock_out);
+          q_off, scale, clock_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out,
            const void* kv_len, const long long* strides, int b, int h,
-           int kv, int s, int t, int dh, int causal, int window, float scale,
-           int async_copy, void* stream, long long* clock_out = nullptr) {
-  if (dh < 1 || dh > 128 || kv < 1 || h % kv != 0 || s > 65535 * kTile) {
+           int kv, int s, int t, int dh, int causal, int window, int q_off,
+           float scale, int async_copy, void* stream,
+           long long* clock_out = nullptr) {
+  if (dh < 1 || dh > 128 || kv < 1 || h % kv != 0 || s > 65535 * kTile ||
+      q_off < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Strides st;
@@ -657,32 +662,39 @@ int launch(const void* q, const void* k, const void* v, void* out,
     if (async_copy) {
       return dh <= 64
           ? launch_one<T, 64, true>(qp, kp, vp, op, lp, st, b, h, kv, s, t,
-                                    dh, causal, window, scale, cs, clock_out)
+                                    dh, causal, window, q_off, scale, cs,
+                                    clock_out)
           : launch_one<T, 128, true>(qp, kp, vp, op, lp, st, b, h, kv, s, t,
-                                     dh, causal, window, scale, cs, clock_out);
+                                     dh, causal, window, q_off, scale, cs,
+                                     clock_out);
     }
   }
   return dh <= 64
       ? launch_one<T, 64, false>(qp, kp, vp, op, lp, st, b, h, kv, s, t, dh,
-                                 causal, window, scale, cs, clock_out)
+                                 causal, window, q_off, scale, cs, clock_out)
       : launch_one<T, 128, false>(qp, kp, vp, op, lp, st, b, h, kv, s, t, dh,
-                                  causal, window, scale, cs, clock_out);
+                                  causal, window, q_off, scale, cs,
+                                  clock_out);
 }
 
 }  // namespace
 
 // q [b, h, s, dh], k/v [b, kv, t, dh], out like q, all f32, addressed
 // through `strides` (12 element strides: batch, head, position of q, k,
-// v, out); kv_len [b] int32 or null (= t).  async_copy: dh % 4 == 0 and
-// the q, k, v addresses and their batch, head and position strides are
-// 16-byte multiples, so tiles are copied 16 bytes at a time.
+// v, out); kv_len [b] int32 or null (= t); q_off >= 0: query row r sits
+// at position q_off + r for the causal and window masks (a sequence
+// chunk's queries against the whole sequence's keys; 0 otherwise).
+// async_copy: dh % 4 == 0 and the q, k, v addresses and their batch, head
+// and position strides are 16-byte multiples, so tiles are copied 16
+// bytes at a time.
 extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
                               void* out, const void* kv_len,
                               const long long* strides, int b, int h, int kv,
                               int s, int t, int dh, int causal, int window,
-                              float scale, int async_copy, void* stream) {
+                              int q_off, float scale, int async_copy,
+                              void* stream) {
   return launch<float>(q, k, v, out, kv_len, strides, b, h, kv, s, t, dh,
-                       causal, window, scale, async_copy, stream);
+                       causal, window, q_off, scale, async_copy, stream);
 }
 
 // the same with bf16 q, k, v and out (f32 arithmetic inside)
@@ -690,10 +702,11 @@ extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
                                void* out, const void* kv_len,
                                const long long* strides, int b, int h,
                                int kv, int s, int t, int dh, int causal,
-                               int window, float scale, int async_copy,
-                               void* stream) {
+                               int window, int q_off, float scale,
+                               int async_copy, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, out, kv_len, strides, b, h, kv, s,
-                               t, dh, causal, window, scale, 0, stream);
+                               t, dh, causal, window, q_off, scale, 0,
+                               stream);
 }
 
 #ifdef FLASH_STAGE_CLOCK
@@ -704,10 +717,11 @@ extern "C" int flash_attn_f32_clock(const void* q, const void* k,
                                     const void* kv_len,
                                     const long long* strides, int b, int h,
                                     int kv, int s, int t, int dh, int causal,
-                                    int window, float scale, int async_copy,
-                                    void* stream, void* clock_out) {
+                                    int window, int q_off, float scale,
+                                    int async_copy, void* stream,
+                                    void* clock_out) {
   return launch<float>(q, k, v, out, kv_len, strides, b, h, kv, s, t, dh,
-                       causal, window, scale, async_copy, stream,
+                       causal, window, q_off, scale, async_copy, stream,
                        static_cast<long long*>(clock_out));
 }
 #endif

@@ -36,7 +36,7 @@ MAX_HEAD_DIM = 128
 def _entry(symbol: str):
     """The bound C entry point, looked up and typed once."""
     fn = getattr(build.library("flash_attn"), symbol)
-    fn.argtypes = [_P] * 6 + [_I] * 8 + [_F, _I, _P]
+    fn.argtypes = [_P] * 6 + [_I] * 9 + [_F, _I, _P]
     fn.restype = _I
     return fn
 
@@ -65,14 +65,18 @@ def _kernel_checks(q, k, v) -> None:
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                         block_q: int = 512, block_k: int = 512,
-                        kv_len=None) -> torch.Tensor:
+                        kv_len=None, q_offset: int = 0) -> torch.Tensor:
     """q [B, H, S, dh]; k, v [B, KV, T, dh]; H = KV * G.  Returns
     [B, H, S, dh] in q's dtype (f32 or bf16; arithmetic in f32).
 
     ``kv_len`` (an int or [B]; default T) masks the keys at positions >=
-    it, causal or not.  Operands may be strided views (the last axis
-    contiguous): the model passes its [B, S, H, dh] activations
-    transposed, without a copy, and the output has q's strides.
+    it, causal or not.  ``q_offset`` >= 0 places query row r at position
+    ``q_offset + r`` for the causal and window masks: a sequence chunk's
+    queries against the whole sequence's keys (sequence-parallel
+    attention); 0 is the kernel as before it took an offset.  Operands
+    may be strided views (the last axis contiguous): the model passes its
+    [B, S, H, dh] activations transposed, without a copy, and the output
+    has q's strides.
 
     Launches the CUDA kernel on a CUDA tensor and runs the plain version
     on a CPU tensor; nothing else is accepted.  ``block_q``/``block_k``
@@ -94,13 +98,16 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type != "cpu" and q.device.type not in build.CARD_DEVICES:
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu, got "
                          f"{q.device}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     lens = kv_len if isinstance(kv_len, torch.Tensor) else None
     n = -1 if kv_len is None or lens is not None else int(kv_len)
     return flash_attention_op(q, k, v, lens, n, causal, window, block_q,
-                              block_k)
+                              block_k, int(q_offset))
 
 
-def _impl(q, k, v, lens, kv_len, causal, window, block_q, block_k):
+def _impl(q, k, v, lens, kv_len, causal, window, block_q, block_k,
+          q_offset=0):
     """:func:`flash_attention_fwd` as an op: ``lens`` a [B] (or scalar)
     tensor of key lengths, else ``kv_len`` (-1: every key)."""
     length = lens if lens is not None else (None if kv_len < 0 else kv_len)
@@ -109,7 +116,7 @@ def _impl(q, k, v, lens, kv_len, causal, window, block_q, block_k):
         # can be a view of its padded tiles)
         return _ref.flash_attention_ref(
             q, k, v, causal=causal, window=window, block_q=block_q,
-            block_k=block_k, kv_len=length).contiguous()
+            block_k=block_k, kv_len=length, q_offset=q_offset).contiguous()
     _kernel_checks(q, k, v)
     b, h, s, dh = q.shape
     kv, t = k.shape[1], k.shape[2]
@@ -133,14 +140,16 @@ def _impl(q, k, v, lens, kv_len, causal, window, block_q, block_k):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lens is None else lens.data_ptr(),
                 ctypes.addressof(strides), b, h, kv, s, t, dh, int(causal),
-                int(window), dh ** -0.5, int(f32 and _copies_16(q, k, v)),
+                int(window), int(q_offset), dh ** -0.5,
+                int(f32 and _copies_16(q, k, v)),
                 torch.cuda.current_stream().cuda_stream)
         build.check(status, "flash_attention_fwd")
         build.count(flash_attention_fwd)
     return out
 
 
-def _fake(q, k, v, lens, kv_len, causal, window, block_q, block_k):
+def _fake(q, k, v, lens, kv_len, causal, window, block_q, block_k,
+          q_offset=0):
     if q.device.type != "cpu":
         _kernel_checks(q, k, v)
         if lens is not None and lens.device != q.device:
@@ -154,7 +163,10 @@ def _flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
     ``baseline`` path, ``layers.blockwise_attention``: both einsums of
     every (q block, kv block) pair of its scan, masked or not, over the
     sequence and keys padded to whole blocks of min(512, seq_bucket),
-    2 x 2 B H S_pad T_pad dh."""
+    2 x 2 B H S_pad T_pad dh.  A query chunk at an offset (sequence-
+    parallel attention) bills its own rows against every key: the
+    reference's census of the same step over a sequence-sharded
+    residual counts its whole-key blocks alike."""
     b, h, s, dh = q_shape
     t = k_shape[2]
     sp = -(-s // min(512, seq_bucket(s))) * min(512, seq_bucket(s))
@@ -165,7 +177,8 @@ def _flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
 flash_attention_op = build.kernel_op(
     "flash_attention_fwd",
     "(Tensor q, Tensor k, Tensor v, Tensor? lens, int kv_len, bool causal, "
-    "int window, int block_q, int block_k) -> Tensor", _impl, _fake, _flops)
+    "int window, int block_q, int block_k, int q_offset=0) -> Tensor",
+    _impl, _fake, _flops)
 
 
 flash_attention_fwd.launches = 0
@@ -177,23 +190,26 @@ class _FlashAttention(torch.autograd.Function):
     (the reference's ``_fa_fwd``/``_fa_bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q_offset):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
-        return flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
+        return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
 
     @staticmethod
     def backward(ctx, grad):
         q, k, v = ctx.saved_tensors
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-            out = _ref.ref_attention(*leaves, ctx.causal, ctx.window)
+            out = _ref.ref_attention(*leaves, ctx.causal, ctx.window,
+                                     ctx.q_offset)
         dq, dk, dv = torch.autograd.grad(out, leaves, grad)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, causal: bool = True,
-                    window: int = 0) -> torch.Tensor:
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
     """Differentiable fused attention, q [B, H, S, dh], k/v [B, KV, T, dh]
-    (the reference's ``flash_attention``)."""
-    return _FlashAttention.apply(q, k, v, causal, window)
+    (the reference's ``flash_attention``); ``q_offset`` as in
+    :func:`flash_attention_fwd`."""
+    return _FlashAttention.apply(q, k, v, causal, window, q_offset)

@@ -305,7 +305,7 @@ def _visible(qpos, kpos, kend, causal: bool, window: int):
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         block_q: int = 512, block_k: int = 512,
-                        kv_len=None):
+                        kv_len=None, q_offset: int = 0):
     """Causal / windowed / bidirectional GQA attention in the reference's
     layout: q [B, H, S, dh], k/v [B, KV, T, dh], H = KV * G; returns
     [B, H, S, dh] in q's dtype.
@@ -323,7 +323,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     inside its bucket, so right-padding never changes the partition.
     Keys at positions >= ``kv_len`` (an int or [B]; default T) never
     enter the softmax, causal or not, so padded keys are masked even in
-    bidirectional attention.
+    bidirectional attention.  Query row r sits at position ``q_offset +
+    r`` for the causal and window masks (a sequence chunk's queries).
 
     Dot products are elementwise products summed over one axis, never
     batched matmuls, so a row's bits do not depend on B.
@@ -353,14 +354,14 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     outs = []
     for i in range(nq):
         qb = qp[:, :, :, i * bq:(i + 1) * bq]           # [B, KV, G, bq, dh]
-        qpos = (i * bq + torch.arange(bq, device=dev))[:, None]
+        qpos = (q_offset + i * bq + torch.arange(bq, device=dev))[:, None]
         m = torch.full((b, kv, g, bq, 1), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((b, kv, g, bq, 1), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, kv, g, bq, dh), dtype=torch.float32,
                           device=dev)
         for j in range(nk):
-            if causal and j * bk > i * bq + bq - 1:
+            if causal and j * bk > q_offset + i * bq + bq - 1:
                 continue            # fully above the diagonal: a no-op
             kb = kp[:, :, :, j * bk:(j + 1) * bk]        # [B, KV, 1, bk, dh]
             vb = vp[:, :, :, j * bk:(j + 1) * bk]
@@ -381,13 +382,14 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(b, h, s, dh).to(q.dtype)
 
 
-def ref_attention(q, k, v, causal: bool, window: int):
+def ref_attention(q, k, v, causal: bool, window: int, q_offset: int = 0):
     """The reference's oracle ``_ref_attention`` in the [B, H, S, dh]
     layout: masked scores, a full softmax, p @ V; differentiable, and what
     the flash kernel's backward recomputes through.  Batched matmuls, as
     the reference's einsums: its temporaries are [B, H, S, T], so the
     backward fits long training sequences (the gradient is held to a
-    tolerance, not to bits)."""
+    tolerance, not to bits).  Query row r sits at position ``q_offset +
+    r`` for the masks."""
     b, h, s, dh = q.shape
     kv, t = k.shape[1], k.shape[2]
     g = h // kv
@@ -396,7 +398,7 @@ def ref_attention(q, k, v, causal: bool, window: int):
     kr = k.to(torch.float32)[:, :, None]               # [B, KV, 1, T, dh]
     vr = v.to(torch.float32)[:, :, None]
     sc = torch.matmul(qr, kr.transpose(-1, -2)) * dh ** -0.5  # [B,KV,G,S,T]
-    qpos = torch.arange(s, device=dev)[:, None]
+    qpos = q_offset + torch.arange(s, device=dev)[:, None]
     kpos = torch.arange(t, device=dev)[None, :]
     mask = torch.ones((s, t), dtype=torch.bool, device=dev)
     if causal:
@@ -457,7 +459,7 @@ def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, acc=None,
 
 
 def flash_split_emulation(q, k, v, *, causal: bool = True, window: int = 0,
-                          kv_len=None):
+                          kv_len=None, q_offset: int = 0):
     """The flash kernel's schedule and order of arithmetic, in plain torch
     (for the tests; no caller on a path).  Same layout and masks as
     :func:`flash_attention_ref`.
@@ -493,14 +495,14 @@ def flash_split_emulation(q, k, v, *, causal: bool = True, window: int = 0,
     for i in range(nq):
         q0 = i * ft
         qb = qp[:, :, :, q0:q0 + ft]
-        qpos = (q0 + torch.arange(ft, device=dev))[:, None]
+        qpos = (q_offset + q0 + torch.arange(ft, device=dev))[:, None]
         m = torch.full((b, kv, g, ft, 1), NEG_INF, device=dev)
         l = torch.zeros((b, kv, g, ft, 1), device=dev)
         acc = torch.zeros((b, kv, g, ft, dh), device=dev)
         # the tiles the kernel walks: as csrc/flash_attn.cu, per row of B
-        q_last = min(q0 + ft, s) - 1
+        q_last = min(q0 + ft, s) - 1 + q_offset
         hi = torch.clamp(kend, max=q_last + 1) if causal else kend
-        lo = max(q0 - window + 1, 0) if window > 0 else 0
+        lo = max(q0 + q_offset - window + 1, 0) if window > 0 else 0
         for j in range(lo // ft, nk):
             walk = (hi > lo) & (j * ft < hi)                         # [B]
             if not bool(walk.any()):

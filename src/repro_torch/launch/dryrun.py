@@ -14,11 +14,10 @@ the ``meta`` device: shapes and dtypes only, every kernel op through its
 fake version, which refuses what the card would.  Meta stands for the
 card because PyTorch built without CUDA can neither index nor
 backpropagate fake CUDA tensors (their device guard is not linked), so
-the same accounting runs here and beside the card.  An op that PyTorch
-decomposes by device is billed as meta decomposes it: ``F.rms_norm`` is
-one fused op on the card and five on meta (measured on the card: +0.1 to
-+4.6 % of the HBM bytes of a forward, decode step, prefill or training
-step; ``chip_smoke.py`` phase 22).
+the same accounting runs here and beside the card.  ``F.rms_norm``, one
+fused op on the card that meta would decompose, runs as one op on both
+(``models/layers.py``: ``repro_norm::rms_norm``), so meta bills the
+card's bytes (``chip_smoke.py`` phase 22 holds them equal).
 
 Per cell the step is this rank's:
 
@@ -30,7 +29,11 @@ Per cell the step is this rank's:
            on the two-pod mesh is the pod-wise int8 step
   prefill  ``model.prefill`` on this rank's rows of the batch
   decode   one ``model.decode_step`` against this rank's part of the
-           full-size cache
+           full-size cache; where the rules split the cache's sequence
+           (``cache_seq``: ``data`` at ``long_500k``, ``model`` under
+           ``cacheshard``) the step writes on the shard that owns the
+           position and merges the shards' attention partials
+           (``parallel.tensor_parallel.SequenceShards``)
 
 Every family's serving steps compute tensor-parallel over ``model`` as
 its training does (``model_plan``: the parts whose sizes divide on their
@@ -39,25 +42,39 @@ rules place it (batch rows, and the ``heads``, ``kv_heads`` and ``ffn``
 axes where the part that writes them is split).  Train and prefill
 cells run in bfloat16 (the reference's ``_to_bf16``); decode cells in
 float32, because the decode step's products run through ``row_gemm``,
-which takes float32 only (``model_stats["dtype"]`` says which).
+which takes float32 only (``model_stats["dtype"]`` says which).  Under
+the activation-sharding context (``seqshard``, ``notp`` and the big
+archs' training) the training stacks hold the residual sequence-sharded
+between blocks; a part computed replicated runs its per-token work on
+this rank's chunk, its attention over K and V gathered whole
+(``models/layers.py``: ``seq_attention``).  The prefill of the decoder
+LM and the hybrid constrains nothing, the xLSTM's runs its forward
+(which does), as the reference's.
 
 The record has the reference's keys.  ``hlo`` holds the accountant's
 per-device counts under the reference's names; ``cost_analysis`` repeats
 its totals (XLA's own counters have no counterpart here).  ``memory``:
 ``argument_bytes`` is this rank's part of every argument,
 ``output_bytes`` the step's outputs, ``temp_bytes`` the most bytes the
-step allocated that were alive at once.  A variant the port's program
-cannot express (the port raises ``NotImplementedError`` for it) gets
-``status="error"`` naming what is missing; any other failure stops the
-sweep.
+step allocated that were alive at once.  A cell the reference's own
+program refuses gets ``status="error"`` with the reference's error
+(:data:`INT8W_TRAIN_REFUSAL`; the families that index their weights
+refuse an int8-resident tree); any other failure stops the sweep.
 
-Variants (``--variant``): ``baseline``; ``flash`` (attention through the
-fused accounting ops, ``parallel.sharding.flash_attention_mode``);
-``seqshard`` (the residual sequence-sharded between blocks: training; a
-decode step's one position is not split); ``gradcomp`` (the pod-wise
-int8 exchange, two-pod training); the modifiers ``notp`` and
-``noseqshard``.  Not ported (``error``): ``int8w``, ``cacheshard`` on a
-decode cell, ``seqshard`` and ``notp`` on a prefill cell.
+Variants (``--variant``), the reference's:
+  baseline        bf16 params and compute (float32 decode, above)
+  flash           attention through the fused accounting ops
+                  (``parallel.sharding.flash_attention_mode``)
+  seqshard        + Megatron-style sequence-parallel activations
+  int8w           int8-resident weights (``quantize_tree_stacked`` at 8
+                  bits per channel: codes placed as the float leaves,
+                  scales replicated; serving cells of the decoder LM)
+  int8w+seqshard, gradcomp (int8 error-feedback gradients over ``pod``;
+                  two-pod training), cacheshard (the KV cache's sequence
+                  over ``model``, flash-decoding partials merged), notp
+                  (heads, KV, FFN and vocabulary replicated, the sequence
+                  over ``model``), noseqshard (a big arch's training
+                  without the sequence split)
 """
 
 from __future__ import annotations
@@ -76,13 +93,16 @@ from torch.distributed.tensor import DTensor
 
 from ..configs import ALL_SHAPES, ARCH_IDS, cell_applicable, get_config
 from ..configs.base import ModelConfig, ShapeSpec
-from ..models.lm import tree_leaves, tree_map
+from ..core.quantization import (QuantConfig, QuantizedTensor,
+                                 quantize_tree_stacked)
+from ..models.lm import DecoderLM, refuse_quantized, tree_leaves, tree_map
 from ..models.registry import build_model
 from ..optim import AdamW
 from ..parallel.sharding import (activation_sharding, batch_shardings,
                                  default_rules, flash_attention_mode, gather,
                                  local_part, tree_shardings)
-from ..parallel.tensor_parallel import model_plan
+from ..parallel.tensor_parallel import (cache_shards, model_plan,
+                                       shard_leaf)
 from ..runtime.train_loop import Trainer, TrainConfig, _map3
 from .mesh import make_mesh
 from .opcount import account, tensor_bytes
@@ -95,6 +115,11 @@ BIG_ARCHS = ("granite-34b", "internlm2-20b", "kimi-k2-1t-a32b",
 
 WORLD = 512
 DEVICE = torch.device("meta")
+
+
+class Refused(Exception):
+    """A cell the reference's own dry-run program refuses; its record is
+    ``status="error"`` with the reference's error line."""
 
 
 def _to_bf16(cfg: ModelConfig) -> ModelConfig:
@@ -135,30 +160,69 @@ def _meta_tree(tree):
 
 
 def _local_tree(tree, shardings):
-    """This rank's parts of a tree of full meta tensors."""
+    """This rank's parts of a tree of full meta tensors.  An int8-resident
+    leaf (``QuantizedTensor``) is placed as the reference's
+    ``_shard_quantized`` places it: its codes as the float leaf, its
+    scale replicated (held whole)."""
     if isinstance(tree, dict):
         return {k: _local_tree(tree[k], shardings[k]) for k in tree}
+    if isinstance(tree, QuantizedTensor):
+        return dataclasses.replace(tree, codes=local_part(
+            tree.codes, shardings.mesh, shardings.placements))
     return local_part(tree, shardings.mesh, shardings.placements)
 
 
 def _bytes(tree) -> int:
     """This rank's bytes of a tree of tensors (a ``DTensor``'s local
-    part)."""
-    return sum(tensor_bytes(getattr(t, "_local_tensor", t))
-               for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+    part; a ``QuantizedTensor``'s codes and scale)."""
+    def leaves():
+        for t in tree_leaves(tree):
+            if isinstance(t, QuantizedTensor):
+                yield from (t.codes, t.scale)
+            elif isinstance(t, torch.Tensor):
+                yield getattr(t, "_local_tensor", t)
+    return sum(tensor_bytes(t) for t in leaves())
 
 
-def _serving_params(model, cfg, rules, mesh):
+#: the reference's refusal of an ``int8w`` training cell (its
+#: ``_cell_fn_and_args`` gives the optimizer no state for the quantized
+#: tree), as its dry-run records it
+INT8W_TRAIN_REFUSAL = (
+    "ValueError: pytree structure error: different types at key path "
+    "pjit in_shardings[1] (the reference's int8w train step has no AdamW "
+    "state for an int8-resident tree: its in_shardings pair AdamWState "
+    "with None)")
+
+
+def _serving_params(model, cfg, rules, mesh, int8w: bool = False):
     """(the leaves a serving step computes with, ``tp``, this rank's parts
     as held).  The leaves the plan computes on shards of (``model_plan``)
-    stay this rank's; the rest are gathered whole."""
+    stay this rank's; the rest are gathered whole.
+
+    ``int8w``: the int8-resident tree (``quantize_tree_stacked`` at 8 bits
+    per channel, the reference's ``int8w``), placed as
+    :func:`_local_tree` says.  A quantized leaf is gathered as its int8
+    codes; one the plan computes on its ``model`` shards keeps its
+    scale's columns of its shard.  The step reads every weight through
+    ``QuantizedTensor.to``, as the int8-resident forward does."""
     axes = model.logical_axes()
     structs = model.param_structs()
     sh = tree_shardings(axes, structs, rules, mesh)
-    held = _local_tree(_meta_tree(structs), sh)
+    full = _meta_tree(structs)
+    if int8w:
+        full = quantize_tree_stacked(full, QuantConfig(
+            bits=8, granularity="per-channel"))
+    held = _local_tree(full, sh)
+    del full
     tp, local = model_plan(cfg, tree_map(lambda s: s.spec, sh), mesh)
 
     def whole(part, s, dim):
+        if isinstance(part, QuantizedTensor):
+            # the codes gathered as int8; the scale (held whole) cut to
+            # this rank's columns where the plan keeps the leaf's shard
+            return dataclasses.replace(
+                part, codes=whole(part.codes, s, dim),
+                scale=shard_leaf(part, dim, tp).scale)
         d = DTensor.from_local(part, mesh, s.placements, run_check=False)
         return gather(d, () if dim is None else ("model",))
 
@@ -172,14 +236,17 @@ def _cell_fn_and_args(model, cfg: ModelConfig, shape: ShapeSpec,
     """(fn, held): ``fn()`` runs this rank's step on meta tensors; ``held``
     is the tree of this rank's arguments (its part of the state, batch
     and cache)."""
-    if "int8w" in variant:
-        raise NotImplementedError(
-            "int8w: the int8-resident tree (core.quantization."
-            "quantize_tree_stacked) is not placed over a mesh in the port")
-    if "cacheshard" in variant and shape.kind == "decode":
-        raise NotImplementedError(
-            "cacheshard: the port's decode step writes and attends the "
-            "cache whole along the sequence (no sequence-sharded cache)")
+    int8w = "int8w" in variant
+    if int8w and shape.kind == "train":
+        raise Refused(INT8W_TRAIN_REFUSAL)
+    if int8w and not isinstance(model, DecoderLM):
+        # the families that index their weights refuse the tree
+        try:
+            refuse_quantized(cfg, quantize_tree_stacked(
+                model.param_structs(), QuantConfig(
+                    bits=8, granularity="per-channel")))
+        except TypeError as e:
+            raise Refused(f"TypeError: {e}") from None
     in_specs = model.input_specs(shape)
     b_sh = batch_shardings(in_specs, rules, mesh)
     batch = {k: local_part(torch.empty(v.shape, dtype=v.dtype,
@@ -213,13 +280,8 @@ def _cell_fn_and_args(model, cfg: ModelConfig, shape: ShapeSpec,
                 "batch": batch}
         return fn, held
 
-    if shape.kind == "prefill" and ("seqshard" in variant
-                                    or "notp" in variant):
-        raise NotImplementedError(
-            f"{variant}: the port's prefill does not hold the residual "
-            "sequence-sharded (activation_sharding serves the training "
-            "step)")
-    leaves, tp, held_params = _serving_params(model, cfg, rules, mesh)
+    leaves, tp, held_params = _serving_params(model, cfg, rules, mesh,
+                                              int8w)
     kw = {} if tp is None else {"tp": tp}
     if shape.kind == "prefill":
         def fn():
@@ -236,8 +298,16 @@ def _cell_fn_and_args(model, cfg: ModelConfig, shape: ShapeSpec,
           "ffn": tp is not None and tp.mamba}
     c_rules = {k: (None if k in on and not on[k] else r)
                for k, r in rules.items()}
-    c_sh = tree_shardings(model.cache_axes(), c_structs, c_rules, mesh)
+    c_axes = model.cache_axes()
+    c_sh = tree_shardings(c_axes, c_structs, c_rules, mesh)
     cache = _local_tree(_meta_tree(c_structs), c_sh)
+    # the attention cache's sequence split over the axes the rules map
+    # ``cache_seq`` to (``data`` at long_500k, ``model`` under cacheshard)
+    if "cache_seq" in c_axes.get("k", ()):
+        d = c_axes["k"].index("cache_seq")
+        shards = cache_shards(mesh, c_sh["k"].spec, d, cache["k"].shape[d])
+        if shards is not None:
+            kw["cache_seq"] = shards
 
     def fn():
         return model.decode_step(leaves(), cache, batch, **kw)
@@ -286,8 +356,8 @@ def _account(rec, arch, cfg, shape, mesh, variant, t0):
     model = build_model(cfg)
     try:
         fn, held = _cell_fn_and_args(model, cfg, shape, variant, mesh, rules)
-    except NotImplementedError as e:
-        rec.update(status="error", error=f"NotImplementedError: {e}",
+    except Refused as e:
+        rec.update(status="error", error=str(e),
                    compile_s=round(time.monotonic() - t0, 1))
         return rec
 

@@ -145,12 +145,15 @@ class EncDecModel:
         return L.rmsnorm(x, params["enc_norm"])
 
     def _dec_block(self, lp, x, positions, enc_kv, self_kv=None, pos=None,
-                   tp=None):
+                   tp=None, cache_seq=None):
         """One decoder layer; returns (x, the self-attention's (k, v)).
         The full-sequence pass gives ``enc_kv`` = the layer's cross (k,
         v); a decode step also passes its ``self_kv`` caches, written in
         place at ``pos``.  ``tp``: this rank's KV groups where
-        ``tp.attn`` (``enc_kv`` and the caches hold its KV heads)."""
+        ``tp.attn`` (``enc_kv`` and the caches hold its KV heads).
+        ``cache_seq``: both caches are this rank's shard of their
+        sequence (``DecoderLM.decode_step``); the cross-attention's every
+        position is valid."""
         cfg = self.cfg
         b = x.shape[0]
         h = L.rmsnorm(x, lp["ln"][0])
@@ -161,10 +164,10 @@ class EncDecModel:
         else:
             kc, vc = self_kv
             rows = torch.arange(b, device=x.device)
-            at = torch.clamp(pos, max=kc.shape[1] - 1)
-            kc[rows, at] = k[:, 0].to(kc.dtype)
-            vc[rows, at] = v[:, 0].to(vc.dtype)
-            attn = L.decode_attention(q, kc, vc, pos + 1)
+            where = dict(shards=cache_seq, tp=tp)
+            L.decode_write(kc, rows, pos, k[:, 0], **where)
+            L.decode_write(vc, rows, pos, v[:, 0], **where)
+            attn = L.decode_attend(q, kc, vc, pos + 1, **where)
             new_self = (kc, vc)
         x = x + self._out(attn, lp["attn"]["wo"], tp)
         # cross-attention: the keys are already projected, no RoPE
@@ -178,7 +181,9 @@ class EncDecModel:
         if self_kv is None:
             cross = self.attend(qx, ek, ev, causal=False)
         else:
-            cross = L.decode_attention(qx, ek, ev, ek.shape[1])
+            t = ek.shape[1] if cache_seq is None \
+                else cache_seq.size * cache_seq.length
+            cross = L.decode_attend(qx, ek, ev, t, shards=cache_seq, tp=tp)
         x = x + self._out(cross, lp["cross"]["wo"], tp)
         h3 = L.rmsnorm(x, lp["ln"][2])
         return x + self._mlp(lp["mlp"], h3, tp), new_self
@@ -296,11 +301,13 @@ class EncDecModel:
                         "len": torch.full((b,), s, dtype=torch.int32,
                                           device=x.device)}
 
-    def decode_step(self, params, cache, batch, tp=None):
+    def decode_step(self, params, cache, batch, tp=None, cache_seq=None):
         """One token: batch = {'token': [B, 1], 'pos': [B]}.  Writes the
         fresh self K/V into ``cache`` in place (the reference returns an
         updated copy); returns (logits [B, V], cache with ``len + 1``).
-        ``tp`` as in :meth:`prefill`."""
+        ``tp`` as in :meth:`prefill`; ``cache_seq``: the self and cross
+        caches are this rank's shard of their sequence
+        (``DecoderLM.decode_step``)."""
         cfg = self.cfg
         tok, pos = batch["token"], batch["pos"]
         x = L.embed_tokens(params["embed"], tok, getattr(torch, cfg.dtype),
@@ -311,7 +318,7 @@ class EncDecModel:
             x, _ = self._dec_block(lp, x, positions,
                                    (cache["ek"][i], cache["ev"][i]),
                                    self_kv=(cache["k"][i], cache["v"][i]),
-                                   pos=pos, tp=tp)
+                                   pos=pos, tp=tp, cache_seq=cache_seq)
         x = L.apply_norm(cfg, x, params["final_norm"])
         logits = L.unembed_whole(cfg, params["embed"], x, tp=tp)[:, 0]
         return logits, {**cache, "len": cache["len"] + 1}

@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import constrain_activations, sequence_sharded
 from . import layers as L
 from . import moe as M
 from . import ssm as S
@@ -114,11 +115,12 @@ class HybridLM:
     # ------------------------------------------------------------------
     # blocks
     # ------------------------------------------------------------------
-    def attend(self, q, k, v):
+    def attend(self, q, k, v, q_offset: int = 0):
         """The attention layer's full-sequence causal attention, q
         [B, S, H, dh], k/v [B, S, KV, dh]: one flash-kernel launch on the
-        card."""
-        return L.blockwise_attention(q, k, v, causal=True)
+        card.  ``q_offset``: q is a sequence chunk whose rows sit at
+        ``q_offset`` onward (k/v the whole sequence)."""
+        return L.blockwise_attention(q, k, v, causal=True, q_offset=q_offset)
 
     def moe(self, p, h, tp=None, dp=None):
         """One MoE layer, (y, aux): :func:`moe.apply_moe`'s ``"auto"``
@@ -127,21 +129,31 @@ class HybridLM:
         ranks)."""
         return M.apply_moe(self.cfg, p, h, tp=tp, dp=dp)
 
-    def _ffn(self, parts, slot, x, tp=None, dp=None):
-        """The FFN of ``slot`` with its residual; returns (x, aux)."""
-        h = L.rmsnorm(x, parts["ln_ffn"][slot])
-        if slot in self.moe_slots:
+    def _ffn(self, parts, slot, x, tp=None, dp=None, seq=False):
+        """The FFN of ``slot`` with its residual; returns (x, aux).  With
+        ``seq`` x is this rank's sequence chunk (``DecoderLM._block``): a
+        part on its shards takes it gathered whole, a replicated MLP the
+        chunk alone, a replicated MoE its input gathered whole (the
+        capacity queues couple the tokens)."""
+        ln = parts["ln_ffn"][slot]
+        moe = slot in self.moe_slots
+        split = tp is not None and (tp.experts if moe else tp.mlp)
+        local = seq and not split
+        h = L.rmsnorm(x, L.seq_copied(ln, tp)) if local else \
+            L.rmsnorm(L.seq_enter(x, tp, True) if seq else x, ln)
+        if moe:
             # a hook of the old (p, h) signature serves one device
             kw = {k: v for k, v in (("tp", tp), ("dp", dp)) if v is not None}
-            y, aux = self.moe(parts["moe"][self.moe_slots.index(slot)], h,
-                              **kw)
-            split = tp is not None and tp.experts
+            y, aux = self.moe(parts["moe"][self.moe_slots.index(slot)],
+                              tp.gather(h, 1) if local else h, **kw)
+            if local:
+                return x + tp.split(y, 1), aux
         else:
-            y = L.apply_mlp(self.cfg, parts["mlp"][self.mlp_slots.index(slot)],
-                            h, tp=tp)
-            aux = 0.0
-            split = tp is not None and tp.mlp
-        return x + L.reduced(y, tp, split), aux
+            p = parts["mlp"][self.mlp_slots.index(slot)]
+            if local:
+                return x + L.apply_mlp(self.cfg, L.seq_copied(p, tp), h), 0.0
+            y, aux = L.apply_mlp(self.cfg, p, h, tp=tp), 0.0
+        return x + L.seq_exit(y, tp, seq, split), aux
 
     def _parts(self, bp):
         """One block's stacks as per-slot lists (``unbind``: one stack op
@@ -152,34 +164,47 @@ class HybridLM:
                 "ln_mix": bp["ln_mix"].unbind(0),
                 "ln_ffn": bp["ln_ffn"].unbind(0), "attn": bp["attn"]}
 
-    def _attention(self, p, h, positions, tp=None):
+    def _attention(self, p, h, positions, tp=None, seq=False):
         """The attention layer over the whole sequence: (out [B, S, D],
-        k, v); under ``tp.attn`` this rank's KV heads, ``out`` reduced."""
+        k, v); under ``tp.attn`` this rank's KV heads, ``out`` reduced
+        (reduce-scattered to this rank's chunk under ``seq``)."""
         q, k, v = L.qkv_project(self.cfg, p, h, positions, tp=tp)
         attn = self.attend(q, k, v)
         out = attn.reshape(h.shape[:2] + (q.shape[2] * q.shape[3],)) \
             @ p["wo"].to(h.dtype)
-        return L.reduced(out, tp, tp is not None and tp.attn), k, v
+        return L.seq_exit(out, tp, seq, tp is not None and tp.attn), k, v
 
-    def _super_block(self, bp, x, positions, tp=None, dp=None):
-        """One super-block: (x, aux summed, the attention layer's k, v)."""
+    def _super_block(self, bp, x, positions, tp=None, dp=None, seq=False):
+        """One super-block: (x, aux summed, the attention layer's k, v).
+        With ``seq`` (the training stack under the activation-sharding
+        context) x is this rank's sequence chunk: the Mamba layers (a
+        recurrence over the sequence) and the parts on their shards take
+        it gathered whole, replicated attention runs on the chunk with K
+        and V gathered (:func:`layers.seq_attention`; k and v None)."""
         parts = self._parts(bp)
         aux = 0.0
         k = v = None
         for slot in range(self.per):
-            h = L.rmsnorm(x, parts["ln_mix"][slot])
+            ln = parts["ln_mix"][slot]
             if slot < self.n_mamba:
+                h = L.rmsnorm(L.seq_enter(x, tp, True) if seq else x, ln)
                 y = S.mamba_forward(self.cfg, parts["mamba"][slot], h, tp=tp)
-                x = x + L.reduced(y, tp, tp is not None and tp.mamba)
+                x = x + L.seq_exit(y, tp, seq, tp is not None and tp.mamba)
+            elif seq and not tp.attn:
+                h = L.rmsnorm(x, L.seq_copied(ln, tp))
+                x = x + L.seq_attention(self.cfg, parts["attn"], h,
+                                        positions, tp, self.attend)
             else:
-                y, k, v = self._attention(parts["attn"], h, positions, tp)
+                h = L.rmsnorm(L.seq_enter(x, tp, True) if seq else x, ln)
+                y, k, v = self._attention(parts["attn"], h, positions, tp,
+                                          seq)
                 x = x + y
-            x, a = self._ffn(parts, slot, x, tp, dp)
+            x, a = self._ffn(parts, slot, x, tp, dp, seq)
             aux = aux + a
         return x, aux, k, v
 
-    def _block_train(self, bp, x, positions, tp=None, dp=None):
-        x, aux, _, _ = self._super_block(bp, x, positions, tp, dp)
+    def _block_train(self, bp, x, positions, tp=None, dp=None, seq=False):
+        x, aux, _, _ = self._super_block(bp, x, positions, tp, dp, seq)
         return x, aux
 
     def _embed(self, params, tokens, tp=None):
@@ -191,18 +216,29 @@ class HybridLM:
         return x, torch.arange(s, device=x.device).expand(b, s)
 
     def _hidden(self, params, batch, remat: bool = False, tp=None,
-                dp=None):
+                dp=None, whole: bool = True):
+        """(the last hidden states, aux).  Under the activation-sharding
+        context (``parallel.sharding.constrain_activations``) the residual
+        is this rank's sequence chunk between the super-blocks, as the
+        reference's scan constrains it; returned gathered whole and
+        normed, or (``whole`` False) as the chunk, not normed."""
         cfg = self.cfg
         refuse_quantized(cfg, params)
         x, positions = self._embed(params, batch["tokens"], tp)
+        seq = sequence_sharded(tp, x.shape[1])
+        x = constrain_activations(x, tp)
         aux = 0.0
         for bp in unstack_layers(params["blocks"], self.n_blocks):
             if remat:
                 x, a = checkpoint(self._block_train, bp, x, positions, tp,
-                                  dp, use_reentrant=False)
+                                  dp, seq, use_reentrant=False)
             else:
-                x, a = self._block_train(bp, x, positions, tp, dp)
+                x, a = self._block_train(bp, x, positions, tp, dp, seq)
             aux = aux + a
+        if seq and not whole:
+            return x, aux
+        if seq:
+            x = tp.gather(x, 1)
         return L.apply_norm(cfg, x, params["final_norm"]), aux
 
     def forward(self, params, batch):
@@ -223,9 +259,18 @@ class HybridLM:
         its mean CE plus 0.01 x the aux term valued at 1 / ``dp.size`` of
         it, so that the ranks' values and gradients sum to the global
         loss's."""
-        x, aux = self._hidden(params, batch, remat, tp, dp)
-        ce = L.chunked_cross_entropy(self.cfg, x, params["embed"],
-                                     batch["labels"], tp=tp)
+        # a sequence-sharded residual with a replicated head: the final
+        # norm and the cross-entropy on this rank's chunk
+        local = sequence_sharded(tp, batch["tokens"].shape[1]) \
+            and not tp.vocab
+        x, aux = self._hidden(params, batch, remat, tp, dp, whole=not local)
+        if local:
+            ce = L.seq_cross_entropy(self.cfg, x, params["final_norm"],
+                                     params["embed"], batch["labels"], None,
+                                     tp)
+        else:
+            ce = L.chunked_cross_entropy(self.cfg, x, params["embed"],
+                                         batch["labels"], tp=tp)
         if dp is not None:
             ce = ce * ce_weight
             aux = aux + aux.detach() * (1.0 / dp.size - 1.0)
@@ -298,13 +343,16 @@ class HybridLM:
                                   device=x.device)
         return logits, cache
 
-    def decode_step(self, params, cache, batch, tp=None):
+    def decode_step(self, params, cache, batch, tp=None, cache_seq=None):
         """One token: batch = {'token': [B, 1], 'pos': [B]}.  Writes the
         attention layers' fresh K/V into ``cache`` in place (the reference
         returns an updated copy; a ``pos`` past the cache writes its last
         entry, as ``dynamic_update_slice`` clamps); returns (logits
         [B, V], cache with the new Mamba states and ``len + 1``).  ``tp``
-        as in :meth:`prefill`."""
+        as in :meth:`prefill`.  ``cache_seq``: the attention cache is this
+        rank's shard of the sequence (``long_500k`` maps it over
+        ``data``), written by the owner of ``pos`` and attended in
+        partials merged over the shards, as ``DecoderLM.decode_step``."""
         cfg = self.cfg
         tok, pos = batch["token"], batch["pos"]
         x = L.embed_tokens(params["embed"], tok, getattr(torch, cfg.dtype),
@@ -313,7 +361,7 @@ class HybridLM:
         positions = pos[:, None]
         kc, vc = cache["k"], cache["v"]
         rows = torch.arange(b, device=x.device)
-        at = torch.clamp(pos, max=kc.shape[2] - 1)
+        where = dict(shards=cache_seq, tp=tp)
         ssm_out, conv_out = [], []
         for bi in range(self.n_blocks):
             bp = tree_map(lambda a: a[bi], params["blocks"])
@@ -332,9 +380,10 @@ class HybridLM:
                 else:
                     q, k, v = L.qkv_project(cfg, parts["attn"], h, positions,
                                             tp=tp)
-                    kc[bi, rows, at] = k[:, 0].to(kc.dtype)
-                    vc[bi, rows, at] = v[:, 0].to(vc.dtype)
-                    attn = L.decode_attention(q, kc[bi], vc[bi], pos + 1)
+                    L.decode_write(kc[bi], rows, pos, k[:, 0], **where)
+                    L.decode_write(vc[bi], rows, pos, v[:, 0], **where)
+                    attn = L.decode_attend(q, kc[bi], vc[bi], pos + 1,
+                                           **where)
                     y = attn.reshape(b, 1, q.shape[2] * q.shape[3]) \
                         @ parts["attn"]["wo"].to(x.dtype)
                     y = L.reduced(y, tp, tp is not None and tp.attn)

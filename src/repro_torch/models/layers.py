@@ -85,10 +85,75 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     the card), so a row's bits do not depend on how many rows share the
     call: the decode step's batched rows equal their rows alone.
     ``torch.mean`` over the last axis would not: on the card its reduction
-    splits a row over fewer threads once more than 4 rows share it."""
-    y = F.rms_norm(x.to(torch.float32), (x.shape[-1],),
-                   scale.to(torch.float32), eps)
+    splits a row over fewer threads once more than 4 rows share it.
+
+    Off the CPU it is the op ``repro_norm::rms_norm`` (:func:`_fused_rms`),
+    the card's one fused kernel and its backward, so that the accountant
+    bills one op on the card and on ``meta`` alike."""
+    xf, sf = x.to(torch.float32), scale.to(torch.float32)
+    if x.device.type == "cpu":
+        y = F.rms_norm(xf, (x.shape[-1],), sf, eps)
+    else:
+        y = _rms_norm_op(xf, sf, float(eps))[0]
     return y.to(x.dtype)
+
+
+# ``F.rms_norm`` is one op on the card (``aten._fused_rms_norm``, and
+# ``aten._fused_rms_norm_backward`` in the backward pass) but decomposes into
+# five on ``meta`` tensors and under a dispatch mode, so the dry-run's
+# accountant billed more bytes than the card moves.  Wrapped in an op of its
+# own, each direction is one op on every device but the CPU; on the card
+# the op runs exactly the aten kernels ``F.rms_norm`` runs there (the same
+# bits).  Its namespace is not ``repro_torch``: it is no kernel of the
+# port's, and the accountant's ``kernel_calls`` do not count it.
+_NORM_LIB = torch.library.Library("repro_norm", "DEF")
+_NORM_LIB.define("rms_norm(Tensor x, Tensor scale, float eps) "
+                 "-> (Tensor, Tensor)")
+_NORM_LIB.define("rms_norm_backward(Tensor g, Tensor x, Tensor rstd, "
+                 "Tensor scale) -> (Tensor, Tensor)")
+
+
+def _fused_rms(x, scale, eps):
+    """(y, rstd [..., 1]) of the card's fused RMSNorm over the last axis."""
+    return torch.ops.aten._fused_rms_norm(x, [x.shape[-1]], scale, eps)
+
+
+def _fused_rms_bwd(g, x, rstd, scale):
+    return torch.ops.aten._fused_rms_norm_backward(
+        g, x, [x.shape[-1]], rstd, scale, [True, True])
+
+
+_NORM_LIB.impl("rms_norm", _fused_rms, "CUDA")
+_NORM_LIB.impl("rms_norm_backward", _fused_rms_bwd, "CUDA")
+
+
+@torch.library.register_fake("repro_norm::rms_norm", lib=_NORM_LIB)
+def _fused_rms_fake(x, scale, eps):
+    return (torch.empty_like(x),
+            x.new_empty(x.shape[:-1] + (1,), dtype=torch.float32))
+
+
+@torch.library.register_fake("repro_norm::rms_norm_backward", lib=_NORM_LIB)
+def _fused_rms_bwd_fake(g, x, rstd, scale):
+    return torch.empty_like(x), torch.empty_like(scale)
+
+
+def _rms_setup(ctx, inputs, output):
+    x, scale, _ = inputs
+    ctx.save_for_backward(x, output[1], scale)
+    ctx.set_materialize_grads(False)     # rstd's gradient stays None
+
+
+def _rms_backward(ctx, g, _g_rstd):
+    x, rstd, scale = ctx.saved_tensors
+    dx, dscale = _rms_norm_bwd_op(g, x, rstd, scale)
+    return dx, dscale, None
+
+
+torch.library.register_autograd("repro_norm::rms_norm", _rms_backward,
+                                setup_context=_rms_setup, lib=_NORM_LIB)
+_rms_norm_op = torch.ops.repro_norm.rms_norm.default
+_rms_norm_bwd_op = torch.ops.repro_norm.rms_norm_backward.default
 
 
 def layernorm(x, scale, bias, eps: float = 1e-5):
@@ -200,7 +265,8 @@ def _heads_rope(cfg, q, k, v, positions):
 
 
 def blockwise_attention(q, k, v, *, causal: bool, q_block: int = 512,
-                        kv_block: int = 512, window: int = 0):
+                        kv_block: int = 512, window: int = 0,
+                        q_offset: int = 0):
     """Memory-bounded attention via online softmax over blocks.
 
     q: [B, S, H, dh]; k, v: [B, T, KV, dh] with H = KV * G (GQA).
@@ -220,13 +286,19 @@ def blockwise_attention(q, k, v, *, causal: bool, q_block: int = 512,
     the same blocks and masked lanes contribute exact zeros.  The keys
     padded onto the last block are masked whether or not the attention is
     causal (the reference masks them only through the causal mask).
+
+    ``q_offset``: query row r sits at position ``q_offset + r`` for the
+    causal and window masks, a sequence chunk's queries against the whole
+    sequence's keys (sequence-parallel attention; the kernel takes the
+    offset).
     """
     if _shctx.flash_mesh() is not None:
         return fused_attention_acct(q, k, v, causal=causal, window=window,
-                                    mesh=_shctx.flash_mesh())
+                                    mesh=_shctx.flash_mesh(),
+                                    q_offset=q_offset)
     if q.device.type != "cpu":
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal, window)
+                              v.transpose(1, 2), causal, window, q_offset)
         return out.transpose(1, 2)
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -237,7 +309,7 @@ def blockwise_attention(q, k, v, *, causal: bool, q_block: int = 512,
     nk = -(-T // kv_block)
     Sp, Tp = nq * q_block, nk * kv_block
     dev = q.device
-    q_positions = torch.arange(S, device=dev).expand(B, S)
+    q_positions = (q_offset + torch.arange(S, device=dev)).expand(B, S)
     kv_positions = torch.arange(T, device=dev).expand(B, T)
 
     scale = dh ** -0.5
@@ -338,10 +410,12 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
 # the kernel's HBM traffic and leaves its products to the roofline's
 # analytic attention term, as the reference's census does.
 
-def _attention_fwd_host(q, k, v, causal: bool, window: int):
+def _attention_fwd_host(q, k, v, causal: bool, window: int,
+                        q_offset: int = -1):
     """Plain GQA attention: q [B,S,H,dh], k/v [B,T,KV,dh] -> (out
     [B,S,H,dh], p [B,H,S,T]) in float32 (p is reused by the backward).
-    A causal mask is right-aligned when T > S."""
+    Query row r sits at position ``q_offset + r`` for the masks; -1 (the
+    default): a causal mask is right-aligned when T > S."""
     q, k, v = (x.to(torch.float32) for x in (q, k, v))
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -352,10 +426,11 @@ def _attention_fwd_host(q, k, v, causal: bool, window: int):
     qpos = torch.arange(S, device=q.device)[:, None]
     kpos = torch.arange(T, device=q.device)[None, :]
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    qpos = qpos + (T - S if q_offset < 0 else q_offset)
     if causal:
-        mask = mask & (qpos + (T - S) >= kpos)
+        mask = mask & (qpos >= kpos)
     if window > 0:
-        mask = mask & ((qpos + (T - S) - kpos) < window)
+        mask = mask & ((qpos - kpos) < window)
     s = torch.where(mask, s, -torch.inf)
     m = torch.amax(s, dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, 0.0)
@@ -364,19 +439,23 @@ def _attention_fwd_host(q, k, v, causal: bool, window: int):
     return torch.einsum("bhst,bthd->bshd", p, ve), p
 
 
-def _naive_attention_host(causal: bool, window: int, q, k, v):
+def _naive_attention_host(causal: bool, window: int, q, k, v,
+                          q_offset: int = -1):
     """The accounting op's plain body: the attention in q's dtype."""
-    return _attention_fwd_host(q, k, v, causal, window)[0].to(q.dtype)
+    return _attention_fwd_host(q, k, v, causal, window,
+                               q_offset)[0].to(q.dtype)
 
 
-def _attention_bwd_host(causal: bool, window: int, q, k, v, g):
+def _attention_bwd_host(causal: bool, window: int, q, k, v, g,
+                        q_offset: int = -1):
     """Plain attention backward: (q, k, v, dout) -> (dq, dk, dv), the
     gradients of the KV heads summed over the query heads sharing each."""
     qf, kf, vf, gf = (x.to(torch.float32) for x in (q, k, v, g))
     B, S, H, dh = qf.shape
     KV = kf.shape[2]
     G = H // KV
-    _, p = _attention_fwd_host(qf, kf, vf, causal, window)   # [B,H,S,T]
+    _, p = _attention_fwd_host(qf, kf, vf, causal, window,
+                               q_offset)                       # [B,H,S,T]
     ve = torch.repeat_interleave(vf, G, dim=2)
     dv_e = torch.einsum("bhst,bshd->bthd", p, gf)             # [B,T,H,dh]
     dp = torch.einsum("bshd,bthd->bhst", gf, ve)
@@ -390,14 +469,15 @@ def _attention_bwd_host(causal: bool, window: int, q, k, v, g):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _fused_checks(q, k, v, causal: bool) -> None:
+def _fused_checks(q, k, v, causal: bool, q_offset: int = -1) -> None:
     """What the flash kernel refuses of CUDA operands in the model's
     layout (the accounting op's real and fake versions both run it)."""
     if q.device.type == "cpu":
         return
-    if causal and q.shape[1] != k.shape[1]:
+    if causal and q_offset < 0 and q.shape[1] != k.shape[1]:
         raise ValueError("the flash kernel's causal mask is not "
-                         "right-aligned: causal attention needs S == T")
+                         "right-aligned: causal attention needs S == T "
+                         "or a query offset")
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must all be float32 or bfloat16, got "
@@ -406,54 +486,57 @@ def _fused_checks(q, k, v, causal: bool) -> None:
         raise ValueError(f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM}")
 
 
-def _fused_impl(q, k, v, causal, window):
-    _fused_checks(q, k, v, causal)
+def _fused_impl(q, k, v, causal, window, q_offset=-1):
+    _fused_checks(q, k, v, causal, q_offset)
     if q.device.type == "cpu":
-        return _naive_attention_host(causal, window, q, k, v).contiguous()
+        return _naive_attention_host(causal, window, q, k, v,
+                                     q_offset).contiguous()
     out = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
-                              window=window)
+                              window=window, q_offset=max(q_offset, 0))
     return out.transpose(1, 2).contiguous()
 
 
-def _fused_fake(q, k, v, causal, window):
-    _fused_checks(q, k, v, causal)
+def _fused_fake(q, k, v, causal, window, q_offset=-1):
+    _fused_checks(q, k, v, causal, q_offset)
     return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
 _fused_attention_op = kernel_op(
     "fused_attention_acct",
-    "(Tensor q, Tensor k, Tensor v, bool causal, int window) -> Tensor",
-    _fused_impl, _fused_fake)
+    "(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+    "int q_offset=-1) -> Tensor", _fused_impl, _fused_fake)
 
 
-def _fused_bwd_impl(q, k, v, g, causal, window):
-    return [t.contiguous()
-            for t in _attention_bwd_host(causal, window, q, k, v, g)]
+def _fused_bwd_impl(q, k, v, g, causal, window, q_offset=-1):
+    return [t.contiguous() for t in _attention_bwd_host(
+        causal, window, q, k, v, g, q_offset)]
 
 
-def _fused_bwd_fake(q, k, v, g, causal, window):
+def _fused_bwd_fake(q, k, v, g, causal, window, q_offset=-1):
     return [torch.empty(x.shape, dtype=x.dtype, device=x.device)
             for x in (q, k, v)]
 
 
 _fused_attention_bwd_op = kernel_op(
     "fused_attention_acct_bwd",
-    "(Tensor q, Tensor k, Tensor v, Tensor g, bool causal, int window) "
-    "-> Tensor[]", _fused_bwd_impl, _fused_bwd_fake)
+    "(Tensor q, Tensor k, Tensor v, Tensor g, bool causal, int window, "
+    "int q_offset=-1) -> Tensor[]", _fused_bwd_impl, _fused_bwd_fake)
 
 
 def _fused_setup(ctx, inputs, output):
-    q, k, v, causal, window = inputs
+    q, k, v, causal, window = inputs[:5]
     ctx.save_for_backward(q, k, v)
     ctx.causal, ctx.window = causal, window
+    ctx.q_offset = inputs[5] if len(inputs) > 5 else -1
 
 
 def _fused_backward(ctx, g):
     q, k, v = ctx.saved_tensors
     dq, dk, dv = _fused_attention_bwd_op(q, k, v, g.contiguous(),
-                                         ctx.causal, ctx.window)
-    return dq, dk, dv, None, None
+                                         ctx.causal, ctx.window,
+                                         ctx.q_offset)
+    return dq, dk, dv, None, None, None
 
 
 torch.library.register_autograd("repro_torch::fused_attention_acct",
@@ -461,7 +544,8 @@ torch.library.register_autograd("repro_torch::fused_attention_acct",
                                 lib=LIB)
 
 
-def fused_attention_acct(q, k, v, *, causal: bool, window: int = 0, mesh):
+def fused_attention_acct(q, k, v, *, causal: bool, window: int = 0, mesh,
+                         q_offset: int = -1):
     """Flash attention with the fused kernel's HBM accounting (the
     dry-run's path): q [B, S, H, dh], k/v [B, T, KV, dh] -> [B, S, H, dh].
 
@@ -479,9 +563,11 @@ def fused_attention_acct(q, k, v, *, causal: bool, window: int = 0, mesh):
     only by whole KV groups, so a rank never holds q heads without their
     KV heads and no gradient sum over ``model`` is needed.  ``mesh`` is
     the accounting context's (:func:`parallel.sharding.flash_mesh`).
+    ``q_offset``: query row r at position ``q_offset + r`` for the masks
+    (a sequence chunk's queries); -1: a causal mask right-aligned.
     """
     del mesh
-    return _fused_attention_op(q, k, v, causal, window)
+    return _fused_attention_op(q, k, v, causal, window, q_offset)
 
 
 def _decode_partials_host(window: int, q, k, v, cache_len, offset):
@@ -531,7 +617,7 @@ _fused_decode_op = kernel_op(
 
 
 def fused_decode_attention_acct(q, k_cache, v_cache, cache_len, *,
-                                window: int, mesh):
+                                window: int, mesh, shards=None):
     """Flash-decoding with the fused kernel's accounting (the dry-run's
     path): q [B, 1, H, dh] over this rank's cache [B, T, KV, dh] ->
     [B, 1, H, dh].
@@ -539,17 +625,82 @@ def fused_decode_attention_acct(q, k_cache, v_cache, cache_len, *,
     The cache is read once inside one op
     (``repro_torch::fused_decode_attention_acct``, plain torch on any
     device, nothing under fake tensors) that returns the unnormalized
-    (acc, m, l) partials, then normalized.  The cache is whole along the
-    sequence: the port's decode step writes it so (the reference's
-    ``cacheshard`` merge of the partials over ``model`` is ROADMAP
-    A.7.4(b)).  ``mesh`` is the accounting context's."""
+    (acc, m, l) partials, then normalized.  ``shards`` (a
+    ``parallel.tensor_parallel.SequenceShards``): the cache is this
+    rank's shard of the sequence, the partials are over its global
+    positions and merged over the shards' ranks, as the reference's
+    ``cacheshard`` merge.  ``mesh`` is the accounting context's."""
     del mesh
     B, _, H, dh = q.shape
     lens = torch.as_tensor(cache_len, device=q.device).reshape(-1) \
         .expand(B).to(torch.int32)
-    acc, _, l = _fused_decode_op(q, k_cache, v_cache, lens, 0, window)
+    offset = 0 if shards is None else shards.offset
+    acc, m, l = _fused_decode_op(q, k_cache, v_cache, lens, offset, window)
+    if shards is not None:
+        return shards.merge(acc, m, l).reshape(B, 1, H, dh).to(q.dtype)
     out = acc / torch.clamp(l[:, None], min=1e-30)
     return out.reshape(B, 1, H, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# A decode step's cache: whole along the sequence, or sequence-sharded
+# ---------------------------------------------------------------------------
+
+def _heads_gathered(tp, shards) -> bool:
+    """Whether a decode step gathers its q, k and v heads over ``model``:
+    attention computes on this rank's KV groups while the cache holds
+    every KV head of this rank's positions (its sequence split over
+    ``model``, which ``spec_for`` gives the axis before ``kv_heads``)."""
+    return (shards is not None and tp is not None and tp.attn
+            and "model" in shards.axes)
+
+
+def decode_write(cache, rows, pos, new, *, shards=None, tp=None) -> None:
+    """Store a decode step's fresh entry ``new`` [B, KV, dh] (this rank's
+    KV heads under ``tp.attn``) at ``pos`` [B] of ``cache`` [B, T, KV,
+    dh], in place.  Whole along the sequence: at ``pos`` clamped to the
+    cache's last entry, as ``dynamic_update_slice`` clamps.  With
+    ``shards``: on the rank that holds ``pos`` only
+    (``SequenceShards.write``), every KV head of it."""
+    if shards is None:
+        at = torch.clamp(pos, max=cache.shape[1] - 1)
+        cache[rows, at] = new.to(cache.dtype)
+        return
+    if _heads_gathered(tp, shards):
+        new = tp.gather(new, 1)
+    shards.write(cache, rows, pos, new)
+
+
+def decode_attend(q, k_cache, v_cache, cache_len, *, window: int = 0,
+                  shards=None, tp=None):
+    """A decode step's attention, q [B, 1, H, dh] over its cache [B, T,
+    KV, dh]: :func:`decode_attention` over a cache whole along the
+    sequence; with ``shards`` flash-decoding partials over this rank's
+    global positions merged over the shards' ranks
+    (``SequenceShards.merge``; the fused accounting op's partials under
+    ``flash_attention_mode``).  Where the cache's sequence is split over
+    ``model`` and attention over KV groups (:func:`_heads_gathered`), q
+    is gathered over ``model``, the partials cover every head and this
+    rank keeps its own heads of the merged result."""
+    if shards is None:
+        return decode_attention(q, k_cache, v_cache, cache_len,
+                                window=window)
+    gathered = _heads_gathered(tp, shards)
+    if gathered:
+        q = tp.gather(q, 2)
+    B, _, H, dh = q.shape
+    if _shctx.flash_mesh() is not None:
+        out = fused_decode_attention_acct(q, k_cache, v_cache, cache_len,
+                                          window=window,
+                                          mesh=_shctx.flash_mesh(),
+                                          shards=shards)
+    else:
+        lens = torch.as_tensor(cache_len, device=q.device).reshape(-1) \
+            .expand(B).to(torch.int32)
+        acc, m, l = _decode_partials_host(window, q, k_cache, v_cache, lens,
+                                          shards.offset)
+        out = shards.merge(acc, m, l).reshape(B, 1, H, dh).to(q.dtype)
+    return out.chunk(tp.size, 2)[tp.rank] if gathered else out
 
 
 # ---------------------------------------------------------------------------
@@ -653,6 +804,91 @@ def reduced(y, tp, split: bool):
     all-reduced over ``model`` where the block computed ``split`` on its
     shards, else ``y`` as it is."""
     return tp.reduce(y) if tp is not None and split else y
+
+
+# ---------------------------------------------------------------------------
+# A residual held sequence-sharded over ``model`` (Megatron's sequence
+# parallelism; ``parallel.sharding.sequence_sharded``)
+# ---------------------------------------------------------------------------
+# Every family's training stack (and the xLSTM's forward) keeps its residual
+# as this rank's sequence chunk between blocks under the activation-sharding
+# context.  A part that computes on its ``model`` shards, or whose work
+# couples the sequence (a recurrence, MoE capacity queues), takes the chunk
+# gathered whole (:func:`seq_enter`) and gives its output back as a chunk
+# (:func:`seq_exit`).  A part that computes replicated and works token by
+# token (norms, projections, the dense MLP, the head) runs on the chunk
+# alone, its weights entering through ``tp.copy`` (:func:`seq_copied`): each
+# rank's gradient is then its own positions' part, summed over ``model`` in
+# the backward.  Attention of this kind gathers K and V
+# (:func:`seq_attention`).
+
+def seq_enter(x, tp, seq: bool):
+    """The residual whole for a part that needs it: gathered over the
+    sequence chunks under ``seq`` (chunk backward; the sharded products'
+    inputs add their own all-reduce backward).  Under ``tp`` without
+    ``seq``, a view: the norm's uses of its input then sum their
+    gradients before the residual's is added, in the order the gather's
+    backward sums them, so ``seq`` changes no bit."""
+    if seq:
+        return tp.gather(x, 1)
+    return x if tp is None else x.view_as(x)
+
+
+def seq_exit(y, tp, seq: bool, sharded: bool):
+    """A part's output back into the residual's layout: partial sums
+    (``sharded``) reduced, or reduce-scattered under ``seq``; a replicated
+    result as it is, or its chunk under ``seq``."""
+    if not seq:
+        return reduced(y, tp, sharded)
+    return tp.scatter(y, 1) if sharded else tp.split(y, 1)
+
+
+def seq_copied(tree, tp):
+    """Weights (a dict, or one tensor) used on this rank's sequence chunk
+    alone: each through ``tp.copy`` (identity forward, their gradients
+    summed over ``model``)."""
+    if isinstance(tree, dict):
+        return {k: seq_copied(v, tp) for k, v in tree.items()}
+    return tp.copy(tree)
+
+
+def seq_attention(cfg, p, h, positions, tp, attend):
+    """Attention computed replicated on a sequence chunk h [B, S/m, D]
+    (normed already): the projections on the chunk at its positions (of
+    the whole ``positions``), K and V all-gathered over ``model`` (their
+    gradients reduce-scattered back, ``tp.gather_summed``), the chunk's
+    queries attending every key at their offset
+    (``attend(q, k, v, q_offset=)``: one flash launch with the offset on
+    the card).  ``p``'s weights enter through :func:`seq_copied`.
+    Returns the chunk's output [B, S/m, D]."""
+    s = h.shape[1]
+    off = tp.offset(s)
+    p = seq_copied(p, tp)
+    q, k, v = qkv_project(cfg, p, h, positions[:, off:off + s])
+    k, v = tp.gather_summed(k, 1), tp.gather_summed(v, 1)
+    attn = attend(q, k, v, q_offset=off)
+    return attn.reshape(h.shape[:2] + (q.shape[2] * q.shape[3],)) \
+        @ p["wo"].to(h.dtype)
+
+
+def seq_cross_entropy(cfg, x, final_norm, embed, labels, mask, tp):
+    """The mean CE over the whole sequence from this rank's chunk x
+    [B, S/m, D] of the last hidden states (a replicated head): the final
+    norm and the (chunked) cross-entropy of the chunk's positions, their
+    masked sum all-reduced over ``model`` (identity backward: each rank's
+    gradient is its own tokens') over the token count summed alike; the
+    norm's and head's weights through :func:`seq_copied`.  ``labels``
+    and ``mask`` (or None) are the whole sequence's."""
+    s = x.shape[1]
+    sl = slice(tp.offset(s), tp.offset(s) + s)
+    x = apply_norm(cfg, x, seq_copied(final_norm, tp))
+    labels = labels[:, sl]
+    mask = (torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+            if mask is None else mask[:, sl].to(torch.float32))
+    ce = chunked_cross_entropy(cfg, x, seq_copied(embed, tp), labels, mask)
+    n = torch.clamp(torch.sum(mask), min=1.0)
+    total = torch.clamp(tp.all_sum(torch.sum(mask)), min=1.0)
+    return tp.reduce(ce * n) / total
 
 
 # ---------------------------------------------------------------------------

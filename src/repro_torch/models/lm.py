@@ -182,45 +182,53 @@ class DecoderLM:
         experts whose sizes divide compute on this rank's shards and their
         partial sums are reduced over ``model``; the others compute
         replicated.  With ``seq`` (``parallel.sharding.sequence_sharded``)
-        ``x`` is this rank's sequence chunk: it is gathered whole before
-        each norm (so the norms' scales see every position, as without
-        ``seq``, and need no reduction of their gradients), and the partial
-        sums come back reduce-scattered.  ``dp``: the MoE router's
+        ``x`` is this rank's sequence chunk.  A part on its shards gathers
+        it whole before its norm (so the norm's scale sees every
+        position, as without ``seq``, and needs no reduction of its
+        gradient) and its partial sums come back reduce-scattered
+        (:func:`layers.seq_enter`, :func:`layers.seq_exit`).  A part that
+        computes replicated runs on the chunk alone
+        (:func:`layers.seq_attention`, :meth:`_seq_ffn`): its per-token
+        work is this rank's positions only.  ``dp``: the MoE router's
         statistics and capacity over the data-parallel ranks."""
         cfg = self.cfg
-        h = L.apply_norm(cfg, self._enter(x, tp, seq), lp["ln1"])
         sharded = tp is not None and tp.attn
-        q, k, v = L.qkv_project(cfg, lp["attn"], h, positions, tp=tp)
-        attn = self.attend(q, k, v)
-        y = attn.reshape(h.shape[:2] + (q.shape[2] * q.shape[3],)) \
-            @ lp["attn"]["wo"].to(x.dtype)
-        x = x + self._exit(y, tp, seq, sharded)
-        h2 = L.apply_norm(cfg, self._enter(x, tp, seq), lp["ln2"])
-        y, aux = self._ffn(lp["ffn"], h2, tp, dp)
+        if seq and not sharded:
+            h = L.apply_norm(cfg, x, L.seq_copied(lp["ln1"], tp))
+            x = x + L.seq_attention(cfg, lp["attn"], h, positions, tp,
+                                    self.attend)
+        else:
+            h = L.apply_norm(cfg, L.seq_enter(x, tp, seq), lp["ln1"])
+            q, k, v = L.qkv_project(cfg, lp["attn"], h, positions, tp=tp)
+            attn = self.attend(q, k, v)
+            y = attn.reshape(h.shape[:2] + (q.shape[2] * q.shape[3],)) \
+                @ lp["attn"]["wo"].to(x.dtype)
+            x = x + L.seq_exit(y, tp, seq, sharded)
         sharded = tp is not None and (tp.experts if cfg.n_experts
                                       else tp.mlp)
-        return x + self._exit(y, tp, seq, sharded), aux
+        if seq and not sharded:
+            y, aux = self._seq_ffn(lp, x, tp, dp)
+            return x + y, aux
+        h2 = L.apply_norm(cfg, L.seq_enter(x, tp, seq), lp["ln2"])
+        y, aux = self._ffn(lp["ffn"], h2, tp, dp)
+        return x + L.seq_exit(y, tp, seq, sharded), aux
 
-    @staticmethod
-    def _enter(x, tp, seq):
-        """The residual whole for a block's norm: gathered over the
-        sequence chunks under ``seq`` (chunk backward; the sharded
-        products' inputs add their own all-reduce backward).  Under
-        ``tp`` without ``seq``, a view: the norm's uses of its input then
-        sum their gradients before the residual's is added, in the order
-        the gather's backward sums them, so ``seq`` changes no bit."""
-        if seq:
-            return tp.gather(x, 1)
-        return x if tp is None else x.view_as(x)
-
-    @staticmethod
-    def _exit(y, tp, seq, sharded):
-        """A block's output back into the residual's layout: partial sums
-        (``sharded``) reduced, or reduce-scattered under ``seq``; a
-        replicated result as it is, or its chunk under ``seq``."""
-        if sharded:
-            return tp.scatter(y, 1) if seq else tp.reduce(y)
-        return tp.split(y, 1) if seq else y
+    def _seq_ffn(self, lp, x, tp, dp):
+        """The FFN computed replicated on a sequence-sharded residual;
+        returns (its output on this rank's chunk, aux).  The dense MLP is
+        per-token work: the chunk alone, its weights through
+        :func:`layers.seq_copied`.  The experts' capacity queues couple a
+        batch's tokens, so an MoE whose experts do not divide over
+        ``model`` takes its input gathered whole (each rank computes the
+        one-rank MoE, its router statistics and queues those of every
+        position) and keeps its chunk of the output."""
+        cfg = self.cfg
+        h = L.apply_norm(cfg, x, L.seq_copied(lp["ln2"], tp))
+        if cfg.n_experts:
+            y, aux = M.apply_moe(cfg, lp["ffn"], tp.gather(h, 1), tp=tp,
+                                 dp=dp)
+            return tp.split(y, 1), aux
+        return L.apply_mlp(cfg, L.seq_copied(lp["ffn"], tp), h), 0.0
 
     def _ffn(self, p, h, tp=None, dp=None):
         """The layer's MLP, or its MoE (the reference's ``"auto"`` path);
@@ -230,25 +238,27 @@ class DecoderLM:
             return M.apply_moe(self.cfg, p, h, tp=tp, dp=dp)
         return L.apply_mlp(self.cfg, p, h, tp=tp), 0.0
 
-    def attend(self, q, k, v):
+    def attend(self, q, k, v, q_offset: int = 0):
         """One layer's full-sequence causal attention, q [B, S, H, dh],
         k/v [B, S, KV, dh]: the flash kernel on the card
         (:func:`layers.blockwise_attention`).  Every full-sequence pass
         (forward, both co-inference stages, prefill, training) attends
-        through this hook."""
+        through this hook.  ``q_offset``: q is a sequence chunk whose rows
+        sit at ``q_offset`` onward (k/v the whole sequence)."""
         return L.blockwise_attention(q, k, v, causal=True,
-                                     window=self.cfg.sliding_window)
+                                     window=self.cfg.sliding_window,
+                                     q_offset=q_offset)
 
     def _run_stack(self, params, x, positions, *, remat: bool = False,
-                   tp=None, dp=None):
+                   tp=None, dp=None, whole: bool = True):
         """All layers for training; returns (x, the layers' aux losses
         summed in layer order).  ``remat`` recomputes each layer in the
         backward pass (``torch.utils.checkpoint``), keeping only the layer
         inputs alive, as the reference's per-layer ``jax.checkpoint``.
         ``tp``/``dp`` as in :meth:`_block`; under the activation-sharding
         context the residual is held as its spec says between the blocks
-        (``parallel.sharding.constrain_activations``) and returned
-        whole."""
+        (``parallel.sharding.constrain_activations``) and returned whole,
+        or (``whole`` False) as this rank's chunk."""
         seq = sequence_sharded(tp, x.shape[1])
         x = constrain_activations(x, tp)
         aux = 0.0
@@ -259,7 +269,7 @@ class DecoderLM:
             else:
                 x, a = self._block(lp_i, x, positions, tp, dp, seq)
             aux = aux + a
-        return (tp.gather(x, 1) if seq else x), aux
+        return (tp.gather(x, 1) if seq and whole else x), aux
 
     def run_layers_window(self, params, x, positions, lo: int, hi: int):
         """Layers [lo, hi) applied in order; returns (x, aux=0.0): the
@@ -322,14 +332,24 @@ class DecoderLM:
         aux term valued at 1 / ``dp.size`` of it: summed over the ranks,
         the values give the global loss and the gradients its gradient."""
         x, positions = self._embed(params, batch, tp)
-        x, aux = self._run_stack(params, x, positions, remat=remat, tp=tp,
-                                 dp=dp)
-        x = L.apply_norm(self.cfg, x, params["final_norm"])
         labels = batch["labels"]
-        if x.shape[1] != labels.shape[1]:
-            x = x[:, -labels.shape[1]:]
-        ce = L.chunked_cross_entropy(self.cfg, x, params["embed"], labels,
-                                     batch.get("loss_mask"), tp=tp)
+        # a sequence-sharded residual with a replicated head: the final
+        # norm and the cross-entropy on this rank's chunk
+        local = (sequence_sharded(tp, x.shape[1]) and not tp.vocab
+                 and x.shape[1] == labels.shape[1])
+        x, aux = self._run_stack(params, x, positions, remat=remat, tp=tp,
+                                 dp=dp, whole=not local)
+        if local:
+            ce = L.seq_cross_entropy(self.cfg, x, params["final_norm"],
+                                     params["embed"], labels,
+                                     batch.get("loss_mask"), tp)
+        else:
+            x = L.apply_norm(self.cfg, x, params["final_norm"])
+            if x.shape[1] != labels.shape[1]:
+                x = x[:, -labels.shape[1]:]
+            ce = L.chunked_cross_entropy(self.cfg, x, params["embed"],
+                                         labels, batch.get("loss_mask"),
+                                         tp=tp)
         if not self.cfg.n_experts:
             return ce
         if dp is not None:
@@ -368,10 +388,10 @@ class DecoderLM:
             attn = self.attend(q, k, v)
             y = attn.reshape(b, s, q.shape[2] * q.shape[3]) \
                 @ p_i["attn"]["wo"].to(x.dtype)
-            x = x + self._exit(y, tp, False, tp is not None and tp.attn)
+            x = x + L.reduced(y, tp, tp is not None and tp.attn)
             h2 = L.apply_norm(cfg, x, p_i["ln2"])
             y = self._ffn(p_i["ffn"], h2, tp)[0]
-            x = x + self._exit(y, tp, False, tp is not None and (
+            x = x + L.reduced(y, tp, tp is not None and (
                 tp.experts if cfg.n_experts else tp.mlp))
             ks.append(k.to(dtype))
             vs.append(v.to(dtype))
@@ -458,7 +478,7 @@ class DecoderLM:
             attn = attend(i, q)
             y = mm(attn.reshape(b, 1, q.shape[2] * q.shape[3]),
                    p_i["attn"]["wo"].to(x.dtype))
-            x = x + self._exit(y, tp, False, tp is not None and tp.attn)
+            x = x + L.reduced(y, tp, tp is not None and tp.attn)
             h2 = L.apply_norm(cfg, x, p_i["ln2"])
             if cfg.n_experts:
                 y = M.apply_moe(
@@ -471,29 +491,34 @@ class DecoderLM:
                 y = L.apply_mlp(cfg, p_i["ffn"], h2,
                                 products=L.row_matmul_group, tp=tp)
                 split = tp is not None and tp.mlp
-            x = x + self._exit(y, tp, False, split)
+            x = x + L.reduced(y, tp, split)
         x = L.apply_norm(cfg, x, params["final_norm"])
         return self._logits(params, x, tp, matmul=mm)
 
-    def decode_step(self, params, cache, batch, tp=None):
+    def decode_step(self, params, cache, batch, tp=None, cache_seq=None):
         """One token over a full-precision cache: batch = {'token': [B, 1],
         'pos': [B]}.  Writes the fresh K/V into ``cache`` in place (the
         reference returns an updated copy) and returns (logits [B, V],
         cache with ``len + 1``).  ``tp`` as in :meth:`prefill`: the cache
-        holds this rank's KV heads where attention is split."""
+        holds this rank's KV heads where attention is split.
+        ``cache_seq`` (``parallel.tensor_parallel.SequenceShards``): the
+        cache is this rank's shard of the sequence; the owner of ``pos``
+        writes and the shards' attention partials are merged
+        (:func:`layers.decode_attend`)."""
         tok, pos = batch["token"], batch["pos"]
         x = L.embed_tokens(params["embed"], tok, getattr(torch,
                                                          self.cfg.dtype), tp)
         kc, vc = cache["k"], cache["v"]
         rows = torch.arange(x.shape[0], device=x.device)
+        where = dict(shards=cache_seq, tp=tp)
 
         def write(i, k, v, at):
-            kc[i, rows, at] = k[:, 0].to(kc.dtype)
-            vc[i, rows, at] = v[:, 0].to(vc.dtype)
+            L.decode_write(kc[i], rows, pos, k[:, 0], **where)
+            L.decode_write(vc[i], rows, pos, v[:, 0], **where)
 
         def attend(i, q):
-            return L.decode_attention(q, kc[i], vc[i], pos + 1,
-                                      window=self.cfg.sliding_window)
+            return L.decode_attend(q, kc[i], vc[i], pos + 1,
+                                   window=self.cfg.sliding_window, **where)
 
         logits = self._decode_layers(params, x, pos, kc.shape[2], write,
                                      attend, tp)

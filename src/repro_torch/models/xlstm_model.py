@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import constrain_activations, sequence_sharded
 from . import layers as L
 from . import ssm as S
 from .lm import input_specs_of, refuse_quantized, tree_map, unstack_layers
@@ -98,30 +99,47 @@ class XLSTMModel:
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    def _super_block(self, bp, x, tp=None):
+    def _super_block(self, bp, x, tp=None, seq=False):
+        """One super-block.  With ``seq`` x is this rank's sequence chunk:
+        every layer (a recurrence over the sequence) takes it gathered
+        whole and gives its output back as the chunk
+        (:func:`layers.seq_enter`, :func:`layers.seq_exit`)."""
         cfg = self.cfg
         mlstm = unstack_layers(bp["mlstm"], self.n_m)
         ln = bp["ln"].unbind(0)
         for slot in range(self.per):
-            h = L.rmsnorm(x, ln[slot])
+            h = L.rmsnorm(L.seq_enter(x, tp, True) if seq else x, ln[slot])
             if slot < self.n_m:
                 y = S.mlstm_forward(cfg, mlstm[slot], h, tp=tp)
-                x = x + L.reduced(y, tp, tp is not None and tp.mlstm)
+                x = x + L.seq_exit(y, tp, seq, tp is not None and tp.mlstm)
             else:
-                x = x + S.slstm_forward(cfg, bp["slstm"], h, tp=tp)
+                y = S.slstm_forward(cfg, bp["slstm"], h, tp=tp)
+                x = x + (L.seq_exit(y, tp, True, False) if seq else y)
         return x
 
-    def _hidden(self, params, batch, remat: bool = False, tp=None):
+    def _hidden(self, params, batch, remat: bool = False, tp=None,
+                whole: bool = True):
+        """The last hidden states.  Under the activation-sharding context
+        the residual is this rank's sequence chunk between the
+        super-blocks, as the reference's forward constrains it (its
+        prefill runs the forward too); returned gathered whole and normed,
+        or (``whole`` False) as the chunk, not normed."""
         cfg = self.cfg
         refuse_quantized(cfg, params)
         x = L.embed_tokens(params["embed"], batch["tokens"],
                            getattr(torch, cfg.dtype), tp)
+        seq = sequence_sharded(tp, x.shape[1])
+        x = constrain_activations(x, tp)
         for bp in unstack_layers(params["blocks"], self.n_blocks):
             if remat:
-                x = checkpoint(self._super_block, bp, x, tp,
+                x = checkpoint(self._super_block, bp, x, tp, seq,
                                use_reentrant=False)
             else:
-                x = self._super_block(bp, x, tp)
+                x = self._super_block(bp, x, tp, seq)
+        if seq and not whole:
+            return x
+        if seq:
+            x = tp.gather(x, 1)
         return L.apply_norm(cfg, x, params["final_norm"])
 
     def forward(self, params, batch):
@@ -133,7 +151,15 @@ class XLSTMModel:
         """Mean next-token CE of ``batch["labels"]`` (chunked unembedding);
         ``remat`` recomputes each super-block in the backward pass;
         ``tp``: tensor-parallel compute over ``model``."""
-        x = self._hidden(params, batch, remat, tp)
+        # a sequence-sharded residual with a replicated head: the final
+        # norm and the cross-entropy on this rank's chunk
+        local = sequence_sharded(tp, batch["tokens"].shape[1]) \
+            and not tp.vocab
+        x = self._hidden(params, batch, remat, tp, whole=not local)
+        if local:
+            return L.seq_cross_entropy(self.cfg, x, params["final_norm"],
+                                       params["embed"], batch["labels"],
+                                       None, tp)
         return L.chunked_cross_entropy(self.cfg, x, params["embed"],
                                        batch["labels"], tp=tp)
 

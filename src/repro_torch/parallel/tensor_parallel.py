@@ -17,6 +17,10 @@ function over a process group, so the backward carries its adjoint:
             and the CPU ranks and the ranks that share a card both run on
             gloo; a true reduce-scatter is later work
   split     this rank's chunk forward, all-gather backward
+  gather_summed
+            all-gather forward, all-reduce then this rank's chunk backward:
+            the keys and values of a sequence-parallel attention, which
+            every rank's query chunk reads whole
 
 A failed collective raises; nothing here catches it.
 
@@ -136,6 +140,20 @@ class _Scatter(torch.autograd.Function):
         return _all_gather(g, dim, group, size), None, None, None, None, None
 
 
+class _GatherSummed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, rank, size):
+        ctx.args = (dim, group, rank, size)
+        return _all_gather(x, dim, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, rank, size = ctx.args
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=group)
+        return _chunk(g, dim, rank, size), None, None, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """The ``model`` group of this rank and the parts of a model that
@@ -169,6 +187,12 @@ class TensorParallel:
         return _Scatter.apply(x, dim, self.group, self.rank, self.size,
                               False)
 
+    def gather_summed(self, x, dim: int):
+        """``x`` whole along ``dim`` from every rank's chunk, read by each
+        rank's own computation: the backward sums the ranks' gradients of
+        the whole and keeps this rank's chunk (a reduce-scatter)."""
+        return _GatherSummed.apply(x, dim, self.group, self.rank, self.size)
+
     def total(self, x):
         """The sum of ``x`` over the group, for every rank to go on using
         on its own shards: all-reduce forward and backward (each rank's
@@ -196,6 +220,96 @@ class TensorParallel:
         """``cfg`` with this rank's heads: the local projections' shapes."""
         return dataclasses.replace(cfg, n_heads=cfg.n_heads // self.size,
                                    n_kv_heads=cfg.n_kv_heads // self.size)
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceShards:
+    """Where a cache's sequence axis lives: ``size`` contiguous shards of
+    ``length`` positions over the mesh axes ``axes`` (major first, their
+    groups ``groups``), this rank holding shard ``index``.  The sharding
+    rules say which axes (``cache_seq``: ``data`` at ``long_500k``,
+    ``model`` under ``cacheshard``); the decode steps take it as they
+    take ``tp``.
+
+    A decode step writes a fresh entry on the shard that holds its
+    position only, and attends in flash-decoding partials: each rank's
+    unnormalized (acc, m, l) over its positions, merged over ``groups``
+    by the logsumexp rule (one max all-reduce, two sum all-reduces), the
+    reference's partial-softmax merge (``repro/models/layers.py``:
+    ``fused_decode_attention_acct``)."""
+
+    axes: Tuple[str, ...]
+    groups: Tuple[Any, ...]
+    size: int
+    index: int
+    length: int
+
+    @property
+    def offset(self) -> int:
+        """The global position of this rank's first entry."""
+        return self.index * self.length
+
+    @classmethod
+    def of(cls, mesh, axes: Sequence[str], length: int) -> "SequenceShards":
+        """The layout of a cache split over ``axes`` of ``mesh`` whose local
+        part has ``length`` positions."""
+        sizes = axis_sizes(mesh)
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        index = 0
+        for a in axes:
+            index = index * sizes[a] + coord[a]
+        return cls(axes=tuple(axes),
+                   groups=tuple(mesh.get_group(a) for a in axes
+                                if sizes[a] > 1),
+                   size=math.prod(sizes[a] for a in axes), index=index,
+                   length=int(length))
+
+    def write(self, cache: torch.Tensor, rows: torch.Tensor,
+              pos: torch.Tensor, new: torch.Tensor) -> None:
+        """Store ``new`` [B, ...] at global position ``pos`` [B] of this
+        rank's ``cache`` [B, length, ...] where this rank holds it, in
+        place.  ``dynamic_update_slice``'s clamp stays global: a ``pos``
+        past the whole cache writes its last entry, on the last shard.
+        Every rank reads and writes its entry at the clamped local index
+        (the others write back what they read): no host sync, so the
+        step can be captured."""
+        at = torch.clamp(pos, max=self.size * self.length - 1) - self.offset
+        mine = (at >= 0) & (at < self.length)
+        idx = torch.clamp(at, 0, self.length - 1)
+        old = cache[rows, idx]
+        keep = mine.reshape((-1,) + (1,) * (new.dim() - 1))
+        cache[rows, idx] = torch.where(keep, new.to(cache.dtype), old)
+
+    def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        t = t.contiguous().clone()
+        for g in self.groups:
+            dist.all_reduce(t, op=op, group=g)
+        return t
+
+    def merge(self, acc: torch.Tensor, m: torch.Tensor,
+              l: torch.Tensor) -> torch.Tensor:
+        """The attention of this rank's partials (acc [B, 1, KV, G, dh],
+        m and l [B, KV, G, 1]) merged with every shard's: [B, 1, KV, G,
+        dh] in float32."""
+        m_all = self._reduce(m, dist.ReduceOp.MAX)
+        finite = torch.isfinite(m)
+        corr = torch.where(finite, torch.exp(
+            torch.where(finite, m - m_all, 0.0)), 0.0)
+        l = self._reduce(l * corr, dist.ReduceOp.SUM)
+        acc = self._reduce(acc * corr[:, None], dist.ReduceOp.SUM)
+        return acc / torch.clamp(l[:, None], min=1e-30)
+
+
+def cache_shards(mesh, spec, seq_dim: int, length: int):
+    """The :class:`SequenceShards` of a cache leaf placed by ``spec`` whose
+    sequence is dimension ``seq_dim`` and holds ``length`` positions here,
+    or None where the spec does not split that dimension."""
+    entry = spec[seq_dim] if seq_dim < len(spec) else None
+    axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+    sizes = axis_sizes(mesh)
+    if math.prod(sizes[a] for a in axes) <= 1:
+        return None
+    return SequenceShards.of(mesh, axes, length)
 
 
 def _model_dim(spec) -> Optional[int]:
@@ -298,6 +412,25 @@ def model_plan(cfg, specs, mesh) -> Tuple[Optional[TensorParallel], Any]:
                         rank=coord[mesh.mesh_dim_names.index("model")],
                         vocab=vocab, **flags)
     return tp, local
+
+
+def shard_leaf(leaf, dim: Optional[int], tp: Optional[TensorParallel]):
+    """This rank's part of a whole leaf that :func:`model_plan` computes on
+    its ``model`` shard of dimension ``dim`` (None: ``leaf`` whole).  An
+    int8-resident leaf (``core.quantization.QuantizedTensor``) keeps its
+    codes' chunk and its scale's columns of it where the scale has that
+    dimension (a per-channel scale of a column-parallel product), the
+    scale whole where it broadcasts there."""
+    if dim is None or tp is None:
+        return leaf
+    codes = getattr(leaf, "codes", None)
+    if codes is None:
+        return _chunk(leaf, dim, tp.rank, tp.size)
+    scale = leaf.scale
+    if scale.shape[dim] > 1:
+        scale = _chunk(scale, dim, tp.rank, tp.size)
+    return dataclasses.replace(leaf, codes=_chunk(codes, dim, tp.rank,
+                                                  tp.size), scale=scale)
 
 
 def _map_specs(fn, tree):

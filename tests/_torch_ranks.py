@@ -130,20 +130,28 @@ def _np_tree(tree):
     return gather(tree).detach().cpu().numpy().copy()
 
 
-def _trainer(mesh, tc, lr, clip_norm=1.0, arch=ARCH, variant=None):
+def _trainer(mesh, tc, lr, clip_norm=1.0, arch=ARCH, variant=None,
+             notp=False):
     """A trainer over ``mesh``: AdamW with the linear schedule ``lr``
     (peak, warmup, total), or a constant 1e-3 where ``lr`` is None;
-    ``variant`` replaces fields of the smoke config."""
+    ``variant`` replaces fields of the smoke config; ``notp``: the
+    dry-run's ``notp`` rules (heads, KV, FFN and vocabulary replicated)."""
     import dataclasses
     from repro_torch.configs import get_smoke
     from repro_torch.models.registry import build_model
     from repro_torch.optim import AdamW, linear_schedule
+    from repro_torch.parallel.sharding import default_rules
     from repro_torch.runtime import TrainConfig, Trainer
     opt = AdamW(learning_rate=1e-3 if lr is None else linear_schedule(*lr),
                 clip_norm=clip_norm)
     cfg = dataclasses.replace(get_smoke(arch), **(variant or {}))
+    rules = None
+    if notp:
+        rules = default_rules(cfg)
+        rules.update(heads=None, kv=None, kv_heads=None, ffn=None,
+                     vocab=None)
     return Trainer(build_model(cfg), opt, "cpu",
-                   TrainConfig(log_every=1, **tc), mesh=mesh)
+                   TrainConfig(log_every=1, **tc), mesh=mesh, rules=rules)
 
 
 def _start(tr, inp):
@@ -284,7 +292,7 @@ def products(tr, state, batch):
 
 def fit_mesh(tmp, shape, axes, steps, masked=False, batch=12, seq=32,
              inputs="whole", ranks=None, arch=ARCH, variant=None,
-             spec=None, record=False):
+             spec=None, record=False, notp=False):
     """``Trainer.fit`` over a mesh of ``shape``, from the test's state, on
     this rank's slice of the global batch, a step at a time; returns the
     history, the full state after it, the parameters after each step,
@@ -292,7 +300,8 @@ def fit_mesh(tmp, shape, axes, steps, masked=False, batch=12, seq=32,
     replaces fields of the smoke config of ``arch``; ``spec`` runs the
     steps under ``activation_sharding(spec)``; ``record`` adds the
     products of one forward on the first batch (:func:`products`) and
-    the trainer's tensor-parallel plan."""
+    the trainer's tensor-parallel plan; ``notp`` takes the dry-run's
+    ``notp`` rules (:func:`_trainer`)."""
     import contextlib
     from repro_torch.data import ShardedLoader
     from repro_torch.launch.mesh import make_mesh
@@ -302,7 +311,8 @@ def fit_mesh(tmp, shape, axes, steps, masked=False, batch=12, seq=32,
     mesh = make_mesh(tuple(shape), tuple(axes), ranks, device="cpu")
     if mesh.get_coordinate() is None:
         return None                     # a rank outside the mesh
-    tr = _trainer(mesh, inp["tc"], inp["lr"], arch=arch, variant=variant)
+    tr = _trainer(mesh, inp["tc"], inp["lr"], arch=arch, variant=variant,
+                  notp=notp)
     loader = ShardedLoader(markov(batch, seq, masked, arch=arch),
                            device="cpu", mesh=mesh)
     first = next(loader)
@@ -602,8 +612,104 @@ def serve_tp(tmp, model, ranks=None):
             "decode": step.numpy().copy()}
 
 
+def _plan_leaves(tr, params):
+    """The leaves ``tr``'s plan computes with, from every rank's whole
+    ``params`` (a float or an int8-resident tree): this rank's ``model``
+    shard where the plan splits a part, the leaf whole elsewhere."""
+    from repro_torch.parallel.tensor_parallel import shard_leaf
+    from repro_torch.runtime.train_loop import _zip_map
+    return _zip_map(lambda p, d: shard_leaf(p, d, tr.tp), params,
+                    tr._dims(params))
+
+
+def seq_decode(tmp, arch, axis, ranks=None):
+    """Decode steps over a cache whose sequence is split over the mesh
+    axis ``axis`` of two ranks ((data 1, model 2) with ``arch``'s
+    tensor-parallel plan, or (data 2, model 1)): every rank builds the
+    seeded smoke parameters whole and computes on its plan's leaves,
+    holds its half of the test's cache (``seqdec_<arch>``: every
+    attention cache's positions, all KV heads) and runs the test's
+    tokens through ``decode_step(..., cache_seq=)``.  Returns the logits
+    of each step, this rank's cache after them and its offset."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.tensor_parallel import SequenceShards
+
+    inp = _inputs(tmp, f"seqdec_{arch}")
+    shape = (1, 2) if axis == "model" else (2, 1)
+    mesh = make_mesh(shape, ("data", "model"), ranks, device="cpu")
+    if mesh.get_coordinate() is None:
+        return None
+    tr = _trainer(mesh, {}, None, arch=arch)
+    model = tr.model
+    params = model.init(torch.Generator().manual_seed(inp["seed"]))
+    leaves = _plan_leaves(tr, params)
+    half = inp["cache"]["k"].shape[2] // 2
+    shards = SequenceShards.of(mesh, (axis,), half)
+    cache = {}
+    for k, v in inp["cache"].items():
+        t = torch.from_numpy(v)
+        if k in ("k", "v", "ek", "ev"):
+            t = t[:, :, shards.offset:shards.offset + half]
+        cache[k] = t.clone()
+    out = []
+    with torch.no_grad():
+        for tok, pos in zip(inp["tokens"], inp["pos"]):
+            logits, cache = model.decode_step(
+                leaves, cache, {"token": torch.from_numpy(tok),
+                                "pos": torch.from_numpy(pos)},
+                tp=tr.tp, cache_seq=shards)
+            out.append(logits.numpy().copy())
+    return {"logits": out, "offset": shards.offset,
+            "cache": {k: v.numpy().copy() for k, v in cache.items()}}
+
+
+def int8w_serve(tmp, ranks=None):
+    """The int8-resident serving steps over (data 1, model 2): the seeded
+    smoke parameters through ``quantize_tree_stacked`` at 8 bits per
+    channel (the dry-run's ``int8w``), this rank's plan leaves of it
+    (codes and scale columns of its shards), then ``prefill`` of the
+    test's prompts and one ``decode_step`` over the test's cache (this
+    rank's KV heads of it where attention splits).  Returns the plan's
+    attention flag, the logits, the prefill's cache and this rank's
+    held bytes of the quantized leaves."""
+    import torch
+    from repro_torch.core.quantization import (QuantConfig,
+                                               QuantizedTensor,
+                                               quantize_tree_stacked)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import tree_leaves
+
+    inp = _inputs(tmp, "int8w")
+    mesh = make_mesh((1, 2), ("data", "model"), ranks, device="cpu")
+    if mesh.get_coordinate() is None:
+        return None
+    tr = _trainer(mesh, {}, None)
+    params = quantize_tree_stacked(
+        tr.model.init(torch.Generator().manual_seed(inp["seed"])),
+        QuantConfig(bits=8, granularity="per-channel"))
+    leaves = _plan_leaves(tr, params)
+    held = sum(q.codes.numel() + 4 * q.scale.numel()
+               for q in tree_leaves(leaves) if isinstance(q, QuantizedTensor))
+    heads = (lambda a: a.chunk(2, 3)[tr.tp.rank]) if tr.tp.attn \
+        else (lambda a: a)
+    cache = {k: heads(torch.from_numpy(inp[k])).contiguous()
+             for k in ("k", "v")}
+    cache["len"] = torch.from_numpy(inp["pos"])
+    with torch.no_grad():
+        logits, pre = tr.model.prefill(
+            leaves, {"tokens": torch.from_numpy(inp["tokens"])}, tp=tr.tp)
+        step, _ = tr.model.decode_step(
+            leaves, cache, {"token": torch.from_numpy(inp["token"]),
+                            "pos": torch.from_numpy(inp["pos"])}, tp=tr.tp)
+    return {"attn": tr.tp.attn, "prefill": logits.numpy().copy(),
+            "k": pre["k"].numpy().copy(), "v": pre["v"].numpy().copy(),
+            "decode": step.numpy().copy(), "held": held}
+
+
 SCENARIOS = {"fed_podwise": fed_podwise, "fit_mesh": fit_mesh,
              "elastic": elastic, "mesh_of_two": mesh_of_two,
              "vocab_ce": vocab_ce, "serve_tp": serve_tp,
              "serve_family": serve_family, "gated_norm": gated_norm,
-             "fit_steps": fit_steps}
+             "fit_steps": fit_steps, "seq_decode": seq_decode,
+             "int8w_serve": int8w_serve}

@@ -898,6 +898,25 @@ def test_decode_norms_rows_bitwise_past_4_rows(dev, norm):
                            got[i]), f"row {i}"
 
 
+def test_rms_norm_op_keeps_the_cards_bits(dev):
+    """``layers.rmsnorm`` on the card (the op ``repro_norm::rms_norm``,
+    one op each way for the accountant) is bitwise ``F.rms_norm`` and its
+    autograd: y, dx and the gain's gradient."""
+    import torch.nn.functional as F
+    x = _normal(8, (1024, 896), dev)
+    w = _normal(9, (896,), dev)
+    g = _normal(10, (1024, 896), dev)
+    a = [t.clone().requires_grad_(True) for t in (x, w)]
+    b = [t.clone().requires_grad_(True) for t in (x, w)]
+    ya = tL.rmsnorm(*a)
+    yb = F.rms_norm(b[0], (896,), b[1], 1e-6)
+    ya.backward(g)
+    yb.backward(g)
+    assert torch.equal(ya, yb)
+    assert torch.equal(a[0].grad, b[0].grad)
+    assert torch.equal(a[1].grad, b[1].grad)
+
+
 def test_row_gemm_raises_where_the_kernel_cannot_run(dev):
     x = _normal(0, (17, 64), dev)
     w = _normal(1, (64, 32), dev)

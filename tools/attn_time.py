@@ -2,7 +2,7 @@
 """Device time of the port's two attention kernels at their timed shapes.
 
     python3 tools/attn_time.py [--src DIR] [--reps 25] [--outputs FILE]
-        [--long]
+        [--long] [--offset]
     python3 tools/attn_time.py --clock
 
 Times ``quantized_decode_attention`` at B = 4 over a T = 1024 cache
@@ -22,13 +22,20 @@ build into that tree's ``build/kernels``), so two versions of the kernels
 can be timed in one call on one card: run it on each, in turns.
 ``--outputs FILE`` also runs decode attention at B = 4 over T = 1024,
 4096 and 16384 (lengths [T, 0.8 T, 0.52 T, 300], b_kv 8, 4 and 16) and
-times it; the first run (say on the parent's tree) saves the outputs to
-FILE, a later run (on the change) holds its outputs bitwise equal to
-them, so a change that must keep the kernel's bits shows that it does.
+times it, and flash attention (causal f32 at 4 x 64, 8 x 128 and 1 x
+1024, bf16 at 4 x 512, windowed 128 at 4 x 1024); the first run (say on
+the parent's tree) saves the outputs to FILE, a later run (on the
+change) holds its outputs bitwise equal to them, so a change that must
+keep the kernels' bits shows that it does.
 ``--long`` times decode attention past the shared-memory cap the combine
 once had: qwen2-0.5b's heads at T = 524,288 (B = 1, the reference's
 ``LONG_500K``) and granite-34b's (48 over 1, dh = 128) at T = 32,768, the
-longest combine walking 8,192 chunks.
+longest combine walking 8,192 chunks, each beside one
+``scaled_dot_product_attention`` call on the dequantized cache.
+``--offset`` times flash on a sequence chunk's queries at an offset
+(sequence-parallel attention: the second half of 8 x 128, qwen2-0.5b's
+training shape over two ranks, and of 1 x 1024) beside the plain version
+and one ``scaled_dot_product_attention`` call with the chunk's mask.
 
 ``--clock`` builds ``csrc/flash_attn.cu`` once more with
 ``-DFLASH_STAGE_CLOCK`` (into ``build/kernels/``, apart from the port's
@@ -70,7 +77,7 @@ def stage_clock() -> None:
                     "-o", str(so), str(build.CSRC / "flash_attn.cu")],
                    check=True)
     fn = ctypes.CDLL(str(so)).flash_attn_f32_clock
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     dev = torch.device("cuda")
@@ -83,7 +90,7 @@ def stage_clock() -> None:
         for _ in range(3):
             status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), None, ctypes.addressof(strides), b,
-                        14, 2, s, s, 64, 1, 0, 64 ** -0.5, 1,
+                        14, 2, s, s, 64, 1, 0, 0, 64 ** -0.5, 1,
                         torch.cuda.current_stream().cuda_stream,
                         clock.data_ptr())
             assert status == 0, f"cudaError_t {status}"
@@ -107,13 +114,19 @@ def main(argv=None) -> int:
     ap.add_argument("--clock", action="store_true")
     ap.add_argument("--outputs", default=None)
     ap.add_argument("--long", action="store_true")
+    ap.add_argument("--offset", action="store_true")
     args = ap.parse_args(argv)
     import chip_smoke as cs               # puts this tree's src on the path
     if args.clock:
         stage_clock()
         return 0
     if args.src is not None:
+        # chip_smoke imported this tree's repro_torch: forget it, so that
+        # the other tree's is imported (and its kernels built) below
         sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
+        for name in [m for m in sys.modules
+                     if m == "repro_torch" or m.startswith("repro_torch.")]:
+            del sys.modules[name]
     import torch
     import torch.nn.functional as F
     if not torch.cuda.is_available():
@@ -168,13 +181,20 @@ def main(argv=None) -> int:
                     b_kv=b_kv, lens=lens,
                     ms=t(lambda: tk.quantized_decode_attention(*d)),
                     bound_ms=cs.decode_bound(d)[0], src=str(where))))
+        for b, s, dtype, window in ((4, 64, None, 0), (8, 128, None, 0),
+                                    (1, 1024, None, 0),
+                                    (4, 512, torch.bfloat16, 0),
+                                    (4, 1024, None, 128)):
+            q, k, v = cs.flash_case(dev, b, s, seed=b * s, dtype=dtype)
+            outs[f"flash {b}x{s} {str(dtype)[6:] or 'f32'} w{window}"] = \
+                tk.flash_attention_fwd(q, k, v, window=window).cpu()
         saved = pathlib.Path(args.outputs)
         if saved.is_file():
             want = torch.load(saved)
             same = [k for k in outs if torch.equal(outs[k], want[k])]
-            print(f"decode attention outputs bitwise equal to {saved}: "
-                  f"{len(same)} of {len(outs)} (T/b_kv: "
-                  f"{', '.join(same)})")
+            print(f"decode and flash attention outputs bitwise equal to "
+                  f"{saved}: {len(same)} of {len(outs)} "
+                  f"({', '.join(same)})")
             if len(same) != len(outs):
                 return 1
         else:
@@ -186,12 +206,43 @@ def main(argv=None) -> int:
                 (2, 32768, 48, 1, 128, [32768, 20001])):
             d = cs.decode_case(dev, b, t_len, 8, seed=t_len, lens=lens,
                                h=h, kv=kv, dh=dh)
+            q, kc, vc, ks, vs, ln = d
+            kd = kv_dequantize(kc, ks).transpose(1, 2).contiguous()
+            vd = kv_dequantize(vc, vs).transpose(1, 2).contiguous()
+            mask = (torch.arange(t_len, device=dev)[None, :]
+                    < ln[:, None].long())[:, None, None, :]
             print(json.dumps(dict(
                 kernel="quantized_decode_attention", b=b, t=t_len, h=h,
                 kv=kv, dh=dh, b_kv=8, lens=lens,
                 ms=t(lambda: tk.quantized_decode_attention(*d)),
+                sdpa_ms=t(lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kd, vd, attn_mask=mask,
+                    enable_gqa=True)),
                 bound_ms=cs.decode_bound(d)[0], src=str(where))))
-            del d
+            del d, kd, vd, q, kc, vc, ks, vs
+    if args.offset:
+        from repro_torch.kernels import ref
+        for b, t_len in ((8, 128), (1, 1024)):
+            q, k, v = cs.flash_case(dev, b, t_len, seed=t_len)
+            off = t_len // 2
+            qc = q[:, :, off:]
+            mask = (torch.arange(off, t_len, device=dev)[:, None]
+                    >= torch.arange(t_len, device=dev)[None, :])
+            out = tk.flash_attention_fwd(qc, k, v, q_offset=off)
+            whole = tk.flash_attention_fwd(q, k, v)
+            print(json.dumps(dict(
+                kernel="flash_attention_fwd", b=b, s=t_len - off, t=t_len,
+                q_offset=off,
+                ms=t(lambda: tk.flash_attention_fwd(qc, k, v,
+                                                    q_offset=off)),
+                plain_ms=t(lambda: ref.flash_attention_ref(
+                    qc, k, v, q_offset=off)),
+                sdpa_ms=t(lambda: F.scaled_dot_product_attention(
+                    qc, k, v, attn_mask=mask, enable_gqa=True)),
+                bound_ms=cs.flash_bound(qc, k, q_offset=off)[0],
+                rows_equal_whole=bool(torch.equal(out,
+                                                  whole[:, :, off:])),
+                src=str(where))))
     one = torch.zeros(1, device=dev)
     d = cs.decode_case(dev, 1, 1024, 8, seed=1, lens=[64])
     q, k, v = cs.flash_case(dev, 1, 1, seed=1, h=1, kv=1)
