@@ -20,6 +20,9 @@ _fwd``             (three-pass TF32      ``flash_attention_fwd``
                    wgmma)
 ``row_gemm``       csrc/row_gemm (rows   none: the port's own, for the
                    independent of M)     decode step's projections
+``tc_gemm``        csrc/tc_gemm (three-  none: the port's own, for the
+                   pass TF32 wgmma, rows split forward's products
+                   independent of M)
 =================  ====================  ==================================
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
@@ -39,12 +42,13 @@ from .flash import flash_attention_fwd
 from .qmm import qmm, qmm_int4, reset_route_launches
 from .quantize import group_quantize
 from .row_gemm import row_gemm
+from .tc_gemm import tc_gemm
 
 KERNELS = {"group_quantize": group_quantize, "qmm": qmm,
            "qmm_int4": qmm_int4,
            "quantized_decode_attention": quantized_decode_attention,
            "flash_attention_fwd": flash_attention_fwd,
-           "row_gemm": row_gemm}
+           "row_gemm": row_gemm, "tc_gemm": tc_gemm}
 
 
 def launch_counts() -> dict:

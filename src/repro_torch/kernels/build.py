@@ -30,7 +30,8 @@ from torch.utils.flop_counter import register_flop_formula
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("group_quantize", "qmm", "decode_attn", "flash_attn", "row_gemm")
+SOURCES = ("group_quantize", "qmm", "decode_attn", "flash_attn", "row_gemm",
+           "tc_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -54,6 +54,12 @@ def row_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[i:i + 1] @ w for i in range(x.shape[0])])
 
 
+def tc_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [M, K] @ w [K, N]: ``torch.matmul``, the product the split
+    forward's layers form on the CPU (``layers.matmul_group``)."""
+    return torch.matmul(x, w)
+
+
 def row_gemm_group_ref(x: torch.Tensor, ws, biases) -> list:
     """``[x @ w_i (+ b_i)]``: :func:`row_gemm_ref` per product, then one
     add of its bias (None for none), as ``layers.qkv_project`` adds it."""

@@ -177,16 +177,23 @@ class HybridLM:
     def _super_block(self, bp, x, positions, tp=None, dp=None, seq=False):
         """One super-block: (x, aux summed, the attention layer's k, v).
         With ``seq`` (the training stack under the activation-sharding
-        context) x is this rank's sequence chunk: the Mamba layers (a
-        recurrence over the sequence) and the parts on their shards take
-        it gathered whole, replicated attention runs on the chunk with K
-        and V gathered (:func:`layers.seq_attention`; k and v None)."""
+        context) x is this rank's sequence chunk: the parts on their
+        shards take it gathered whole; replicated attention runs on the
+        chunk with K and V gathered (:func:`layers.seq_attention`; k and
+        v None), a replicated Mamba layer its norm and projections on the
+        chunk with what the scan needs gathered
+        (``ssm.mamba_forward(seq=)``)."""
         parts = self._parts(bp)
         aux = 0.0
         k = v = None
         for slot in range(self.per):
             ln = parts["ln_mix"][slot]
-            if slot < self.n_mamba:
+            if slot < self.n_mamba and seq and not tp.mamba:
+                h = L.rmsnorm(x, L.seq_copied(ln, tp))
+                x = x + S.mamba_forward(
+                    self.cfg, L.seq_copied(parts["mamba"][slot], tp), h,
+                    seq=tp)
+            elif slot < self.n_mamba:
                 h = L.rmsnorm(L.seq_enter(x, tp, True) if seq else x, ln)
                 y = S.mamba_forward(self.cfg, parts["mamba"][slot], h, tp=tp)
                 x = x + L.seq_exit(y, tp, seq, tp is not None and tp.mamba)

@@ -31,6 +31,7 @@ from ..kernels.build import LIB, kernel_op
 from ..kernels.flash import MAX_HEAD_DIM, flash_attention, \
     flash_attention_fwd
 from ..kernels.row_gemm import row_gemm, row_gemm_group
+from ..kernels.tc_gemm import tc_gemm
 from ..launch.opcount import note_flops
 from ..parallel import sharding as _shctx
 
@@ -981,3 +982,23 @@ def row_matmul_group(x, ws, biases=None):
     ys = row_gemm_group(x.reshape(-1, x.shape[-1]), ws, biases)
     return [y.reshape(x.shape[:-1] + (w.shape[-1],))
             for y, w in zip(ys, ws)]
+
+
+def tc_matmul(x, w):
+    """``x [..., K] @ w [K, N]`` with each row its own product, on the
+    tensor cores: :func:`kernels.tc_gemm.tc_gemm`.
+
+    The co-inference split forward's hook (its server products and head,
+    the agent stage's unquantized products): cuBLAS picks its tiles and
+    split of K by M, so a request's rows would change with the batch it
+    shares.  On the card one launch of the row-independent kernel; on the
+    CPU ``torch.matmul``, bitwise what :func:`matmul_group` forms."""
+    y = tc_gemm(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(x.shape[:-1] + (w.shape[-1],))
+
+
+def tc_matmul_group(x, ws, biases=None):
+    """:func:`matmul_group` through :func:`tc_matmul`: one launch a
+    product, then one add of its bias."""
+    ys = [tc_matmul(x, w) for w in ws]
+    return ys if biases is None else [y + b for y, b in zip(ys, biases)]

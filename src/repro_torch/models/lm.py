@@ -174,9 +174,12 @@ class DecoderLM:
     # ------------------------------------------------------------------
     # blocks
     # ------------------------------------------------------------------
-    def _block(self, lp, x, positions, tp=None, dp=None, seq=False):
+    def _block(self, lp, x, positions, tp=None, dp=None, seq=False,
+               products=L.matmul_group):
         """One layer; returns (x, aux): the MoE router's load-balancing
-        loss, or 0.0 for a dense layer.
+        loss, or 0.0 for a dense layer.  ``products`` forms the attention's
+        and the dense MLP's products (:func:`layers.matmul_group`'s
+        signature): the split forward passes :func:`layers.tc_matmul_group`.
 
         Under tensor-parallel compute (``tp``) the attention, MLP or
         experts whose sizes divide compute on this rank's shards and their
@@ -199,10 +202,12 @@ class DecoderLM:
                                     self.attend)
         else:
             h = L.apply_norm(cfg, L.seq_enter(x, tp, seq), lp["ln1"])
-            q, k, v = L.qkv_project(cfg, lp["attn"], h, positions, tp=tp)
+            q, k, v = L.qkv_project(cfg, lp["attn"], h, positions,
+                                    products=products, tp=tp)
             attn = self.attend(q, k, v)
-            y = attn.reshape(h.shape[:2] + (q.shape[2] * q.shape[3],)) \
-                @ lp["attn"]["wo"].to(x.dtype)
+            y = products(attn.reshape(h.shape[:2]
+                                      + (q.shape[2] * q.shape[3],)),
+                         [lp["attn"]["wo"].to(x.dtype)])[0]
             x = x + L.seq_exit(y, tp, seq, sharded)
         sharded = tp is not None and (tp.experts if cfg.n_experts
                                       else tp.mlp)
@@ -210,7 +215,7 @@ class DecoderLM:
             y, aux = self._seq_ffn(lp, x, tp, dp)
             return x + y, aux
         h2 = L.apply_norm(cfg, L.seq_enter(x, tp, seq), lp["ln2"])
-        y, aux = self._ffn(lp["ffn"], h2, tp, dp)
+        y, aux = self._ffn(lp["ffn"], h2, tp, dp, products)
         return x + L.seq_exit(y, tp, seq, sharded), aux
 
     def _seq_ffn(self, lp, x, tp, dp):
@@ -230,13 +235,14 @@ class DecoderLM:
             return tp.split(y, 1), aux
         return L.apply_mlp(cfg, L.seq_copied(lp["ffn"], tp), h), 0.0
 
-    def _ffn(self, p, h, tp=None, dp=None):
+    def _ffn(self, p, h, tp=None, dp=None, products=L.matmul_group):
         """The layer's MLP, or its MoE (the reference's ``"auto"`` path);
         returns (y, aux), y a partial sum over ``model`` where ``tp``
-        shards it."""
+        shards it.  ``products``: the dense MLP's (the experts keep
+        their own)."""
         if self.cfg.n_experts:
             return M.apply_moe(self.cfg, p, h, tp=tp, dp=dp)
-        return L.apply_mlp(self.cfg, p, h, tp=tp), 0.0
+        return L.apply_mlp(self.cfg, p, h, products=products, tp=tp), 0.0
 
     def attend(self, q, k, v, q_offset: int = 0):
         """One layer's full-sequence causal attention, q [B, S, H, dh],
@@ -271,12 +277,16 @@ class DecoderLM:
             aux = aux + a
         return (tp.gather(x, 1) if seq and whole else x), aux
 
-    def run_layers_window(self, params, x, positions, lo: int, hi: int):
+    def run_layers_window(self, params, x, positions, lo: int, hi: int,
+                          products=L.matmul_group):
         """Layers [lo, hi) applied in order; returns (x, aux=0.0): the
-        split-execution path drops the MoE aux loss, as the reference's."""
+        split-execution path drops the MoE aux loss, as the reference's.
+        ``products`` as in :meth:`_block` (the engines pass
+        :func:`layers.tc_matmul_group`)."""
         lp = params["layers"]
         for i in range(int(lo), int(hi)):
-            x, _ = self._block(tree_map(lambda a: a[i], lp), x, positions)
+            x, _ = self._block(tree_map(lambda a: a[i], lp), x, positions,
+                               products=products)
         return x, 0.0
 
     def run_layers(self, params, x, positions, lo: int, hi: int):

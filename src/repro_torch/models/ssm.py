@@ -156,19 +156,71 @@ def _mamba_inputs(p, x, tp):
     return tp.copy(x), tp.copy(bc), tp.copy(cc)
 
 
-def mamba_forward(cfg, p, x, chunk: int = 256, tp=None):
+def _seq_whole(seq, ts):
+    """Per-token inputs of a recurrence computed on this rank's sequence
+    chunk, all-gathered whole along the sequence (``seq``: the group the
+    residual is sequence-sharded over; the backward reduce-scatters,
+    ``tp.gather_summed``); as they are without ``seq``."""
+    if seq is None:
+        return ts
+    return tuple(seq.gather_summed(t, 1) for t in ts)
+
+
+def _seq_chunk(seq, y, s_loc: int):
+    """This rank's chunk of a recurrence's whole-sequence output y
+    [B, S, ...]; y itself without ``seq``."""
+    if seq is None:
+        return y
+    off = seq.offset(s_loc)
+    return y[:, off:off + s_loc]
+
+
+def _chunk_rows(seq, s_loc: int, c: int, c_len: int):
+    """The positions of scan chunk ``c`` that are this rank's, as a slice
+    of the chunk, or None: every one without ``seq``."""
+    if seq is None:
+        return slice(None)
+    off = seq.offset(s_loc)
+    lo, hi = max(off - c * c_len, 0), min(off + s_loc - c * c_len, c_len)
+    return slice(lo, hi) if lo < hi else None
+
+
+def _state_sum(seq, rows, eq: str, *ts):
+    """A chunk's contribution to the carried state, ``einsum(eq, *ts)``
+    summed over the chunk's positions (the second axis of each of
+    ``ts``).  Under ``seq`` each rank sums its own positions ``rows`` and
+    the partial sums are all-reduced (the reference's sharded scan sums
+    its sequence-sharded operands so)."""
+    if seq is None:
+        return torch.einsum(eq, *ts)
+    mine = rows if rows is not None else slice(0, 0)
+    return seq.total(torch.einsum(eq, *(t[:, mine] for t in ts)))
+
+
+def mamba_forward(cfg, p, x, chunk: int = 256, tp=None, seq=None):
     """x [B, S, D] -> [B, S, D]: the full-sequence (and prefill) path;
-    a partial sum over ``model`` where ``tp.mamba``."""
-    b, s, _ = x.shape
+    a partial sum over ``model`` where ``tp.mamba``.
+
+    ``seq`` (a residual sequence-sharded over ``model``, Mamba not split
+    over it): x is this rank's chunk [B, S/m, D], normed.  The per-token
+    products (``in_x``, ``in_z``, ``in_dt``, ``in_B``, ``in_C``) run on the
+    chunk, what the causal conv and the scan need (x's projection, dt, B,
+    C) is all-gathered, the scan forms the outputs of the chunk's
+    positions only (each chunk's carried state summed over the ranks'
+    positions, :func:`_state_sum`), and the gated norm and ``out`` run
+    on them: the chunk's output."""
     _, n, _, pd = mamba_dims(cfg)
     tp, d_in, h = _mamba_split(cfg, tp)
     dt_ = x.dtype
+    s_loc = x.shape[1]
     x, bc, cc = _mamba_inputs(p, x, tp)                        # [B,S,N]
     xb = x @ p["in_x"].to(dt_)
     z = x @ p["in_z"].to(dt_)
+    dt_r = (x @ p["in_dt"].to(dt_)).to(torch.float32)          # [B,S,H]
+    xb, dt_r, bc, cc = _seq_whole(seq, (xb, dt_r, bc, cc))
+    b, s, _ = xb.shape
     xb, _ = _causal_conv(xb, p["conv_x"])
     xb = F.silu(xb)
-    dt_r = (x @ p["in_dt"].to(dt_)).to(torch.float32)          # [B,S,H]
     dt = F.softplus(dt_r + p["dt_bias"])
     a = -torch.exp(p["A_log"])                                 # [H]
     log_decay = dt * a                                         # [B,S,H] <= 0
@@ -193,27 +245,31 @@ def mamba_forward(cfg, p, x, chunk: int = 256, tp=None):
                          device=x.device)
     ys = []
     for c in range(nc):
+        rows = _chunk_rows(seq, s_loc, c, c_len)
         xc, bcc, ccc, lac = xbar[:, c], bc[:, c], cc[:, c], la[:, c]
         cum = torch.cumsum(lac, dim=1)                         # [B,L,H]
-        # intra-chunk: attn[b,i,j,h] = (C_i . B_j) exp(cum_i - cum_j), j <= i
-        scores = torch.einsum("bin,bjn->bij", ccc, bcc)        # [B,L,L]
-        decay = torch.where(causal,
-                            cum[:, :, None, :] - cum[:, None, :, :],
-                            -torch.inf)                        # [B,i,j,H]
-        attn = torch.exp(decay) * scores[..., None]
-        y = torch.einsum("bijh,bjhp->bihp", attn, xc)
-        # inbound state: C_i . h_in * exp(cum_i)
-        y = y + torch.einsum("bin,bhnp,bih->bihp", ccc, hstate,
-                             torch.exp(cum))
+        if rows is not None:
+            # intra-chunk: attn[b,i,j,h] = (C_i . B_j) exp(cum_i - cum_j),
+            # j <= i, for the kept targets i
+            ci, cum_i = ccc[:, rows], cum[:, rows]
+            scores = torch.einsum("bin,bjn->bij", ci, bcc)     # [B,i,L]
+            decay = torch.where(causal[:, rows],
+                                cum_i[:, :, None, :] - cum[:, None, :, :],
+                                -torch.inf)                    # [B,i,j,H]
+            attn = torch.exp(decay) * scores[..., None]
+            y = torch.einsum("bijh,bjhp->bihp", attn, xc)
+            # inbound state: C_i . h_in * exp(cum_i)
+            y = y + torch.einsum("bin,bhnp,bih->bihp", ci, hstate,
+                                 torch.exp(cum_i))
+            ys.append(y)
         # outbound state
         last = cum[:, -1:, :]                                  # [B,1,H]
         w = torch.exp(last - cum)                              # [B,L,H]
-        hstate = torch.einsum("bjn,bjhp,bjh->bhnp", bcc, xc, w) \
+        hstate = _state_sum(seq, rows, "bjn,bjhp,bjh->bhnp", bcc, xc, w) \
             + torch.exp(last[:, 0, :])[:, :, None, None] * hstate
-        ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(b, nc * c_len, h, pd)[:, :s]
-    y = y + xh * p["D"][None, None, :, None]
-    y = y.reshape(b, s, d_in).to(dt_)
+    y = torch.cat(ys, dim=1)[:, :s]
+    y = y + _seq_chunk(seq, xh, s_loc) * p["D"][None, None, :, None]
+    y = y.reshape(b, s_loc, d_in).to(dt_)
     return _gated_out(p, y, z, dt_, tp)
 
 
@@ -316,9 +372,12 @@ def _mlstm_inputs(cfg, p, x, tp=None):
     return q, k, v, i_raw, F.logsigmoid(f_raw), o_gate
 
 
-def mlstm_forward(cfg, p, x, chunk: int = 256, tp=None):
+def mlstm_forward(cfg, p, x, chunk: int = 256, tp=None, seq=None):
     """Chunked matrix LSTM.  x [B, S, D] -> [B, S, D] (a partial sum
-    over ``model`` where ``tp.mlstm``: this rank's heads).
+    over ``model`` where ``tp.mlstm``: this rank's heads).  ``seq`` as in
+    :func:`mamba_forward`: the projections on this rank's chunk, q, k, v
+    and the input and forget gates all-gathered for the recurrence, which
+    forms the chunk's outputs only, then the output gate and ``wout``.
 
     Recurrence (per head, stabilizer m):
         m_t = max(log f_t + m_{t-1}, i_t)
@@ -327,9 +386,11 @@ def mlstm_forward(cfg, p, x, chunk: int = 256, tp=None):
         y_t = (q_t C_t) / max(|q_t n_t|, e^{-m_t})
     Within a chunk the pairs are a masked product, across chunks the loop.
     """
-    b, s, _ = x.shape
+    s_loc = x.shape[1]
     h, dh = _mlstm_heads(cfg, tp)[1], cfg.head_dim
     q, k, v, i_raw, log_f, o_gate = _mlstm_inputs(cfg, p, x, tp)
+    q, k, v, i_raw, log_f = _seq_whole(seq, (q, k, v, i_raw, log_f))
+    b, s = q.shape[:2]
 
     c_len = min(chunk, s)
     nc = -(-s // c_len)
@@ -352,25 +413,31 @@ def mlstm_forward(cfg, p, x, chunk: int = 256, tp=None):
     ms = torch.full((b, h), -1e30, dtype=torch.float32, device=x.device)
     ys = []
     for c in range(nc):
+        rows = _chunk_rows(seq, s_loc, c, c_len)
         qb, kb, vb, ib, fb = qc[:, c], kc[:, c], vc[:, c], ic[:, c], fc[:, c]
         cumf = torch.cumsum(fb, dim=1)                         # [B,L,H]
-        # log-weight of source j at target i: cumf_i - cumf_j + i_j
-        lw = torch.where(causal,
-                         cumf[:, :, None, :] - cumf[:, None, :, :]
-                         + ib[:, None, :, :], -torch.inf)      # [B,i,j,H]
-        # inbound state's log-weight at target i: cumf_i + m_state
-        lw_state = cumf + ms[:, None, :]                       # [B,L,H]
-        m_loc = torch.maximum(torch.amax(lw, dim=2), lw_state)
-        m_loc = torch.maximum(m_loc, floor)
-        w = torch.exp(lw - m_loc[:, :, None, :])               # [B,i,j,H]
-        scores = torch.einsum("bihd,bjhd->bijh", qb, kb) * w
-        y = torch.einsum("bijh,bjhd->bihd", scores, vb)
-        denom = torch.sum(scores, dim=2)                       # [B,L,H]
-        w_state = torch.exp(lw_state - m_loc)                  # [B,L,H]
-        y = y + torch.einsum("bihd,bhde,bih->bihe", qb, cs, w_state)
-        denom = denom + torch.einsum("bihd,bhd,bih->bih", qb, ns, w_state)
-        y = y / torch.maximum(torch.abs(denom),
-                              torch.exp(-m_loc))[..., None]
+        if rows is not None:
+            # the kept targets i: log-weight of source j at i,
+            # cumf_i - cumf_j + i_j
+            qi, cumf_i = qb[:, rows], cumf[:, rows]
+            lw = torch.where(causal[:, rows],
+                             cumf_i[:, :, None, :] - cumf[:, None, :, :]
+                             + ib[:, None, :, :], -torch.inf)  # [B,i,j,H]
+            # inbound state's log-weight at target i: cumf_i + m_state
+            lw_state = cumf_i + ms[:, None, :]                 # [B,i,H]
+            m_loc = torch.maximum(torch.amax(lw, dim=2), lw_state)
+            m_loc = torch.maximum(m_loc, floor)
+            w = torch.exp(lw - m_loc[:, :, None, :])           # [B,i,j,H]
+            scores = torch.einsum("bihd,bjhd->bijh", qi, kb) * w
+            y = torch.einsum("bijh,bjhd->bihd", scores, vb)
+            denom = torch.sum(scores, dim=2)                   # [B,i,H]
+            w_state = torch.exp(lw_state - m_loc)              # [B,i,H]
+            y = y + torch.einsum("bihd,bhde,bih->bihe", qi, cs, w_state)
+            denom = denom + torch.einsum("bihd,bhd,bih->bih", qi, ns,
+                                         w_state)
+            y = y / torch.maximum(torch.abs(denom),
+                                  torch.exp(-m_loc))[..., None]
+            ys.append(y)
         # the state carried to the end of the chunk
         last = cumf[:, -1:, :]                                 # [B,1,H]
         m_new = torch.maximum(last[:, 0] + ms,
@@ -378,12 +445,11 @@ def mlstm_forward(cfg, p, x, chunk: int = 256, tp=None):
         wk = torch.exp(last - cumf + ib - m_new[:, None, :])   # [B,L,H]
         decay = torch.exp(last[:, 0] + ms - m_new)             # [B,H]
         cs = decay[:, :, None, None] * cs \
-            + torch.einsum("bjh,bjhd,bjhe->bhde", wk, kb, vb)
-        ns = decay[:, :, None] * ns + torch.einsum("bjh,bjhd->bhd", wk, kb)
+            + _state_sum(seq, rows, "bjh,bjhd,bjhe->bhde", wk, kb, vb)
+        ns = decay[:, :, None] * ns \
+            + _state_sum(seq, rows, "bjh,bjhd->bhd", wk, kb)
         ms = m_new
-        ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(b, nc * c_len, h, dh)[:, :s]
-    y = y.reshape(b, s, h * dh) * o_gate
+    y = torch.cat(ys, dim=1)[:, :s].reshape(b, s_loc, h * dh) * o_gate
     return y.to(x.dtype) @ p["wout"].to(x.dtype)
 
 
@@ -480,9 +546,12 @@ def _slstm_gates(p, x, tp):
     return tp.gather(xg, -1)
 
 
-def slstm_forward(cfg, p, x, tp=None):
+def slstm_forward(cfg, p, x, tp=None, seq=False):
     """Sequential sLSTM.  x [B, S, D] -> [B, S, D], whole under ``tp``
-    too (the cell runs replicated)."""
+    too (the cell runs replicated).  With ``seq`` (the residual
+    sequence-sharded over ``model``) the cell's output is cut to this
+    rank's chunk before ``wout`` (``tp.split``; ``wout`` through
+    ``tp.copy``): [B, S/m, D]."""
     b, s, d = x.shape
     xg = _slstm_gates(p, x, tp).reshape(b, s, 4, d) + p["b"]
     r = p["r"].to(torch.float32)
@@ -493,8 +562,10 @@ def slstm_forward(cfg, p, x, tp=None):
     for t in range(s):
         state = _slstm_cell(cfg, r, xg[:, t], *state)
         ys.append(state[0])
-    y = torch.stack(ys, dim=1).to(x.dtype)
-    return y @ p["wout"].to(x.dtype)
+    y, wout = torch.stack(ys, dim=1).to(x.dtype), p["wout"]
+    if seq:
+        y, wout = tp.split(y, 1), tp.copy(wout)
+    return y @ wout.to(x.dtype)
 
 
 def slstm_init_state(cfg, batch: int, device=None):

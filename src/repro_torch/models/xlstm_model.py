@@ -101,20 +101,29 @@ class XLSTMModel:
     # ------------------------------------------------------------------
     def _super_block(self, bp, x, tp=None, seq=False):
         """One super-block.  With ``seq`` x is this rank's sequence chunk:
-        every layer (a recurrence over the sequence) takes it gathered
-        whole and gives its output back as the chunk
-        (:func:`layers.seq_enter`, :func:`layers.seq_exit`)."""
+        an mLSTM layer not split over ``model`` runs its norm and
+        projections on the chunk, gathers what the recurrence needs and
+        returns the chunk's output (``ssm.mlstm_forward(seq=)``, its
+        weights through :func:`layers.seq_copied`); the other layers take
+        x gathered whole (:func:`layers.seq_enter`) and give back the
+        chunk: an mLSTM split over ``model`` its reduce-scatter
+        (:func:`layers.seq_exit`), the sLSTM (its cell a recurrence run
+        replicated) its output cut to the chunk before ``wout``."""
         cfg = self.cfg
         mlstm = unstack_layers(bp["mlstm"], self.n_m)
         ln = bp["ln"].unbind(0)
         for slot in range(self.per):
+            if slot < self.n_m and seq and not tp.mlstm:
+                h = L.rmsnorm(x, L.seq_copied(ln[slot], tp))
+                x = x + S.mlstm_forward(
+                    cfg, L.seq_copied(mlstm[slot], tp), h, seq=tp)
+                continue
             h = L.rmsnorm(L.seq_enter(x, tp, True) if seq else x, ln[slot])
             if slot < self.n_m:
                 y = S.mlstm_forward(cfg, mlstm[slot], h, tp=tp)
                 x = x + L.seq_exit(y, tp, seq, tp is not None and tp.mlstm)
             else:
-                y = S.slstm_forward(cfg, bp["slstm"], h, tp=tp)
-                x = x + (L.seq_exit(y, tp, True, False) if seq else y)
+                x = x + S.slstm_forward(cfg, bp["slstm"], h, tp=tp, seq=seq)
         return x
 
     def _hidden(self, params, batch, remat: bool = False, tp=None,

@@ -95,13 +95,14 @@ def restack_segments(qlinears: List[dict]):
 
 def _segment_apply(kind: str) -> Callable[[Any, torch.Tensor], torch.Tensor]:
     """The matmul a segment applies to its stacked slices: a quantized
-    kernel for int4/int8 containers, a plain matmul for fake layers."""
+    kernel for int4/int8 containers, the row-independent tensor-core GEMM
+    (``layers.tc_matmul``) for fake layers."""
     if kind == "int4":
         return lambda w, x: kops.quantized_matmul_int4(
             x, w["codes"], w["scales"])
     if kind == "int8":
         return lambda w, x: kops.quantized_matmul(x, w["codes"], w["scales"])
-    return lambda w, x: x @ w.to(x.dtype)
+    return lambda w, x: L.tc_matmul(x, w.to(x.dtype))
 
 
 def layer_side_tree(lp: dict, cfg) -> dict:
@@ -217,12 +218,14 @@ def build_forward(model, split: int, b_emb: int, descs, path: str,
                                  desc.length, model.attend)
         else:
             x, positions = model.embed(agent, batch)
-            x, _ = model.run_layers_window(agent, x, positions, 0, split)
+            x, _ = model.run_layers_window(agent, x, positions, 0, split,
+                                           products=L.tc_matmul_group)
         x = transport_quantize(x, lengths, b_emb, n_rows)
         x, _ = model.run_layers_window(params, x, positions, split,
-                                       cfg.n_layers)
+                                       cfg.n_layers,
+                                       products=L.tc_matmul_group)
         x = L.apply_norm(cfg, x, params["final_norm"])
-        return L.unembed(cfg, params["embed"], x)
+        return L.unembed(cfg, params["embed"], x, matmul=L.tc_matmul)
 
     return forward
 

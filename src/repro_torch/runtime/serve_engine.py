@@ -725,8 +725,9 @@ class CoInferenceEngine:
         if self._qlinears is not None:
             x = self._agent_forward_kernel(x, positions)
         else:
-            x, _ = self.model.run_layers_window(src, x, positions, 0,
-                                                self.split)
+            x, _ = self.model.run_layers_window(
+                src, x, positions, 0, self.split,
+                products=L.tc_matmul_group)
         return x, positions
 
     def transport(self, emb: torch.Tensor, lengths=None):
@@ -755,11 +756,15 @@ class CoInferenceEngine:
                      for s in real_lengths)
 
     def server_stage(self, emb: torch.Tensor, positions):
-        """Layers [split, L) at full precision + head."""
+        """Layers [split, L) at full precision + head, every product on
+        the row-independent tensor-core GEMM (``layers.tc_matmul``): a
+        request's logits do not depend on the batch it shares."""
         x, _ = self.model.run_layers_window(self.params, emb, positions,
-                                            self.split, self.cfg.n_layers)
+                                            self.split, self.cfg.n_layers,
+                                            products=L.tc_matmul_group)
         x = L.apply_norm(self.cfg, x, self.params["final_norm"])
-        return L.unembed(self.cfg, self.params["embed"], x)
+        return L.unembed(self.cfg, self.params["embed"], x,
+                         matmul=L.tc_matmul)
 
     # ------------------------------------------------------------------
     def serve_batch(self, batch: Dict[str, Any], lengths=None):

@@ -424,19 +424,24 @@ def gated_norm(tmp, model, ranks=None):
             "g": g.grad.numpy().copy(), "scale": scale.grad.numpy().copy()}
 
 
-def fit_steps(tmp, shape, axes, arch, batch, seq, inputs):
+def fit_steps(tmp, shape, axes, arch, batch, seq, inputs, notp=False,
+              spec=None, ranks=None):
     """:func:`fit_mesh`'s fit over a mesh of ``shape``, each step from the
     reference's state before it (the inputs ``inputs``, written by the
     test while the ranks run: ``states``, one a step and the last): per
     step the history and the parameters after it, then the plan's flags,
     the data-parallel index, this rank's leaves' shapes and its
-    coordinate."""
+    coordinate.  ``notp`` and ``spec`` as in :func:`fit_mesh`."""
+    import contextlib
     from repro_torch.data import ShardedLoader
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import activation_sharding
 
-    mesh = make_mesh(tuple(shape), tuple(axes), device="cpu")
+    mesh = make_mesh(tuple(shape), tuple(axes), ranks, device="cpu")
+    if mesh.get_coordinate() is None:
+        return None                     # a rank outside the mesh
     inp = _inputs(tmp, inputs, wait=600.0)
-    tr = _trainer(mesh, {}, LR_STEPS, arch=arch)
+    tr = _trainer(mesh, {}, LR_STEPS, arch=arch, notp=notp)
     loader = ShardedLoader(markov(batch, seq, arch=arch), device="cpu",
                            mesh=mesh)
     tr.build_step(loader.peek_structure())
@@ -445,7 +450,9 @@ def fit_steps(tmp, shape, axes, arch, batch, seq, inputs):
         state = _start(tr, {"state": st})
         tr.step = i
         loader.seek(i)
-        state, h = tr.fit(loader, 1, state=state)
+        with (contextlib.nullcontext() if spec is None
+              else activation_sharding(tuple(spec))):
+            state, h = tr.fit(loader, 1, state=state)
         hist += h
         params.append(_np_tree(state[0]))
     return {"hist": hist, "params": params,

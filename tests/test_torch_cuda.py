@@ -49,7 +49,10 @@ of card tensors round-trips onto the card.  ``row_gemm`` takes granite-
 34b's K = 24,576 past 8 rows; a prefill, step, draft or verify capture
 leaves its block bitwise as it was while saving only what its warm-up
 writes; an MoE decode step (dispatch at 16 experts) replays its eager
-bits from a graph.
+bits from a graph.  The split forward's tensor-core GEMM (``tc_gemm``)
+agrees within 1e-5 x max|y| at qwen2-0.5b's and stablelm-3b's server
+products, every row at M = 2,048 bitwise the row at M = 1 and at M = 506,
+captured bitwise, and raises where it cannot run.
 """
 
 import _torch_threads  # noqa: F401  (first: one torch thread)
@@ -654,8 +657,8 @@ def test_compiled_forward_equals_eager_at_the_bucket(dev, smoke_lm, path,
 def test_batched_compiled_on_card(dev, smoke_lm):
     """Warm-up captures every (class, bucket); serving then never misses,
     each response equals the eager engine at the same bucket, and each
-    request served alone (unpadded, eager) agrees within 1e-2 of the
-    logits' scale."""
+    request served alone (unpadded, eager) bitwise: every product of the
+    split forward runs on the row-independent ``tc_gemm``."""
     model, params = smoke_lm
     classes = [QosClass("realtime", t0=1.10, e0=0.9),
                QosClass("batch", t0=2.50, e0=4.0)]
@@ -693,11 +696,7 @@ def test_batched_compiled_on_card(dev, smoke_lm):
             assert torch.equal(r.logits, want[i, :lens[i]])
             alone, _ = eager.serve_batch({"tokens": padded[i:i + 1,
                                                            :lens[i]]})
-            # the server's cuBLAS GEMMs pick kernels by M, and a ~1e-6
-            # difference at the b_emb = 8 uplink's rounding edge moves an
-            # element a whole step: chip_smoke.py's E2E_TOL
-            scale = float(alone[0].abs().max())
-            assert float((r.logits - alone[0]).abs().max()) <= 1e-2 * scale
+            assert torch.equal(r.logits, alone[0])
 
 
 @pytest.mark.parametrize("bits", [(5, 3), (2, 7), (12, 4)])
@@ -931,6 +930,74 @@ def test_row_gemm_raises_where_the_kernel_cannot_run(dev):
         with pytest.raises(ValueError):
             bad()
     assert tk.row_gemm.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core GEMM of the split forward
+# ---------------------------------------------------------------------------
+
+ttc = importlib.import_module("repro_torch.kernels.tc_gemm")
+
+# (K, N, w layout) of the split forward's server products: qwen2-0.5b's
+# wq/wo, wk/wv, gate/up, down and tied head, stablelm-3b's wq/wo, gate/up,
+# down and untied head
+TC_GEMM_SHAPES = [(896, 896, "kn"), (896, 128, "kn"), (896, 4864, "kn"),
+                  (4864, 896, "kn"), (896, 151936, "nk"),
+                  (2560, 2560, "kn"), (2560, 6912, "kn"),
+                  (6912, 2560, "kn"), (2560, 50304, "kn")]
+
+
+@pytest.mark.parametrize("k,n,layout", TC_GEMM_SHAPES)
+def test_tc_gemm_rows_bitwise_across_m(dev, k, n, layout):
+    """Within 1e-5 x max|y| of the plain version at M = 2,048, one launch
+    a call; the rows at M = 506 (taken from row 1,000 on, so each sits
+    elsewhere in its 64-row tile) and sampled rows at M = 1 bitwise the
+    same rows at M = 2,048."""
+    w = _row_gemm_w(k, n, layout, dev) * k ** -0.5
+    x = _normal(11, (2048, k), dev)
+    before = tk.tc_gemm.launches
+    y = tk.tc_gemm(x, w)
+    torch.cuda.synchronize()
+    assert tk.tc_gemm.launches == before + 1
+    want = ref.tc_gemm_ref(x, w)
+    assert float((y - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(tk.tc_gemm(x[1000:1506], w), y[1000:1506])
+    for i in (0, 5, 63, 64, 1000, 2047):
+        assert torch.equal(tk.tc_gemm(x[i:i + 1], w)[0], y[i]), f"row {i}"
+
+
+def test_tc_gemm_in_a_graph(dev):
+    """Captured with both layouts (the split of K and its combine
+    included), a replay returns the eager launches' bits."""
+    ws = [_row_gemm_w(4864, 896, "kn", dev), _row_gemm_w(896, 1000, "nk",
+                                                         dev)]
+    x = torch.zeros((300, 4864), device=dev)
+    x2 = torch.zeros((300, 896), device=dev)
+    run = lambda: (tk.tc_gemm(x, ws[0]), tk.tc_gemm(x2, ws[1]))  # noqa
+    from repro_torch.runtime.fastpath import CapturedCall
+    call = CapturedCall(run, dev)
+    assert call.launches == {"tc_gemm": 2}
+    x.copy_(_normal(3, (300, 4864), dev))
+    x2.copy_(_normal(4, (300, 896), dev))
+    got = [t.clone() for t in call()]
+    for g, w, xi in zip(got, ws, (x, x2)):
+        assert torch.equal(g, tk.tc_gemm(xi, w))
+
+
+def test_tc_gemm_raises_where_the_kernel_cannot_run(dev):
+    x = _normal(0, (17, 64), dev)
+    w = _normal(1, (64, 32), dev)
+    before = tk.tc_gemm.launches
+    for bad in (lambda: tk.tc_gemm(x.bfloat16(), w.bfloat16()),
+                lambda: tk.tc_gemm(x, w[:, :30]),              # N % 4
+                lambda: tk.tc_gemm(x[:, :63],
+                                   _normal(2, (30, 63), dev).T),  # K % 4
+                lambda: tk.tc_gemm(x[:, :60], torch.zeros(
+                    60 * 32 + 1, device=dev)[1:].view(60, 32)),  # 4 B off
+                lambda: tk.tc_gemm(x, w.cpu())):
+        with pytest.raises(ValueError):
+            bad()
+    assert tk.tc_gemm.launches == before
 
 
 def _decode_engine(model, params, dev, b_kv=8, **kw):

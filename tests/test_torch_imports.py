@@ -64,7 +64,8 @@ def test_importing_every_module_pulls_in_no_jax():
               "repro_torch.launch.mesh", "repro_torch.parallel",
               "repro_torch.parallel.sharding",
               "repro_torch.launch.dryrun", "repro_torch.launch.opcount",
-              "repro_torch.launch.roofline"):
+              "repro_torch.launch.roofline",
+              "repro_torch.kernels.tc_gemm"):
         assert m in mods, m
     code = ("import importlib, runpy, sys\n"
             f"for m in {mods!r}:\n"

@@ -79,7 +79,7 @@ def test_engine_matches_reference(engines, kind, bits, path):
                                   "qmm_int4": 0,
                                   "quantized_decode_attention": 0,
                                   "flash_attention_fwd": 0,
-                                  "row_gemm": 0}  # CPU: plain
+                                  "row_gemm": 0, "tc_gemm": 0}  # CPU: plain
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert tstats.emb_bytes == jstats.emb_bytes
     assert tstats.emb_row_bytes == jstats.emb_row_bytes

@@ -9,11 +9,16 @@ Imports ``repro_torch`` from ``SRC_DIR`` (default: this checkout's
 build/parent`` and pass ``build/parent/src``), builds its kernels, and
 serves qwen2-0.5b ``FULL`` (seeded random weights) through
 ``CoInferenceEngine(path="kernel")`` at b̂ = 8 and b̂ = 4: 4 requests x 64
-tokens as one batch, eagerly, 3 warm-up forwards then 20 timed (host
-clock around work that ends in ``torch.cuda.synchronize``).  Prints the
-median and the least wall per operating point, with the card's name and
-power limit.  Run parent, change, change, parent in one call: only
-walls taken on one card compare.
+tokens as one batch, 3 warm-up forwards then 20 timed (host clock around
+work that ends in ``torch.cuda.synchronize``), eagerly and from the
+forward's CUDA graph (``compiled=True``).  Prints the median and the
+least wall per operating point, and for the graph the device time, busy
+share and the products' share of the device time over 5 traced replays
+(``torch.profiler``: the split forward's float32 products, cuBLAS's
+kernels or ``tc_gemm``'s, apart from the agent's ``qmm``; every kernel
+is listed by name with its device ms a forward), with the card's name and
+power limit.  Run parent, change, change, parent in one
+call: only walls taken on one card compare.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -67,22 +72,78 @@ def main(argv=None) -> int:
     tokens = MarkovLMDataset(MarkovLMConfig(
         vocab_size=cfg.vocab_size, seq_len=s, batch_size=b)).batch_at(0)[
             "tokens"]
-    eng = CoInferenceEngine(model, params, sysp, path="kernel")
-    for b_hat in (8, 4):
-        eng.configure(b_hat)
-        for _ in range(3):
-            eng.serve_batch({"tokens": tokens})
-        walls = []
-        for _ in range(20):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eng.serve_batch({"tokens": tokens})
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        print(f"forward_wall src={src} b_hat={b_hat} {b}x{s} eager "
-              f"serve_batch wall ms median={statistics.median(walls):.3f} "
-              f"min={min(walls):.3f} ({card})")
+    for mode in ("eager", "graph"):
+        eng = CoInferenceEngine(model, params, sysp, path="kernel",
+                                compiled=mode == "graph")
+        for b_hat in (8, 4):
+            eng.configure(b_hat)
+
+            def serve():
+                eng.serve_batch({"tokens": tokens})
+            for _ in range(3):
+                serve()
+            walls = []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                serve()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            line = (f"forward_wall src={src} b_hat={b_hat} {b}x{s} {mode} "
+                    f"serve_batch wall ms median="
+                    f"{statistics.median(walls):.3f} min={min(walls):.3f}")
+            if mode == "graph":
+                line += "; " + traced(serve, torch)
+            print(f"{line} ({card})")
+        del eng
     return 0
+
+
+def is_product(name: str) -> bool:
+    """A kernel of the split forward's float32 products: ``tc_gemm``'s
+    (and its split-K ``tc_gemm_combine``) or cuBLAS's (its GEMMs and
+    their split-K reduce, ``cublasLt::splitKreduce_kernel``); not
+    ``qmm`` or ``row_gemm``."""
+    low = name.lower()
+    if "qmm" in low or "row_gemm" in low:
+        return False
+    return any(key in low for key in ("tc_gemm", "gemm", "xmma", "cutlass",
+                                      "nvjet", "cublas", "splitkreduce"))
+
+
+def traced(fn, torch, n: int = 5) -> str:
+    """Device ms, busy share and the products' share of ``n`` calls of
+    ``fn`` under ``torch.profiler`` (kernels' own device time); first
+    prints every kernel with its device ms a call and whether it is
+    counted a product, the largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        rows.append((us, e.count, e.key))
+    dev_us = sum(us for us, _, _ in rows)
+    prod_us = sum(us for us, _, key in rows if is_product(key))
+    for us, calls, key in sorted(rows, reverse=True):
+        print(f"  kernel {us / 1e3 / n:9.4f} ms {calls // n:4d}x "
+              f"{'product' if is_product(key) else 'other  '} {key[:110]}")
+    if not dev_us:
+        return f"traced wall {wall:.3f} ms, device time not measured"
+    dev = dev_us / 1e3 / n
+    return (f"traced wall {wall:.3f} ms, device {dev:.3f} ms "
+            f"({dev / wall:.1%} busy), products {prod_us / 1e3 / n:.3f} ms "
+            f"({prod_us / dev_us:.1%} of the device time)")
 
 
 if __name__ == "__main__":
